@@ -1,13 +1,19 @@
-"""Public API / CLI (port of ``chinese_asr_tpu/api.py``, reference main.py),
-acoustic modes:
+"""Public API / CLI (port of ``chinese_asr_tpu/api.py``, reference main.py):
 
-  1. greedy        ASR(ckpt)            bw in (None, 0, 1)
-  2. beam search   ASR(ckpt, bw=4/8/16)
+  1. greedy                 ASR(ckpt)                      bw in (None, 0, 1)
+  2. beam search            ASR(ckpt, bw=4/8/16)
+  3. beam + LM second pass  ASR(ckpt, lm_path=..., bw>1)   rescore n-best
+     -- on the device by default (``decode/rescore.py``: the n-gram
+     tables live on ``device``, the beam tracks LM totals and the winner
+     is picked there); ``lm_mode="second_host"`` rescores the n-best on
+     the host (the oracle)
 
 wav read + peak scale (in-process ``sox --norm=-1``) -> upload over the
 flat (default) or padded wire -> featurization with per-utterance
 instance norm (eps 1e-6, reference main.py:37) -> greedy/beam decode ->
-winner picked on the device -> host detokenize.
+winner picked on the device (or by the host rescorer) -> host detokenize.
+The LM-driven first pass (``lm_mode="first"``) and KenLM binary LMs come
+with a later slice.
 
 Runs on ``cuda`` unless the caller passes ``device="cpu"``; without a GPU
 and without an explicit device the constructor raises.
@@ -25,6 +31,9 @@ from .config import Config
 from .data import audio_io
 from .decode import beam as beam_mod
 from .decode import greedy as greedy_mod
+from .decode import rescore as rescore_mod
+from .lm import ngram
+from .lm.device_ngram import DeviceNgramLM
 from .models import las
 from .utils.checkpoint import load_checkpoint
 from .utils.device import resolve_device
@@ -53,15 +62,21 @@ class ASR:
                  compute_dtype: str = "float32",
                  wire: str = "flat",
                  mesh=None,
+                 lm_mode: str = "second",
                  device: Union[str, torch.device, None] = None,
                  seed: int = 0):
         """``wire``: "flat" ships exactly sum(lens) samples and expands to
         the padded layout on the device (lossless); "padded" ships the
         zero-padded [B, N] matrix.  Without ``ckpt_path`` the weights are
-        random, drawn from ``seed``."""
-        if lm_path is not None:
-            raise NotImplementedError(f"n-gram LM decoding {_LATER} "
-                                      f"(device LM tables and rescoring)")
+        random, drawn from ``seed``.  The LM (an ARPA text file) loads
+        only for beam widths > 1 (main.py:78-84)."""
+        if lm_mode not in ("second", "second_host", "first"):
+            raise ValueError(f"lm_mode={lm_mode!r}: one of second, "
+                             f"second_host, first")
+        use_lm = bool(lm_path and bw and bw > 1)
+        if use_lm and lm_mode == "first":
+            raise NotImplementedError(f"the LM-driven first pass "
+                                      f"(lm_mode='first') {_LATER}")
         if mesh is not None:
             raise NotImplementedError(f"multi-device decoding {_LATER}")
         if compute_dtype != "float32":
@@ -80,6 +95,20 @@ class ASR:
             self.vocab = vocab
         else:
             self.vocab = _identity_vocab(self.cfg.vocab.vocab_size)
+
+        # "second": the tables on the device, LM totals tracked by the
+        # beam, the winner picked there; "second_host": the host rescorer
+        self.lm = ngram.load_lm(lm_path) \
+            if (use_lm and lm_mode == "second_host") else None
+        self.dlm = self.tok2lm = None
+        self._lm_bos = self._lm_eos = None
+        if use_lm and lm_mode == "second":
+            self.dlm = DeviceNgramLM.from_path(lm_path, self.device)
+            self.tok2lm = torch.from_numpy(
+                self.dlm.token_id_table(self.vocab)).to(self.device,
+                                                        torch.int64)
+            bos_eos = self.dlm.word_ids(["<s>", "</s>"])
+            self._lm_bos, self._lm_eos = int(bos_eos[0]), int(bos_eos[1])
 
         if ckpt_path is None:
             self.params = las.init_params(self.cfg, seed, self.device)
@@ -161,8 +190,24 @@ class ASR:
             res = greedy_mod.greedy_decode(self.params, self.cfg, feats,
                                            feat_lens)
             return greedy_mod.finalize_greedy(res, self.vocab).pred_text
-        best = beam_mod.beam_decode_best(self.params, self.cfg, self.bw,
-                                         feats, feat_lens)
+        dcfg = self.cfg.decode
+        if self.dlm is not None:
+            best = rescore_mod.beam_rescored_best(
+                self.params, self.cfg, self.bw, feats, feat_lens, self.dlm,
+                self.tok2lm, dcfg.lm_weight, dcfg.length_weight,
+                self._lm_bos, self._lm_eos)
+        elif self.lm is not None:
+            # only the finite n-best slots cross to the host rescorer
+            res = beam_mod.beam_decode(self.params, self.cfg, self.bw,
+                                       feats, feat_lens)
+            return beam_mod.finalize_beam(
+                beam_mod.compact_nbest(res), self.cfg, self.vocab,
+                lm_model=self.lm, second_pass=True,
+                lm_weight=dcfg.lm_weight,
+                length_weight=dcfg.length_weight).pred_text
+        else:
+            best = beam_mod.beam_decode_best(self.params, self.cfg, self.bw,
+                                             feats, feat_lens)
         return beam_mod.finalize_best(best, self.vocab).pred_text
 
     def transcribe_wavs(self, wavs: Sequence[np.ndarray],
@@ -215,12 +260,18 @@ def main(argv: Optional[List[str]] = None) -> None:
                     "(chinese_asr_tpu.v1 .ckpt or reference torch .ckpt); "
                     "random weights when omitted")
     ap.add_argument("--vocab", default=None, help="dict.pkl path")
+    ap.add_argument("--lm", default=None, help="n-gram LM path (ARPA text)")
+    ap.add_argument("--lm-mode", default="second",
+                    choices=("second", "second_host", "first"),
+                    help="second: n-best rescore on the device; "
+                         "second_host: n-best rescore on the host; first: "
+                         "the LM-driven first pass (a later slice)")
     ap.add_argument("--bw", type=int, default=None, help="beam width")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
     args = ap.parse_args(argv)
-    asr = ASR(ckpt_path=args.ckpt, bw=args.bw, vocab=args.vocab,
-              device=args.device)
+    asr = ASR(ckpt_path=args.ckpt, lm_path=args.lm, bw=args.bw,
+              vocab=args.vocab, lm_mode=args.lm_mode, device=args.device)
     for path, text in zip(args.wav, asr.transcribe_files(args.wav)):
         print(f"{path}\t{text}")
 

@@ -1,9 +1,12 @@
 """Batched beam search (port of ``chinese_asr_tpu/decode/beam.py``,
-reference model.py:604-987), acoustic modes only (no ``lm_track``).
+reference model.py:604-987), with the passive LM track of the second pass
+and the host-side n-best finalization.
 
 Per step over the [B, k*V] accumulated scores: a two-stage exact top-2k
-(per-beam top-(k+1) through kernel K3, then a stable top-2k over the
-k(k+1) union; step 0 keeps only beam 0's slice), eos harvest of the top-k
+(per-beam top-(k+1) through kernel K3 -- or K4, which folds the logp
+transform in, under the JAX package's opt-in ``CHINESE_ASR_PALLAS_FUSED=1``
+-- then a stable top-2k over the k(k+1) union; step 0 keeps only beam 0's
+slice), eos harvest of the top-k
 candidates into a fixed slot-per-step n-best buffer, survivors by the
 offsets + eos-penalty smallest-k trick (model.py:904-909), and the
 reference's early stop when every sample's top candidate is eos
@@ -18,11 +21,14 @@ sync per step.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import os
+from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from ..config import Config
+from ..lm import device_ngram as dev_lm
 from ..models import decoder as dec_ops
 from ..models import las
 from ..ops.cuda import topk as topk_k
@@ -52,8 +58,32 @@ def _rows(t3, idx):
     return t3[torch.arange(t3.shape[0], device=t3.device)[:, None], idx]
 
 
+def use_fused_logp() -> bool:
+    """The JAX package's opt-in (``use_fused_logp``): the beam's stage 1
+    runs K4, folding ``logit/T - logsumexp + score`` into the top-k, when
+    ``CHINESE_ASR_PALLAS_FUSED`` is set to anything but "0".  Off by
+    default: its logsumexp is summed in another order than the unfused
+    transform's, which can flip near-tied survivors."""
+    return os.environ.get("CHINESE_ASR_PALLAS_FUSED", "0") != "0"
+
+
 @torch.no_grad()
-def beam_decode(params, cfg: Config, bw: int, feats, feat_lens) -> BeamResult:
+def beam_decode(params, cfg: Config, bw: int, feats, feat_lens,
+                fused_logp: Optional[bool] = None, lm_track=None):
+    """``fused_logp``: None reads ``use_fused_logp()``.
+
+    ``lm_track`` (optional): ``(dlm, tok2lm, bos_id, eos_id)`` -- a
+    ``DeviceNgramLM`` and the token -> LM word map.  The loop then
+    PASSIVELY tracks each live beam's cumulative LM score (the bos=True
+    chain of ``rescore.score_sequences``; the totals agree to summation
+    order, atol 2e-4) and harvests each finished hypothesis's full
+    sentence LM score (cum + the </s> term) into an extra buffer,
+    returned as ``(BeamResult, fin_lm [B, cap])``.  The LM never steers
+    the search, so the decode is identical to the untracked one.  Cost:
+    two [B*k, 1] LM scorings per step (the </s> probe and the chosen
+    token's advance)."""
+    if fused_logp is None:
+        fused_logp = use_fused_logp()
     B = feats.shape[0]
     dev = feats.device
     k = bw
@@ -88,19 +118,40 @@ def beam_decode(params, cfg: Config, bw: int, feats, feat_lens) -> BeamResult:
     neg_inf = torch.tensor(float("-inf"), device=dev)
     cand_offsets = torch.arange(cand, device=dev)[None, :]          # [1, 2k]
     l_final = max_len - 1
+    if lm_track is not None:
+        dlm, tok2lm, lm_bos, lm_eos = lm_track
+        lm_ctx = torch.full((B * k, max(dlm.order - 1, 1)), -1,
+                            dtype=torch.int64, device=dev)
+        if dlm.order > 1:
+            lm_ctx[:, -1] = lm_bos                    # bos=True chain
+        lm_cum = torch.zeros(B * k, dtype=torch.float32, device=dev)
+        fin_lm = torch.zeros((B, max_len, k), dtype=torch.float32,
+                             device=dev)
+        eos_col = torch.full((B * k, 1), lm_eos, dtype=torch.int64,
+                             device=dev)
 
     for l in range(max_len):
         out = dec_ops.decoder_step_beam(
             params["decoder"], params["attention"], dcfg, acfg, eb.mask,
             eb.keys, eb.values, hist[:, l], cell, attn_hidden)
 
-        # stage 1: per-beam top-(k+1) over V (kernel K3)
-        logit = out.logit.to(torch.float32) / cfg.decoder.temperature
-        logp = logit - torch.logsumexp(logit, dim=1, keepdim=True)
-        logp = logp + logp_scores[:, None]                           # [B*k, V]
-        if l == 0:                     # all beams identical: beam 0 only
-            logp.view(B, k, V)[:, 1:] = float("-inf")
-        v1, t1 = topk_k.top_k(logp, k + 1)
+        # stage 1: per-beam top-(k+1) over V
+        if fused_logp:
+            # K4: the transform rides in the kernel; a -inf row bias
+            # disables beams > 0 at step 0 (all beams identical)
+            bias = logp_scores[:, None].clone()                      # [B*k, 1]
+            if l == 0:
+                bias.view(B, k)[:, 1:] = float("-inf")
+            v1, t1 = topk_k.top_k_fused(out.logit.to(torch.float32), bias,
+                                        k + 1, cfg.decoder.temperature)
+        else:
+            # the logp transform, then K3
+            logit = out.logit.to(torch.float32) / cfg.decoder.temperature
+            logp = logit - torch.logsumexp(logit, dim=1, keepdim=True)
+            logp = logp + logp_scores[:, None]                       # [B*k, V]
+            if l == 0:                 # all beams identical: beam 0 only
+                logp.view(B, k, V)[:, 1:] = float("-inf")
+            v1, t1 = topk_k.top_k(logp, k + 1)
         # stage 2: top-2k of the k(k+1) union (lower beam, then lower
         # rank on ties -- the flat top_k order)
         cand_scores, i2 = _stable_top(v1.reshape(B, k * (k + 1)), cand)
@@ -115,6 +166,15 @@ def beam_decode(params, cfg: Config, bw: int, feats, feat_lens) -> BeamResult:
         fin_tokens[:, l] = _rows(hist3, cand_beams[:, :k])[:, :, 1:].to(
             torch.int32)
         fin_scores[:, l] = torch.where(fmask, cand_scores[:, :k], neg_inf)
+        if lm_track is not None:
+            # full-sentence LM total of each harvested hypothesis: the
+            # parent beam's cum chain + the </s> term in its context
+            # (reference model.py:755 scores with bos=True, eos=True);
+            # recorded on the stopping step too, as in JAX
+            eos_base = dev_lm.score_candidates(dlm, lm_ctx, eos_col)[:, 0]
+            lm_tot = (lm_cum + eos_base).reshape(B, k)
+            fin_lm[:, l] = torch.where(
+                fmask, torch.gather(lm_tot, 1, cand_beams[:, :k]), 0.0)
 
         # early stop (model.py:897-901): on the stopping step the
         # survivors are not applied
@@ -139,11 +199,19 @@ def beam_decode(params, cfg: Config, bw: int, feats, feat_lens) -> BeamResult:
 
         cell = [tuple(reorder(e) for e in st) for st in out.cell_state]
         attn_hidden = reorder(out.attn_hidden_state)
+        if lm_track is not None:
+            # advance the passive chain along the survivors (never eos:
+            # the rank trick picks non-eos), so it stays a word chain
+            ctx_sel = reorder(lm_ctx)
+            chosen = tok2lm[k_toks.reshape(-1)]
+            base = dev_lm.score_candidates(dlm, ctx_sel, chosen[:, None])
+            lm_cum = reorder(lm_cum[:, None])[:, 0] + base[:, 0]
+            lm_ctx = dev_lm.advance_context(ctx_sel, chosen)
 
     fin_scores = fin_scores.reshape(B, cap)
     fin_lens = torch.arange(max_len, dtype=torch.int32, device=dev
                             ).repeat_interleave(k)[None, :].expand(B, cap)
-    return BeamResult(
+    res = BeamResult(
         fin_tokens=fin_tokens.reshape(B, cap, max_len),
         fin_lens=fin_lens,
         fin_scores=fin_scores,
@@ -151,6 +219,9 @@ def beam_decode(params, cfg: Config, bw: int, feats, feat_lens) -> BeamResult:
         live_tokens=hist[:, 1:].reshape(B, k, max_len).to(torch.int32),
         live_scores=logp_scores.reshape(B, k),
         l_final=l_final)
+    if lm_track is not None:
+        return res, fin_lm.reshape(B, cap)
+    return res
 
 
 class BestResult(NamedTuple):
@@ -211,3 +282,80 @@ def finalize_best(best: BestResult, vocab) -> EvalOutput:
     return EvalOutput(
         [vocab.decode(tokens[b, : lens[b]]) for b in range(tokens.shape[0])],
         [float(s) for s in scores])
+
+
+def compact_nbest(res: BeamResult, bucket: int = 32) -> BeamResult:
+    """Gather the finite n-best slots into a dense [B, max_fin] prefix on
+    the device before the host transfer of the second pass.  Lossless:
+    every finite slot is kept, in harvest order (a stable sort on "not
+    finite"), so the rescored winners are the same; max_fin is the
+    largest ``fin_count`` rounded up to ``bucket``.  Reading fin_count
+    costs one small device->host copy."""
+    B, cap = res.fin_scores.shape
+    n = int(res.fin_count.max()) if B else 0
+    max_fin = min(cap, -(-max(n, 1) // bucket) * bucket)
+    if max_fin >= cap:
+        return res
+    finite = torch.isfinite(res.fin_scores)
+    order = torch.argsort((~finite).to(torch.int32), dim=1,
+                          stable=True)[:, :max_fin]
+    rows = torch.arange(B, device=order.device)[:, None]
+    return res._replace(fin_tokens=res.fin_tokens[rows, order],
+                        fin_lens=res.fin_lens[rows, order],
+                        fin_scores=res.fin_scores[rows, order])
+
+
+def finalize_beam(res: BeamResult, cfg: Config, vocab, lm_model=None,
+                  second_pass: bool = False, lm_weight: float = 0.0,
+                  length_weight: float = 0.0) -> EvalOutput:
+    """Host finalization (reference parse_finished_tensors, model.py:
+    708-765, and the never-finished fallback, 961-972): per sample the
+    finished slot with the best selection score -- the raw logp, or with
+    ``second_pass`` the rescore ``logp + lm_weight * lm + length_weight *
+    len`` with ``lm`` = ``lm_model.score(' '.join(words), bos=True)``
+    (model.py:749-763) -- first max in harvest order, its RAW logp
+    reported; a sample with nothing finished takes the best live beam by
+    ``logp + length_weight * (l_final + 1)``.
+
+    The LM goes through its string path (``PyNgramLM.score``).  The JAX
+    version's reference-text CER branch waits for the port of
+    ``ops/metrics.py``, and its zero-string path for the C++ scorer."""
+    fin_tokens = res.fin_tokens.cpu().numpy()
+    fin_lens = res.fin_lens.cpu().numpy()
+    fin_scores = res.fin_scores.cpu().numpy()
+    fin_count = res.fin_count.cpu().numpy()
+    live_tokens = res.live_tokens.cpu().numpy()
+    live_scores = res.live_scores.cpu().numpy()
+    l_final = int(res.l_final)
+    B, cap = fin_scores.shape
+    valid = np.isfinite(fin_scores)                                # [B, cap]
+    if second_pass and lm_model is None:
+        raise ValueError("the second pass needs a language model")
+
+    if second_pass and valid.any():
+        vb, vs = np.nonzero(valid)                    # flat slot coordinates
+        lens_v = fin_lens[vb, vs]
+        sents = [" ".join(vocab.int2word[i]
+                          for i in fin_tokens[b, s, : fin_lens[b, s]])
+                 for b, s in zip(vb, vs)]
+        lm_all = np.asarray([lm_model.score(s, bos=True) for s in sents])
+        sel = np.full((B, cap), -np.inf)
+        sel[vb, vs] = (fin_scores[vb, vs] + lm_weight * lm_all
+                       + length_weight * lens_v)
+    else:
+        sel = np.where(valid, fin_scores, -np.inf)
+
+    best = np.argmax(sel, axis=1)                                  # [B]
+    outputs = []
+    for b in range(B):
+        if fin_count[b] > 0:
+            s = best[b]
+            outputs.append((fin_tokens[b, s, : fin_lens[b, s]].tolist(),
+                            float(fin_scores[b, s])))
+        else:
+            act = live_scores[b] + length_weight * (l_final + 1)
+            j = int(np.argmax(act))
+            outputs.append((live_tokens[b, j, : l_final + 1].tolist(),
+                            float(act[j])))
+    return EvalOutput([vocab.decode(ids) for ids, _ in outputs],
+                      [s for _, s in outputs])

@@ -1,11 +1,17 @@
-"""K3: exact row-wise top-k kernel (``csrc/topk.cu``) and its plain twin.
+"""K3: exact row-wise top-k kernel, and K4: the same extraction fused
+behind the beam's logp transform (``csrc/topk.cu``), with their plain
+twins.
 
-Replaces ``chinese_asr_tpu/ops/pallas/topk.py`` ``top_k``: x [R, V] f32 ->
-(values [R, k] f32, indices [R, k] int32), descending; ties go to the
-lower column; NaN ranks above +inf and reads back as NaN (so does a
-+inf input); an all -inf row yields its lowest columns in order.
+K3 replaces ``chinese_asr_tpu/ops/pallas/topk.py`` ``top_k``: x [R, V] f32
+-> (values [R, k] f32, indices [R, k] int32), descending; ties go to the
+lower column; NaN ranks above +inf and reads back as NaN (so does a +inf
+input); an all -inf row yields its lowest columns in order.
 ``torch.topk`` promises none of the tie order, so the twin is a stable
 descending sort.
+
+K4 replaces ``top_k_fused``: the top-k of ``logit / T - logsumexp(logit /
+T) + bias`` without materialising the transformed [R, V] array; a NaN
+key ranks first, and a -inf bias disables its whole row.
 """
 
 from __future__ import annotations
@@ -16,9 +22,10 @@ import torch
 
 from . import build
 
-launches = 0          # kernel launches (the twin never counts)
+launches = 0          # K3 kernel launches (the twin never counts)
+fused_launches = 0    # K4 kernel launches (the twin never counts)
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # one row is staged in shared memory: 227 KB per block on Hopper
 MAX_V = 232448 // 4
 
@@ -32,18 +39,22 @@ def top_k_plain(x, k: int):
     return vals, order[..., :k].to(torch.int32)
 
 
+def _check(name: str, x, k: int) -> None:
+    if x.ndim != 2 or not 0 < k <= x.shape[1]:
+        raise ValueError(f"{name}: need a 2-D input and 0 < k <= V, got "
+                         f"shape {tuple(x.shape)}, k={k}")
+    if x.device.type != "cpu" and x.shape[1] > MAX_V:
+        raise ValueError(f"{name}: V={x.shape[1]} rows do not fit shared "
+                         f"memory (max {MAX_V})")
+
+
 def top_k(x, k: int):
     """A CPU tensor takes the plain twin; a CUDA tensor launches the
     kernel (one block per row)."""
-    if x.ndim != 2 or not 0 < k <= x.shape[1]:
-        raise ValueError(f"top_k: need a 2-D input and 0 < k <= V, got "
-                         f"shape {tuple(x.shape)}, k={k}")
+    _check("top_k", x, k)
     if x.device.type == "cpu":
         return top_k_plain(x, k)
     R, V = x.shape
-    if V > MAX_V:
-        raise ValueError(f"top_k: V={V} rows do not fit shared memory "
-                         f"(max {MAX_V})")
     build.require("top_k x", x, torch.float32, (R, V))
     vals = torch.empty((R, k), dtype=torch.float32, device=x.device)
     idx = torch.empty((R, k), dtype=torch.int32, device=x.device)
@@ -53,4 +64,44 @@ def top_k(x, k: int):
     build.check("asr_topk", rc)
     global launches
     launches += 1
+    return vals, idx
+
+
+def top_k_fused_plain(logit, bias, k: int, temp: float = 1.0):
+    """The unfused composition, written out as the kernel computes it:
+    x = logit / T, lse = m + log(sum exp(x - m)) with m the row max (a NaN
+    or +inf logit makes lse NaN), key = x - lse + bias, -inf wherever the
+    bias is -inf; then K3's twin, which ranks a NaN key first."""
+    # a tensor divisor: torch's CUDA division by a host scalar multiplies
+    # by its reciprocal, which is not the kernel's IEEE divide for T != 1
+    x = logit.to(torch.float32)
+    x = x / torch.full_like(x, temp)
+    m = x.amax(dim=1, keepdim=True)
+    lse = m + torch.log(torch.exp(x - m).sum(dim=1, keepdim=True))
+    key = torch.where(bias == float("-inf"), bias, x - lse + bias)
+    return top_k_plain(key, k)
+
+
+def top_k_fused(logit, bias, k: int, temp: float = 1.0):
+    """Top-k of ``logit / temp - logsumexp(logit / temp) + bias``: logit
+    [R, V] f32, bias [R, 1] f32 (-inf disables a row).  A CPU tensor takes
+    the plain twin; a CUDA tensor launches K4 (one block per row)."""
+    _check("top_k_fused", logit, k)
+    R, V = logit.shape
+    if tuple(bias.shape) != (R, 1):
+        raise ValueError(f"top_k_fused: bias must be [{R}, 1], got "
+                         f"{tuple(bias.shape)}")
+    if logit.device.type == "cpu":
+        return top_k_fused_plain(logit, bias, k, temp)
+    build.require("top_k_fused logit", logit, torch.float32, (R, V))
+    build.require("top_k_fused bias", bias, torch.float32, (R, 1))
+    vals = torch.empty((R, k), dtype=torch.float32, device=logit.device)
+    idx = torch.empty((R, k), dtype=torch.int32, device=logit.device)
+    fn = build.kernel("asr_topk_fused", [_P] * 4 + [_I] * 3 + [_F, _P])
+    rc = fn(logit.data_ptr(), bias.data_ptr(), vals.data_ptr(),
+            idx.data_ptr(), R, V, k, float(temp),
+            torch.cuda.current_stream(logit.device).cuda_stream)
+    build.check("asr_topk_fused", rc)
+    global fused_launches
+    fused_launches += 1
     return vals, idx

@@ -14,16 +14,23 @@ every phase passed):
 2. hold each kernel against its plain PyTorch twin on the card at the
    main path's shapes (K1 log-mel on [32, 160000] wavs, K2 BiLSTM loop on
    [332, 128, 1024] gates with ragged masks, K3 top-k on [2048, 5004] at
-   k=17 with planted ties, NaN, +-inf and all -inf rows), and time kernel,
-   twin and the nearest single PyTorch call;
+   k=17 with planted ties, NaN, +-inf and all -inf rows, K4 fused logp +
+   top-k on [2048, 5004] logits with step-0 -inf row biases and a NaN
+   row), and time kernel, twin and the nearest single PyTorch call;
 3. drive the main path: ``ASR(bw=16).transcribe_wavs`` at the flagship
    ``Config()`` with seeded random weights on 32 synthetic 9-10 s int16
-   wavs over the flat wire, then greedy on the same batch, checking that
-   every kernel of the path launched, that two runs agree exactly, that
-   the card's output matches the plain CPU path on a small input, and that
-   the golden shard (tests/golden) reproduces its expected transcripts;
-   each wall time is the median of warm runs, and one more warm run of
-   the beam path goes under torch.profiler for the device-time split;
+   wavs over the flat wire, then greedy on the same batch, then the LM
+   second pass (``lm_path=``, ``lm_mode="second"``) over a synthetic
+   order-3 ARPA written from seed 0, once through K3 and once with the
+   fused stage 1 (K4, ``CHINESE_ASR_PALLAS_FUSED=1``), and over a
+   synthetic order-5 ARPA at the reference's pruned 5-gram size through
+   K3; checking that
+   every kernel of each path launched, that two runs agree exactly, that
+   the card's output matches the plain CPU path on a small input, that
+   the LM probes on the card equal those on the CPU, and that the golden
+   shard (tests/golden) reproduces its expected transcripts in every
+   mode; each wall time is the median of warm runs, and one more warm run
+   of each beam path goes under torch.profiler for the device-time split;
 4. print one ``{"kernels": [...]}`` line and, last, the ok line.
 
 It imports nothing of JAX nor of the JAX package.
@@ -43,8 +50,13 @@ import time
 # K2: 332 recurrent steps of 256-term dot products in another order; the
 #     LSTM's saturating gates keep the drift at f32 rounding level.
 # K3: exact -- values and indices must be equal (NaN where NaN).
+# K4: the row logsumexp is summed in another order than the twin's; keys
+#     of magnitude < 32 then differ by a few f32 ulps (<= 4e-6), so 1e-5;
+#     indices must be equal on rows whose top-(k+1) keys are more than
+#     that apart, and exact rows (-inf bias, NaN logit) must match exactly.
 TOL_LOGMEL = 2e-3
 TOL_LSTM = 1e-4
+TOL_FUSED = 1e-5
 # card output vs the plain CPU path on a small input (same weights)
 TOL_FEATS = 1e-3
 TOL_ENC = 1e-3
@@ -97,6 +109,60 @@ def _synthetic_wavs(np, rng, n: int, lo_s: float, hi_s: float, sr=16000):
         x = 0.2 * env * x + 0.01 * rng.standard_normal(L)
         wavs.append(np.clip(x * 32767, -32768, 32767).astype(np.int16))
     return wavs
+
+
+def _synthetic_arpa(np, path: str, words, counts, seed: int = 0):
+    """An ARPA of order ``len(counts) + 1`` over ``words`` (every one a
+    unigram): random log10 probabilities and backoffs, ``counts[j]``
+    distinct n-grams of order j + 2, each extending a listed n-gram of
+    the order below whose last word is not ``</s>``.  Returns the n-gram
+    counts per order and the top-order n-grams as [n, order] indices into
+    ``words`` (the LM's word ids: they follow the unigram order)."""
+    rng = np.random.default_rng(seed)
+    words = np.asarray(words)
+    nw = len(words)
+    bos, eos = int(np.nonzero(words == "<s>")[0][0]), \
+        int(np.nonzero(words == "</s>")[0][0])
+    hist_ids = np.setdiff1d(np.arange(nw), [eos])    # </s> ends a history
+    next_ids = np.setdiff1d(np.arange(nw), [bos])    # <s> is never next
+
+    def pairs(n, a_pool, b_pool):
+        got = np.zeros((0, 2), np.int64)
+        while len(got) < n:
+            draw = np.stack([rng.choice(a_pool, 2 * n),
+                             rng.choice(b_pool, 2 * n)], axis=1)
+            got = np.unique(np.concatenate([got, draw]), axis=0)
+        return got[rng.permutation(len(got))[:n]]
+
+    levels = [pairs(counts[0], hist_ids, next_ids)]
+    for n in counts[1:]:
+        ext = levels[-1][levels[-1][:, -1] != eos]   # n-grams to extend
+        p = pairs(n, np.arange(len(ext)), next_ids)
+        levels.append(np.concatenate([ext[p[:, 0]], p[:, 1:]], axis=1))
+
+    def lp(n):
+        return np.round(-rng.uniform(0.05, 4.0, n), 4)
+
+    def bo(n):
+        return np.round(-rng.uniform(0.0, 1.0, n), 4)
+
+    order = len(counts) + 1
+    lines = ["\\data\\", f"ngram 1={nw}"]
+    lines += [f"ngram {j + 2}={len(g)}" for j, g in enumerate(levels)]
+    lines += ["", "\\1-grams:"]
+    lines += [f"{p}\t{w}\t{b}" for p, w, b in zip(lp(nw), words, bo(nw))]
+    for j, g in enumerate(levels):
+        lines += ["", f"\\{j + 2}-grams:"]
+        text = [" ".join(r) for r in words[g]]
+        if j + 2 < order:
+            lines += [f"{p}\t{t}\t{b}"
+                      for p, t, b in zip(lp(len(g)), text, bo(len(g)))]
+        else:
+            lines += [f"{p}\t{t}" for p, t in zip(lp(len(g)), text)]
+    lines += ["", "\\end\\", ""]
+    with open(path, "w", encoding="utf-8") as f:
+        f.write("\n".join(lines))
+    return [nw] + [len(g) for g in levels], levels[-1]
 
 
 def _profile_main_path(torch, asr, wavs, label: str, wall_ms: float) -> None:
@@ -152,9 +218,11 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from chinese_asr_tpu_torch.api import ASR
+    from chinese_asr_tpu_torch.api import ASR, _identity_vocab
     from chinese_asr_tpu_torch.audio import features
     from chinese_asr_tpu_torch.config import Config
+    from chinese_asr_tpu_torch.lm import device_ngram as dev_ngram
+    from chinese_asr_tpu_torch.lm.device_ngram import DeviceNgramLM
     from chinese_asr_tpu_torch.models import las
     from chinese_asr_tpu_torch.ops.cuda import build
     from chinese_asr_tpu_torch.ops.cuda import logmel as logmel_k
@@ -333,30 +401,145 @@ def main() -> int:
         shape=f"[{R}, {V}] k={k}")
     del x, xr, small
 
+    # ---- phase 2d: K4 fused logp + top-k ---------------------------------------
+    temp = Config().decoder.temperature
+    logit = 3 * torch.randn(R, V, device=dev, generator=g)
+    # beam scores; step 0 disables beams kk > 0 of each group of 16
+    bias = -20 * torch.rand(R, 1, device=dev, generator=g)
+    bias.view(R // 16, 16)[:, 1:] = float("-inf")
+    logit[32, 100] = float("nan")                  # poisons row 32's lse
+    logit[33, 7] = float("nan")                    # ...but row 33 is -inf
+    bias_t = -20 * torch.rand(R, 1, device=dev, generator=g)   # steps > 0
+    err4 = 0.0
+    for step, bb in (("step 0", bias), ("step > 0", bias_t)):
+        vk, ik = topk_k.top_k_fused(logit, bb, k, temp)
+        vp, ip = topk_k.top_k_fused_plain(logit, bb, k + 1, temp)
+        exact = (bb[:, 0] == float("-inf")) | torch.isnan(logit).any(dim=1)
+        sep = exact | (vp[:, :-1] - vp[:, 1:] > TOL_FUSED).all(dim=1)
+        vp, ip = vp[:, :k], ip[:, :k]
+        same_special = (torch.equal(torch.isnan(vk), torch.isnan(vp))
+                        and torch.equal(torch.isinf(vk), torch.isinf(vp)))
+        fin = torch.isfinite(vp)
+        err = float((vk[fin] - vp[fin]).abs().max())
+        err4 = max(err4, err)
+        fails.check(same_special and err <= TOL_FUSED
+                    and torch.equal(ik[sep], ip[sep])
+                    and torch.equal(vk[exact].nan_to_num(),
+                                    vp[exact].nan_to_num()),
+                    f"K4 fused top-k [{R},{V}] k={k} T={temp} ({step}): "
+                    f"values within {err:.3g} <= {TOL_FUSED}, indices equal "
+                    f"on {int(sep.sum())} of {R} separated or exact rows")
+        if step == "step 0":
+            fails.check(bool(torch.isnan(vk[32]).all())
+                        and bool((vk[33] == float("-inf")).all())
+                        and ik[33].tolist() == list(range(k)),
+                        "K4: a NaN logit makes its row NaN; a -inf bias "
+                        "wins over it")
+
+    def unfused():
+        # the beam's stage 1 without K4: the logp transform, then K3
+        lg = logit / temp
+        lp = lg - torch.logsumexp(lg, dim=1, keepdim=True) + bias_t
+        return topk_k.top_k(lp, k)
+
+    def library_fused():
+        lg = logit / temp
+        return torch.topk(lg - torch.logsumexp(lg, dim=1, keepdim=True)
+                          + bias_t, k, dim=1)
+
+    # the function needs the logits read once, the bias read and the top-k
+    # written; per element the divide, the max, the subtract, exp and add
+    # of the logsumexp, the key's subtract and add, and one compare
+    bound, by = _bound_ms(4 * (R * V + R) + 8 * R * k, 8 * R * V)
+    kernels["topk_fused"] = dict(
+        name="K4 fused logp + top-k", route="cuda",
+        source="chinese_asr_tpu_torch/csrc/topk.cu",
+        replaces="chinese_asr_tpu/ops/pallas/topk.py:416",
+        max_abs_err=err4,
+        ms=_time_ms(torch, lambda: topk_k.top_k_fused(logit, bias_t, k,
+                                                      temp), 50),
+        plain_ms=_time_ms(torch, lambda: topk_k.top_k_fused_plain(
+            logit, bias_t, k, temp), 20),
+        bound_ms=bound, bound_by=by,
+        library_ms=_time_ms(torch, library_fused, 50),
+        unfused_k3_ms=_time_ms(torch, unfused, 50),
+        shape=f"logit [{R}, {V}], bias [{R}, 1] k={k}")
+    del logit, bias, bias_t
+
     # ---- phase 3: main path --------------------------------------------------
     cfg = Config()
     wavs = _synthetic_wavs(np, rng, 32, 9.0, 10.0)
     # bench.py's headline shape (B=128), timed beside the 32-wav main path
     wavs128 = wavs + _synthetic_wavs(np, rng, 96, 9.0, 10.0)
-    mods = {"logmel": logmel_k, "lstm": lstm_k, "topk": topk_k}
-    paths = {}
-    for mode, bw, batch in (("beam_bw16", 16, wavs), ("greedy", None, wavs),
-                            ("beam_bw16_b128", 16, wavs128)):
+    # each kernel's launch counter (module, attribute)
+    counters = {"logmel": (logmel_k, "launches"),
+                "lstm": (lstm_k, "launches"),
+                "topk": (topk_k, "launches"),
+                "topk_fused": (topk_k, "fused_launches")}
+    # the LMs of the second pass, over the identity vocab's words: an
+    # order 3, and an order 5 with the entries per level of the reference's
+    # pruned 5-gram class (5k/500k/1M/1M/500k, zh_giga...prune01244.klm)
+    ivocab = _identity_vocab(cfg.vocab.vocab_size)
+    lm_words = [ivocab.int2word[i] for i in range(len(ivocab.int2word))]
+    lm_asrs, lm_tops = {}, {}
+    for lm_order, counts in ((3, (200_000, 400_000)),
+                             (5, (500_000, 1_000_000, 1_000_000, 500_000))):
+        arpa = os.path.join(build.BUILD_DIR, f"synthetic_o{lm_order}_seed0.arpa")
+        ta = time.time()
+        n_per, lm_tops[lm_order] = _synthetic_arpa(np, arpa, lm_words, counts,
+                                                   seed=0)
+        tb = time.time()
+        a = ASR(bw=16, cfg=cfg, seed=0, lm_path=arpa, lm_mode="second")
+        lm_bytes = sum(t.numel() * t.element_size()
+                       for t in (*a.dlm.tbls, a.dlm.uni))
+        fails.check(a.dlm.order == lm_order
+                    and all(t.device.type == "cuda" for t in a.dlm.tbls),
+                    f"order-{lm_order} LM tables on the card")
+        print(f"LM: order {lm_order}, n-grams per order {n_per}; ARPA written "
+              f"in {tb - ta:.2f} s, parsed and built in {time.time() - tb:.2f}"
+              f" s; tables {lm_bytes / 2**20:.1f} MiB on the card, probes "
+              f"{a.dlm.probes}, widths {[tuple(t.shape) for t in a.dlm.tbls]}",
+              flush=True)
+        os.remove(arpa)
+        lm_asrs[lm_order] = a
+
+    runs_spec = (  # mode, ASR, batch, fused stage 1, kernels that must run
+        ("beam_bw16", ASR(bw=16, cfg=cfg, seed=0), wavs, False,  # cuda
+         ("logmel", "lstm", "topk")),
+        ("greedy", ASR(bw=None, cfg=cfg, seed=0), wavs, False,
+         ("logmel", "lstm")),
+        ("beam_bw16_b128", ASR(bw=16, cfg=cfg, seed=0), wavs128, False,
+         ("logmel", "lstm", "topk")),
+        ("beam_bw16_lm2", lm_asrs[3], wavs, False,
+         ("logmel", "lstm", "topk")),
+        ("beam_bw16_lm2_fused", lm_asrs[3], wavs, True,
+         ("logmel", "lstm", "topk_fused")),
+        ("beam_bw16_lm2_o5", lm_asrs[5], wavs, False,
+         ("logmel", "lstm", "topk")))
+    # the run each kernel's launch count is read from: K1-K3 the main
+    # path's, K4 the fused LM path's
+    launches_from = {"logmel": "beam_bw16", "lstm": "beam_bw16",
+                     "topk": "beam_bw16", "topk_fused": "beam_bw16_lm2_fused"}
+    paths, texts_of = {}, {}
+    for mode, asr, batch, fused, need in runs_spec:
+        os.environ["CHINESE_ASR_PALLAS_FUSED"] = "1" if fused else "0"
         audio_s = sum(len(w) for w in batch) / cfg.audio.sample_rate
-        asr = ASR(bw=bw, cfg=cfg, seed=0)          # device defaults to cuda
         runs = []
         for rep in range(2):
-            for m in mods.values():
-                m.launches = 0
+            for mod, attr in counters.values():
+                setattr(mod, attr, 0)
             torch.cuda.synchronize()
             t = time.perf_counter()
             texts = asr.transcribe_wavs(batch)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t
-            runs.append((texts, wall, {n: m.launches for n, m in mods.items()}))
+            runs.append((texts, wall, {n: getattr(mod, attr) for n, (mod, attr)
+                                       in counters.items()}))
         (t1, w1, c1), (t2, w2, c2) = runs
-        need = ("logmel", "lstm", "topk") if bw else ("logmel", "lstm")
-        fails.check(all(c1[n] > 0 for n in need),
+        texts_of[mode] = t1
+        fails.check(all(c1[n] > 0 for n in need)
+                    and all(c1[n] == 0 for n in ("topk", "topk_fused")
+                            if n not in need),
                     f"{mode}: kernels launched in the main path {c1}")
         fails.check(t1 == t2 and len(t1) == len(batch),
                     f"{mode}: two runs give identical transcripts")
@@ -379,15 +562,54 @@ def main() -> int:
               f"runs [{min(walls):.4f}, {max(walls):.4f}] -> "
               f"{audio_s / wall:.1f} audio-s/s on {gpu}; launches {c1}; "
               f"first transcript {t1[0][:60]!r}", flush=True)
-        if mode == "beam_bw16":
-            for n in kernels:
+        for n in kernels:
+            if launches_from[n] == mode:
                 kernels[n]["launches"] = c1[n]
-        del asr
+    os.environ["CHINESE_ASR_PALLAS_FUSED"] = "0"
+    differ = sum(a != b for a, b in zip(texts_of["beam_bw16_lm2"],
+                                        texts_of["beam_bw16_lm2_fused"]))
+    print(f"beam_bw16_lm2 vs beam_bw16_lm2_fused: {differ} of {len(wavs)} "
+          f"transcripts differ (report only: the fused logsumexp is summed "
+          f"in another order, which can flip near-tied survivors)",
+          flush=True)
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
           f" GiB", flush=True)
-    for mode, batch in (("beam_bw16", wavs), ("beam_bw16_b128", wavs128)):
-        _profile_main_path(torch, ASR(bw=16, cfg=cfg, seed=0), batch, mode,
+    for mode, asr, batch, fused, _ in runs_spec:
+        if mode == "greedy":
+            continue
+        os.environ["CHINESE_ASR_PALLAS_FUSED"] = "1" if fused else "0"
+        _profile_main_path(torch, asr, batch, mode,
                            paths[mode]["wall_s"] * 1e3)
+    os.environ["CHINESE_ASR_PALLAS_FUSED"] = "0"
+
+    # LM probes on the card against the same tables on the CPU: the gathers
+    # and the backoff sums run in the same order, so they must be equal
+    qrng = np.random.default_rng(5)
+    Q = 1 << 16
+    for lm_order, top in lm_tops.items():
+        dlm = lm_asrs[lm_order].dlm
+        cpu_lm = DeviceNgramLM(dlm.order, [t.cpu() for t in dlm.tbls],
+                               dlm.probes, dlm.unk_id, dlm.word2id,
+                               dlm.uni.cpu())
+        nw, M1 = len(lm_words), lm_order - 1
+        rows = top[qrng.integers(0, len(top), Q)]      # top-order contexts
+        ctx = rows[:, :-1].copy()
+        short = (qrng.random(Q) < 0.1)[:, None] \
+            & (np.arange(M1)[None, :] < qrng.integers(1, M1 + 1, Q)[:, None])
+        ctx[short] = -1                                # shorter histories
+        ctx[Q // 2:] = qrng.integers(0, nw, (Q - Q // 2, M1))   # random
+        ctx[Q // 2:, 0] = qrng.integers(-1, nw, Q - Q // 2)
+        cand = np.concatenate([rows[:, -1:], qrng.integers(0, nw, (Q, 3))],
+                              axis=1)
+        ctx_t, cand_t = torch.from_numpy(ctx), torch.from_numpy(cand)
+        on_card = dev_ngram.score_candidates(dlm, ctx_t.to(dev),
+                                             cand_t.to(dev))
+        on_cpu = dev_ngram.score_candidates(cpu_lm, ctx_t, cand_t)
+        fails.check(torch.equal(on_card.cpu(), on_cpu),
+                    f"order-{lm_order} LM probes card == CPU on {Q}x4 "
+                    f"(context, word) pairs")
+        del cpu_lm
+    del lm_asrs, runs_spec
 
     # ---- phase 3b: card vs plain CPU path on a small input -------------------
     small_wavs = _synthetic_wavs(np, rng, 4, 1.0, 2.0)
@@ -431,6 +653,17 @@ def main() -> int:
                   vocab=gvocab, bw=bw)
         fails.check(asr.transcribe_files(gpaths) == expected[mode],
                     f"golden shard {mode} on the card matches expected.json")
+    for lm_mode in ("second", "second_host"):
+        asr = ASR(ckpt_path=os.path.join(gold, "model.ckpt"), cfg=gcfg,
+                  vocab=gvocab, bw=4, lm_path=os.path.join(gold, "lm.arpa"),
+                  lm_mode=lm_mode)
+        for fused in ("0", "1"):
+            os.environ["CHINESE_ASR_PALLAS_FUSED"] = fused
+            fails.check(asr.transcribe_files(gpaths)
+                        == expected["lm_" + lm_mode],
+                        f"golden shard lm_{lm_mode} (fused stage 1: {fused}) "
+                        f"on the card matches expected.json")
+    os.environ["CHINESE_ASR_PALLAS_FUSED"] = "0"
 
     # ---- phase 4: report -----------------------------------------------------
     print("main path: " + json.dumps(paths), flush=True)

@@ -63,7 +63,10 @@ def test_chunked_transcription_restores_order(expected):
 
 def test_package_imports_no_jax():
     code = ("import sys, chinese_asr_tpu_torch.api, "
-            "chinese_asr_tpu_torch.ops.cuda.build; "
+            "chinese_asr_tpu_torch.ops.cuda.build, "
+            "chinese_asr_tpu_torch.lm.ngram, "
+            "chinese_asr_tpu_torch.lm.device_ngram, "
+            "chinese_asr_tpu_torch.decode.rescore; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'chinese_asr_tpu' or "
             "m.startswith('chinese_asr_tpu.')]; "
@@ -94,7 +97,8 @@ def test_no_silent_cpu_fallback(monkeypatch):
         tapi.main(["--wav", golden_wav_paths()[0]])
 
 
-@pytest.mark.parametrize("kw", [dict(lm_path="x.arpa", bw=4),
+@pytest.mark.parametrize("kw", [dict(lm_path=os.path.join(GOLD, "lm.arpa"),
+                                     bw=4, lm_mode="first"),
                                 dict(mesh="auto"),
                                 dict(compute_dtype="bfloat16"),
                                 dict(wire="mulaw"), dict(wire="adpcm")])

@@ -6,7 +6,9 @@ fixture, never at import).  Run on a GPU machine with
     python -m pytest tests/test_torch_port_cuda.py -m cuda --noconftest -o addopts=""
 
 Tolerances are the ones chip_smoke.py states: log-mel 2e-3 absolute,
-BiLSTM 1e-4 absolute, top-k exact.
+BiLSTM 1e-4 absolute, top-k exact, fused top-k 1e-5 absolute on values
+(the logsumexp is summed in another order), indices exact where the
+values are separated by more than that.
 """
 
 import json
@@ -89,6 +91,61 @@ def test_topk_kernel_matches_twin_exactly(dev, R, V, k):
     assert torch.equal(torch.nan_to_num(vk), torch.nan_to_num(vp))
 
 
+def _fused_case(dev, R, V, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    logit = 3 * torch.randn(R, V, device=dev, generator=g)
+    bias = -20 * torch.rand(R, 1, device=dev, generator=g)
+    if R > 4:
+        bias[1::4] = float("-inf")                 # disabled rows
+        logit[2, V // 3] = float("nan")            # poisons row 2's lse
+        logit[5, 0] = float("nan")                 # NaN under a -inf bias
+        logit[3, :] = logit[3, :].round()          # exact ties
+    return logit, bias
+
+
+def _assert_fused_close(got, want, tol):
+    vk, ik = got
+    vp, ip = want
+    assert torch.equal(torch.isnan(vk), torch.isnan(vp))
+    assert torch.equal(torch.isinf(vk), torch.isinf(vp))
+    fin = torch.isfinite(vp)
+    if fin.any():
+        assert float((vk[fin] - vp[fin]).abs().max()) <= tol
+    # indices agree wherever the twin's values are separated by more than
+    # the tolerance (or are exact: -inf and NaN rows)
+    gap = (vp[:, :-1] - vp[:, 1:]).nan_to_num(nan=float("inf"))
+    sep = (gap > tol).all(dim=1) | ~torch.isfinite(vp).any(dim=1)
+    assert torch.equal(ik[sep], ip[sep])
+
+
+@pytest.mark.parametrize("R,V,k,temp", [(1, 1, 1, 1.0), (1, 33, 5, 0.7),
+                                        (40, 97, 97, 1.0),
+                                        (64, 5004, 17, 1.0),
+                                        (16, 1000, 9, 1.3)])
+def test_fused_topk_kernel_matches_twin(dev, R, V, k, temp):
+    logit, bias = _fused_case(dev, R, V, seed=R * V + k)
+    before = (ttopk.launches, ttopk.fused_launches)
+    got = ttopk.top_k_fused(logit, bias, k, temp)
+    assert (ttopk.launches, ttopk.fused_launches) == (before[0],
+                                                      before[1] + 1)
+    want = ttopk.top_k_fused_plain(logit, bias, k, temp)
+    _assert_fused_close(got, want, 1e-5)
+    if R > 4:
+        assert torch.isnan(got[0][2]).all()            # NaN row reads NaN
+        assert (got[0][1] == float("-inf")).all()      # -inf bias wins
+        assert got[1][1].tolist() == list(range(k))
+        assert (got[0][5] == float("-inf")).all()      # ...even over NaN
+
+
+def test_fused_topk_all_rows_disabled(dev):
+    logit = torch.randn(8, 300, device=dev)
+    bias = torch.full((8, 1), float("-inf"), device=dev)
+    v, i = ttopk.top_k_fused(logit, bias, 4)
+    assert (v == float("-inf")).all()
+    assert torch.equal(i, torch.arange(4, device=dev, dtype=torch.int32)
+                       .expand(8, 4))
+
+
 def test_kernels_reject_bad_operands(dev):
     with pytest.raises(ValueError):
         ttopk.top_k(torch.randn(4, 10, device=dev).double(), 2)
@@ -109,3 +166,24 @@ def test_golden_shard_on_the_card(dev, mode, bw):
     assert asr.transcribe_files(golden_wav_paths()) == expected
     assert tlogmel.launches > counts[0] and tlstm.launches > counts[1]
     assert bw is None or ttopk.launches > counts[2]
+
+
+@pytest.mark.parametrize("fused", ["0", "1"])
+@pytest.mark.parametrize("lm_mode", ["second", "second_host"])
+def test_golden_lm_modes_on_the_card(dev, lm_mode, fused, monkeypatch):
+    from chinese_asr_tpu_torch.api import ASR
+    with open(os.path.join(GOLD, "expected.json"), encoding="utf-8") as f:
+        expected = json.load(f)["modes"]["lm_" + lm_mode]
+    monkeypatch.setenv("CHINESE_ASR_PALLAS_FUSED", fused)
+    asr = ASR(ckpt_path=os.path.join(GOLD, "model.ckpt"),
+              cfg=golden_cfg(tcfg), vocab=Vocab.build([CHARS * 3],
+                                                     max_num_words=8),
+              bw=4, lm_path=os.path.join(GOLD, "lm.arpa"), lm_mode=lm_mode)
+    if lm_mode == "second":
+        assert asr.dlm.uni.device.type == "cuda"
+    counts = (ttopk.launches, ttopk.fused_launches)
+    assert asr.transcribe_files(golden_wav_paths()) == expected
+    if fused == "1":
+        assert ttopk.fused_launches > counts[1] and ttopk.launches == counts[0]
+    else:
+        assert ttopk.launches > counts[0] and ttopk.fused_launches == counts[1]
