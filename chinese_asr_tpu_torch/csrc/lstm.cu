@@ -1,8 +1,8 @@
 // K2: bidirectional LSTM time loop for Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernel chinese_asr_tpu/ops/pallas/lstm.py
-// (`_kernel`, launched by `bidir_lstm_time_loop`): both directions'
-// T-step recurrence of one encoder layer,
+// Replaces the Pallas TPU kernel chinese_asr_tpu/ops/pallas/lstm.py:142
+// (`bidir_lstm_time_loop`, body `_kernel` :43): both directions' T-step
+// recurrence of one encoder layer,
 //   gates = xg_t + h @ W_hh  (i, f, g, o order)
 //   c' = sig(f) c + sig(i) tanh(g);  h' = sig(o) tanh(c');  y = h' m
 //   h <- y + (1 - m) h;  c <- m c' + (1 - m) c   (mask freezes the carry)
@@ -10,51 +10,53 @@
 // large matmul per direction), the backward direction already flipped in
 // time, so its outputs come back in that flipped order.
 //
-// What bounds it on the H100: the recurrence is serial in T, and every
-// step needs all of W_hh (H x 4H f32: 1 MiB per direction at H=256).
-// That is far over the 227 KB of shared memory a block can hold, so the
-// TPU design (weights resident in VMEM) does not carry over to one block.
-// Counted against the card, the layer is bound by its 2 * 2 * T * B * H *
-// 4H flops at the f32 rate; in practice each step is bound by where W_hh
-// is read from and by one synchronisation per step.
+// What bounds it on the H100: the recurrence is serial in T, and every step
+// needs all of W_hh (H x 4H f32: 1 MiB per direction at H=256), over the
+// 227 KB of shared memory a block can hold.  Counted against the card, the
+// layer is bound by its 2 * 2 * T * B * H * 4H flops (0.51 ms at the f32
+// rate at [332, 128, 256]; 0.21 ms as 3xTF32 at a third of the TF32 rate);
+// in practice each step is bound by the product's latency on the few SMs
+// one row tile can use, by the exchange of h between them and by one
+// synchronisation per step.
 //
 // Two kernels, one contract:
 //
-// * `bilstm_cluster_kernel` (H a multiple of 64 whose weight slices fit
-//   shared memory; the flagship H=256): a thread-block cluster of 8 CTAs
-//   shares one direction and one tile of 16 batch rows.  CTA r owns hidden
-//   units [r*H/8, (r+1)*H/8): it keeps their 4 gate columns of W_hh
-//   (H x 4H/8 f32 = 128 KB at H=256) in shared memory for the whole T loop,
-//   so W_hh is read from device memory once per launch instead of once per
-//   step.  Each step a CTA computes its units' gates for the 16 rows,
-//   updates c (registers) and h, and writes its slice of the new h into
-//   every CTA of the cluster through distributed shared memory; one
-//   cluster barrier per step publishes it (h is double-buffered, so one
-//   barrier suffices).  Thread (unit u, row group) accumulates the 4
-//   gates of u for 4 rows: per k one float4 of W and one float4 of h feed
-//   16 FMAs, and a warp's loads are one shared-memory wavefront each.
-// * `bilstm_kernel` (any other H <= 1024): the simple persistent kernel,
-//   grid = (batch tiles of 8 rows) x (2 directions); each block owns its
-//   rows' h (shared memory) and c (registers) for the whole loop and
-//   re-reads W_hh from L2 every step.  Its step time is the latency of
-//   those L2 reads with few warps per SM.
+// * `bilstm_tc_kernel` (H in {64, 128, 192, 256}; the flagship H=256): a
+//   thread-block cluster of 8 CTAs shares one direction and one tile of 16
+//   or 32 batch rows (B alone picks: 16 while both directions' clusters fit
+//   the card at once, so B <= 224 runs in one wave).  CTA r owns hidden
+//   units [r*H/8, (r+1)*H/8), i.e. their 4 gate columns of W_hh: its
+//   [H, 4H/8] slice (128 KB at H=256) stays in registers for the whole time
+//   loop as the B fragments of `mma.m16n8k8` (128 a thread, 8 warps).  Each
+//   step the product h[R, H] @ slice runs on the tensor cores with f32
+//   accuracy (3xTF32: lo*hi + hi*lo + hi*hi; h is split with cvt.rna as it
+//   is loaded, the slice by truncation at each use); the 8 warps are 2
+//   k-halves x 4 column groups, whose partial sums meet in shared memory.
+//   The cell update (exact expf/tanhf, c in registers) then writes the
+//   CTA's slice of the new h into every CTA of the cluster through
+//   distributed shared memory, in A-fragment order; one cluster barrier per
+//   step publishes it (h double-buffered), and the y stores and the cp.async
+//   of step t+1's gates are issued between its arrive and its wait.
+// * `bilstm_kernel` (any other H <= 1024; the golden model's 16): the
+//   simple persistent kernel, grid = (batch tiles of 8 rows) x (2
+//   directions); each block owns its rows' h (shared memory) and c
+//   (registers) for the whole loop and re-reads W_hh from L2 every step.
 //
 // No block ever waits on a block outside its cluster.
 //
-// Where the cluster kernel's step time goes at H=256 (about 10 us): each
-// warp's float4 shared-memory loads take 4 wavefronts, so the four row
-// groups re-read the 128 KB weight slice 4 times per step (about 8k
-// wavefront cycles per SM against 4k FMA cycles per SM sub-partition),
-// plus the transcendentals and the cluster barrier.  The card also holds
-// only 15 such clusters at once, so B=128 (16 clusters) runs in two waves.
-// Later, faster designs: split k across the warps (each thread then keeps
-// all 16 rows of one unit, 4x fewer loads per FMA) with a shared-memory
-// reduction of the partial gates; tensor-core products (3xTF32 to keep
-// f32 accuracy); smaller shared-memory slices so two CTAs share an SM.
+// A step of the tensor-core kernel is three serial parts: the products
+// (three `mma.sync` per k8 step and tile, the slice split at each use),
+// the cell update with its distributed-shared-memory stores, and the
+// cluster barrier.  32 rows double the first part, which is why B alone
+// picks 16 rows until the grid would need a second wave.
+// Left for later: `wgmma` for the step's product, a pipelined exchange of h
+// (bulk copies completing on an mbarrier in place of the cluster barrier),
+// 16-CTA clusters so that B=128 uses 128 SMs.
 #include "common.cuh"
 
 #include <cooperative_groups.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace cg = cooperative_groups;
 
@@ -65,13 +67,14 @@ __device__ __forceinline__ float sigmoid(float x) {
 }
 
 // ---------------------------------------------------------------------------
-// cluster kernel
+// tensor-core cluster kernel
 // ---------------------------------------------------------------------------
-constexpr int CL = 8;           // CTAs per cluster (portable maximum)
-constexpr int CBT = 16;         // batch rows per cluster
-constexpr int RG = 4;           // rows per thread: one float4 of h
-constexpr int NRG = CBT / RG;   // row groups per CTA
-constexpr int UW = 32 / NRG;    // hidden units per warp
+constexpr int CL = 8;              // CTAs per cluster (portable maximum)
+constexpr int TC_THREADS = 256;    // 8 warps = 2 k-groups x 4 n-groups
+constexpr int KG = 2;
+constexpr int NG = 4;
+constexpr int CLUSTER_BUDGET = 14; // clusters of 8 the H100 holds at once
+                                   // (15, less one of margin)
 
 // One cluster barrier split in two halves: arrive publishes this thread's
 // prior writes (the distributed-shared-memory stores of h) to the cluster,
@@ -84,149 +87,371 @@ __device__ __forceinline__ void cluster_wait_acquire() {
     asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
 }
 
-size_t cluster_smem(int H) {
-    // W slice [H][H/CL] float4 + h [2][H][NRG] float4
-    return ((size_t)H * (H / CL) + (size_t)2 * H * NRG) * sizeof(float4);
+__device__ __forceinline__ float tf32_rna(float x) {
+    uint32_t r;
+    asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+    return __uint_as_float(r);
 }
 
-__global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(256)
-bilstm_cluster_kernel(const float* __restrict__ xg_f,
-                      const float* __restrict__ xg_b,
-                      const float* __restrict__ m_f,
-                      const float* __restrict__ m_b,
-                      const float* __restrict__ w_hh,
-                      float* __restrict__ ys_f,
-                      float* __restrict__ ys_b,
-                      float* __restrict__ hT,
-                      float* __restrict__ cT,
-                      int T, int B, int H) {
+// w = hi + lo, both TF32 (truncated).  The asm is volatile so that the
+// split stays inside the time loop: hoisted out of it, the split slice
+// would take twice the registers of the f32 one and spill.
+__device__ __forceinline__ void split_tf32(float w, float& hi, float& lo) {
+    uint32_t h, l;
+    asm volatile("and.b32 %0, %1, 0xffffe000;"
+                 : "=r"(h) : "r"(__float_as_uint(w)));
+    hi = __uint_as_float(h);
+    asm volatile("and.b32 %0, %1, 0xffffe000;"
+                 : "=r"(l) : "r"(__float_as_uint(w - hi)));
+    lo = __uint_as_float(l);
+}
+
+// d += a * b on the tensor cores, TF32 inputs, f32 accumulators.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const float4& a,
+                                         float b0, float b1) {
+    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(__float_as_uint(a.x)), "r"(__float_as_uint(a.y)),
+          "r"(__float_as_uint(a.z)), "r"(__float_as_uint(a.w)),
+          "r"(__float_as_uint(b0)), "r"(__float_as_uint(b1)));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool pred) {
+    const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;"
+                 ::"r"(d), "l"(src), "r"(pred ? 4 : 0) : "memory");
+}
+
+// The shapes of one instantiation: hidden size H (a multiple of 64, at
+// most 256), MT m16 tiles of batch rows per cluster.
+template <int H, int MT>
+struct TcShape {
+    static constexpr int UC = H / CL;       // hidden units of one CTA
+    static constexpr int COLS = 4 * UC;     // its gate columns (q*UC + u)
+    static constexpr int NT = COLS / 8;     // n8 tiles of those columns
+    static constexpr int NPW = NT / NG;     // n-tiles of one warp
+    static constexpr int KS = H / 8;        // k8 steps over h
+    static constexpr int KPW = KS / KG;     // k-steps of one warp
+    static constexpr int SPC = UC / 8;      // k-steps of h one CTA produces
+    static constexpr int R = 16 * MT;       // batch rows of one cluster
+    static constexpr int PS = COLS + 8;     // partial-sum row stride
+    static constexpr int HBUF = MT * KS * 32 * 4;  // floats of one h buffer
+    static constexpr int NSLOT = MT * SPC * 32;    // float4 slots of a slice
+    // (row, unit) pairs per thread of the cell update: the four of a slot,
+    // or two (one unit, rows g and g + 8) where the CTA has the threads
+    static constexpr int PP = 2 * NSLOT <= TC_THREADS ? 2 : 4;
+    static constexpr int NLT = NSLOT * 4 / PP;     // threads of the cell update
+    static constexpr size_t SMEM =
+        (size_t)(2 * HBUF + KG * R * PS + 4 * PP * NLT) * sizeof(float);
+    static_assert(H % 64 == 0 && NPW >= 1 && NLT <= TC_THREADS, "shape");
+};
+
+// h lives in shared memory in A-fragment order: for m-tile m, k-step s and
+// lane l = 4g + c, the float4
+//   h(g, 8s+c), h(g+8, 8s+c), h(g, 8s+c+4), h(g+8, 8s+c+4)
+// (rows within the m-tile, units over H), so a warp's A operand of one
+// (m, s) is one conflict-free float4 load, split into TF32 hi and lo as it
+// is loaded.  The threads of the cell update that own those four (row,
+// unit) pairs write them as one float4 (or two float2) into every CTA of
+// the cluster.
+template <int H, int MT>
+__global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(TC_THREADS, 1)
+bilstm_tc_kernel(const float* __restrict__ xg_f,
+                 const float* __restrict__ xg_b,
+                 const float* __restrict__ m_f,
+                 const float* __restrict__ m_b,
+                 const float* __restrict__ w_hh,
+                 float* __restrict__ ys_f,
+                 float* __restrict__ ys_b,
+                 float* __restrict__ hT,
+                 float* __restrict__ cT,
+                 int T, int B) {
+    using S = TcShape<H, MT>;
     extern __shared__ float4 smem4[];
+    float* hbuf = reinterpret_cast<float*>(smem4);   // [2][MT][KS][32][4]
+    float* part = hbuf + 2 * S::HBUF;                // [KG][R][PS]
+    float* xgs = part + KG * S::R * S::PS;           // [4 PP][NLT] gates
     cg::cluster_group cluster = cg::this_cluster();
     const int rank = (int)cluster.block_rank();
-    const int HU = H / CL;                      // units of this CTA
-    const int H4 = 4 * H;
+    constexpr int H4 = 4 * H;
     const int dir = blockIdx.y;
-    const int b0 = (blockIdx.x / CL) * CBT;
-    const int lane = threadIdx.x & 31;
-    const int u = (threadIdx.x >> 5) * UW + lane % UW;
-    const int rg = lane / UW;
-    const int ug = rank * HU + u;               // global hidden unit
+    const int b0 = (blockIdx.x / CL) * S::R;
+    const int tid = threadIdx.x;
+    const int warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, tig = lane & 3;
+    const int kg = warp / NG, ng = warp % NG;
     const float* xg = dir ? xg_b : xg_f;
     const float* mk = dir ? m_b : m_f;
     float* ys = dir ? ys_b : ys_f;
     const float* W = w_hh + (size_t)dir * H * H4;
 
-    float4* ws = smem4;                         // [H][HU]: (i,f,g,o) at k
-    float4* hs = smem4 + (size_t)H * HU;        // [2][H][NRG]: 4 rows of h_k
-    float* wsf = reinterpret_cast<float*>(ws);
-    for (int i = threadIdx.x; i < H * 4 * HU; i += blockDim.x) {
-        const int k = i / (4 * HU);
-        const int r = i - k * 4 * HU;
-        const int g = r / HU;
-        const int uu = r - g * HU;
-        wsf[((size_t)k * HU + uu) * 4 + g] =
-            W[(size_t)k * H4 + g * H + rank * HU + uu];
+    // This warp's B fragments of the W_hh slice stay in registers for the
+    // whole time loop (f32; split into TF32 hi/lo at each use).
+    float wr[S::KPW][S::NPW][2];
+#pragma unroll
+    for (int ks = 0; ks < S::KPW; ++ks) {
+#pragma unroll
+        for (int j = 0; j < S::NPW; ++j) {
+            const int k = (kg * S::KPW + ks) * 8 + tig;
+            const int col = (ng * S::NPW + j) * 8 + g;
+            const int q = col / S::UC, u = col % S::UC;
+            const float* w = W + (size_t)k * H4 + q * H + rank * S::UC + u;
+            wr[ks][j][0] = w[0];
+            wr[ks][j][1] = w[(size_t)4 * H4];
+        }
     }
-    for (int i = threadIdx.x; i < 2 * H * NRG; i += blockDim.x)
-        hs[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-    // every CTA's buffers are zero (and its W slice staged) before any
-    // CTA of the cluster writes into them
+    for (int i = tid; i < 2 * S::HBUF; i += TC_THREADS) hbuf[i] = 0.f;
+    // every CTA's buffers are zero before any CTA of the cluster writes
     cluster.sync();
 
-    int row[RG];
-    bool valid[RG];
-    float h[RG], c[RG], nx[RG][4], nm[RG];
+    // cell-update role: the (row, unit) pairs of one slot of the fragment
+    // order above (all four, or the two of unit half uh); pair p has row
+    // index p & 1 and unit index p >> 1 (PP = 4) or uh (PP = 2)
+    constexpr int PP = S::PP;
+    const bool nl = tid < S::NLT;
+    const int slot = tid % S::NSLOT, uh = PP == 2 ? tid / S::NSLOT : 0;
+    const int sl = (slot >> 5) % S::SPC;             // k-step of this CTA
+    const int mm = slot / (32 * S::SPC);             // m-tile
+    const int rr = mm * 16 + g;                      // row in the cluster
+    const int row0 = b0 + rr;
+    const bool valid0 = nl && row0 < B, valid1 = nl && row0 + 8 < B;
+    const int ug0 = rank * S::UC + sl * 8 + tig + 4 * uh;  // hidden unit
+    const int dst = ((mm * S::KS + rank * S::SPC + sl) * 32 + lane) * 4
+                    + 2 * uh;
+    // gates of step t for this thread's pairs, brought into xgs[p*4 + q]
+    // by cp.async (zeros for rows past B) one step ahead
+    auto fetch = [&](int t) {
 #pragma unroll
-    for (int j = 0; j < RG; ++j) {
-        row[j] = b0 + rg * RG + j;
-        valid[j] = row[j] < B;
-        h[j] = 0.f;
-        c[j] = 0.f;
-        nm[j] = 0.f;
+        for (int p = 0; p < PP; ++p) {
+            const bool v = (p & 1) ? valid1 : valid0;
+            const float* x = xg + ((size_t)t * B + row0 + 8 * (p & 1)) * H4
+                             + ug0 + 4 * (p >> 1);
 #pragma unroll
-        for (int g = 0; g < 4; ++g) nx[j][g] = 0.f;
-        if (valid[j] && T > 0) {
-            const float* x = xg + (size_t)row[j] * H4 + ug;
-#pragma unroll
-            for (int g = 0; g < 4; ++g) nx[j][g] = x[g * H];
-            nm[j] = mk[row[j]];
+            for (int q = 0; q < 4; ++q)
+                cp_async4(xgs + (p * 4 + q) * S::NLT + tid,
+                          v ? x + q * H : xg, v);
         }
+        asm volatile("cp.async.commit_group;" ::: "memory");
+    };
+    float h[PP], c[PP], nm0 = 0.f, nm1 = 0.f;
+#pragma unroll
+    for (int p = 0; p < PP; ++p) {
+        h[p] = 0.f;
+        c[p] = 0.f;
+    }
+    if (nl && T > 0) {
+        fetch(0);
+        if (valid0) nm0 = mk[row0];
+        if (valid1) nm1 = mk[row0 + 8];
     }
 
     int cur = 0;
     for (int t = 0; t < T; ++t) {
-        float acc[RG][4], m[RG], y[RG];
+        // ---- gates' h @ W_hh part: 3xTF32 products on the tensor cores ----
+        const float* hc = hbuf + cur * S::HBUF;
+        float acc[MT][S::NPW][4];
 #pragma unroll
-        for (int j = 0; j < RG; ++j) {
-            m[j] = nm[j];
+        for (int m = 0; m < MT; ++m)
 #pragma unroll
-            for (int g = 0; g < 4; ++g) acc[j][g] = nx[j][g];
+            for (int j = 0; j < S::NPW; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) acc[m][j][e] = 0.f;
+#pragma unroll
+        for (int ks = 0; ks < S::KPW; ++ks) {
+            const int s = kg * S::KPW + ks;
+            float4 ahi[MT], alo[MT];
+#pragma unroll
+            for (int m = 0; m < MT; ++m) {
+                const float4 a = *reinterpret_cast<const float4*>(
+                    hc + ((m * S::KS + s) * 32 + lane) * 4);
+                ahi[m] = make_float4(tf32_rna(a.x), tf32_rna(a.y),
+                                     tf32_rna(a.z), tf32_rna(a.w));
+                alo[m] = make_float4(tf32_rna(a.x - ahi[m].x),
+                                     tf32_rna(a.y - ahi[m].y),
+                                     tf32_rna(a.z - ahi[m].z),
+                                     tf32_rna(a.w - ahi[m].w));
+            }
+            float bh[S::NPW][2], bl[S::NPW][2];
+#pragma unroll
+            for (int j = 0; j < S::NPW; ++j) {
+                split_tf32(wr[ks][j][0], bh[j][0], bl[j][0]);
+                split_tf32(wr[ks][j][1], bh[j][1], bl[j][1]);
+            }
+            // the three products term by term, so that consecutive mma
+            // instructions use different accumulators
+#pragma unroll
+            for (int j = 0; j < S::NPW; ++j)
+#pragma unroll
+                for (int m = 0; m < MT; ++m)
+                    mma_tf32(acc[m][j], alo[m], bh[j][0], bh[j][1]);
+#pragma unroll
+            for (int j = 0; j < S::NPW; ++j)
+#pragma unroll
+                for (int m = 0; m < MT; ++m)
+                    mma_tf32(acc[m][j], ahi[m], bl[j][0], bl[j][1]);
+#pragma unroll
+            for (int j = 0; j < S::NPW; ++j)
+#pragma unroll
+                for (int m = 0; m < MT; ++m)
+                    mma_tf32(acc[m][j], ahi[m], bh[j][0], bh[j][1]);
         }
-        if (t + 1 < T) {                        // prefetch the next step
+        // partial sums of this k-group: rows g, g+8 of each m-tile, columns
+        // 2c, 2c+1 of each n-tile
 #pragma unroll
-            for (int j = 0; j < RG; ++j) {
-                if (valid[j]) {
-                    const float* x =
-                        xg + ((size_t)(t + 1) * B + row[j]) * H4 + ug;
+        for (int m = 0; m < MT; ++m) {
 #pragma unroll
-                    for (int g = 0; g < 4; ++g) nx[j][g] = x[g * H];
-                    nm[j] = mk[(size_t)(t + 1) * B + row[j]];
+            for (int j = 0; j < S::NPW; ++j) {
+                const int col = (ng * S::NPW + j) * 8 + 2 * tig;
+                float* p0 = part + (kg * S::R + m * 16 + g) * S::PS + col;
+                *reinterpret_cast<float2*>(p0) =
+                    make_float2(acc[m][j][0], acc[m][j][1]);
+                *reinterpret_cast<float2*>(p0 + 8 * S::PS) =
+                    make_float2(acc[m][j][2], acc[m][j][3]);
+            }
+        }
+        __syncthreads();
+
+        // ---- the cell update (f32, exact expf / tanhf) ----
+        float y[PP];
+        if (nl) {
+            asm volatile("cp.async.wait_all;" ::: "memory");
+#pragma unroll
+            for (int p = 0; p < PP; ++p) {
+                const int r = rr + 8 * (p & 1);
+                const int u = sl * 8 + tig + 4 * (p >> 1) + 4 * uh;
+                float gt[4];
+#pragma unroll
+                for (int q = 0; q < 4; ++q) {
+                    const int o = r * S::PS + q * S::UC + u;
+                    gt[q] = xgs[(p * 4 + q) * S::NLT + tid]
+                            + (part[o] + part[S::R * S::PS + o]);
                 }
+                const float m = (p & 1) ? nm1 : nm0;
+                const float ig = sigmoid(gt[0]);
+                const float fg = sigmoid(gt[1]);
+                const float gg = tanhf(gt[2]);
+                const float og = sigmoid(gt[3]);
+                const float c2 = fg * c[p] + ig * gg;
+                const float h2 = og * tanhf(c2);
+                y[p] = h2 * m;
+                h[p] = y[p] + (1.f - m) * h[p];
+                c[p] = m * c2 + (1.f - m) * c[p];
+            }
+            // publish this CTA's slice of the new h to the whole cluster
+            float* d = hbuf + (cur ^ 1) * S::HBUF + dst;
+            if constexpr (PP == 4) {
+                float4* d4 = reinterpret_cast<float4*>(d);
+                const float4 v = make_float4(h[0], h[1], h[2], h[3]);
+#pragma unroll
+                for (int q = 0; q < CL; ++q)
+                    *cluster.map_shared_rank(d4, q) = v;
+            } else {
+                float2* d2 = reinterpret_cast<float2*>(d);
+                const float2 v = make_float2(h[0], h[1]);
+#pragma unroll
+                for (int q = 0; q < CL; ++q)
+                    *cluster.map_shared_rank(d2, q) = v;
             }
         }
-        const float4* hc = hs + (size_t)cur * H * NRG;
-#pragma unroll 4
-        for (int k = 0; k < H; ++k) {
-            const float4 w = ws[(size_t)k * HU + u];
-            const float4 hv = hc[k * NRG + rg];
-            const float hr[RG] = {hv.x, hv.y, hv.z, hv.w};
-#pragma unroll
-            for (int j = 0; j < RG; ++j) {
-                acc[j][0] = fmaf(hr[j], w.x, acc[j][0]);
-                acc[j][1] = fmaf(hr[j], w.y, acc[j][1]);
-                acc[j][2] = fmaf(hr[j], w.z, acc[j][2]);
-                acc[j][3] = fmaf(hr[j], w.w, acc[j][3]);
-            }
-        }
-#pragma unroll
-        for (int j = 0; j < RG; ++j) {
-            const float ig = sigmoid(acc[j][0]);
-            const float fg = sigmoid(acc[j][1]);
-            const float gg = tanhf(acc[j][2]);
-            const float og = sigmoid(acc[j][3]);
-            const float c2 = fg * c[j] + ig * gg;
-            const float h2 = og * tanhf(c2);
-            y[j] = h2 * m[j];
-            h[j] = y[j] + (1.f - m[j]) * h[j];
-            c[j] = m[j] * c2 + (1.f - m[j]) * c[j];
-        }
-        // publish this CTA's slice of the new h to the whole cluster, then
-        // store y while the barrier completes: a global store issued just
-        // before the release would have to drain before it
-        const float4 hn = make_float4(h[0], h[1], h[2], h[3]);
-        float4* dst = hs + (size_t)(cur ^ 1) * H * NRG + ug * NRG + rg;
-#pragma unroll
-        for (int q = 0; q < CL; ++q) *cluster.map_shared_rank(dst, q) = hn;
         cluster_arrive_release();
+        // while the barrier completes: store y, fetch step t+1's gates
+        if (nl) {
 #pragma unroll
-        for (int j = 0; j < RG; ++j)
-            if (valid[j]) ys[((size_t)t * B + row[j]) * H + ug] = y[j];
+            for (int p = 0; p < PP; ++p)
+                if ((p & 1) ? valid1 : valid0)
+                    ys[((size_t)t * B + row0 + 8 * (p & 1)) * H + ug0
+                       + 4 * (p >> 1)] = y[p];
+            if (t + 1 < T) {
+                fetch(t + 1);
+                if (valid0) nm0 = mk[(size_t)(t + 1) * B + row0];
+                if (valid1) nm1 = mk[(size_t)(t + 1) * B + row0 + 8];
+            }
+        }
         cluster_wait_acquire();
         cur ^= 1;
     }
 
 #pragma unroll
-    for (int j = 0; j < RG; ++j) {
-        if (valid[j]) {
-            const size_t o = ((size_t)dir * B + row[j]) * H + ug;
-            hT[o] = h[j];
-            cT[o] = c[j];
+    for (int p = 0; p < PP; ++p) {
+        if ((p & 1) ? valid1 : valid0) {
+            const size_t o = ((size_t)dir * B + row0 + 8 * (p & 1)) * H + ug0
+                             + 4 * (p >> 1);
+            hT[o] = h[p];
+            cT[o] = c[p];
         }
     }
 }
 
-bool cluster_fits(int H) {
-    return H % (CL * UW) == 0 && cluster_smem(H) <= 232448;
+// Batch rows per cluster, from B alone: 16 while both directions' clusters
+// fit the card at once, else 32 (B <= 224 in one wave).
+int tc_mtiles(int B) {
+    return 2 * ((B + 15) / 16) <= CLUSTER_BUDGET ? 1 : 2;
+}
+
+bool tc_fits(int H) {
+    return H == 64 || H == 128 || H == 192 || H == 256;
+}
+
+template <int H, int MT>
+int tc_launch(const float* xg_f, const float* xg_b, const float* m_f,
+              const float* m_b, const float* w_hh, float* ys_f, float* ys_b,
+              float* hT, float* cT, int T, int B, cudaStream_t s,
+              int* plan) {
+    using S = TcShape<H, MT>;
+    const int rc = asr_allow_smem(bilstm_tc_kernel<H, MT>, S::SMEM);
+    if (rc) return rc;
+    const dim3 grid((B + S::R - 1) / S::R * CL, 2);
+    if (plan) {                 // rows per cluster, clusters, max resident
+        cudaLaunchConfig_t cfg = {};
+        cfg.gridDim = grid;
+        cfg.blockDim = dim3(TC_THREADS);
+        cfg.dynamicSmemBytes = S::SMEM;
+        int n = 0;
+        const cudaError_t e = cudaOccupancyMaxActiveClusters(
+            &n, (const void*)bilstm_tc_kernel<H, MT>, &cfg);
+        if (e != cudaSuccess) return (int)e;
+        plan[0] = S::R;
+        plan[1] = (int)(grid.x / CL * grid.y);
+        plan[2] = n;
+        return 0;
+    }
+    bilstm_tc_kernel<H, MT><<<grid, TC_THREADS, S::SMEM, s>>>(
+        xg_f, xg_b, m_f, m_b, w_hh, ys_f, ys_b, hT, cT, T, B);
+    return (int)cudaGetLastError();
+}
+
+template <int H>
+int tc_dispatch_mt(int B, const float* xg_f, const float* xg_b,
+                   const float* m_f, const float* m_b, const float* w_hh,
+                   float* ys_f, float* ys_b, float* hT, float* cT, int T,
+                   cudaStream_t s, int* plan) {
+    if (tc_mtiles(B) == 1)
+        return tc_launch<H, 1>(xg_f, xg_b, m_f, m_b, w_hh, ys_f, ys_b, hT, cT,
+                               T, B, s, plan);
+    return tc_launch<H, 2>(xg_f, xg_b, m_f, m_b, w_hh, ys_f, ys_b, hT, cT, T,
+                           B, s, plan);
+}
+
+int tc_dispatch(int H, int B, const float* xg_f, const float* xg_b,
+                const float* m_f, const float* m_b, const float* w_hh,
+                float* ys_f, float* ys_b, float* hT, float* cT, int T,
+                cudaStream_t s, int* plan) {
+    switch (H) {
+    case 64:
+        return tc_dispatch_mt<64>(B, xg_f, xg_b, m_f, m_b, w_hh, ys_f, ys_b,
+                                  hT, cT, T, s, plan);
+    case 128:
+        return tc_dispatch_mt<128>(B, xg_f, xg_b, m_f, m_b, w_hh, ys_f, ys_b,
+                                   hT, cT, T, s, plan);
+    case 192:
+        return tc_dispatch_mt<192>(B, xg_f, xg_b, m_f, m_b, w_hh, ys_f, ys_b,
+                                   hT, cT, T, s, plan);
+    default:
+        return tc_dispatch_mt<256>(B, xg_f, xg_b, m_f, m_b, w_hh, ys_f, ys_b,
+                                   hT, cT, T, s, plan);
+    }
 }
 
 // ---------------------------------------------------------------------------
@@ -359,8 +584,8 @@ __global__ void bilstm_kernel(const float* __restrict__ xg_f,
 
 // xg_f, xg_b [T, B, 4H]; m_f, m_b [T, B]; w_hh [2, H, 4H] ->
 // ys_f, ys_b [T, B, H]; hT, cT [2, B, H].  All float32 and contiguous.
-// H alone picks the kernel: the cluster kernel where it fits, else the
-// simple one.
+// H alone picks the kernel (the tensor-core cluster kernel for H in
+// {64, 128, 192, 256}, else the simple one), B alone its rows per cluster.
 ASR_API int asr_bilstm(const float* xg_f, const float* xg_b, const float* m_f,
                        const float* m_b, const float* w_hh, float* ys_f,
                        float* ys_b, float* hT, float* cT, int T, int B, int H,
@@ -368,15 +593,9 @@ ASR_API int asr_bilstm(const float* xg_f, const float* xg_b, const float* m_f,
     if (B <= 0 || H <= 0) return 0;
     if (H > 1024) return (int)cudaErrorInvalidValue;
     const cudaStream_t s = (cudaStream_t)stream;
-    if (cluster_fits(H)) {
-        const size_t smem = cluster_smem(H);
-        const int rc = asr_allow_smem(bilstm_cluster_kernel, smem);
-        if (rc) return rc;
-        const dim3 grid((B + CBT - 1) / CBT * CL, 2);
-        bilstm_cluster_kernel<<<grid, H / CL * NRG, smem, s>>>(
-            xg_f, xg_b, m_f, m_b, w_hh, ys_f, ys_b, hT, cT, T, B, H);
-        return (int)cudaGetLastError();
-    }
+    if (tc_fits(H))
+        return tc_dispatch(H, B, xg_f, xg_b, m_f, m_b, w_hh, ys_f, ys_b, hT,
+                           cT, T, s, nullptr);
     const size_t smem = (size_t)2 * BT * H * sizeof(float);
     const int rc = asr_allow_smem(bilstm_kernel, smem);
     if (rc) return rc;
@@ -385,4 +604,19 @@ ASR_API int asr_bilstm(const float* xg_f, const float* xg_b, const float* m_f,
     bilstm_kernel<<<grid, threads, smem, s>>>(
         xg_f, xg_b, m_f, m_b, w_hh, ys_f, ys_b, hT, cT, T, B, H);
     return (int)cudaGetLastError();
+}
+
+// How asr_bilstm would launch at (B, H), without launching: plan[0] batch
+// rows per cluster, plan[1] clusters in the grid, plan[2] clusters the card
+// holds at once (cudaOccupancyMaxActiveClusters).  For the simple kernel
+// (no cluster) plan = {8, 0, 0}.  Returns 0 or a cudaError_t.
+ASR_API int asr_bilstm_plan(int B, int H, int* plan) {
+    if (B <= 0 || H <= 0 || H > 1024) return (int)cudaErrorInvalidValue;
+    if (!tc_fits(H)) {
+        plan[0] = BT;
+        plan[1] = plan[2] = 0;
+        return 0;
+    }
+    return tc_dispatch(H, B, nullptr, nullptr, nullptr, nullptr, nullptr,
+                       nullptr, nullptr, nullptr, nullptr, 0, nullptr, plan);
 }

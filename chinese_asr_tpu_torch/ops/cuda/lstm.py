@@ -7,10 +7,12 @@ time-major f32: xg_f/xg_b [T, B, 4H] (backward already time-flipped),
 m_f/m_b [T, B], w_hh [2, H, 4H] -> (ys_f [T, B, H], ys_b [T, B, H] in
 the flipped order it was fed, hT [2, B, H], cT [2, B, H]).
 
-On the card, H alone picks the kernel: a multiple of 64 that fits (the
-flagship 256) runs the thread-block-cluster kernel with W_hh resident in
-shared memory; any other H (the golden model's 16) runs the simple
-per-block kernel (``csrc/lstm.cu`` explains both).
+On the card, H alone picks the kernel: H in {64, 128, 192, 256} (the
+flagship 256) runs the thread-block-cluster kernel, W_hh resident in
+registers and the step's product on the tensor cores (3xTF32); any other
+H (the golden model's 16) runs the simple per-block kernel.  B alone
+picks the cluster kernel's rows per cluster (16, or 32 from B=113 on),
+so that B <= 224 runs in one wave (``csrc/lstm.cu`` explains both).
 
 Inference only: the ``torch.autograd.Function`` whose backward
 recomputes through the twin (as ``ops/rnn.py`` ``_bidir_core_bwd`` does)
@@ -52,6 +54,20 @@ def bidir_lstm_time_loop_plain(xg_f, xg_b, m_f, m_b, w_hh):
             h[d] = y + (1.0 - m) * h[d]
             c[d] = m * c2 + (1.0 - m) * c[d]
     return ys[0], ys[1], torch.stack(h), torch.stack(c)
+
+
+def plan(B: int, H: int) -> dict:
+    """How the kernel launches at (B, H), without launching: batch rows
+    per cluster, clusters in the grid, clusters the card holds at once
+    (``cudaOccupancyMaxActiveClusters``) and the waves that makes.  The
+    simple kernel (H outside the cluster kernel's) has no clusters."""
+    buf = (ctypes.c_int * 3)()
+    fn = build.kernel("asr_bilstm_plan", [_I, _I, _P])
+    build.check("asr_bilstm_plan", fn(B, H, ctypes.addressof(buf)))
+    rows, clusters, resident = buf
+    waves = -(-clusters // resident) if clusters else 0
+    return dict(rows=rows, clusters=clusters, max_active_clusters=resident,
+                waves=waves)
 
 
 def bidir_lstm_time_loop(xg_f, xg_b, m_f, m_b, w_hh):

@@ -13,7 +13,8 @@ every phase passed):
    time and the card's name and power limit;
 2. hold each kernel against its plain PyTorch twin on the card at the
    main path's shapes (K1 log-mel on [32, 160000] wavs, K2 BiLSTM loop on
-   [332, 128, 1024] gates with ragged masks, K3 top-k on [2048, 5004] at
+   [332, 128, 1024] gates with ragged masks, also timed at B=32 and with
+   its cluster plan (waves), K3 top-k on [2048, 5004] at
    k=17 with planted ties, NaN, +-inf and all -inf rows, K4 fused logp +
    top-k on [2048, 5004] logits with step-0 -inf row biases and a NaN
    row), and time kernel, twin and the nearest single PyTorch call;
@@ -38,17 +39,20 @@ It imports nothing of JAX nor of the JAX package.
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
 
 # Tolerances (max abs error, kernel vs its plain twin, both f32 on the card).
-# K1: the 400-tap DFT and the 257-bin mel sums are accumulated in another
-#     order than cuBLAS's; log-mel of speech-level power differs by ~1e-6
-#     relative (up to ~3e-4 absolute on low-energy bins in the CPU
-#     parity tests), so 2e-3 is a margin; a framing bug errs by O(1).
-# K2: 332 recurrent steps of 256-term dot products in another order; the
-#     LSTM's saturating gates keep the drift at f32 rounding level.
+# K1: the 400-tap DFT runs as 3xTF32 tensor-core products (the dropped
+#     lo*lo term is ~2^-22 relative) summed in another order than cuBLAS's;
+#     on speech the log-mel of bins with little energy then moves by a few
+#     1e-4 (the lowest bins, where pre-emphasis leaves the least, are
+#     computed in the twin's own f32 order); 2e-3 is the margin, a framing
+#     bug errs by O(1).
+# K2: 332 recurrent steps of 256-term 3xTF32 products in another order;
+#     the LSTM's saturating gates keep the drift near f32 rounding level.
 # K3: exact -- values and indices must be equal (NaN where NaN).
 # K4: the row logsumexp is summed in another order than the twin's; keys
 #     of magnitude < 32 then differ by a few f32 ulps (<= 4e-6), so 1e-5;
@@ -65,6 +69,7 @@ TIMED_RUNS = 7                  # warm main-path runs behind each wall time
 
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12          # f32 outside the tensor cores
+H100_TF32_FLOPS = 495e12        # TF32 tensor cores, dense
 
 
 def _gpu_line() -> str:
@@ -244,11 +249,17 @@ def main() -> int:
     print(f"build: {time.time() - t0:.2f} s -> {os.path.relpath(so)}",
           flush=True)
     log = os.path.join(build.BUILD_DIR, f"build-{build._digest()}.log")
+    spills = []
     if os.path.exists(log):
         with open(log) as f:
             for line in f:
                 if "registers" in line or "spill" in line or line.startswith("=="):
                     print("  ptxas:", line.rstrip())
+                spilled = re.search(r"(\d+) bytes spill stores", line)
+                if spilled and int(spilled.group(1)) > 0:
+                    spills.append(line.strip())
+    fails.check(os.path.exists(log) and not spills,
+                f"ptxas -v: no register spills in any kernel {spills}")
     rng = np.random.default_rng(0)
     kernels = {}
 
@@ -267,6 +278,21 @@ def main() -> int:
                 f"K1 log-mel [{B1},{N1}] T={T1}: max_abs_err {err1:.3g} "
                 f"<= {TOL_LOGMEL}")
     cos_m, sin_m, fb = logmel_k._tables(acfg, dev)
+    # the same function in f64 (same f32 inputs and tables): how far the
+    # kernel and its twin each sit from the exact sums (report only)
+    off1 = (acfg.n_fft - acfg.win_length) // 2
+    idx1 = (torch.arange(T1, device=dev)[:, None] * acfg.hop_length + off1
+            + torch.arange(acfg.win_length, device=dev)[None, :])
+    fr64 = torch.nn.functional.pad(pre.double(), (0, acfg.n_fft))[..., idx1]
+    mel64 = ((fr64 @ cos_m.double()) ** 2
+             + (fr64 @ sin_m.double()) ** 2) @ fb.double()
+    ref64 = torch.log(torch.where(mel64 == 0, float(np.finfo(np.float32).eps),
+                                  mel64))
+    err1_64 = float((got.double() - ref64).abs().max())
+    plain_err1_64 = float((ref.double() - ref64).abs().max())
+    print(f"  K1 against f64: kernel {err1_64:.3g}, twin {plain_err1_64:.3g}",
+          flush=True)
+    del fr64, mel64, ref64
     window = torch.hann_window(acfg.win_length, device=dev)
     eps = float(np.finfo(np.float32).eps)
 
@@ -288,6 +314,9 @@ def main() -> int:
     bound, by = _bound_ms(
         4 * (B1 * (N1 - 1) + B1 * T1 * nm + acfg.win_length + nb * nm),
         B1 * T1 * (fft_ops + acfg.win_length + 3 * nb + 2 * nb * nm + nm))
+    # the design's own floor: the DFT as three TF32 products at the
+    # tensor cores' dense rate
+    dft_ops = 2 * B1 * T1 * acfg.win_length * 2 * nb
     kernels["logmel"] = dict(
         name="K1 log-mel", route="cuda",
         source="chinese_asr_tpu_torch/csrc/logmel.cu",
@@ -297,6 +326,8 @@ def main() -> int:
         plain_ms=_time_ms(torch, lambda: logmel_k.log_mel_plain(pre, T1, acfg),
                           5),
         bound_ms=bound, bound_by=by,
+        bound_tf32x3_ms=3 * dft_ops / H100_TF32_FLOPS * 1e3,
+        err_vs_f64=err1_64, plain_err_vs_f64=plain_err1_64,
         library_ms=_time_ms(torch, stft_logmel, 20),
         shape=f"wav [{B1}, {N1 - 1}] -> [{B1}, {T1}, {nm}]")
     del wav, pre, got, ref, lib
@@ -319,6 +350,21 @@ def main() -> int:
                                   f"H={H}: max_abs_err {err2:.3g} <= {TOL_LSTM}")
     fails.check(float(got[0][m_f == 0].abs().max()) == 0.0,
                 "K2 (cluster kernel) masked steps emit exact zeros")
+    plan2 = lstm_k.plan(B2, H)
+    fails.check(plan2["waves"] == 1,
+                f"K2 at B={B2}: one wave ({plan2['clusters']} clusters of 8, "
+                f"{plan2['rows']} rows each; the card holds "
+                f"{plan2['max_active_clusters']})")
+    # the main path's own batch (B=32) runs 16 rows per cluster
+    args32 = tuple(a[:, :32].contiguous() for a in args2[:4]) + (w_hh,)
+    err32 = max(float((a - b).abs().max()) for a, b in
+                zip(lstm_k.bidir_lstm_time_loop(*args32),
+                    lstm_k.bidir_lstm_time_loop_plain(*args32)))
+    fails.check(err32 <= TOL_LSTM,
+                f"K2 BiLSTM (cluster kernel) T={T2} B=32 H={H}: max_abs_err "
+                f"{err32:.3g} <= {TOL_LSTM}")
+    ms32 = _time_ms(torch, lambda: lstm_k.bidir_lstm_time_loop(*args32), 20)
+    del args32
     # H not a multiple of 64 (the golden model's 16) runs the simple kernel
     hs = 16
     small2 = (xg_f[..., :4 * hs].contiguous(), xg_b[..., :4 * hs].contiguous(),
@@ -345,12 +391,19 @@ def main() -> int:
         4 * (2 * T2 * B2 * 4 * H + 2 * T2 * B2 + 2 * H * 4 * H
              + 2 * T2 * B2 * H + 4 * B2 * H),
         2 * steps * (2 * H * 4 * H + 10 * H))
+    ms2 = _time_ms(torch, lambda: lstm_k.bidir_lstm_time_loop(*args2), 20)
     kernels["lstm"] = dict(
         name="K2 BiLSTM time loop", route="cuda",
         source="chinese_asr_tpu_torch/csrc/lstm.cu",
         replaces="chinese_asr_tpu/ops/pallas/lstm.py:142",
-        max_abs_err=err2,
-        ms=_time_ms(torch, lambda: lstm_k.bidir_lstm_time_loop(*args2), 20),
+        max_abs_err=max(err2, err32),
+        ms=ms2,
+        step_us=ms2 * 1e3 / T2,
+        waves=plan2["waves"], clusters=plan2["clusters"],
+        max_active_clusters=plan2["max_active_clusters"],
+        rows_per_cluster=plan2["rows"],
+        ms_b32=ms32, step_us_b32=ms32 * 1e3 / T2,
+        bound_tf32x3_ms=3 * 2 * steps * 2 * H * 4 * H / H100_TF32_FLOPS * 1e3,
         plain_ms=_time_ms(torch,
                           lambda: lstm_k.bidir_lstm_time_loop_plain(*args2),
                           2, warmup=1),

@@ -70,6 +70,52 @@ def test_lstm_kernel_matches_twin(dev, T, B, H):
         assert float((a - b).abs().max()) <= 1e-4
 
 
+@pytest.mark.parametrize("cfg", [tcfg.AudioConfig(),
+                                 golden_cfg(tcfg).audio],
+                         ids=["flagship", "golden"])
+@pytest.mark.parametrize("B,n,T", [(3, 11000, 65),    # T not a multiple of 64
+                                   (2, 48000, 130),
+                                   (2, 16000, 1),     # T = 1
+                                   (2, 300, 1),       # shorter than a frame
+                                   (1, 16000, 99)])   # B = 1
+def test_logmel_kernel_edge_shapes(dev, cfg, B, n, T):
+    g = torch.Generator(device=dev).manual_seed(B * n + T)
+    wav = 0.1 * torch.randn(B, n, device=dev, generator=g)
+    before = tlogmel.launches
+    got = tlogmel.log_mel(wav, T, cfg)
+    assert tlogmel.launches == before + 1
+    ref = tlogmel.log_mel_plain(wav, T, cfg)
+    assert got.shape == (B, T, cfg.n_mels) and torch.isfinite(got).all()
+    assert float((got - ref).abs().max()) <= 2e-3
+
+
+@pytest.mark.parametrize("T,B,H", [(5, 1, 256), (4, 128, 256), (4, 129, 256),
+                                   (7, 37, 256), (1, 9, 128), (6, 20, 64),
+                                   (9, 129, 64), (3, 130, 128), (1, 128, 64)])
+def test_lstm_kernel_edge_shapes(dev, T, B, H):
+    """Rows masked from step 0 (length 0), ragged tiles, B on both sides
+    of the 16/32 rows-per-cluster switch, T = 1."""
+    g = torch.Generator(device=dev).manual_seed(T * B + H)
+    xg_f = torch.randn(T, B, 4 * H, device=dev, generator=g)
+    xg_b = torch.randn(T, B, 4 * H, device=dev, generator=g)
+    w = torch.randn(2, H, 4 * H, device=dev, generator=g) / H ** 0.5
+    lens = torch.randint(0, T + 1, (B,), device=dev, generator=g)
+    lens[0] = 0
+    m_f = (torch.arange(T, device=dev)[:, None] < lens[None]).float()
+    m_b = torch.flip(m_f, dims=(0,)).contiguous()
+    before = tlstm.launches
+    got = tlstm.bidir_lstm_time_loop(xg_f, xg_b, m_f, m_b, w)
+    assert tlstm.launches == before + 1
+    ref = tlstm.bidir_lstm_time_loop_plain(xg_f, xg_b, m_f, m_b, w)
+    for a, b in zip(got, ref):
+        assert float((a - b).abs().max()) <= 1e-4
+    assert float(got[0][m_f == 0].abs().max()) == 0.0
+    assert float(got[2][:, 0].abs().max()) == 0.0      # row 0: never stepped
+    plan = tlstm.plan(B, H)
+    assert plan["rows"] == (16 if B <= 112 else 32)
+    assert plan["waves"] == 1
+
+
 @pytest.mark.parametrize("R,V,k", [(1, 1, 1), (7, 33, 33), (300, 5004, 17),
                                    (5, 70000, 3)])
 def test_topk_kernel_matches_twin_exactly(dev, R, V, k):

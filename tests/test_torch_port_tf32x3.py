@@ -1,0 +1,192 @@
+"""The 3xTF32 arithmetic of the tensor-core kernels K1 (log-mel) and K2
+(BiLSTM time loop), emulated in plain torch on the CPU at the flagship
+widths.
+
+Each operand of a tensor-core product is split into a TF32 hi word and a
+TF32 lo word, and lo*hi + hi*lo + hi*hi is summed in f32 (the lo*lo term is
+dropped).  K1 rounds its samples' hi word and its DFT table with
+``cvt.rna`` (round to nearest, ties away) and truncates the samples' exact
+rest to TF32; K2 rounds h with ``cvt.rna`` and truncates its W_hh slice.
+The emulation takes the kernels' own split tables (``ops/cuda/logmel.py``
+``_kernel_tables``) where they have them, so the fragment layout is
+checked too.  Tolerances are chip_smoke.py's: log-mel
+2e-3 absolute, BiLSTM 1e-4 absolute.  Inputs are made with numpy from a
+seed.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from chinese_asr_tpu_torch import config as tcfg
+from chinese_asr_tpu_torch.audio import features as tfeat
+from chinese_asr_tpu_torch.ops.cuda import logmel as tlogmel
+from chinese_asr_tpu_torch.ops.cuda import lstm as tlstm
+
+from torch_port_util import (golden_cfg, matmul_tf32x1, matmul_tf32x3,
+                             round_tf32, speech_like_wavs, trunc_tf32)
+
+TOL_LOGMEL = 2e-3
+TOL_LSTM = 1e-4
+
+
+def _fp32(bits):
+    return np.array(bits, np.uint32).view(np.float32)
+
+
+def test_round_tf32_is_rna():
+    # 1 + half a TF32 ulp is a tie: away from zero, on both signs
+    one, ulp_half = 0x3F800000, 0x1000
+    x = _fp32([one + ulp_half, one + ulp_half - 1, one + 0x2000 + ulp_half,
+               0x80000000 | (one + ulp_half), 0x7F7FDFFF, 0])
+    want = _fp32([one + 0x2000, one, one + 0x4000,
+                  0x80000000 | (one + 0x2000), 0x7F7FE000, 0])
+    got = round_tf32(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    # the kernels' host-side split uses the same rounding
+    np.testing.assert_array_equal(tlogmel.round_tf32(x).view(np.uint32),
+                                  want.view(np.uint32))
+    assert (trunc_tf32(torch.from_numpy(x)).numpy().view(np.uint32)
+            == (x.view(np.uint32) & 0xFFFFE000)).all()
+
+
+def _kernel_dft_tables(cfg):
+    """(B hi, B lo) [taps, 2 * (bins - 1)] rebuilt from the kernel's
+    fragment-order table, and the dense filterbank rebuilt from the
+    kernel's per-filter bin ranges."""
+    bfrag, mel_w, mel_idx, _, ksteps, ngroups = tlogmel._kernel_tables(
+        cfg, torch.device("cpu"))
+    nt = ngroups * 4
+    f = bfrag.numpy()[:ksteps]                        # [s, nt, 32, 4]
+    # lane = 4 g + c holds (b0, b1) = B[8s + c, 8nt + g], B[8s + c + 4, .]
+    f = f.reshape(ksteps, nt, 8, 4, 2, 2)             # [s, nt, g, c, hilo, h]
+    mats = f.transpose(4, 0, 5, 3, 1, 2).reshape(2, ksteps * 8, nt * 8)
+    _, _, fb, _ = tfeat._constants(cfg)
+    nbins = fb.shape[0]
+    dense = np.zeros_like(fb)
+    lo, cnt, off = mel_idx.numpy()
+    for m in range(fb.shape[1]):
+        dense[lo[m]:lo[m] + cnt[m], m] = mel_w.numpy()[off[m]:off[m] + cnt[m]]
+    return (torch.from_numpy(mats[0][:, :2 * (nbins - 1)].copy()),
+            torch.from_numpy(mats[1][:, :2 * (nbins - 1)].copy()),
+            dense)
+
+
+@pytest.mark.parametrize("cfg", [tcfg.AudioConfig(), golden_cfg(tcfg).audio],
+                         ids=["flagship", "golden"])
+def test_kernel_tables_hold_the_twins_tables(cfg):
+    bhi, blo, dense = _kernel_dft_tables(cfg)
+    cos_m, sin_m, fb = (t.numpy() for t in tlogmel._tables(
+        cfg, torch.device("cpu")))
+    win, nbins = cos_m.shape
+    inter = np.zeros((bhi.shape[0], 2 * (nbins - 1)), np.float32)
+    inter[:win, 0::2] = cos_m[:, :-1]
+    inter[:win, 1::2] = sin_m[:, :-1]
+    np.testing.assert_array_equal(bhi.numpy(), tlogmel.round_tf32(inter))
+    np.testing.assert_array_equal(
+        blo.numpy(), tlogmel.round_tf32(inter - bhi.numpy()))
+    np.testing.assert_array_equal(dense, fb)           # exact zeros elsewhere
+    # the bins done in f32: those below 4 and the last that a filter uses
+    exbins = tlogmel._kernel_tables(cfg, torch.device("cpu"))[3][:-1]
+    used = fb.any(axis=1)
+    assert exbins.tolist() == [b for b in (0, 1, 2, 3, nbins - 1) if used[b]]
+
+
+def _log_mel_tf32x3(wav, n_frames, cfg):
+    """K1's arithmetic: each sample split into an rna hi and the exact rest,
+    the rest truncated to TF32 for the products; the kernel's split table;
+    re/im as 3xTF32 products, except the lowest bins and the last one that
+    the filterbank uses (f32 products of the exact samples); then power,
+    mel, eps floor, log."""
+    bhi, blo, fb = _kernel_dft_tables(cfg)
+    win, hop = cfg.win_length, cfg.hop_length
+    off = (cfg.n_fft - win) // 2
+    idx = (torch.arange(n_frames)[:, None] * hop + off
+           + torch.arange(bhi.shape[0])[None, :])
+    pad = int(idx.max()) + 1 - wav.shape[-1]
+    frames = torch.nn.functional.pad(wav, (0, max(pad, 0)))[..., idx]
+    fh = round_tf32(frames)
+    fl = trunc_tf32(frames - fh)
+    spec = fl @ bhi + fh @ blo + fh @ bhi             # [B, T, 2 (bins - 1)]
+    re, im = spec[..., 0::2], spec[..., 1::2]
+    cos_m, sin_m, _ = tlogmel._tables(cfg, torch.device("cpu"))
+    x = frames[..., :win]
+    exact = tlogmel._kernel_tables(cfg, torch.device("cpu"))[3][:-1].tolist()
+    re = torch.cat([re, torch.zeros_like(re[..., :1])], -1)
+    im = torch.cat([im, torch.zeros_like(im[..., :1])], -1)
+    re[..., exact] = x @ cos_m[:, exact]
+    im[..., exact] = x @ sin_m[:, exact]
+    mel = (re * re + im * im) @ torch.from_numpy(fb)
+    return torch.log(torch.where(mel == 0, torch.full_like(mel, 1.1920929e-07),
+                                 mel))
+
+
+@pytest.mark.parametrize("cfg", [tcfg.AudioConfig(), golden_cfg(tcfg).audio],
+                         ids=["flagship", "golden"])
+def test_logmel_3xtf32_within_tolerance(cfg):
+    rng = np.random.default_rng(3)
+    wav = torch.from_numpy(speech_like_wavs(rng, 2, 1.0))      # [2, 16000]
+    pre = wav[:, 1:] - cfg.preemphasis * wav[:, :-1]
+    T = int(tfeat.num_frames(wav.shape[1], cfg)) + 2            # past the end
+    got = _log_mel_tf32x3(pre, T, cfg)
+    want = tlogmel.log_mel_plain(pre, T, cfg)
+    err = float((got - want).abs().max())
+    assert torch.isfinite(got).all()
+    assert err <= TOL_LOGMEL, err
+
+
+def _lstm_emulated(xg_f, xg_b, m_f, m_b, w_hh, product):
+    """The twin's recurrence with h @ W_hh computed by ``product``."""
+    T, B, H4 = xg_f.shape
+    H = H4 // 4
+    z = xg_f.new_zeros((B, H))
+    h, c = [z, z], [z, z]
+    ys = [xg_f.new_empty((T, B, H)), xg_f.new_empty((T, B, H))]
+    for t in range(T):
+        for d, (xg, mk) in enumerate(((xg_f, m_f), (xg_b, m_b))):
+            gates = xg[t] + product(h[d], w_hh[d])
+            i, f, g, o = torch.chunk(gates, 4, dim=-1)
+            c2 = torch.sigmoid(f) * c[d] + torch.sigmoid(i) * torch.tanh(g)
+            h2 = torch.sigmoid(o) * torch.tanh(c2)
+            m = mk[t][:, None]
+            y = h2 * m
+            ys[d][t] = y
+            h[d] = y + (1.0 - m) * h[d]
+            c[d] = m * c2 + (1.0 - m) * c[d]
+    return ys[0], ys[1], torch.stack(h), torch.stack(c)
+
+
+def _lstm_case(T=332, B=4, H=256, seed=5):
+    rng = np.random.default_rng(seed)
+    xg_f = torch.from_numpy(rng.standard_normal((T, B, 4 * H), np.float32))
+    xg_b = torch.from_numpy(rng.standard_normal((T, B, 4 * H), np.float32))
+    w = torch.from_numpy((rng.standard_normal((2, H, 4 * H)) / H ** 0.5)
+                         .astype(np.float32))
+    lens = np.array([T, T - 1, T // 2, 1])[:B]
+    m_f = torch.from_numpy((np.arange(T)[:, None] < lens[None]).astype(
+        np.float32))
+    m_b = torch.flip(m_f, dims=(0,)).contiguous()
+    return xg_f, xg_b, m_f, m_b, w
+
+
+def _max_err(a, b):
+    return max(float((x - y).abs().max()) for x, y in zip(a, b))
+
+
+def test_lstm_3xtf32_within_tolerance():
+    args = _lstm_case()
+    want = tlstm.bidir_lstm_time_loop_plain(*args)
+    got = _lstm_emulated(*args, lambda h, w: matmul_tf32x3(h, w, "rna",
+                                                           "trunc"))
+    assert _max_err(got, want) <= TOL_LSTM
+    assert float(got[0][args[2] == 0].abs().max()) == 0.0   # masked steps
+
+
+def test_lstm_one_tf32_product_is_not_enough():
+    """Why three: hi*hi alone (h and W_hh each rounded once to TF32) drifts
+    past the tolerance over the 332 steps."""
+    args = _lstm_case()
+    want = tlstm.bidir_lstm_time_loop_plain(*args)
+    got = _lstm_emulated(*args, lambda h, w: matmul_tf32x1(h, w, "rna",
+                                                           "rna"))
+    assert _max_err(got, want) > TOL_LSTM

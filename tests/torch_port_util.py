@@ -75,3 +75,53 @@ def pad_batch(wavs, N):
     for i, w in enumerate(wavs):
         mat[i, : len(w)] = w
     return mat, np.array([len(w) for w in wavs], np.int32)
+
+
+def round_tf32(t):
+    """Round f32 to TF32 (10 mantissa bits) to nearest, ties away from zero,
+    as ``cvt.rna.tf32.f32`` does (finite inputs): add half a TF32 ulp to the
+    magnitude bits and clear the 13 bits below it."""
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def trunc_tf32(t):
+    """Truncate f32 to TF32: clear the 13 low mantissa bits."""
+    return (t.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def split_tf32(t, mode):
+    """t = hi + lo (+ what the split drops), both TF32, as the kernels split
+    an operand: ``mode`` "rna" (cvt.rna) or "trunc" (bit mask)."""
+    r = round_tf32 if mode == "rna" else trunc_tf32
+    hi = r(t)
+    return hi, r(t - hi)
+
+
+def matmul_tf32x3(a, b, a_mode="rna", b_mode="rna"):
+    """The kernels' 3xTF32 product in plain torch: the operands split into
+    TF32 hi and lo, and lo*hi + hi*lo + hi*hi summed in f32 (the lo*lo
+    term dropped).  The products of TF32 values are exact in f32."""
+    ah, al = split_tf32(a, a_mode)
+    bh, bl = split_tf32(b, b_mode)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def matmul_tf32x1(a, b, a_mode="rna", b_mode="rna"):
+    """One TF32 product: hi*hi only."""
+    return split_tf32(a, a_mode)[0] @ split_tf32(b, b_mode)[0]
+
+
+def speech_like_wavs(rng, n, seconds, sr=16000):
+    """Seeded speech-like float32 wavs (chip_smoke.py's generator): gliding
+    harmonic tones under noise, with a syllable-rate envelope."""
+    out = []
+    for _ in range(n):
+        t = np.arange(int(seconds * sr)) / sr
+        f0 = rng.uniform(90, 250) * (1 + 0.1 * np.sin(2 * np.pi * 0.7 * t))
+        phase = 2 * np.pi * np.cumsum(f0) / sr
+        x = sum(np.sin(h * phase) / h for h in range(1, 6))
+        env = 0.5 + 0.5 * np.sin(2 * np.pi * rng.uniform(2, 5) * t) ** 2
+        x = 0.2 * env * x + 0.01 * rng.standard_normal(len(t))
+        out.append(np.round(np.clip(x * 32767, -32768, 32767)) / 32768.0)
+    return np.stack(out).astype(np.float32)
