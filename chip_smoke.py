@@ -14,10 +14,17 @@ every phase passed):
 2. hold each kernel against its plain PyTorch twin on the card at the
    main path's shapes (K1 log-mel on [32, 160000] wavs, K2 BiLSTM loop on
    [332, 128, 1024] gates with ragged masks, also timed at B=32 and with
-   its cluster plan (waves), K3 top-k on [2048, 5004] at
-   k=17 with planted ties, NaN, +-inf and all -inf rows, K4 fused logp +
-   top-k on [2048, 5004] logits with step-0 -inf row biases and a NaN
-   row), and time kernel, twin and the nearest single PyTorch call;
+   its cluster plan (waves); K3 top-k at k=17 on [2048, 5004] and
+   [512, 5004] (the stage-1 rows at B=128 and B=32) with planted ties,
+   NaN, +-inf and all -inf rows, beam-like rows, and adversarial rows that
+   put every winner in one lane (which must take the kernel's flat
+   fallback), and on [64, 70000]; K4 fused logp + top-k at both R with
+   step-0 -inf row biases, a NaN row, adversarial rows and rows of
+   exactly tied keys, and on [64, 70000]; each set's fallback rows are
+   printed), and time
+   kernel, twin and the nearest single PyTorch call (K3 and K4 as CUDA
+   graphs of 50 calls, on inputs cycled past the L2; also at one and at
+   four warps a row, at R = 512, 1024 and 2048);
 3. drive the main path: ``ASR(bw=16).transcribe_wavs`` at the flagship
    ``Config()`` with seeded random weights on 32 synthetic 9-10 s int16
    wavs over the flat wire, then greedy on the same batch, then the LM
@@ -32,6 +39,8 @@ every phase passed):
    shard (tests/golden) reproduces its expected transcripts in every
    mode; each wall time is the median of warm runs, and one more warm run
    of each beam path goes under torch.profiler for the device-time split;
+   the B=128 batch is also decoded with the fused and the unfused stage 1,
+   counting the n-best entries and transcripts that differ (report only);
 4. print one ``{"kernels": [...]}`` line and, last, the ok line.
 
 It imports nothing of JAX nor of the JAX package.
@@ -200,9 +209,38 @@ def _profile_main_path(torch, asr, wavs, label: str, wall_ms: float) -> None:
     print(f"profile {label}: kernels busy {busy_ms:.1f} ms in the profiled "
           f"run = {100 * busy_ms / wall_ms:.1f}% of the median warm wall "
           f"{wall_ms:.1f} ms, {sum(e.count for e in rows)} kernel launches")
-    for e in rows[:12]:
+    # the twelve largest, then the port's own kernels further down
+    ours = [e for e in rows[12:] if any(
+        n in e.key for n in ("topk_kernel", "bilstm", "logmel"))]
+    for e in rows[:12] + ours:
         print(f"  {dev_us(e) / 1e3:9.3f} ms  x{e.count:<5d} "
               f"{e.key[:90]}")
+
+
+def _fused_flips(torch, asr, wavs, beam_mod) -> dict:
+    """How often K4 changes the beam: the same batch decoded with the
+    fused and the unfused stage 1, counting the n-best entries (the B x bw
+    live hypotheses at the end and the harvested finished slots) and the
+    transcripts that differ."""
+    feats, lens = asr._featurize(asr._prep(wavs, None))
+    res = [beam_mod.beam_decode(asr.params, asr.cfg, asr.bw, feats, lens,
+                                fused_logp=f) for f in (False, True)]
+    texts = [beam_mod.finalize_best(beam_mod.select_best(
+        r, asr.cfg.decode.length_weight), asr.vocab).pred_text for r in res]
+    a, b = res
+    live = (a.live_tokens != b.live_tokens).any(dim=-1)
+    fin_a, fin_b = torch.isfinite(a.fin_scores), torch.isfinite(b.fin_scores)
+    fin = (fin_a != fin_b) | (fin_a & (a.fin_tokens != b.fin_tokens).any(-1))
+    same_live = ~live
+    return dict(
+        batch=len(wavs), steps=(a.l_final + 1, b.l_final + 1),
+        live_entries=int(live.numel()), live_differ=int(live.sum()),
+        finished_entries=int((fin_a | fin_b).sum()),
+        finished_differ=int(fin.sum()),
+        transcripts_differ=sum(x != y for x, y in zip(*texts)),
+        live_score_max_abs_diff=float(
+            (a.live_scores - b.live_scores)[same_live].abs().max())
+        if bool(same_live.any()) else None)
 
 
 class Failures:
@@ -226,6 +264,7 @@ def main() -> int:
     from chinese_asr_tpu_torch.api import ASR, _identity_vocab
     from chinese_asr_tpu_torch.audio import features
     from chinese_asr_tpu_torch.config import Config
+    from chinese_asr_tpu_torch.decode import beam as beam_mod
     from chinese_asr_tpu_torch.lm import device_ngram as dev_ngram
     from chinese_asr_tpu_torch.lm.device_ngram import DeviceNgramLM
     from chinese_asr_tpu_torch.models import las
@@ -233,6 +272,7 @@ def main() -> int:
     from chinese_asr_tpu_torch.ops.cuda import logmel as logmel_k
     from chinese_asr_tpu_torch.ops.cuda import lstm as lstm_k
     from chinese_asr_tpu_torch.ops.cuda import topk as topk_k
+    from chinese_asr_tpu_torch.tools.timing import cold_cycle, graph_ms
     from chinese_asr_tpu_torch.utils.device import resolve_device
     from chinese_asr_tpu_torch.vocab import Vocab
 
@@ -414,6 +454,45 @@ def main() -> int:
 
     # ---- phase 2c: K3 top-k -------------------------------------------------
     R, V, k = 2048, 5004, 17
+    R32 = 512                       # the stage-1 rows at B=32, bw 16
+    fb = torch.zeros(2, dtype=torch.int32, device=dev)
+
+    def fallbacks(fn, *args, **kw):
+        """Run one kernel call with the fallback counters; (result, rows
+        that took the flat extraction, K4's rows read again by their
+        keys)."""
+        fb.zero_()
+        out = fn(*args, fallbacks=fb, **kw)
+        flat, again = fb.tolist()
+        return out, flat, again
+
+    def same_topk(a, b):
+        return (torch.equal(a[1], b[1])
+                and torch.equal(torch.isnan(a[0]), torch.isnan(b[0]))
+                and torch.equal(torch.nan_to_num(a[0]),
+                                torch.nan_to_num(b[0])))
+
+    def beam_rows(rows):
+        # stage 1's unfused input: log-softmax of 3 randn logits plus a
+        # score, 15 of every 16 rows -inf (step 0)
+        lg = 3 * torch.randn(rows, V, device=dev, generator=g)
+        lp = (lg - torch.logsumexp(lg, dim=1, keepdim=True)
+              - 20 * torch.rand(rows, 1, device=dev, generator=g))
+        lp.view(rows // 16, 16, V)[:, 1:] = float("-inf")
+        return lp
+
+    def lane0_cols(rows):
+        # k columns that thread 0 of a row streams (float4 t + j * 32W)
+        W = topk_k.plan(rows, V, k)["warps_per_row"]
+        return [4 * (j * 32 * W) + i for j in range(5) for i in range(4)][:k]
+
+    plans = {rows: topk_k.plan(rows, V, k) for rows in (R, R32)}
+    for rows, p in plans.items():
+        print(f"  K3/K4 plan at [{rows}, {V}] k={k}: {p}", flush=True)
+    fails.check(plans[R]["warps_per_row"] == 1
+                and plans[R32]["warps_per_row"] == 4,
+                "K3/K4 plan: one warp a row at R=2048, four at R=512")
+    fb_counts = {}
     x = torch.randn(R, V, device=dev, generator=g)
     x[0, [3, 17, 29, 4000]] = 9.0              # 4-way tie at the top
     x[1, 7] = float("nan")
@@ -440,84 +519,215 @@ def main() -> int:
     fails.check(all(torch.equal(a, b) for a, b in
                     zip(topk_k.top_k(small, 17), topk_k.top_k_plain(small, 17))),
                 "K3 top-k [64,1000] k=17 exact")
-    xr = torch.randn(R, V, device=dev, generator=g)
+    # the same planted rows at B=32's R, and rows past what a block's
+    # shared memory could hold (V = 70000)
+    fails.check(same_topk(topk_k.top_k(x[:R32].contiguous(), k),
+                          topk_k.top_k_plain(x[:R32], k)),
+                f"K3 top-k [{R32},{V}] k={k} exact (planted rows)")
+    wide = torch.randn(64, 70000, device=dev, generator=g).round()
+    wide[0, 35000] = float("nan")
+    wide[1] = float("-inf")
+    fails.check(same_topk(topk_k.top_k(wide, k),
+                          topk_k.top_k_plain(wide, k)),
+                f"K3 top-k [64,70000] k={k} exact")
+    del wide
+    for rows in (R, R32):
+        for kind, xs in (("beam-like", beam_rows(rows)),
+                         ("randn", torch.randn(rows, V, device=dev,
+                                               generator=g))):
+            got, n, _ = fallbacks(topk_k.top_k, xs, k)
+            fb_counts[f"K3 {kind} [{rows},{V}]"] = n
+            fails.check(same_topk(got, topk_k.top_k_plain(xs, k)),
+                        f"K3 {kind} [{rows},{V}] k={k}: exact, {n} of "
+                        f"{rows} rows fell back")
+        xs = torch.randn(rows, V, device=dev, generator=g)
+        cols = lane0_cols(rows)
+        xs[:, cols] = 10 + torch.rand(rows, k, device=dev, generator=g)
+        xs[1, cols] = 10.0
+        got, n, _ = fallbacks(topk_k.top_k, xs, k)
+        fb_counts[f"K3 adversarial [{rows},{V}]"] = n
+        fails.check(same_topk(got, topk_k.top_k_plain(xs, k)) and n == rows,
+                    f"K3 adversarial [{rows},{V}] (all {k} winners in one "
+                    f"lane): exact, {n} of {rows} rows fell back")
+    # device times (CUDA graphs) on randn rows, cycling through inputs that
+    # together overflow the L2 (each call reads its rows from HBM); ms_l2
+    # repeats one input; ms_eager is an eager loop, the wrapper's host cost
+    # included
+    xr = cold_cycle(lambda: torch.randn(R, V, device=dev, generator=g),
+                    4 * R * V)
+    xr32 = cold_cycle(lambda: torch.randn(R32, V, device=dev, generator=g),
+                      4 * R32 * V)
     bound, by = _bound_ms(4 * R * V + 8 * R * k, R * V)
+    bound32, _ = _bound_ms(4 * R32 * V + 8 * R32 * k, R32 * V)
+    x1 = xr()
     kernels["topk"] = dict(
         name="K3 exact top-k", route="cuda",
         source="chinese_asr_tpu_torch/csrc/topk.cu",
         replaces="chinese_asr_tpu/ops/pallas/topk.py:277",
         max_abs_err=0.0 if (same_nan and same_v) else float("nan"),
-        ms=_time_ms(torch, lambda: topk_k.top_k(xr, k), 50),
-        plain_ms=_time_ms(torch, lambda: topk_k.top_k_plain(xr, k), 20),
+        ms=graph_ms(lambda: topk_k.top_k(xr(), k)),
+        plain_ms=_time_ms(torch, lambda: topk_k.top_k_plain(xr(), k), 20),
         bound_ms=bound, bound_by=by,
-        library_ms=_time_ms(torch, lambda: torch.topk(xr, k, dim=1), 50),
-        shape=f"[{R}, {V}] k={k}")
-    del x, xr, small
+        library_ms=graph_ms(lambda: torch.topk(xr(), k, dim=1)),
+        ms_l2=graph_ms(lambda: topk_k.top_k(x1, k)),
+        ms_eager=_time_ms(torch, lambda: topk_k.top_k(xr(), k), 50),
+        ms_r512=graph_ms(lambda: topk_k.top_k(xr32(), k)),
+        bound_ms_r512=bound32,
+        library_ms_r512=graph_ms(lambda: torch.topk(xr32(), k, dim=1)),
+        warps_per_row=plans[R]["warps_per_row"],
+        warps_per_row_r512=plans[R32]["warps_per_row"],
+        shape=f"[{R}, {V}] k={k}; *_r512 at [{R32}, {V}]")
+    del x, xr, xr32, x1, small
 
-    # ---- phase 2d: K4 fused logp + top-k ---------------------------------------
+    # ---- phase 2d: K4 fused logp + top-k ------------------------------------
     temp = Config().decoder.temperature
-    logit = 3 * torch.randn(R, V, device=dev, generator=g)
-    # beam scores; step 0 disables beams kk > 0 of each group of 16
-    bias = -20 * torch.rand(R, 1, device=dev, generator=g)
-    bias.view(R // 16, 16)[:, 1:] = float("-inf")
-    logit[32, 100] = float("nan")                  # poisons row 32's lse
-    logit[33, 7] = float("nan")                    # ...but row 33 is -inf
-    bias_t = -20 * torch.rand(R, 1, device=dev, generator=g)   # steps > 0
     err4 = 0.0
-    for step, bb in (("step 0", bias), ("step > 0", bias_t)):
-        vk, ik = topk_k.top_k_fused(logit, bb, k, temp)
-        vp, ip = topk_k.top_k_fused_plain(logit, bb, k + 1, temp)
-        exact = (bb[:, 0] == float("-inf")) | torch.isnan(logit).any(dim=1)
-        sep = exact | (vp[:, :-1] - vp[:, 1:] > TOL_FUSED).all(dim=1)
-        vp, ip = vp[:, :k], ip[:, :k]
-        same_special = (torch.equal(torch.isnan(vk), torch.isnan(vp))
-                        and torch.equal(torch.isinf(vk), torch.isinf(vp)))
-        fin = torch.isfinite(vp)
-        err = float((vk[fin] - vp[fin]).abs().max())
+    for rows in (R, R32):
+        logit = 3 * torch.randn(rows, V, device=dev, generator=g)
+        # beam scores; step 0 disables beams kk > 0 of each group of 16
+        bias = -20 * torch.rand(rows, 1, device=dev, generator=g)
+        bias.view(rows // 16, 16)[:, 1:] = float("-inf")
+        logit[32, 100] = float("nan")              # poisons row 32's lse
+        logit[33, 7] = float("nan")                # ...but row 33 is -inf
+        bias_t = -20 * torch.rand(rows, 1, device=dev, generator=g)
+        for step, bb in (("step 0", bias), ("step > 0", bias_t)):
+            (vk, ik), n, again = fallbacks(topk_k.top_k_fused, logit, bb, k,
+                                           temp)
+            fb_counts[f"K4 beam-like {step} [{rows},{V}]"] = [n, again]
+            vp, ip = topk_k.top_k_fused_plain(logit, bb, k + 1, temp)
+            exact = (bb[:, 0] == float("-inf")) | torch.isnan(logit).any(dim=1)
+            sep = exact | (vp[:, :-1] - vp[:, 1:] > TOL_FUSED).all(dim=1)
+            vp, ip = vp[:, :k], ip[:, :k]
+            same_special = (torch.equal(torch.isnan(vk), torch.isnan(vp))
+                            and torch.equal(torch.isinf(vk), torch.isinf(vp)))
+            fin = torch.isfinite(vp)
+            err = float((vk[fin] - vp[fin]).abs().max())
+            err4 = max(err4, err)
+            fails.check(same_special and err <= TOL_FUSED
+                        and torch.equal(ik[sep], ip[sep])
+                        and torch.equal(vk[exact].nan_to_num(),
+                                        vp[exact].nan_to_num()),
+                        f"K4 fused top-k [{rows},{V}] k={k} T={temp} ({step}):"
+                        f" values within {err:.3g} <= {TOL_FUSED}, indices "
+                        f"equal on {int(sep.sum())} of {rows} separated or "
+                        f"exact rows; {n} rows fell back, {again} read "
+                        f"again")
+            if step == "step 0":
+                fails.check(bool(torch.isnan(vk[32]).all())
+                            and bool((vk[33] == float("-inf")).all())
+                            and ik[33].tolist() == list(range(k)),
+                            "K4: a NaN logit makes its row NaN; a -inf bias "
+                            "wins over it")
+        # all 17 winners in one lane's columns: the flat extraction
+        adv = 3 * torch.randn(rows, V, device=dev, generator=g)
+        adv[:, lane0_cols(rows)] = 30 + torch.rand(rows, k, device=dev,
+                                                   generator=g)
+        (vk, ik), n, again = fallbacks(topk_k.top_k_fused, adv, bias_t, k,
+                                       temp)
+        fb_counts[f"K4 adversarial [{rows},{V}]"] = [n, again]
+        vp, ip = topk_k.top_k_fused_plain(adv, bias_t, k + 1, temp)
+        sep = (vp[:, :-1] - vp[:, 1:] > TOL_FUSED).all(dim=1)
+        err = float((vk - vp[:, :k]).abs().max())
         err4 = max(err4, err)
-        fails.check(same_special and err <= TOL_FUSED
-                    and torch.equal(ik[sep], ip[sep])
-                    and torch.equal(vk[exact].nan_to_num(),
-                                    vp[exact].nan_to_num()),
-                    f"K4 fused top-k [{R},{V}] k={k} T={temp} ({step}): "
-                    f"values within {err:.3g} <= {TOL_FUSED}, indices equal "
-                    f"on {int(sep.sum())} of {R} separated or exact rows")
-        if step == "step 0":
-            fails.check(bool(torch.isnan(vk[32]).all())
-                        and bool((vk[33] == float("-inf")).all())
-                        and ik[33].tolist() == list(range(k)),
-                        "K4: a NaN logit makes its row NaN; a -inf bias "
-                        "wins over it")
+        fails.check(n == rows and again == rows and err <= TOL_FUSED
+                    and torch.equal(ik[sep], ip[sep, :k]),
+                    f"K4 adversarial [{rows},{V}]: {again} of {rows} rows "
+                    f"read again, {n} fell back, values within {err:.3g}, "
+                    f"indices equal on {int(sep.sum())} separated rows")
+        # lse exactly 0 (one logit 0, the rest <= -200) under a bias of
+        # 1e4: key = fl(x + 1e4) ties many x; the lower column must win
+        eq = -201 + torch.rand(rows, V, device=dev, generator=g)
+        eq[:, 1234] = 0.0
+        big = torch.full((rows, 1), 1e4, device=dev)
+        (vk, ik), n, again = fallbacks(topk_k.top_k_fused, eq, big, k, temp)
+        fb_counts[f"K4 equal keys [{rows},{V}]"] = [n, again]
+        vp, ip = topk_k.top_k_fused_plain(eq, big, k, temp)
+        fails.check(torch.equal(vk, vp) and torch.equal(ik, ip),
+                    f"K4 equal keys [{rows},{V}] (~{len(torch.unique(vp[0]))} "
+                    f"distinct keys in a row's top {k}): exact, {n} rows fell "
+                    f"back, {again} read again")
+        del adv, eq, big
+    # rows past what a block's shared memory could hold
+    wide = 3 * torch.randn(64, 70000, device=dev, generator=g)
+    wb = -20 * torch.rand(64, 1, device=dev, generator=g)
+    vk, ik = topk_k.top_k_fused(wide, wb, k, temp)
+    vp, ip = topk_k.top_k_fused_plain(wide, wb, k + 1, temp)
+    sep = (vp[:, :-1] - vp[:, 1:] > TOL_FUSED).all(dim=1)
+    err = float((vk - vp[:, :k]).abs().max())
+    err4 = max(err4, err)
+    fails.check(err <= TOL_FUSED and torch.equal(ik[sep], ip[sep, :k]),
+                f"K4 fused top-k [64,70000] k={k}: values within {err:.3g}, "
+                f"indices equal on {int(sep.sum())} separated rows")
+    print("  fallback rows per set: " + json.dumps(fb_counts), flush=True)
+    del logit, bias, bias_t, wide, wb
 
-    def unfused():
+    def unfused(lg, b):
         # the beam's stage 1 without K4: the logp transform, then K3
-        lg = logit / temp
-        lp = lg - torch.logsumexp(lg, dim=1, keepdim=True) + bias_t
+        lg = lg / temp
+        lp = lg - torch.logsumexp(lg, dim=1, keepdim=True) + b
         return topk_k.top_k(lp, k)
 
-    def library_fused():
-        lg = logit / temp
+    def library_fused(lg, b):
+        lg = lg / temp
         return torch.topk(lg - torch.logsumexp(lg, dim=1, keepdim=True)
-                          + bias_t, k, dim=1)
+                          + b, k, dim=1)
+
+    def fused_inputs(rows):
+        return (3 * torch.randn(rows, V, device=dev, generator=g),
+                -20 * torch.rand(rows, 1, device=dev, generator=g))
 
     # the function needs the logits read once, the bias read and the top-k
     # written; per element the divide, the max, the subtract, exp and add
     # of the logsumexp, the key's subtract and add, and one compare
     bound, by = _bound_ms(4 * (R * V + R) + 8 * R * k, 8 * R * V)
+    bound32, _ = _bound_ms(4 * (R32 * V + R32) + 8 * R32 * k, 8 * R32 * V)
+    lr = cold_cycle(lambda: fused_inputs(R), 4 * R * V)
+    lr32 = cold_cycle(lambda: fused_inputs(R32), 4 * R32 * V)
     kernels["topk_fused"] = dict(
         name="K4 fused logp + top-k", route="cuda",
         source="chinese_asr_tpu_torch/csrc/topk.cu",
         replaces="chinese_asr_tpu/ops/pallas/topk.py:416",
         max_abs_err=err4,
-        ms=_time_ms(torch, lambda: topk_k.top_k_fused(logit, bias_t, k,
-                                                      temp), 50),
+        ms=graph_ms(lambda: topk_k.top_k_fused(*lr(), k, temp)),
         plain_ms=_time_ms(torch, lambda: topk_k.top_k_fused_plain(
-            logit, bias_t, k, temp), 20),
+            *lr(), k, temp), 20),
         bound_ms=bound, bound_by=by,
-        library_ms=_time_ms(torch, library_fused, 50),
-        unfused_k3_ms=_time_ms(torch, unfused, 50),
-        shape=f"logit [{R}, {V}], bias [{R}, 1] k={k}")
-    del logit, bias, bias_t
+        library_ms=graph_ms(lambda: library_fused(*lr())),
+        unfused_k3_ms=graph_ms(lambda: unfused(*lr())),
+        ms_eager=_time_ms(torch, lambda: topk_k.top_k_fused(*lr(), k, temp),
+                          50),
+        ms_r512=graph_ms(lambda: topk_k.top_k_fused(*lr32(), k, temp)),
+        bound_ms_r512=bound32,
+        library_ms_r512=graph_ms(lambda: library_fused(*lr32())),
+        unfused_k3_ms_r512=graph_ms(lambda: unfused(*lr32())),
+        fallback_rows=fb_counts,
+        shape=f"logit [{R}, {V}], bias [{R}, 1] k={k}; *_r512 at [{R32}, "
+              f"{V}]")
+    del lr, lr32
+
+    # warps per row: K3 and K4 at W = 1 and 4 on both sides of plan()'s
+    # switch, each capture made with plan()'s choice set to that W
+    def graph_ms_at(W, fn):
+        plan = topk_k.plan
+        topk_k.plan = lambda *a: {**plan(*a), "warps_per_row": W}
+        try:
+            return graph_ms(fn)
+        finally:
+            topk_k.plan = plan
+
+    for rows in (R32, topk_k.ONE_WARP_ROWS, R):
+        xs = cold_cycle(lambda: torch.randn(rows, V, device=dev, generator=g),
+                        4 * rows * V)
+        ls = cold_cycle(lambda: fused_inputs(rows), 4 * rows * V)
+        for name, fn in (("topk", lambda: topk_k.top_k(xs(), k)),
+                         ("topk_fused",
+                          lambda: topk_k.top_k_fused(*ls(), k, temp))):
+            ms = {W: graph_ms_at(W, fn) for W in (1, 4)}
+            kernels[name].setdefault("ms_by_warps_per_row", {})[rows] = ms
+            print(f"  {name} [{rows},{V}] ms at 1 / 4 warps a row: "
+                  f"{ms[1]:.4f} / {ms[4]:.4f} (plan: "
+                  f"{topk_k.plan(rows, V, k)['warps_per_row']})", flush=True)
+        del xs, ls
 
     # ---- phase 3: main path --------------------------------------------------
     cfg = Config()
@@ -625,6 +835,11 @@ def main() -> int:
           f"transcripts differ (report only: the fused logsumexp is summed "
           f"in another order, which can flip near-tied survivors)",
           flush=True)
+    paths["fused_flips_b128"] = _fused_flips(
+        torch, next(a for m, a, *_ in runs_spec if m == "beam_bw16_b128"),
+        wavs128, beam_mod)
+    print(f"beam_bw16_b128, stage 1 fused vs unfused (report only): "
+          f"{json.dumps(paths['fused_flips_b128'])}", flush=True)
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
           f" GiB", flush=True)
     for mode, asr, batch, fused, _ in runs_spec:

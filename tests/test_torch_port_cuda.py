@@ -116,9 +116,14 @@ def test_lstm_kernel_edge_shapes(dev, T, B, H):
     assert plan["waves"] == 1
 
 
-@pytest.mark.parametrize("R,V,k", [(1, 1, 1), (7, 33, 33), (300, 5004, 17),
-                                   (5, 70000, 3)])
-def test_topk_kernel_matches_twin_exactly(dev, R, V, k):
+@pytest.mark.parametrize("R,V,k,W", [(1, 1, 1, 1), (7, 33, 33, 1),
+                                     (300, 5004, 17, 4), (5, 70000, 3, 4),
+                                     (1024, 5004, 17, 1),
+                                     # V % 4 != 0: single-column loads
+                                     (300, 5003, 17, 4),
+                                     (1100, 5003, 17, 1)])
+def test_topk_kernel_matches_twin_exactly(dev, R, V, k, W):
+    assert ttopk.plan(R, V, k)["warps_per_row"] == W
     g = torch.Generator(device=dev).manual_seed(R + V)
     x = torch.randn(R, V, device=dev, generator=g).round()   # many ties
     x[0, V // 2] = float("nan")
@@ -126,15 +131,51 @@ def test_topk_kernel_matches_twin_exactly(dev, R, V, k):
         x[1, :] = float("-inf")
         x[2, :] = float("nan")
         x[3, 0] = float("inf")
-    if V > 56000:
-        with pytest.raises(ValueError):
-            ttopk.top_k(x, k)
-        return
+    # any V: 70000 is past what a block's shared memory could hold
     vk, ik = ttopk.top_k(x, k)
     vp, ip = ttopk.top_k_plain(x, k)
     assert torch.equal(ik, ip)
     assert torch.equal(torch.isnan(vk), torch.isnan(vp))
     assert torch.equal(torch.nan_to_num(vk), torch.nan_to_num(vp))
+
+
+def _assert_topk_exact(got, want):
+    assert torch.equal(got[1], want[1])
+    assert torch.equal(torch.isnan(got[0]), torch.isnan(want[0]))
+    assert torch.equal(torch.nan_to_num(got[0]), torch.nan_to_num(want[0]))
+
+
+def _lane0_cols(W, k):
+    """k columns that thread 0 of a row streams (float4 t + j * 32W)."""
+    return [4 * (j * 32 * W) + i for j in range(-(-k // 4))
+            for i in range(4)][:k]
+
+
+@pytest.mark.parametrize("R,W", [(2048, 1), (512, 4)])
+def test_topk_kernel_main_path_shapes(dev, R, W):
+    """The beam's stage 1 at B=128 and B=32 (bw 16): beam-like rows (a
+    log-softmax plus a score, 15 of 16 rows -inf at step 0) and random
+    rows are exact and take no fallback; all 17 winners in one lane's
+    columns fall back and stay exact."""
+    V, k = 5004, 17
+    assert ttopk.plan(R, V, k)["warps_per_row"] == W
+    g = torch.Generator(device=dev).manual_seed(R)
+    lg = 3 * torch.randn(R, V, device=dev, generator=g)
+    lp = lg - torch.logsumexp(lg, dim=1, keepdim=True) \
+        - 20 * torch.rand(R, 1, device=dev, generator=g)
+    lp.view(R // 16, 16, V)[:, 1:] = float("-inf")
+    fb = torch.zeros(2, dtype=torch.int32, device=dev)
+    for x in (lp, torch.randn(R, V, device=dev, generator=g)):
+        _assert_topk_exact(ttopk.top_k(x, k, fallbacks=fb),
+                           ttopk.top_k_plain(x, k))
+    assert fb.tolist() == [0, 0]
+    x = torch.randn(R, V, device=dev, generator=g)
+    x[:, _lane0_cols(W, k)] = 10 + torch.rand(R, k, device=dev, generator=g)
+    x[1, _lane0_cols(W, k)] = 10.0                   # tied as well
+    before = ttopk.launches
+    _assert_topk_exact(ttopk.top_k(x, k, fallbacks=fb),
+                       ttopk.top_k_plain(x, k))
+    assert ttopk.launches == before + 1 and fb.tolist() == [R, 0]
 
 
 def _fused_case(dev, R, V, seed):
@@ -164,11 +205,18 @@ def _assert_fused_close(got, want, tol):
     assert torch.equal(ik[sep], ip[sep])
 
 
-@pytest.mark.parametrize("R,V,k,temp", [(1, 1, 1, 1.0), (1, 33, 5, 0.7),
-                                        (40, 97, 97, 1.0),
-                                        (64, 5004, 17, 1.0),
-                                        (16, 1000, 9, 1.3)])
-def test_fused_topk_kernel_matches_twin(dev, R, V, k, temp):
+@pytest.mark.parametrize("R,V,k,temp,W", [(1, 1, 1, 1.0, 1),
+                                          (1, 33, 5, 0.7, 1),
+                                          (40, 97, 97, 1.0, 1),
+                                          (64, 5004, 17, 1.0, 4),
+                                          (16, 1000, 9, 1.3, 1),
+                                          (6, 70000, 3, 1.0, 4),
+                                          (1024, 5004, 17, 1.0, 1),
+                                          # single-column loads
+                                          (300, 5003, 17, 0.7, 4),
+                                          (1100, 5003, 17, 1.0, 1)])
+def test_fused_topk_kernel_matches_twin(dev, R, V, k, temp, W):
+    assert ttopk.plan(R, V, k)["warps_per_row"] == W
     logit, bias = _fused_case(dev, R, V, seed=R * V + k)
     before = (ttopk.launches, ttopk.fused_launches)
     got = ttopk.top_k_fused(logit, bias, k, temp)
@@ -181,6 +229,33 @@ def test_fused_topk_kernel_matches_twin(dev, R, V, k, temp):
         assert (got[0][1] == float("-inf")).all()      # -inf bias wins
         assert got[1][1].tolist() == list(range(k))
         assert (got[0][5] == float("-inf")).all()      # ...even over NaN
+
+
+@pytest.mark.parametrize("R", [2048, 512])
+def test_fused_topk_exhausted_lanes_and_equal_keys(dev, R):
+    """K4 at the main path's shapes: winners in one lane's columns are
+    read again by their keys, then take the flat extraction (within 1e-5,
+    indices exact where separated); rows whose lse is exactly 0 under a
+    bias of 1e4 tie many keys, and the lower column wins exactly as in
+    the twin."""
+    V, k = 5004, 17
+    W = ttopk.plan(R, V, k)["warps_per_row"]
+    g = torch.Generator(device=dev).manual_seed(R + 1)
+    logit = 3 * torch.randn(R, V, device=dev, generator=g)
+    logit[:, _lane0_cols(W, k)] = 30 + torch.rand(R, k, device=dev,
+                                                  generator=g)
+    bias = -20 * torch.rand(R, 1, device=dev, generator=g)
+    fb = torch.zeros(2, dtype=torch.int32, device=dev)
+    _assert_fused_close(ttopk.top_k_fused(logit, bias, k, fallbacks=fb),
+                        ttopk.top_k_fused_plain(logit, bias, k), 1e-5)
+    assert fb.tolist() == [R, R]
+    eq = -201 + torch.rand(R, V, device=dev, generator=g)
+    eq[:, 1234] = 0.0
+    bias = torch.full((R, 1), 1e4, device=dev)
+    got = ttopk.top_k_fused(eq, bias, k)
+    want = ttopk.top_k_fused_plain(eq, bias, k)
+    assert len(torch.unique(want[0][0])) < 8          # the keys do tie
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 def test_fused_topk_all_rows_disabled(dev):
