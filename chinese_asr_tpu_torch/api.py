@@ -6,14 +6,18 @@
      -- on the device by default (``decode/rescore.py``: the n-gram
      tables live on ``device``, the beam tracks LM totals and the winner
      is picked there); ``lm_mode="second_host"`` rescores the n-best on
-     the host (the oracle)
+     the host through the C++ LM (the oracle)
+  4. LM-driven first pass   ASR(..., lm_mode="first")     the n-gram LM
+     on the device picks the tokens among the decoder's top-``lm_topn``
+     proposals (``decode/lm_fused.py``)
+
+The LM is an ARPA text file or a KenLM binary (``.klm``), read by the C++
+reader of ``lm/ngram.py`` in every mode.
 
 wav read + peak scale (in-process ``sox --norm=-1``) -> upload over the
 flat (default) or padded wire -> featurization with per-utterance
 instance norm (eps 1e-6, reference main.py:37) -> greedy/beam decode ->
 winner picked on the device (or by the host rescorer) -> host detokenize.
-The LM-driven first pass (``lm_mode="first"``) and KenLM binary LMs come
-with a later slice.
 
 Runs on ``cuda`` unless the caller passes ``device="cpu"``; without a GPU
 and without an explicit device the constructor raises.
@@ -31,6 +35,7 @@ from .config import Config
 from .data import audio_io
 from .decode import beam as beam_mod
 from .decode import greedy as greedy_mod
+from .decode import lm_fused as lm_fused_mod
 from .decode import rescore as rescore_mod
 from .lm import ngram
 from .lm.device_ngram import DeviceNgramLM
@@ -63,20 +68,19 @@ class ASR:
                  wire: str = "flat",
                  mesh=None,
                  lm_mode: str = "second",
+                 lm_topn: int = 20,
                  device: Union[str, torch.device, None] = None,
                  seed: int = 0):
         """``wire``: "flat" ships exactly sum(lens) samples and expands to
         the padded layout on the device (lossless); "padded" ships the
         zero-padded [B, N] matrix.  Without ``ckpt_path`` the weights are
-        random, drawn from ``seed``.  The LM (an ARPA text file) loads
-        only for beam widths > 1 (main.py:78-84)."""
+        random, drawn from ``seed``.  The LM (ARPA text or ``.klm``) loads
+        only for beam widths > 1 (main.py:78-84); ``lm_topn`` is the
+        number of proposals per beam of ``lm_mode="first"``."""
         if lm_mode not in ("second", "second_host", "first"):
             raise ValueError(f"lm_mode={lm_mode!r}: one of second, "
                              f"second_host, first")
         use_lm = bool(lm_path and bw and bw > 1)
-        if use_lm and lm_mode == "first":
-            raise NotImplementedError(f"the LM-driven first pass "
-                                      f"(lm_mode='first') {_LATER}")
         if mesh is not None:
             raise NotImplementedError(f"multi-device decoding {_LATER}")
         if compute_dtype != "float32":
@@ -87,6 +91,8 @@ class ASR:
         self.device = resolve_device(device)
         self.cfg = cfg or Config()
         self.bw = bw
+        self.lm_mode = lm_mode
+        self.lm_topn = lm_topn
         self.wav_bucket = wav_bucket
         self.wire = wire
         if isinstance(vocab, str):
@@ -97,12 +103,13 @@ class ASR:
             self.vocab = _identity_vocab(self.cfg.vocab.vocab_size)
 
         # "second": the tables on the device, LM totals tracked by the
-        # beam, the winner picked there; "second_host": the host rescorer
+        # beam, the winner picked there; "second_host": the host rescorer;
+        # "first": the tables on the device drive the search
         self.lm = ngram.load_lm(lm_path) \
             if (use_lm and lm_mode == "second_host") else None
         self.dlm = self.tok2lm = None
         self._lm_bos = self._lm_eos = None
-        if use_lm and lm_mode == "second":
+        if use_lm and lm_mode in ("second", "first"):
             self.dlm = DeviceNgramLM.from_path(lm_path, self.device)
             self.tok2lm = torch.from_numpy(
                 self.dlm.token_id_table(self.vocab)).to(self.device,
@@ -191,7 +198,11 @@ class ASR:
                                            feat_lens)
             return greedy_mod.finalize_greedy(res, self.vocab).pred_text
         dcfg = self.cfg.decode
-        if self.dlm is not None:
+        if self.dlm is not None and self.lm_mode == "first":
+            best = lm_fused_mod.lm_fused_decode_best(
+                self.params, self.cfg, self.bw, feats, feat_lens, self.dlm,
+                self.tok2lm, self.lm_topn)
+        elif self.dlm is not None:
             best = rescore_mod.beam_rescored_best(
                 self.params, self.cfg, self.bw, feats, feat_lens, self.dlm,
                 self.tok2lm, dcfg.lm_weight, dcfg.length_weight,
@@ -260,12 +271,13 @@ def main(argv: Optional[List[str]] = None) -> None:
                     "(chinese_asr_tpu.v1 .ckpt or reference torch .ckpt); "
                     "random weights when omitted")
     ap.add_argument("--vocab", default=None, help="dict.pkl path")
-    ap.add_argument("--lm", default=None, help="n-gram LM path (ARPA text)")
+    ap.add_argument("--lm", default=None, help="n-gram LM path "
+                    "(ARPA text or KenLM binary .klm)")
     ap.add_argument("--lm-mode", default="second",
                     choices=("second", "second_host", "first"),
                     help="second: n-best rescore on the device; "
                          "second_host: n-best rescore on the host; first: "
-                         "the LM-driven first pass (a later slice)")
+                         "the LM-driven first pass on the device")
     ap.add_argument("--bw", type=int, default=None, help="beam width")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")

@@ -32,6 +32,7 @@ from ..lm import device_ngram as dev_lm
 from ..models import decoder as dec_ops
 from ..models import las
 from ..ops.cuda import topk as topk_k
+from ..ops.metrics import cer
 from .greedy import EvalOutput
 
 
@@ -274,14 +275,25 @@ def beam_decode_best(params, cfg: Config, bw: int, feats,
                        cfg.decode.length_weight)
 
 
-def finalize_best(best: BestResult, vocab) -> EvalOutput:
-    """Host detokenization of a device-selected ``BestResult``."""
+def _with_cer(pred_text, score, vocab, text) -> EvalOutput:
+    """The output rows, with the reference texts (token ids or strings)
+    and the mean CER against them when ``text`` is given."""
+    if text is None:
+        return EvalOutput(pred_text, score)
+    ref_text = [t if isinstance(t, str) else vocab.decode(t) for t in text]
+    wer = float(np.mean([cer(p, r) for p, r in zip(pred_text, ref_text)]))
+    return EvalOutput(pred_text, score, ref_text, wer)
+
+
+def finalize_best(best: BestResult, vocab, text=None) -> EvalOutput:
+    """Host detokenization of a device-selected ``BestResult``; with
+    ``text`` (reference texts) also the mean CER."""
     tokens = best.tokens.cpu().numpy()
     lens = best.lens.cpu().numpy()
     scores = best.scores.cpu().numpy()
-    return EvalOutput(
+    return _with_cer(
         [vocab.decode(tokens[b, : lens[b]]) for b in range(tokens.shape[0])],
-        [float(s) for s in scores])
+        [float(s) for s in scores], vocab, text)
 
 
 def compact_nbest(res: BeamResult, bucket: int = 32) -> BeamResult:
@@ -305,8 +317,9 @@ def compact_nbest(res: BeamResult, bucket: int = 32) -> BeamResult:
                         fin_scores=res.fin_scores[rows, order])
 
 
-def finalize_beam(res: BeamResult, cfg: Config, vocab, lm_model=None,
-                  second_pass: bool = False, lm_weight: float = 0.0,
+def finalize_beam(res: BeamResult, cfg: Config, vocab, text=None,
+                  lm_model=None, second_pass: bool = False,
+                  lm_weight: float = 0.0,
                   length_weight: float = 0.0) -> EvalOutput:
     """Host finalization (reference parse_finished_tensors, model.py:
     708-765, and the never-finished fallback, 961-972): per sample the
@@ -317,9 +330,10 @@ def finalize_beam(res: BeamResult, cfg: Config, vocab, lm_model=None,
     reported; a sample with nothing finished takes the best live beam by
     ``logp + length_weight * (l_final + 1)``.
 
-    The LM goes through its string path (``PyNgramLM.score``).  The JAX
-    version's reference-text CER branch waits for the port of
-    ``ops/metrics.py``, and its zero-string path for the C++ scorer."""
+    A C++-backed ``NgramLM`` (``has_batch_states``) scores every
+    hypothesis in one call over LM word ids (``score_batch_ids``, no
+    strings); any other LM goes through its string path.  With ``text``
+    (reference texts) the output also carries the mean CER."""
     fin_tokens = res.fin_tokens.cpu().numpy()
     fin_lens = res.fin_lens.cpu().numpy()
     fin_scores = res.fin_scores.cpu().numpy()
@@ -335,10 +349,22 @@ def finalize_beam(res: BeamResult, cfg: Config, vocab, lm_model=None,
     if second_pass and valid.any():
         vb, vs = np.nonzero(valid)                    # flat slot coordinates
         lens_v = fin_lens[vb, vs]
-        sents = [" ".join(vocab.int2word[i]
-                          for i in fin_tokens[b, s, : fin_lens[b, s]])
-                 for b, s in zip(vb, vs)]
-        lm_all = np.asarray([lm_model.score(s, bos=True) for s in sents])
+        if getattr(lm_model, "has_batch_states", False):
+            # token ids -> LM word ids through a cached table, every
+            # hypothesis scored in ONE FFI call
+            table = lm_model.token_id_table(vocab)
+            toks = fin_tokens[vb, vs]                 # [N, max_len]
+            pos = np.arange(toks.shape[1])[None, :] < lens_v[:, None]
+            offsets = np.zeros(len(vb) + 1, np.int64)
+            np.cumsum(lens_v, out=offsets[1:])
+            lm_all = lm_model.score_batch_ids(table[toks[pos]], offsets,
+                                              bos=True)
+        else:
+            sents = [" ".join(vocab.int2word[i]
+                              for i in fin_tokens[b, s, : fin_lens[b, s]])
+                     for b, s in zip(vb, vs)]
+            lm_all = np.asarray([lm_model.score(s, bos=True)
+                                 for s in sents])
         sel = np.full((B, cap), -np.inf)
         sel[vb, vs] = (fin_scores[vb, vs] + lm_weight * lm_all
                        + length_weight * lens_v)
@@ -357,5 +383,5 @@ def finalize_beam(res: BeamResult, cfg: Config, vocab, lm_model=None,
             j = int(np.argmax(act))
             outputs.append((live_tokens[b, j, : l_final + 1].tolist(),
                             float(act[j])))
-    return EvalOutput([vocab.decode(ids) for ids, _ in outputs],
-                      [s for _, s in outputs])
+    return _with_cer([vocab.decode(ids) for ids, _ in outputs],
+                     [s for _, s in outputs], vocab, text)

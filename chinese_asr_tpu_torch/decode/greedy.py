@@ -12,7 +12,7 @@ sample contribute nothing; ``final_lens`` counts tokens before eos.
 
 from __future__ import annotations
 
-from typing import List, NamedTuple
+from typing import List, NamedTuple, Optional
 
 import torch
 
@@ -76,6 +76,8 @@ def greedy_decode(params, cfg: Config, feats, feat_lens) -> GreedyResult:
 class EvalOutput(NamedTuple):
     pred_text: List[str]
     score: List[float]
+    text: Optional[List[str]] = None    # reference texts, when given
+    wer: Optional[float] = None         # mean CER against them
 
 
 def finalize_greedy(res: GreedyResult, vocab) -> EvalOutput:

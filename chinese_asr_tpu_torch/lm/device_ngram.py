@@ -1,49 +1,69 @@
 """On-device n-gram LM: Katz-backoff scoring as tensor gathers (port of
-``chinese_asr_tpu/lm/device_ngram.py``, tuple key layout).
+``chinese_asr_tpu/lm/device_ngram.py``).
 
 Every n-gram order's (logp, backoff) table is a linear-probing hash table
 held on the device as one packed int32 tensor, and scoring a batch of
 (context, candidate) pairs is a handful of gathers and compares, so the
-beam's passive LM track (``decode/beam.py``) and the second pass
-(``decode/rescore.py``) never leave the device.  Scores equal the host
-oracle's (``lm/ngram.py`` ``PyNgramLM``) to f32: longest matching
-(context suffix + word) n-gram wins, plus the backoffs of every existing
-longer context; OOV words map to ``<unk>``; an ARPA without ``<unk>``
-gets kenlm's synthesized -100 unigram.  log10, like kenlm.
+beam's passive LM track (``decode/beam.py``), the second pass
+(``decode/rescore.py``) and the LM-driven first pass
+(``decode/lm_fused.py``) never leave the device.  Scores equal the host
+scorers' (``lm/ngram.py``) to f32: longest matching (context suffix +
+word) n-gram wins, plus the backoffs of every existing longer context;
+OOV words map to ``<unk>``; an ARPA without ``<unk>`` gets kenlm's
+synthesized -100 unigram.  log10, like kenlm.
 
-Layout (the JAX package's default, built by the same numpy code):
-- Level-k keys are the full word-id tuple, compared exactly.  Empty slots
-  hold -1, which is also the "absent context" id of a query, so a
-  history shorter than order-1 falls through to lower orders for free.
+Two key layouts, as in the JAX package, which share all the machinery:
+- **hashed** (``from_lm``; what ``from_path`` builds whenever the C++
+  reader of ``lm/ngram.py`` builds, as the JAX package's ``from_path``
+  does): the reader enumerates each order of an ARPA or any ``.klm``
+  layout (``NgramLM.dump_order``), word ids are the reader's, level-1
+  keys are [id] and level-k >= 2 keys are kenlm's 64-bit ``ngram_hash``
+  split into [hi, lo] int32 (probing binaries store only hashes).  The
+  lookup computes the same hash chain (kenlm's ``CombineWordHash``,
+  ``_combine_word_hash``) on int64 tensors holding the u64 bit patterns,
+  relying on the int64 product to wrap mod 2^64 as torch's CPU and CUDA
+  kernels do (tests pin the hashes bit for bit against the C++ reader's
+  keys on both).  Exact compare on the stored 64-bit key: the collision
+  model kenlm's own probing tables accept.
+- **tuple** (``from_arpa``; the fallback without a compiler): words are
+  numbered in ARPA unigram order and level-k keys are the full word-id
+  tuple, compared exactly.
+
+Table layout (the same numpy build as the JAX package's):
+- Empty slots hold -1, which is also the "absent context" id of a query,
+  so a history shorter than order-1 falls through to lower orders for
+  free (the hashed layout masks such levels explicitly).
 - Open addressing at load <= 0.5.  The build records the worst
   displacement D, so a lookup probes exactly P = D+1 slots and decides
   membership with no early exit.
-- A level is ONE packed [cap + P - 1, k + 2] int32 tensor (key columns,
-  then logp/backoff bitcast), its first P-1 rows repeated past the end so
-  a probe window never wraps; within a 2 GB budget, levels are widened
-  smallest-first to [cap, P*(k+2)] so one row holds the whole window.
+- A level is ONE packed [cap + P - 1, kcols + 2] int32 tensor (key
+  columns, then logp/backoff bitcast), its first P-1 rows repeated past
+  the end so a probe window never wraps; within a 2 GB budget, levels are
+  widened smallest-first to [cap, P*(kcols+2)] so one row holds the whole
+  window.
 - Stored keys are unique, so at most one probe slot matches: the value is
   a masked sum of int32 bit patterns.
 - Level 1 is a dense [max_id+1, 2] f32 table (NaN logp = absent).
-- The hash is FNV-1a over the id words with a murmur finalizer, in
+- The slot hash is FNV-1a over the key words with a murmur finalizer, in
   uint32 arithmetic; torch has no general uint32, so the device side
-  computes it in int64 with every product split to stay exact.
+  computes it in int64 and keeps the low 32 bits of each product.
 
-Not ported: the hashed key layout of KenLM binaries (``from_lm``), and the
-JAX package's layout/width/gate A/B switches (identical scores by test;
-the gate was a measured negative).  The probes have no Pallas kernel in
-the JAX package, so they are plain torch indexing here.
+Not ported: the JAX package's layout/width/gate A/B switches (identical
+scores by test; the gate, ``ctx_gated``, was a measured negative).  The
+probes have no Pallas kernel in the JAX package, so they are plain torch
+indexing here.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..utils.device import resolve_device
-from .ngram import PyNgramLM, _LATER, is_kenlm_binary
+from . import ngram
+from .ngram import PyNgramLM
 
 _FNV_OFFSET = 2166136261
 _FNV_PRIME = 16777619
@@ -185,19 +205,24 @@ def _build_dense_uni(keys1: np.ndarray, vals: np.ndarray):
 
 
 class DeviceNgramLM:
-    """Per-order probing hash tables as tensors on one device.
-    ``word2id`` stays on the host (token mapping happens before the
-    decode)."""
+    """Per-order probing hash tables as tensors on one device.  The word
+    map stays on the host (token mapping happens before the decode):
+    ``word2id`` for the tuple layout, the C++ reader (``host_lm``) for
+    the hashed one."""
 
     def __init__(self, order: int, tbls, probes, unk_id: int,
-                 word2id: Dict[str, int], uni):
+                 word2id: Optional[Dict[str, int]], uni,
+                 hashed: bool = False, host_lm=None, bos_id=None):
         self.order = order
         self.tbls = tuple(tbls)     # tbls[k]: narrow or wide packed int32
         self.probes = tuple(probes)
         self.unk_id = unk_id
         self.word2id = word2id
         self.uni = uni              # dense [max_id+1, 2] f32, NaN = absent
-        self._bos_id = word2id.get("<s>", unk_id)
+        self.hashed = hashed
+        self.host_lm = host_lm      # lm.ngram.NgramLM behind from_lm
+        self._bos_id = bos_id if bos_id is not None else \
+            word2id.get("<s>", unk_id)
 
     # ---------------------------------------------------------------- build
     @classmethod
@@ -241,21 +266,69 @@ class DeviceNgramLM:
                    torch.from_numpy(uni).to(device))
 
     @classmethod
+    def from_lm(cls, lm: "ngram.NgramLM", device=None) -> "DeviceNgramLM":
+        """The hashed layout from a C++-backed ``NgramLM`` (ARPA text or
+        any ``.klm`` layout its reader takes), through the reader's
+        per-order enumeration ``dump_order``: level-1 keys are the word
+        ids, level-k >= 2 keys kenlm's ngram_hash as [hi, lo] int32.
+        ``device`` as for ``from_arpa``."""
+        device = resolve_device(device)
+        tbls, probes = [], []
+        uni = None
+        for k in range(1, lm.order + 1):
+            hi, lo, prob, bo = lm.dump_order(k)
+            if k == 1:
+                assert lo.size == 0 or int(lo.max()) < 2**31, \
+                    "word ids must fit int31"
+                keys = lo.astype(np.int32)[:, None]
+            else:
+                keys = np.stack([hi.view(np.int32), lo.view(np.int32)],
+                                axis=1)
+            vals_np = np.stack([prob, bo], axis=1).astype(np.float32)
+            t, p = _build_table(np.ascontiguousarray(keys), vals_np)
+            tbls.append(t)
+            probes.append(p)
+            if k == 1:
+                uni = _build_dense_uni(keys[:, 0], vals_np)
+        tbls = [torch.from_numpy(t).to(device)
+                for t in _widen_tables(tbls, probes, skip=(0,))]
+        unk_id, bos_id = (int(x) for x in lm.word_ids(["<unk>", "<s>"]))
+        return cls(lm.order, tbls, probes, unk_id, None,
+                   torch.from_numpy(uni).to(device), hashed=True,
+                   host_lm=lm, bos_id=bos_id)
+
+    @classmethod
     def from_path(cls, path: str, device=None) -> "DeviceNgramLM":
-        """ARPA text; KenLM binaries raise."""
-        if is_kenlm_binary(path):
-            raise NotImplementedError(
-                f"{path}: device tables of KenLM binaries (the hashed key "
-                f"layout) {_LATER}; pass the ARPA text model")
+        """ARPA text or any ``.klm`` layout: the hashed layout through the
+        C++ reader (``from_lm``); the tuple layout from the pure-Python
+        ARPA parse (``from_arpa``) only when the reader cannot be built,
+        as the JAX package's ``from_path`` does.  A ``.klm`` without a
+        compiler raises (``NgramLM``)."""
+        lm = ngram.NgramLM(path)
+        if lm.has_batch_states:
+            return cls.from_lm(lm, device)
         return cls.from_arpa(path, device)
+
+    def to(self, device) -> "DeviceNgramLM":
+        """The same LM with its tables on ``device`` (the word map and the
+        host reader are shared)."""
+        return DeviceNgramLM(self.order, [t.to(device) for t in self.tbls],
+                             self.probes, self.unk_id, self.word2id,
+                             self.uni.to(device), hashed=self.hashed,
+                             host_lm=self.host_lm, bos_id=self._bos_id)
 
     # ------------------------------------------------------------- host API
     def word_ids(self, words: Sequence[str]) -> np.ndarray:
+        """LM word ids (OOV -> <unk>) in this LM's own numbering: the
+        ARPA order of the tuple layout, the C++ reader's for the hashed
+        one."""
+        if self.word2id is None:
+            return np.asarray(self.host_lm.word_ids(list(words)), np.int32)
         return np.asarray([self.word2id.get(w, self.unk_id) for w in words],
                           np.int32)
 
     def token_id_table(self, vocab) -> np.ndarray:
-        """token id -> LM word id (OOV -> <unk>)."""
+        """token id -> LM word id (OOV -> <unk>), like NgramLM's."""
         return self.word_ids([vocab.int2word[t]
                               for t in range(len(vocab.int2word))])
 
@@ -272,11 +345,11 @@ class DeviceNgramLM:
 
 
 def _mul32(h, c: int):
-    """(h * c) mod 2^32 for h in [0, 2^32) int64 and a u32 constant, with
-    c split in 16-bit halves so no product leaves int64's range."""
-    lo = h * (c & 0xFFFF)
-    hi = ((h * (c >> 16)) & 0xFFFF) << 16
-    return (lo + hi) & _U32
+    """(h * c) mod 2^32 for h in [0, 2^32) int64 and a u32 constant.  The
+    int64 product wraps mod 2^64 (two's complement, as torch's CPU and
+    CUDA kernels multiply; pinned bit for bit on both by tests), which
+    keeps its low 32 bits."""
+    return (h * c) & _U32
 
 
 def _hash_cols(cols) -> torch.Tensor:
@@ -292,6 +365,25 @@ def _hash_cols(cols) -> torch.Tensor:
     h = h ^ (h >> 13)
     h = _mul32(h, _MIX2)
     return h ^ (h >> 16)
+
+
+# kenlm's CombineWordHash multipliers (lm/search_hashed.hh; runtime/cpp
+# ngram_hash()) as int64 bit patterns
+_M1 = 8978948897894561157
+_M2 = 17894857484156487943 - 2**64
+
+
+def _combine_word_hash(h, nxt):
+    """kenlm CombineWordHash, h * M1 ^ (1 + next) * M2 mod 2^64, on int64
+    tensors holding u64 bit patterns (the products wrap, see ``_mul32``);
+    ``nxt`` u32 word ids, 1 + next taken in 64 bits as the C++ does."""
+    return (h * _M1) ^ ((nxt + 1) * _M2)
+
+
+def _hash_key(h):
+    """A 64-bit hash -> the key columns ``from_lm`` stores for it: the
+    int32 views of its high and low halves."""
+    return [h >> 32, h.to(torch.int32)]
 
 
 def _lookup_cols(tbl, probes: int, cols):
@@ -343,6 +435,42 @@ def _lookup_level(lm: DeviceNgramLM, k: int, cols):
     return _lookup_cols(lm.tbls[k], lm.probes[k], cols)
 
 
+def _hashed_probes(lm: DeviceNgramLM, ctx_ids, cand_ids):
+    """The hashed layout's probes: kenlm ngram_hash chains, computed
+    incrementally right to left (the predicted word seeds a gram's hash,
+    then the history words fold in, most recent first).  Level k is
+    usable only where the k-th most recent context word exists (-1
+    padded histories are contiguous on the left).  -> (backoffs of the
+    existing contexts per level 1..M-1, (hit, logp, backoff) per gram
+    level 0..M-1)."""
+    M = lm.order
+    g, c = cand_ids, None
+    gram_keys, ctx_keys, valid = [[cand_ids]], [None], [None]
+    for k in range(1, M):
+        w_k = ctx_ids[:, M - 1 - k]                          # [Q]
+        valid.append(w_k >= 0)
+        wk_u = w_k & _U32
+        g = _combine_word_hash(g, wk_u[:, None])
+        gram_keys.append(_hash_key(g))
+        if k == 1:
+            ctx_keys.append([w_k])
+            c = wk_u
+        else:
+            c = _combine_word_hash(c, wk_u)
+            ctx_keys.append(_hash_key(c))
+    bo_val = []
+    for k in range(1, M):
+        h, _lp, bo = _lookup_level(lm, k - 1, ctx_keys[k])
+        bo_val.append(torch.where(h & valid[k], bo, 0.0))
+    gram = []
+    for k in range(M):
+        h, lp, bo = _lookup_level(lm, k, gram_keys[k])
+        if k > 0:
+            h = h & valid[k][:, None]
+        gram.append((h, lp, bo))
+    return bo_val, gram
+
+
 def score_candidates(lm: DeviceNgramLM, ctx_ids, cand_ids):
     """Batch Katz-backoff base scores, on the tables' device.
 
@@ -350,23 +478,29 @@ def score_candidates(lm: DeviceNgramLM, ctx_ids, cand_ids):
              RIGHTMOST (row q is one beam's history).
     cand_ids [Q, C] candidate LM word ids (>= 0; OOV pre-mapped to <unk>
              by ``token_id_table``).
-    Returns  [Q, C] f32 log10 scores, equal (to f32) to ``PyNgramLM``'s
-             on the same (context, word) pairs.
+    Returns  [Q, C] f32 log10 scores, equal (to f32) to the host
+             scorers' (``NgramLM``, ``PyNgramLM``) on the same (context,
+             word) pairs.
     """
     M = lm.order
-    # context lookups (shared across a row's candidates): level k uses the
-    # last k context words
-    bo_val = []
-    for k in range(1, M):
-        cols = [ctx_ids[:, j] for j in range(M - 1 - k, M - 1)]
-        h, _lp, bo = _lookup_level(lm, k - 1, cols)
-        bo_val.append(torch.where(h, bo, 0.0))
-    # gram lookups: level k keys = (last k context words, candidate)
-    gram = []
-    for k in range(M):
-        cols = [ctx_ids[:, j][:, None].expand(cand_ids.shape)
-                for j in range(M - 1 - k, M - 1)] + [cand_ids]
-        gram.append(_lookup_level(lm, k, cols))
+    ctx_ids = ctx_ids.to(torch.int64)
+    cand_ids = cand_ids.to(torch.int64)
+    if lm.hashed:
+        bo_val, gram = _hashed_probes(lm, ctx_ids, cand_ids)
+    else:
+        # context lookups (shared across a row's candidates): level k
+        # uses the last k context words
+        bo_val = []
+        for k in range(1, M):
+            cols = [ctx_ids[:, j] for j in range(M - 1 - k, M - 1)]
+            h, _lp, bo = _lookup_level(lm, k - 1, cols)
+            bo_val.append(torch.where(h, bo, 0.0))
+        # gram lookups: level k keys = (last k context words, candidate)
+        gram = []
+        for k in range(M):
+            cols = [ctx_ids[:, j][:, None].expand(cand_ids.shape)
+                    for j in range(M - 1 - k, M - 1)] + [cand_ids]
+            gram.append(_lookup_level(lm, k, cols))
     # longest hitting level wins; add the backoffs of every existing
     # context LONGER than the match (the host scorer's shrinking loop)
     S = torch.zeros(cand_ids.shape, dtype=torch.float32,

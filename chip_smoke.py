@@ -18,10 +18,11 @@ every phase passed):
    [512, 5004] (the stage-1 rows at B=128 and B=32) with planted ties,
    NaN, +-inf and all -inf rows, beam-like rows, and adversarial rows that
    put every winner in one lane (which must take the kernel's flat
-   fallback), and on [64, 70000]; K4 fused logp + top-k at both R with
-   step-0 -inf row biases, a NaN row, adversarial rows and rows of
-   exactly tied keys, and on [64, 70000]; each set's fallback rows are
-   printed), and time
+   fallback), and on [64, 70000]; K3 at k=20 (the LM first pass's
+   proposal) at both R on logit-like, tied and adversarial rows; K4
+   fused logp + top-k at both R with step-0 -inf row biases, a NaN row,
+   adversarial rows and rows of exactly tied keys, and on [64, 70000];
+   each set's fallback rows are printed), and time
    kernel, twin and the nearest single PyTorch call (K3 and K4 as CUDA
    graphs of 50 calls, on inputs cycled past the L2; also at one and at
    four warps a row, at R = 512, 1024 and 2048);
@@ -32,15 +33,21 @@ every phase passed):
    order-3 ARPA written from seed 0, once through K3 and once with the
    fused stage 1 (K4, ``CHINESE_ASR_PALLAS_FUSED=1``), and over a
    synthetic order-5 ARPA at the reference's pruned 5-gram size through
-   K3; checking that
-   every kernel of each path launched, that two runs agree exactly, that
-   the card's output matches the plain CPU path on a small input, that
-   the LM probes on the card equal those on the CPU, and that the golden
-   shard (tests/golden) reproduces its expected transcripts in every
-   mode; each wall time is the median of warm runs, and one more warm run
-   of each beam path goes under torch.profiler for the device-time split;
-   the B=128 batch is also decoded with the fused and the unfused stage 1,
-   counting the n-best entries and transcripts that differ (report only);
+   K3, then the LM-driven first pass (``lm_mode="first"``, topn 20) over
+   the order-3 ARPA; every LM's tables are hashed, built through the C++
+   reader (the parse and build times are printed, and the order-3 one
+   through the pure-Python parse beside it); checking that
+   every kernel of each path launched (and K4 on no path but the fused
+   one), that two runs agree exactly, that the card's output matches the
+   plain CPU path on a small input, that the LM probes on the card equal
+   those on the CPU, and that the golden shard (tests/golden) reproduces
+   its expected transcripts in every mode (``lm_first`` included), and a
+   ``.klm`` fixture gives its ARPA's transcripts through both device LM
+   modes; each wall time is the median of warm runs, and one more warm
+   run of each beam path goes under torch.profiler for the device-time
+   split; the B=128 batch is also decoded with the fused and the unfused
+   stage 1, and the first pass's batch by its host-loop oracle, counting
+   what differs (report only);
 4. print one ``{"kernels": [...]}`` line and, last, the ok line.
 
 It imports nothing of JAX nor of the JAX package.
@@ -75,6 +82,33 @@ TOL_FEATS = 1e-3
 TOL_ENC = 1e-3
 
 TIMED_RUNS = 7                  # warm main-path runs behind each wall time
+
+# The ARPA text of tests/data/golden_tri_probing.klm (tests/test_lm_binary.py
+# ARPA_TRI); phase 3c checks that it rebuilds the fixture byte for byte.
+ARPA_TRI = """\\data\\
+ngram 1=5
+ngram 2=4
+ngram 3=2
+
+\\1-grams:
+-1.0\t<unk>
+-0.8\t<s>\t-0.5
+-0.7\t</s>
+-0.5\ta\t-0.3
+-0.6\tb\t-0.2
+
+\\2-grams:
+-0.4\t<s> a\t-0.1
+-0.3\ta b\t-0.2
+-0.5\tb </s>
+-0.9\ta a
+
+\\3-grams:
+-0.2\t<s> a b
+-0.4\ta b </s>
+
+\\end\\
+"""
 
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12          # f32 outside the tensor cores
@@ -241,6 +275,37 @@ def _fused_flips(torch, asr, wavs, beam_mod) -> dict:
         live_score_max_abs_diff=float(
             (a.live_scores - b.live_scores)[same_live].abs().max())
         if bool(same_live.any()) else None)
+
+
+def _first_pass_vs_host(torch, asr, wavs, fused_texts) -> dict:
+    """The LM-driven first pass against its host-loop oracle
+    (``lm_first_pass_decode`` over the C++ LM, f64 sums) on the same
+    batch at full width: the transcripts and n-best lists that differ,
+    the largest score difference where they agree, and the oracle's wall
+    and stage split (host clock)."""
+    from chinese_asr_tpu_torch.decode import lm_first_pass, lm_fused
+    feats, lens = asr._featurize(asr._prep(wavs, None))
+    res = lm_fused.lm_fused_decode(asr.params, asr.cfg, asr.bw, feats, lens,
+                                   asr.dlm, asr.tok2lm, asr.lm_topn)
+    fused = lm_fused.nbest_lists(res)
+    prof = {}
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    host = lm_first_pass.lm_first_pass_decode(
+        asr.params, asr.cfg, asr.bw, feats, lens, asr.dlm.host_lm, asr.vocab,
+        topn=asr.lm_topn, profile=prof)
+    wall = time.perf_counter() - t
+    texts = [asr.vocab.decode(h[0][0]) for h in host]
+    same = [b for b in range(len(host))
+            if [i for i, _ in host[b]] == [i for i, _ in fused[b]]]
+    diff = [abs(a[1] - b[1]) for s in same for a, b in zip(host[s], fused[s])]
+    return dict(batch=len(wavs), fused_steps=res.l_final + 1,
+                transcripts_differ=sum(a != b for a, b in
+                                       zip(texts, fused_texts)),
+                nbest_lists_differ=len(host) - len(same),
+                max_abs_score_diff=max(diff) if diff else None,
+                host_oracle_wall_s=wall,
+                host_oracle_stages_s={k: v for k, v in prof.items()})
 
 
 class Failures:
@@ -577,6 +642,57 @@ def main() -> int:
         warps_per_row=plans[R]["warps_per_row"],
         warps_per_row_r512=plans[R32]["warps_per_row"],
         shape=f"[{R}, {V}] k={k}; *_r512 at [{R32}, {V}]")
+    # the LM first pass's proposal: k = topn = 20 over the decoder's logits
+    # at B*bw rows (2048 at B=128, 512 at B=32)
+    k20 = 20
+    for rows in (R, R32):
+        W = topk_k.plan(rows, V, k20)["warps_per_row"]
+        lg = 3 * torch.randn(rows, V, device=dev, generator=g)
+        got, n, _ = fallbacks(topk_k.top_k, lg, k20)
+        fb_counts[f"K3 k={k20} logits [{rows},{V}]"] = n
+        fails.check(same_topk(got, topk_k.top_k_plain(lg, k20)),
+                    f"K3 k={k20} logits [{rows},{V}]: exact, {n} of {rows} "
+                    f"rows fell back")
+        tied = torch.randn(rows, V, device=dev, generator=g).round()
+        tied[0] = 2.0                                  # one value, all V
+        tied[1, ::7] = 5.0                             # 715-way tie on top
+        tied[2, :] = float("-inf")
+        fails.check(same_topk(topk_k.top_k(tied, k20),
+                              topk_k.top_k_plain(tied, k20)),
+                    f"K3 k={k20} tied rows [{rows},{V}]: exact")
+        adv = torch.randn(rows, V, device=dev, generator=g)
+        cols = [4 * (j * 32 * W) + i for j in range(5) for i in range(4)]
+        adv[:, cols] = 10 + torch.rand(rows, k20, device=dev, generator=g)
+        got, n, _ = fallbacks(topk_k.top_k, adv, k20)
+        fb_counts[f"K3 k={k20} adversarial [{rows},{V}]"] = n
+        fails.check(same_topk(got, topk_k.top_k_plain(adv, k20)) and n == rows,
+                    f"K3 k={k20} adversarial [{rows},{V}]: exact, {n} of "
+                    f"{rows} rows fell back")
+        del lg, tied, adv
+    xr = cold_cycle(lambda: 3 * torch.randn(R, V, device=dev, generator=g),
+                    4 * R * V)
+    xr32 = cold_cycle(lambda: 3 * torch.randn(R32, V, device=dev, generator=g),
+                      4 * R32 * V)
+    b20, _ = _bound_ms(4 * R * V + 8 * R * k20, R * V)
+    b20_32, _ = _bound_ms(4 * R32 * V + 8 * R32 * k20, R32 * V)
+    k3_20 = dict(
+        ms=graph_ms(lambda: topk_k.top_k(xr(), k20)),
+        bound_ms=b20,
+        plain_ms=_time_ms(torch, lambda: topk_k.top_k_plain(xr(), k20), 20),
+        library_ms=graph_ms(lambda: torch.topk(xr(), k20, dim=1)),
+        ms_r512=graph_ms(lambda: topk_k.top_k(xr32(), k20)),
+        bound_ms_r512=b20_32,
+        plain_ms_r512=_time_ms(torch,
+                               lambda: topk_k.top_k_plain(xr32(), k20), 20),
+        library_ms_r512=graph_ms(lambda: torch.topk(xr32(), k20, dim=1)),
+        warps_per_row=topk_k.plan(R, V, k20)["warps_per_row"],
+        warps_per_row_r512=topk_k.plan(R32, V, k20)["warps_per_row"])
+    kernels["topk"]["k20"] = k3_20
+    print(f"  K3 k={k20} (the first pass's proposal): [{R},{V}] "
+          f"{k3_20['ms']:.4f} ms (bound {b20:.4f} ms, HBM; torch.topk "
+          f"{k3_20['library_ms']:.4f}); [{R32},{V}] {k3_20['ms_r512']:.4f} ms "
+          f"(bound {b20_32:.4f}; torch.topk {k3_20['library_ms_r512']:.4f})",
+          flush=True)
     del x, xr, xr32, x1, small
 
     # ---- phase 2d: K4 fused logp + top-k ------------------------------------
@@ -744,7 +860,7 @@ def main() -> int:
     # pruned 5-gram class (5k/500k/1M/1M/500k, zh_giga...prune01244.klm)
     ivocab = _identity_vocab(cfg.vocab.vocab_size)
     lm_words = [ivocab.int2word[i] for i in range(len(ivocab.int2word))]
-    lm_asrs, lm_tops = {}, {}
+    lm_asrs, lm_tops, lm_build = {}, {}, {}
     for lm_order, counts in ((3, (200_000, 400_000)),
                              (5, (500_000, 1_000_000, 1_000_000, 500_000))):
         arpa = os.path.join(build.BUILD_DIR, f"synthetic_o{lm_order}_seed0.arpa")
@@ -752,17 +868,36 @@ def main() -> int:
         n_per, lm_tops[lm_order] = _synthetic_arpa(np, arpa, lm_words, counts,
                                                    seed=0)
         tb = time.time()
+        # the tables as the reference builds them: the C++ reader's
+        # enumeration, hashed keys (DeviceNgramLM.from_path)
         a = ASR(bw=16, cfg=cfg, seed=0, lm_path=arpa, lm_mode="second")
+        tc = time.time()
         lm_bytes = sum(t.numel() * t.element_size()
                        for t in (*a.dlm.tbls, a.dlm.uni))
-        fails.check(a.dlm.order == lm_order
+        fails.check(a.dlm.order == lm_order and a.dlm.hashed
+                    and a.dlm.host_lm._py is None
                     and all(t.device.type == "cuda" for t in a.dlm.tbls),
-                    f"order-{lm_order} LM tables on the card")
+                    f"order-{lm_order} LM: hashed tables on the card, built "
+                    f"through the C++ reader")
+        lm_build[lm_order] = dict(ngrams=n_per, write_s=tb - ta,
+                                  cpp_parse_build_s=tc - tb,
+                                  table_mib=lm_bytes / 2**20)
         print(f"LM: order {lm_order}, n-grams per order {n_per}; ARPA written "
-              f"in {tb - ta:.2f} s, parsed and built in {time.time() - tb:.2f}"
-              f" s; tables {lm_bytes / 2**20:.1f} MiB on the card, probes "
-              f"{a.dlm.probes}, widths {[tuple(t.shape) for t in a.dlm.tbls]}",
-              flush=True)
+              f"in {tb - ta:.2f} s, read by the C++ reader and built in "
+              f"{tc - tb:.2f} s; tables {lm_bytes / 2**20:.1f} MiB on the "
+              f"card, probes {a.dlm.probes}, widths "
+              f"{[tuple(t.shape) for t in a.dlm.tbls]}", flush=True)
+        if lm_order == 3:
+            # the LM-driven first pass over the same file, and the tuple
+            # layout's pure-Python parse for comparison (not kept)
+            lm_asrs["first"] = ASR(bw=16, cfg=cfg, seed=0, lm_path=arpa,
+                                   lm_mode="first")
+            td = time.time()
+            DeviceNgramLM.from_arpa(arpa, dev)
+            lm_build[3]["python_parse_build_s"] = time.time() - td
+            print(f"  order 3 through the pure-Python parse (tuple layout): "
+                  f"{lm_build[3]['python_parse_build_s']:.2f} s", flush=True)
+            torch.cuda.empty_cache()
         os.remove(arpa)
         lm_asrs[lm_order] = a
 
@@ -778,6 +913,8 @@ def main() -> int:
         ("beam_bw16_lm2_fused", lm_asrs[3], wavs, True,
          ("logmel", "lstm", "topk_fused")),
         ("beam_bw16_lm2_o5", lm_asrs[5], wavs, False,
+         ("logmel", "lstm", "topk")),
+        ("beam_bw16_lm1", lm_asrs["first"], wavs, False,
          ("logmel", "lstm", "topk")))
     # the run each kernel's launch count is read from: K1-K3 the main
     # path's, K4 the fused LM path's
@@ -828,6 +965,10 @@ def main() -> int:
         for n in kernels:
             if launches_from[n] == mode:
                 kernels[n]["launches"] = c1[n]
+    kernels["topk"]["launches_lm1"] = paths["beam_bw16_lm1"]["launches"]["topk"]
+    print(f"beam_bw16_lm1: K3 launched {kernels['topk']['launches_lm1']} times "
+          f"per batch (k=20 proposals), K4 "
+          f"{paths['beam_bw16_lm1']['launches']['topk_fused']}", flush=True)
     os.environ["CHINESE_ASR_PALLAS_FUSED"] = "0"
     differ = sum(a != b for a, b in zip(texts_of["beam_bw16_lm2"],
                                         texts_of["beam_bw16_lm2_fused"]))
@@ -835,6 +976,11 @@ def main() -> int:
           f"transcripts differ (report only: the fused logsumexp is summed "
           f"in another order, which can flip near-tied survivors)",
           flush=True)
+    paths["lm1_vs_host_oracle"] = _first_pass_vs_host(
+        torch, lm_asrs["first"], wavs, texts_of["beam_bw16_lm1"])
+    print(f"beam_bw16_lm1 vs the host-loop oracle (lm_first_pass, the C++ "
+          f"LM, f64 sums; report only): "
+          f"{json.dumps(paths['lm1_vs_host_oracle'])}", flush=True)
     paths["fused_flips_b128"] = _fused_flips(
         torch, next(a for m, a, *_ in runs_spec if m == "beam_bw16_b128"),
         wavs128, beam_mod)
@@ -856,10 +1002,11 @@ def main() -> int:
     Q = 1 << 16
     for lm_order, top in lm_tops.items():
         dlm = lm_asrs[lm_order].dlm
-        cpu_lm = DeviceNgramLM(dlm.order, [t.cpu() for t in dlm.tbls],
-                               dlm.probes, dlm.unk_id, dlm.word2id,
-                               dlm.uni.cpu())
+        cpu_lm = dlm.to("cpu")
         nw, M1 = len(lm_words), lm_order - 1
+        # word indices into lm_words -> the LM's ids (the C++ reader's);
+        # index -1 picks the appended -1, an absent word
+        wid = np.append(dlm.word_ids(lm_words).astype(np.int64), -1)
         rows = top[qrng.integers(0, len(top), Q)]      # top-order contexts
         ctx = rows[:, :-1].copy()
         short = (qrng.random(Q) < 0.1)[:, None] \
@@ -869,13 +1016,28 @@ def main() -> int:
         ctx[Q // 2:, 0] = qrng.integers(-1, nw, Q - Q // 2)
         cand = np.concatenate([rows[:, -1:], qrng.integers(0, nw, (Q, 3))],
                               axis=1)
-        ctx_t, cand_t = torch.from_numpy(ctx), torch.from_numpy(cand)
+        ctx_t = torch.from_numpy(wid[ctx])
+        cand_t = torch.from_numpy(wid[cand])
         on_card = dev_ngram.score_candidates(dlm, ctx_t.to(dev),
                                              cand_t.to(dev))
         on_cpu = dev_ngram.score_candidates(cpu_lm, ctx_t, cand_t)
         fails.check(torch.equal(on_card.cpu(), on_cpu),
-                    f"order-{lm_order} LM probes card == CPU on {Q}x4 "
-                    f"(context, word) pairs")
+                    f"order-{lm_order} LM probes (hashed layout) card == CPU "
+                    f"on {Q}x4 (context, word) pairs")
+        # kenlm's hash chain in wrapping int64 products on the card, over
+        # every top-order n-gram, against the keys the C++ reader stores
+        ids = torch.from_numpy(wid[top]).to(dev)
+        h = ids[:, -1]
+        for j in range(lm_order - 2, -1, -1):
+            h = dev_ngram._combine_word_hash(h, ids[:, j])
+        hi, lo, _, _ = dlm.host_lm.dump_order(lm_order)
+        want = np.sort((hi.astype(np.uint64) << np.uint64(32))
+                       | lo.astype(np.uint64))
+        got = np.sort(h.cpu().numpy().view(np.uint64))
+        fails.check(np.array_equal(got, want),
+                    f"order-{lm_order}: the hash chain on the card equals "
+                    f"the C++ reader's keys of all {len(top)} "
+                    f"{lm_order}-grams")
         del cpu_lm
     del lm_asrs, runs_spec
 
@@ -925,6 +1087,11 @@ def main() -> int:
         asr = ASR(ckpt_path=os.path.join(gold, "model.ckpt"), cfg=gcfg,
                   vocab=gvocab, bw=4, lm_path=os.path.join(gold, "lm.arpa"),
                   lm_mode=lm_mode)
+        fails.check(asr.dlm.hashed if lm_mode == "second"
+                    else asr.lm._py is None,
+                    f"golden lm_{lm_mode}: " + (
+                        "hashed tables" if lm_mode == "second"
+                        else "the C++ NgramLM scores"))
         for fused in ("0", "1"):
             os.environ["CHINESE_ASR_PALLAS_FUSED"] = fused
             fails.check(asr.transcribe_files(gpaths)
@@ -932,6 +1099,44 @@ def main() -> int:
                         f"golden shard lm_{lm_mode} (fused stage 1: {fused}) "
                         f"on the card matches expected.json")
     os.environ["CHINESE_ASR_PALLAS_FUSED"] = "0"
+    asr = ASR(ckpt_path=os.path.join(gold, "model.ckpt"), cfg=gcfg,
+              vocab=gvocab, bw=4, lm_path=os.path.join(gold, "lm.arpa"),
+              lm_mode="first", lm_topn=8)
+    before = (topk_k.launches, topk_k.fused_launches)
+    fails.check(asr.transcribe_files(gpaths) == expected["lm_first"]
+                and topk_k.launches > before[0]
+                and topk_k.fused_launches == before[1],
+                "golden shard lm_first (bw 4, topn 8, K3 proposals) on the "
+                "card matches expected.json")
+    # a KenLM binary: the probing fixture and the ARPA text it was built
+    # from give the same transcripts through both device LM modes, with a
+    # vocab whose first two characters are the LM's words a and b
+    klm = os.path.join(os.path.dirname(gold), "data", "golden_tri_probing.klm")
+    tri = os.path.join(build.BUILD_DIR, "golden_tri.arpa")
+    with open(tri, "w", encoding="utf-8") as f:
+        f.write(ARPA_TRI)
+    from chinese_asr_tpu_torch.lm.ngram import NgramLM
+    rebuilt = os.path.join(build.BUILD_DIR, "golden_tri_probing.klm")
+    NgramLM(tri).write_binary(rebuilt, layout="probing")
+    with open(rebuilt, "rb") as f, open(klm, "rb") as g:
+        fails.check(f.read() == g.read(), "the .klm fixture is the probing "
+                                          "binary of its ARPA text")
+    w2i = {"<pad>": 0, "<s>": 1, "</s>": 2, "<unk>": 3, "a": 4, "b": 5,
+           **{c: 6 + i for i, c in enumerate("是不了人我在")}}
+    abvocab = Vocab(w2i, {i: w for w, i in w2i.items()})
+    for lm_mode, topn in (("second", 20), ("first", 8)):
+        texts = {}
+        for name, path in (("klm", klm), ("arpa", tri)):
+            asr = ASR(ckpt_path=os.path.join(gold, "model.ckpt"), cfg=gcfg,
+                      vocab=abvocab, bw=4, lm_path=path, lm_mode=lm_mode,
+                      lm_topn=topn)
+            texts[name] = (asr.dlm.hashed, asr.transcribe_files(gpaths))
+        fails.check(texts["klm"] == texts["arpa"] and texts["klm"][0],
+                    f"golden_tri_probing.klm through lm_mode={lm_mode!r} on "
+                    f"the card (hashed tables) gives its ARPA's transcripts "
+                    f"{texts['klm'][1]}")
+    os.remove(tri)
+    os.remove(rebuilt)
 
     # ---- phase 4: report -----------------------------------------------------
     print("main path: " + json.dumps(paths), flush=True)

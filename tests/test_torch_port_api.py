@@ -5,7 +5,8 @@
 * The package imports neither ``jax`` nor the JAX package.
 * No silent fallback: without CUDA and without an explicit device the
   entry points raise, and the modes of later slices raise
-  NotImplementedError.
+  NotImplementedError (the LM modes, ``lm_mode="first"`` included, are in
+  tests/test_torch_port_rescore.py and tests/test_torch_port_lm_first.py).
 """
 
 import json
@@ -97,9 +98,7 @@ def test_no_silent_cpu_fallback(monkeypatch):
         tapi.main(["--wav", golden_wav_paths()[0]])
 
 
-@pytest.mark.parametrize("kw", [dict(lm_path=os.path.join(GOLD, "lm.arpa"),
-                                     bw=4, lm_mode="first"),
-                                dict(mesh="auto"),
+@pytest.mark.parametrize("kw", [dict(mesh="auto"),
                                 dict(compute_dtype="bfloat16"),
                                 dict(wire="mulaw"), dict(wire="adpcm")])
 def test_later_slice_modes_raise(kw):

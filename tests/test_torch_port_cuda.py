@@ -267,6 +267,187 @@ def test_fused_topk_all_rows_disabled(dev):
                        .expand(8, 4))
 
 
+@pytest.mark.parametrize("R,W", [(2048, 1), (512, 4)])
+def test_topk_kernel_first_pass_shapes(dev, R, W):
+    """The LM first pass's proposal, k = topn = 20 over the decoder's
+    logits (B*bw rows at B=128 and B=32): logit-like rows, rows of tied
+    values, and rows with all 20 winners in one lane's columns (which
+    fall back) are exact."""
+    V, k = 5004, 20
+    assert ttopk.plan(R, V, k) == dict(ttopk.plan(R, V, k), warps_per_row=W,
+                                       candidates=True)
+    g = torch.Generator(device=dev).manual_seed(R + k)
+    fb = torch.zeros(2, dtype=torch.int32, device=dev)
+    lg = 3 * torch.randn(R, V, device=dev, generator=g)
+    _assert_topk_exact(ttopk.top_k(lg, k, fallbacks=fb),
+                       ttopk.top_k_plain(lg, k))
+    assert fb.tolist() == [0, 0]
+    tied = torch.randn(R, V, device=dev, generator=g).round()
+    tied[0] = 2.0                                      # one value, all V
+    tied[1, ::7] = 5.0                                 # 715-way tie on top
+    _assert_topk_exact(ttopk.top_k(tied, k), ttopk.top_k_plain(tied, k))
+    x = torch.randn(R, V, device=dev, generator=g)
+    x[:, _lane0_cols(W, k)] = 10 + torch.rand(R, k, device=dev, generator=g)
+    x[1, _lane0_cols(W, k)] = 10.0
+    fb.zero_()
+    _assert_topk_exact(ttopk.top_k(x, k, fallbacks=fb),
+                       ttopk.top_k_plain(x, k))
+    assert fb.tolist() == [R, 0]
+
+
+def _golden_feats(dev_cuda):
+    """The golden shard's features, made once on the CPU: (cpu, card)."""
+    from chinese_asr_tpu_torch.api import ASR
+    asr = ASR(cfg=golden_cfg(tcfg), device="cpu")
+    wavs = [asr._as_wav(w) for w in _golden_wavs()]
+    feats, lens = asr._featurize(asr._prep(wavs, None))
+    return (feats, lens), (feats.to(dev_cuda), lens.to(dev_cuda))
+
+
+def _golden_wavs():
+    from chinese_asr_tpu_torch.data import audio_io
+    return [audio_io.read_wav(p, 16000, dtype="int16")[0]
+            for p in golden_wav_paths()]
+
+
+def test_lm_fused_decode_on_the_card_equals_cpu(dev):
+    """The fused first pass (golden model and LM, bw 4, topn 8) on the
+    card against the CPU path on the same features: tokens, lengths and
+    the stop step exact, scores within 1e-5; K3 proposes, K4 never
+    runs."""
+    from chinese_asr_tpu_torch.decode import lm_fused
+    from chinese_asr_tpu_torch.lm.device_ngram import DeviceNgramLM
+    from chinese_asr_tpu_torch.models import las
+    from chinese_asr_tpu_torch.utils.checkpoint import load_checkpoint
+    cfg = golden_cfg(tcfg)
+    raw = load_checkpoint(os.path.join(GOLD, "model.ckpt"))["params"]
+    vocab = Vocab.build([CHARS * 3], max_num_words=8)
+    out = {}
+    for d, (feats, lens) in zip(("cpu", dev), _golden_feats(dev)):
+        dlm = DeviceNgramLM.from_path(os.path.join(GOLD, "lm.arpa"), d)
+        assert dlm.hashed
+        tok2lm = torch.from_numpy(dlm.token_id_table(vocab)).to(d).long()
+        counts = (ttopk.launches, ttopk.fused_launches)
+        out[d] = lm_fused.lm_fused_decode(las.params_from_numpy(raw, d),
+                                          cfg, 4, feats, lens, dlm, tok2lm,
+                                          topn=8)
+        if d == dev:
+            assert ttopk.launches > counts[0]
+            assert ttopk.fused_launches == counts[1]
+    a, b = out["cpu"], out[dev]
+    assert a.l_final == b.l_final
+    for f in ("fin_tokens", "fin_lens", "fin_count", "live_tokens"):
+        assert torch.equal(getattr(a, f), getattr(b, f).cpu()), f
+    for f in ("fin_scores", "live_scores"):
+        x, y = getattr(a, f), getattr(b, f).cpu()
+        assert torch.equal(torch.isfinite(x), torch.isfinite(y))
+        fin = torch.isfinite(x)
+        assert float((x[fin] - y[fin]).abs().max()) <= 1e-5, f
+
+
+def test_hashed_score_candidates_on_the_card_equal_cpu(dev, tmp_path):
+    """The hashed probes (a .klm fixture and a random order-5 ARPA) give
+    the same scores on the card as the same tables on the CPU: the same
+    gathers and f32 sums, so exactly equal."""
+    from chinese_asr_tpu_torch.lm import device_ngram as tdn
+    rng = np.random.default_rng(3)
+    lines = ["\\data\\", "ngram 1=23", "ngram 2=40", "ngram 3=40",
+             "ngram 4=40", "ngram 5=40", "", "\\1-grams:",
+             "-1.5\t<unk>", "-9\t<s>\t-0.4", "-1.2\t</s>"]
+    words = [f"w{i}" for i in range(20)]
+    lines += [f"{-rng.uniform(0.1, 3):.4f}\t{w}\t{-rng.uniform(0, 1):.4f}"
+              for w in words]
+    for o in range(2, 6):
+        lines += ["", f"\\{o}-grams:"]
+        seen = set()
+        while len(seen) < 40:
+            seen.add(" ".join(rng.choice(words, o)))
+        bo = "" if o == 5 else f"\t{-rng.uniform(0, 1):.4f}"
+        lines += [f"{-rng.uniform(0.1, 3):.4f}\t{g}{bo}" for g in sorted(seen)]
+    lines += ["", "\\end\\", ""]
+    arpa = tmp_path / "o5.arpa"
+    arpa.write_text("\n".join(lines))
+    klm = os.path.join(os.path.dirname(GOLD), "data",
+                       "golden_tri_probing.klm")
+    for path in (klm, str(arpa)):
+        card = tdn.DeviceNgramLM.from_path(path, dev)
+        cpu = card.to("cpu")
+        assert card.hashed and card.uni.device.type == "cuda"
+        nw, M1 = card.uni.shape[0], card.order - 1
+        ctx = torch.from_numpy(rng.integers(-1, nw, (4096, M1)))
+        cand = torch.from_numpy(rng.integers(0, nw + 2, (4096, 6)))
+        assert torch.equal(tdn.score_candidates(card, ctx.to(dev),
+                                                cand.to(dev)).cpu(),
+                           tdn.score_candidates(cpu, ctx, cand))
+
+
+def test_int64_hash_products_wrap_on_the_card(dev):
+    """The LM probes' int64 products wrap mod 2^64 on the card as on the
+    CPU: the slot hash equals numpy's uint32 hash, CombineWordHash equals
+    Python integers, and the chain over the golden LM's n-grams gives the
+    keys the C++ reader enumerates."""
+    from chinese_asr_tpu_torch.lm import device_ngram as tdn
+    from chinese_asr_tpu_torch.lm import ngram as tngram
+    rng = np.random.default_rng(1)
+    keys = rng.integers(-2**31, 2**31, (4096, 3)).astype(np.int32)
+    keys[:8] = -1
+    got = tdn._hash_cols([torch.from_numpy(keys[:, j]).to(dev)
+                          for j in range(3)])
+    np.testing.assert_array_equal(got.cpu().numpy().astype(np.uint32),
+                                  tdn._hash_np(keys))
+    u64 = (1 << 64) - 1
+    h = rng.integers(-2**63, 2**63 - 1, 4096, dtype=np.int64)
+    h[:3] = [0, -1, -2**63]
+    nxt = rng.integers(0, 2**32, 4096, dtype=np.int64)
+    nxt[:2] = [0, 2**32 - 1]
+    comb = tdn._combine_word_hash(torch.from_numpy(h).to(dev),
+                                  torch.from_numpy(nxt).to(dev))
+    assert [int(x) & u64 for x in comb.cpu().tolist()] == [
+        ((int(a) & u64) * tdn._M1 ^ (1 + int(b)) * tdn._M2) & u64
+        for a, b in zip(h, nxt)]
+    path = os.path.join(GOLD, "lm.arpa")
+    lm = tngram.NgramLM(path)
+    grams = tngram.PyNgramLM(path).grams
+    for k in range(2, lm.order + 1):
+        ids = torch.tensor(np.stack([lm.word_ids(list(g)) for g in grams
+                                     if len(g) == k]).astype(np.int64),
+                           device=dev)
+        g = ids[:, -1]
+        for j in range(k - 2, -1, -1):
+            g = tdn._combine_word_hash(g, ids[:, j])
+        hi, lo, _, _ = lm.dump_order(k)
+        assert {int(x) & u64 for x in g.cpu().tolist()} == {
+            (int(a) << 32) | int(b) for a, b in zip(hi, lo)}
+
+
+@pytest.mark.parametrize("lm", ["lm.arpa", "golden_tri_probing.klm"])
+def test_golden_lm_first_on_the_card(dev, lm):
+    """Golden ``lm_first`` (bw 4, topn 8) on the card through K3; the
+    ``.klm`` fixture through the first and the device second pass gives
+    the transcripts of the host C++ second pass over the same file."""
+    from chinese_asr_tpu_torch.api import ASR
+    kw = dict(ckpt_path=os.path.join(GOLD, "model.ckpt"),
+              cfg=golden_cfg(tcfg), vocab=Vocab.build([CHARS * 3],
+                                                     max_num_words=8),
+              bw=4, lm_topn=8)
+    if lm == "lm.arpa":
+        with open(os.path.join(GOLD, "expected.json"),
+                  encoding="utf-8") as f:
+            expected = json.load(f)["modes"]["lm_first"]
+        asr = ASR(lm_path=os.path.join(GOLD, lm), lm_mode="first", **kw)
+        counts = (ttopk.launches, ttopk.fused_launches)
+        assert asr.transcribe_files(golden_wav_paths()) == expected
+        assert ttopk.launches > counts[0]
+        assert ttopk.fused_launches == counts[1]
+        return
+    path = os.path.join(os.path.dirname(GOLD), "data", lm)
+    texts = {m: ASR(lm_path=path, lm_mode=m, **kw).transcribe_files(
+        golden_wav_paths()) for m in ("first", "second", "second_host")}
+    cpu = ASR(lm_path=path, lm_mode="first", device="cpu", **kw)
+    assert texts["first"] == cpu.transcribe_files(golden_wav_paths())
+    assert texts["second"] == texts["second_host"]
+
+
 def test_kernels_reject_bad_operands(dev):
     with pytest.raises(ValueError):
         ttopk.top_k(torch.randn(4, 10, device=dev).double(), 2)

@@ -8,9 +8,10 @@ against the JAX package on the same random ARPAs.
 * ``score_candidates`` gathers the same table rows and sums the same f32
   terms in the same order as JAX's, so it is compared at 1e-6 against
   JAX's ``from_arpa`` and ``from_path`` LMs (the latter takes the hashed
-  key layout when the JAX package's C++ reader builds; its scores are
-  the same up to f32 rounding) on orders 2-5, with absent (-1) context
-  words and OOV candidates.
+  key layout, as the port's ``from_path`` does since the C++ reader was
+  ported; its scores are the same up to f32 rounding) on orders 2-5, with
+  absent (-1) context words and OOV candidates.  The hashed layout itself
+  is held against JAX's in tests/test_torch_port_ngram_cpp.py.
 * The torch hash (int64 arithmetic) equals ``_hash_np`` bit for bit.
 """
 
@@ -76,15 +77,33 @@ def test_pyngram_scores_equal_jax(tmp_path):
                     assert tp.score(sent, bos, eos) == jp.score(sent, bos, eos)
 
 
+KLMS = [os.path.join(os.path.dirname(GOLD), "data", f"golden_tri_{x}.klm")
+        for x in ("probing", "trie", "quant_trie", "quant_array_trie")]
+
+
 def test_load_lm_and_later_slice_binaries():
+    """``load_lm`` returns the C++-backed ``NgramLM`` for ARPA text and for
+    each ``.klm`` fixture (the four layouts), and its scores and device
+    tables equal the JAX package's."""
     assert tngram.load_lm(None) is None
-    lm = tngram.load_lm(os.path.join(GOLD, "lm.arpa"))
-    assert isinstance(lm, tngram.PyNgramLM) and lm.order == 3
-    klm = os.path.join(os.path.dirname(GOLD), "data", "golden_tri_probing.klm")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tngram.load_lm(klm)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tdn.DeviceNgramLM.from_path(klm)
+    for path in [os.path.join(GOLD, "lm.arpa")] + KLMS:
+        lm = tngram.load_lm(path)
+        want = jngram.load_lm(path)
+        assert isinstance(lm, tngram.NgramLM) and lm._py is None
+        assert (lm.order, lm.model_type, lm.num_ngrams()) == \
+            (want.order, want.model_type, want.num_ngrams())
+        for sent in ("a b", "a x b", "", "的 一 是", "b a b a </s>"):
+            for bos in (True, False):
+                assert lm.score(sent, bos=bos) == want.score(sent, bos=bos)
+        t = tdn.DeviceNgramLM.from_path(path, "cpu")
+        j = jdn.DeviceNgramLM.from_path(path)
+        assert t.hashed and j.hashed and t.probes == j.probes
+        for a, b in zip(t.tbls, j.tbls):
+            np.testing.assert_array_equal(N(a), N(b))
+        np.testing.assert_array_equal(N(t.uni), N(j.uni))
+        words = ["a", "b", "的", "oov", "<s>", "</s>", "<unk>"]
+        np.testing.assert_array_equal(t.word_ids(words), j.word_ids(words))
+        np.testing.assert_array_equal(t.begin_context(2), j.begin_context(2))
 
 
 @pytest.mark.parametrize("ctor", ["from_arpa", "from_path"])

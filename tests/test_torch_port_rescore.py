@@ -229,6 +229,11 @@ def test_lm_loads_only_for_beams_and_cli(capsys):
                "cpu", "--lm", LM, "--lm-mode", "second"])
     line = capsys.readouterr().out.strip().splitlines()[-1]
     assert line.split("\t")[0] == golden_wav_paths()[0]
-    with pytest.raises(NotImplementedError, match="later slice"):
+    # the LM-driven first pass, and a KenLM binary
+    klm = os.path.join(os.path.dirname(GOLD), "data",
+                       "golden_tri_probing.klm")
+    for lm in (LM, klm):
         tapi.main(["--wav", golden_wav_paths()[0], "--bw", "2", "--device",
-                   "cpu", "--lm", LM, "--lm-mode", "first"])
+                   "cpu", "--lm", lm, "--lm-mode", "first"])
+        line = capsys.readouterr().out.strip().splitlines()[-1]
+        assert line.split("\t")[0] == golden_wav_paths()[0]

@@ -41,7 +41,7 @@ def _assert_same(got, want):
 
 
 @pytest.mark.parametrize("R,V,k", [(12, 40, 4), (16, 300, 17), (9, 1000, 6),
-                                   (10, 5004, 17)])
+                                   (10, 5004, 17), (10, 5004, 20)])
 @pytest.mark.parametrize("grouped", ["0", "1"])
 def test_plain_top_k_matches_pallas_exactly(R, V, k, grouped, monkeypatch):
     monkeypatch.setenv("CHINESE_ASR_TOPK_GROUPED", grouped)
