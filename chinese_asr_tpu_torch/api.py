@@ -14,10 +14,13 @@
 The LM is an ARPA text file or a KenLM binary (``.klm``), read by the C++
 reader of ``lm/ngram.py`` in every mode.
 
-wav read + peak scale (in-process ``sox --norm=-1``) -> upload over the
-flat (default) or padded wire -> featurization with per-utterance
-instance norm (eps 1e-6, reference main.py:37) -> greedy/beam decode ->
-winner picked on the device (or by the host rescorer) -> host detokenize.
+[optional ffmpeg transcode] -> wav read + peak scale (in-process ``sox
+--norm=-1``) -> upload over the flat (default) or padded wire ->
+featurization with per-utterance instance norm (eps 1e-6, reference
+main.py:37) -> greedy/beam decode -> winner picked on the device (or by
+the host rescorer) -> host detokenize.  ``transcribe_bytes`` takes audio
+bytes, ``transcribe_long`` cuts long audio at silences, and the CLI's
+``--serve``/``--serve-http`` keep a model loaded (``serve.py``).
 
 Runs on ``cuda`` unless the caller passes ``device="cpu"``; without a GPU
 and without an explicit device the constructor raises.
@@ -25,7 +28,9 @@ and without an explicit device the constructor raises.
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Union
+import os
+import tempfile
+from typing import List, NamedTuple, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -55,6 +60,17 @@ def _identity_vocab(n: int) -> Vocab:
     return Vocab(word2int, {i: w for w, i in word2int.items()})
 
 
+class _Upload(NamedTuple):
+    """A prepared batch on its way to the device: the (wire buffer, lens,
+    scales) tensors and the padded length N; on the card also the event
+    recorded after their copies and the pinned host buffers they are
+    copied from, kept alive until that event has completed."""
+    tensors: tuple
+    N: int
+    done: Optional[torch.cuda.Event]
+    pinned: Optional[list]
+
+
 class ASR:
     """Speech recognizer service (reference ASR, main.py:68-102)."""
 
@@ -66,6 +82,7 @@ class ASR:
                  wav_bucket: int = 16000,
                  compute_dtype: str = "float32",
                  wire: str = "flat",
+                 flat_pow2: bool = False,
                  mesh=None,
                  lm_mode: str = "second",
                  lm_topn: int = 20,
@@ -73,7 +90,12 @@ class ASR:
                  seed: int = 0):
         """``wire``: "flat" ships exactly sum(lens) samples and expands to
         the padded layout on the device (lossless); "padded" ships the
-        zero-padded [B, N] matrix.  Without ``ckpt_path`` the weights are
+        zero-padded [B, N] matrix.  The flat buffer's length rounds up to
+        a multiple of ``8 * wav_bucket``, or with ``flat_pow2`` to the
+        next power-of-two multiple of ``wav_bucket``: at most 2x wire
+        padding, but log-many buffer shapes for a server's arbitrary
+        traffic (``serve.MicroBatcher`` pairs it with its power-of-two
+        batch ladder).  Without ``ckpt_path`` the weights are
         random, drawn from ``seed``.  The LM (ARPA text or ``.klm``) loads
         only for beam widths > 1 (main.py:78-84); ``lm_topn`` is the
         number of proposals per beam of ``lm_mode="first"``."""
@@ -95,6 +117,8 @@ class ASR:
         self.lm_topn = lm_topn
         self.wav_bucket = wav_bucket
         self.wire = wire
+        self.flat_pow2 = flat_pow2
+        self._copy_stream = None        # the card's upload stream, at first use
         if isinstance(vocab, str):
             self.vocab = Vocab.load(vocab)
         elif isinstance(vocab, Vocab):
@@ -149,6 +173,15 @@ class ASR:
             return w.astype(np.int16)
         return w.astype(np.float32)
 
+    def _flat_len(self, total: int) -> int:
+        n = max(1, total)
+        if not self.flat_pow2:
+            return audio_io.round_up(n, 8 * self.wav_bucket)
+        b = self.wav_bucket
+        while b < n:
+            b *= 2
+        return b
+
     def _prep(self, wavs: List[np.ndarray], scales):
         """(wire buffer, lens [B] int32, scales [B] f32, padded length N).
         The flat wire concatenates the wavs with no padding bytes; the
@@ -164,8 +197,7 @@ class ASR:
                 for w in wavs]
         if self.wire == "flat":
             total = int(lens.sum())
-            buf = np.zeros(audio_io.round_up(max(1, total),
-                                             8 * self.wav_bucket), dt)
+            buf = np.zeros(self._flat_len(total), dt)
             buf[:total] = np.concatenate(wavs) if total else 0
         else:
             buf = np.zeros((len(wavs), N), dt)
@@ -175,15 +207,41 @@ class ASR:
               else np.asarray(scales, np.float32))
         return buf, lens, sc, N
 
-    def _featurize(self, prep):
+    def _upload(self, prep) -> _Upload:
+        """Issue the host->device copy of a ``_prep``-ed batch.  On the card
+        the arrays go through pinned buffers on a side stream, so the copy
+        can run beside the compute stream's work, and an event marks its
+        end; ``_featurize`` makes the compute stream wait on
+        it.  On the CPU the tensors are the arrays themselves."""
         buf, lens, sc, N = prep
-        dev = self.device
-        buf_d = torch.from_numpy(buf).to(dev)
-        lens_d = torch.from_numpy(lens).to(dev)
-        sc_d = torch.from_numpy(sc).to(dev)
+        host = [torch.from_numpy(a) for a in (buf, lens, sc)]
+        if self.device.type != "cuda":
+            return _Upload(tuple(t.to(self.device) for t in host), N,
+                           None, None)
+        if self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(self.device)
+        pinned = [t.pin_memory() for t in host]
+        with torch.cuda.stream(self._copy_stream):
+            tensors = tuple(t.to(self.device, non_blocking=True)
+                            for t in pinned)
+            done = torch.cuda.Event()
+            done.record(self._copy_stream)
+        return _Upload(tensors, N, done, pinned)
+
+    def _featurize(self, up: _Upload):
+        buf_d, lens_d, sc_d = up.tensors
+        if up.done is not None:
+            # the compute stream waits for the copy; the tensors, made on
+            # the copy stream, are marked in use by the compute stream so
+            # the allocator does not hand their memory out before it is done
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(up.done)
+            for t in up.tensors:
+                t.record_stream(stream)
         if self.wire == "flat":
             feats, feat_lens = features.featurize_flat(
-                buf_d, lens_d, N, self.cfg.audio, norm_eps=1e-6, scale=sc_d)
+                buf_d, lens_d, up.N, self.cfg.audio, norm_eps=1e-6,
+                scale=sc_d)
         else:
             feats, feat_lens = features.featurize_batch(
                 buf_d, lens_d, self.cfg.audio, norm_eps=1e-6, scale=sc_d)
@@ -225,40 +283,112 @@ class ASR:
                         max_batch: int = 128, scales=None) -> List[str]:
         """Transcribe a list of waveforms.  Lists longer than ``max_batch``
         are length-sorted and chunked (order restored), so a chunk pads
-        only to its own longest wav.  ``scales`` (one float per wav) is a
-        per-utterance gain applied on the device."""
+        only to its own longest wav; chunk c+1 is prepared on the host and
+        its copy issued while chunk c is featurized and decoded.
+        ``scales`` (one float per wav) is a per-utterance gain applied on
+        the device."""
         if not wavs:
             return []
         wavs = list(wavs)
         order = sorted(range(len(wavs)), key=lambda i: len(wavs[i])) \
             if len(wavs) > max_batch else list(range(len(wavs)))
+        chunks = [order[s:s + max_batch]
+                  for s in range(0, len(order), max_batch)]
+
+        def upload(idx):        # one chunk at a time: host memory O(chunk)
+            return self._upload(self._prep(
+                [wavs[i] for i in idx],
+                None if scales is None else [scales[i] for i in idx]))
+
         out: List[str] = [""] * len(wavs)
-        for s in range(0, len(order), max_batch):
-            idx = order[s:s + max_batch]
-            prep = self._prep([wavs[i] for i in idx],
-                              None if scales is None
-                              else [scales[i] for i in idx])
-            for i, text in zip(idx, self._decode(*self._featurize(prep))):
+        up = upload(chunks[0])
+        for c, idx in enumerate(chunks):
+            cur = up
+            feats = self._featurize(cur)
+            up = upload(chunks[c + 1]) if c + 1 < len(chunks) else None
+            for i, text in zip(idx, self._decode(*feats)):
                 out[i] = text
+            if cur.done is not None:
+                cur.done.synchronize()  # long done: the decode read its data
         return out
 
-    def transcribe_files(self, paths: Sequence[str]) -> List[str]:
-        """Wav files -> transcripts: raw PCM16 plus a device-side peak gain
-        (the ``sox --norm=-1`` math of the reference's ingest)."""
+    def transcribe_files(self, paths: Sequence[str],
+                         transcode: bool = False) -> List[str]:
+        """Audio files -> transcripts.  A wav is read as raw PCM16 with a
+        device-side peak gain (the ``sox --norm=-1`` math of the
+        reference's ingest); other formats, or every file under
+        ``transcode``, go through ffmpeg (``audio_io.transcode``) and are
+        peak-normalized on the host."""
         wavs, scales = [], []
         for p in paths:
-            if not p.lower().endswith(".wav"):
-                raise NotImplementedError(
-                    f"{p}: non-wav ingest (ffmpeg transcode) {_LATER}")
-            wav, _ = audio_io.read_wav(p, self.cfg.audio.sample_rate,
-                                       dtype="int16")
+            if transcode or not p.lower().endswith(".wav"):
+                with tempfile.NamedTemporaryFile(suffix=".wav",
+                                                 delete=False) as tf:
+                    tmp = tf.name
+                try:
+                    audio_io.transcode(p, tmp, self.cfg.audio.sample_rate)
+                    wav, _ = audio_io.read_wav(tmp,
+                                               self.cfg.audio.sample_rate)
+                finally:
+                    os.unlink(tmp)
+                scales.append(1.0)
+            else:
+                wav, _ = audio_io.read_wav(p, self.cfg.audio.sample_rate,
+                                           dtype="int16")
+                scales.append(audio_io.peak_scale(wav))
             wavs.append(wav)
-            scales.append(audio_io.peak_scale(wav))
         return self.transcribe_wavs(wavs, scales=scales)
 
     def __call__(self, path: str) -> str:
         """One utterance in, transcript out (main.py:100-102)."""
         return self.transcribe_files([path])[0]
+
+    def transcribe_bytes(self, data: bytes, suffix: str = "") -> str:
+        """Transcribe audio BYTES (the in-memory service variant the
+        reference sketches, main.py:9-16).  WAV bytes decode directly;
+        anything else goes through ffmpeg.  ``suffix`` (e.g. ".amr") helps
+        ffmpeg pick a demuxer for headerless containers."""
+        is_wav = data[:4] == b"RIFF" and data[8:12] == b"WAVE"
+        with tempfile.NamedTemporaryFile(
+                suffix=suffix or (".wav" if is_wav else ".bin"),
+                delete=False) as tf:
+            tf.write(data)
+            tmp = tf.name
+        try:
+            return self.transcribe_files([tmp], transcode=not is_wav)[0]
+        finally:
+            os.unlink(tmp)
+
+    def transcribe_long(self, path: str, chunk_s: float = 10.0,
+                        search_s: float = 0.5) -> str:
+        """Long-form audio beyond the reference's 10-second guidance (its
+        comment at main.py:34): split into DISJOINT ~``chunk_s`` windows,
+        each cut at the lowest-energy sample within +-``search_s`` of the
+        nominal boundary so chunks break at silence, decode the chunks in
+        one call and concatenate their transcripts.  Disjoint cuts mean no
+        audio is transcribed twice."""
+        wav, _ = audio_io.read_wav(path, self.cfg.audio.sample_rate,
+                                   dtype="int16")
+        gain = audio_io.peak_scale(wav)     # peak-normalize on the device
+        sr = self.cfg.audio.sample_rate
+        step = int(chunk_s * sr)
+        search = max(1, int(search_s * sr))
+        if len(wav) <= step + search:
+            return self.transcribe_wavs([wav], scales=[gain])[0]
+        smooth = max(1, int(0.025 * sr))           # 25 ms energy window
+        cuts = [0]
+        while cuts[-1] + step < len(wav) - search:
+            c = cuts[-1] + step
+            lo = max(cuts[-1] + search, c - search)
+            hi = min(len(wav) - 1, c + search)
+            energy = np.convolve(
+                np.square(wav[lo:hi].astype(np.float64)),
+                np.ones(smooth) / smooth, mode="same")
+            cuts.append(lo + int(np.argmin(energy)))
+        cuts.append(len(wav))
+        chunks = [wav[a:b] for a, b in zip(cuts[:-1], cuts[1:]) if b > a]
+        return "".join(self.transcribe_wavs(chunks,
+                                            scales=[gain] * len(chunks)))
 
 
 def main(argv: Optional[List[str]] = None) -> None:
@@ -266,7 +396,8 @@ def main(argv: Optional[List[str]] = None) -> None:
     import argparse
     ap = argparse.ArgumentParser(
         description="chinese_asr_tpu_torch transcriber (PyTorch/CUDA)")
-    ap.add_argument("--wav", nargs="+", required=True, help="wav file(s)")
+    ap.add_argument("--wav", nargs="*", default=[],
+                    help="audio file(s); optional under --serve/--serve-http")
     ap.add_argument("--ckpt", default=None, help="checkpoint path "
                     "(chinese_asr_tpu.v1 .ckpt or reference torch .ckpt); "
                     "random weights when omitted")
@@ -279,13 +410,44 @@ def main(argv: Optional[List[str]] = None) -> None:
                          "second_host: n-best rescore on the host; first: "
                          "the LM-driven first pass on the device")
     ap.add_argument("--bw", type=int, default=None, help="beam width")
+    ap.add_argument("--transcode", action="store_true",
+                    help="force ffmpeg ingest")
+    ap.add_argument("--serve", action="store_true",
+                    help="after the --wav files, read audio paths from "
+                         "stdin, one transcript per line")
+    ap.add_argument("--serve-http", type=int, default=None, metavar="PORT",
+                    help="serve POST /transcribe (audio bytes -> JSON) "
+                         "with request micro-batching; see serve.py")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
     args = ap.parse_args(argv)
+    if not args.wav and args.serve_http is None and not args.serve:
+        ap.error("nothing to do: pass --wav and/or --serve/--serve-http")
+
     asr = ASR(ckpt_path=args.ckpt, lm_path=args.lm, bw=args.bw,
               vocab=args.vocab, lm_mode=args.lm_mode, device=args.device)
-    for path, text in zip(args.wav, asr.transcribe_files(args.wav)):
-        print(f"{path}\t{text}")
+    if args.wav:
+        for path, text in zip(args.wav, asr.transcribe_files(
+                args.wav, transcode=args.transcode)):
+            print(f"{path}\t{text}", flush=True)
+    if args.serve_http is not None:
+        from .serve import serve_http
+        server = serve_http(asr, port=args.serve_http, host="0.0.0.0")
+        print(f"serving on :{server.server_port}", flush=True)
+        try:
+            server.serve_forever()
+        finally:
+            server.server_close()
+    if args.serve:
+        import sys
+        for line in sys.stdin:
+            path = line.strip()
+            if not path:
+                continue
+            try:
+                print(f"{path}\t{asr(path)}", flush=True)
+            except Exception as e:                  # report it, keep serving
+                print(f"{path}\tERROR: {e}", flush=True)
 
 
 if __name__ == "__main__":

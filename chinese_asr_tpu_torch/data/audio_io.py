@@ -1,13 +1,20 @@
-"""Host-side audio I/O: copies of ``chinese_asr_tpu/data/audio_io.py``
-``read_wav``/``peak_scale`` and ``data/dataset.py`` ``round_up`` (the port
-keeps its own copies rather than importing the JAX package).
+"""Host-side audio I/O: a copy of ``chinese_asr_tpu/data/audio_io.py``
+(reference data.py:109-121 fast_read, main.py:19-24 convert_audio) and of
+``data/dataset.py`` ``round_up`` (the port keeps its own copies rather
+than importing the JAX package).
 
 Wav decode prefers libsndfile (soundfile) and falls back to the stdlib
-``wave`` module for plain PCM.
+``wave`` module for plain PCM.  Arbitrary-format ingest (``transcode``)
+shells out to ffmpeg like the reference; for wav input the ``sox
+--norm=-1`` peak normalization is reproduced in-process
+(``peak_normalize``).
 """
 
 from __future__ import annotations
 
+import os
+import shutil
+import subprocess
 import warnings
 from typing import Optional, Tuple
 
@@ -61,6 +68,31 @@ def read_wav(path: str, expected_rate: Optional[int] = 16000,
     return np.ascontiguousarray(data, dtype), rate
 
 
+def write_wav(path: str, data: np.ndarray, rate: int = 16000) -> None:
+    """Float samples in [-1, 1] -> a 16-bit PCM mono wav."""
+    if _sf is not None:
+        _sf.write(path, data, rate, subtype="PCM_16")
+        return
+    import wave
+    pcm = np.clip(np.asarray(data, np.float64) * 32767.0,
+                  -32768, 32767).astype(np.int16)
+    with wave.open(path, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(rate)
+        w.writeframes(pcm.tobytes())
+
+
+def peak_normalize(x: np.ndarray, db: float = -1.0) -> np.ndarray:
+    """``sox --norm=-1`` equivalent (reference main.py:23): scale so the
+    absolute peak sits at ``db`` dBFS."""
+    peak = float(np.abs(x).max()) if x.size else 0.0
+    if peak == 0.0:
+        return x
+    target = 10.0 ** (db / 20.0)
+    return (x * (target / peak)).astype(np.float32)
+
+
 def peak_scale(x: np.ndarray, db: float = -1.0) -> float:
     """The scalar ``sox --norm=-1`` peak normalization multiplies by, for
     applying it ON DEVICE to raw int16 PCM (same float32 math, half the
@@ -74,3 +106,26 @@ def peak_scale(x: np.ndarray, db: float = -1.0) -> float:
     if peak == 0.0:
         return 1.0
     return float(np.float32(10.0 ** (db / 20.0) / peak))
+
+
+def transcode(path: str, out_path: str, rate: int = 16000,
+              norm_db: Optional[float] = -1.0) -> str:
+    """ffmpeg -> 16 kHz s16 mono wav, then peak normalize (the reference's
+    convert_audio, main.py:19-24), in-process instead of a second sox
+    subprocess.  Without ffmpeg a ``.wav`` input is copied; any other
+    input raises."""
+    ffmpeg = shutil.which("ffmpeg")
+    if ffmpeg is not None:
+        subprocess.run(
+            [ffmpeg, "-y", "-loglevel", "error", "-i", path,
+             "-ac", "1", "-ar", str(rate), "-sample_fmt", "s16", out_path],
+            check=True)
+    elif path.lower().endswith(".wav"):
+        if os.path.abspath(path) != os.path.abspath(out_path):
+            shutil.copy(path, out_path)
+    else:
+        raise RuntimeError("ffmpeg unavailable and input is not wav")
+    if norm_db is not None:
+        data, r = read_wav(out_path, expected_rate=rate)
+        write_wav(out_path, peak_normalize(data, norm_db), r)
+    return out_path

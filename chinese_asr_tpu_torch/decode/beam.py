@@ -32,8 +32,7 @@ from ..lm import device_ngram as dev_lm
 from ..models import decoder as dec_ops
 from ..models import las
 from ..ops.cuda import topk as topk_k
-from ..ops.metrics import cer
-from .greedy import EvalOutput
+from .greedy import EvalOutput, with_cer
 
 
 class BeamResult(NamedTuple):
@@ -275,23 +274,13 @@ def beam_decode_best(params, cfg: Config, bw: int, feats,
                        cfg.decode.length_weight)
 
 
-def _with_cer(pred_text, score, vocab, text) -> EvalOutput:
-    """The output rows, with the reference texts (token ids or strings)
-    and the mean CER against them when ``text`` is given."""
-    if text is None:
-        return EvalOutput(pred_text, score)
-    ref_text = [t if isinstance(t, str) else vocab.decode(t) for t in text]
-    wer = float(np.mean([cer(p, r) for p, r in zip(pred_text, ref_text)]))
-    return EvalOutput(pred_text, score, ref_text, wer)
-
-
 def finalize_best(best: BestResult, vocab, text=None) -> EvalOutput:
     """Host detokenization of a device-selected ``BestResult``; with
     ``text`` (reference texts) also the mean CER."""
     tokens = best.tokens.cpu().numpy()
     lens = best.lens.cpu().numpy()
     scores = best.scores.cpu().numpy()
-    return _with_cer(
+    return with_cer(
         [vocab.decode(tokens[b, : lens[b]]) for b in range(tokens.shape[0])],
         [float(s) for s in scores], vocab, text)
 
@@ -383,5 +372,5 @@ def finalize_beam(res: BeamResult, cfg: Config, vocab, text=None,
             j = int(np.argmax(act))
             outputs.append((live_tokens[b, j, : l_final + 1].tolist(),
                             float(act[j])))
-    return _with_cer([vocab.decode(ids) for ids, _ in outputs],
+    return with_cer([vocab.decode(ids) for ids, _ in outputs],
                      [s for _, s in outputs], vocab, text)

@@ -14,11 +14,13 @@ from __future__ import annotations
 
 from typing import List, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from ..config import Config
 from ..models import decoder as dec_ops
 from ..models import las
+from ..ops.metrics import cer
 
 
 class GreedyResult(NamedTuple):
@@ -78,11 +80,28 @@ class EvalOutput(NamedTuple):
     score: List[float]
     text: Optional[List[str]] = None    # reference texts, when given
     wer: Optional[float] = None         # mean CER against them
+    n: Optional[int] = None             # rows (greedy)
+    alignment: Optional[np.ndarray] = None       # [B, max_len, L] (greedy)
+    audio_feat_len: Optional[np.ndarray] = None  # [B] (greedy)
+    text_len: Optional[np.ndarray] = None        # [B] tokens before eos
 
 
-def finalize_greedy(res: GreedyResult, vocab) -> EvalOutput:
+def with_cer(pred_text, score, vocab, text, **rest) -> EvalOutput:
+    """The output rows, with the reference texts (token ids or strings)
+    and the mean CER against them when ``text`` is given."""
+    if text is None:
+        return EvalOutput(pred_text, score, **rest)
+    ref_text = [t if isinstance(t, str) else vocab.decode(t) for t in text]
+    wer = float(np.mean([cer(p, r) for p, r in zip(pred_text, ref_text)]))
+    return EvalOutput(pred_text, score, ref_text, wer, **rest)
+
+
+def finalize_greedy(res: GreedyResult, vocab, text=None, feat_lens=None,
+                    want_alignment: bool = False) -> EvalOutput:
     """Host detokenization (reference model.py:582-601); the score is the
-    accumulated logp over (tokens before eos + 1 if eos was reached)."""
+    accumulated logp over (tokens before eos + 1 if eos was reached).
+    With ``text`` (reference texts) the output carries the mean CER;
+    ``want_alignment`` gates the [B, max_len, L] alignment copy."""
     tokens = res.tokens.cpu().numpy()
     final_lens = res.final_lens.cpu().numpy()
     finished = res.finished.cpu().numpy()
@@ -97,4 +116,10 @@ def finalize_greedy(res: GreedyResult, vocab) -> EvalOutput:
             pred_text.append(vocab.decode(ids))
             score.append(float(accum[i])
                          / (int(final_lens[i]) + int(finished[i])))
-    return EvalOutput(pred_text, score)
+    return with_cer(
+        pred_text, score, vocab, text, n=tokens.shape[0],
+        alignment=res.alignments.cpu().numpy() if want_alignment else None,
+        audio_feat_len=None if feat_lens is None
+        else np.asarray(feat_lens.cpu() if isinstance(feat_lens, torch.Tensor)
+                        else feat_lens),
+        text_len=final_lens)

@@ -48,6 +48,20 @@ every phase passed):
    split; the B=128 batch is also decoded with the fused and the unfused
    stage 1, and the first pass's batch by its host-loop oracle, counting
    what differs (report only);
+3d. serve the flagship ``ASR(bw=16)`` over HTTP (``serve_http`` on a
+   thread, clients in this process): ``warm`` runs the batch ladder,
+   ``/healthz`` reports cuda, 32 concurrent requests under a 5000 ms
+   window form one batch whose replies equal ``transcribe_wavs`` of that
+   batch exactly with K1-K3 launched and K4 not, a bad body gets 400, a
+   flood at ``max_queue=1`` with the worker held gets 429s, and the
+   golden shard's greedy and beam_bw4 replies equal ``expected.json``;
+   reports single-request and burst latencies at the 15 ms window;
+3e. check the overlapped chunk upload (160 wavs at ``max_batch=128``,
+   twice, against each sorted chunk alone; the profiler's copy/kernel
+   overlap reported), ``transcribe_long`` on a 60 s wav,
+   ``transcribe_bytes`` against ``transcribe_files``, and
+   ``evaluate_manifest`` on the golden shard in all five modes (card
+   against CPU); report ``evaluate_manifest`` at flagship width;
 4. print one ``{"kernels": [...]}`` line and, last, the ok line.
 
 It imports nothing of JAX nor of the JAX package.
@@ -256,7 +270,7 @@ def _fused_flips(torch, asr, wavs, beam_mod) -> dict:
     fused and the unfused stage 1, counting the n-best entries (the B x bw
     live hypotheses at the end and the harvested finished slots) and the
     transcripts that differ."""
-    feats, lens = asr._featurize(asr._prep(wavs, None))
+    feats, lens = asr._featurize(asr._upload(asr._prep(wavs, None)))
     res = [beam_mod.beam_decode(asr.params, asr.cfg, asr.bw, feats, lens,
                                 fused_logp=f) for f in (False, True)]
     texts = [beam_mod.finalize_best(beam_mod.select_best(
@@ -284,7 +298,7 @@ def _first_pass_vs_host(torch, asr, wavs, fused_texts) -> dict:
     the largest score difference where they agree, and the oracle's wall
     and stage split (host clock)."""
     from chinese_asr_tpu_torch.decode import lm_first_pass, lm_fused
-    feats, lens = asr._featurize(asr._prep(wavs, None))
+    feats, lens = asr._featurize(asr._upload(asr._prep(wavs, None)))
     res = lm_fused.lm_fused_decode(asr.params, asr.cfg, asr.bw, feats, lens,
                                    asr.dlm, asr.tok2lm, asr.lm_topn)
     fused = lm_fused.nbest_lists(res)
@@ -306,6 +320,402 @@ def _first_pass_vs_host(torch, asr, wavs, fused_texts) -> dict:
                 max_abs_score_diff=max(diff) if diff else None,
                 host_oracle_wall_s=wall,
                 host_oracle_stages_s={k: v for k, v in prof.items()})
+
+
+def _write_wav_i16(path: str, pcm, sr: int = 16000) -> None:
+    import wave
+    with wave.open(path, "wb") as f:
+        f.setnchannels(1)
+        f.setsampwidth(2)
+        f.setframerate(sr)
+        f.writeframes(pcm.tobytes())
+
+
+def _wav_bytes(pcm, sr: int = 16000) -> bytes:
+    import io
+    import wave
+    buf = io.BytesIO()
+    with wave.open(buf, "wb") as f:
+        f.setnchannels(1)
+        f.setsampwidth(2)
+        f.setframerate(sr)
+        f.writeframes(pcm.tobytes())
+    return buf.getvalue()
+
+
+def _post(url: str, data: bytes, timeout: float = 600):
+    """(HTTP status, JSON body, seconds) of one POST."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(url, data=data, method="POST")
+    t = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read()), time.perf_counter() - t
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read()), time.perf_counter() - t
+
+
+def _burst(url: str, bodies):
+    """POST every body at once, one thread each; (replies in body order,
+    wall seconds from the first send to the last reply)."""
+    import threading
+    out = [None] * len(bodies)
+    threads = [threading.Thread(
+        target=lambda i=i: out.__setitem__(i, _post(url, bodies[i])))
+        for i in range(len(bodies))]
+    t = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=900)
+    return out, time.perf_counter() - t
+
+
+def _start_server(asr, **kw):
+    import threading
+    from chinese_asr_tpu_torch.serve import serve_http
+    srv = serve_http(asr, port=0, **kw)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    return srv, f"http://127.0.0.1:{srv.server_port}"
+
+
+def _stop_server(srv) -> None:
+    srv.shutdown()
+    srv.server_close()              # stops the batcher's worker too
+
+
+def _copy_overlap(trace_path: str, min_bytes: int = 1 << 20):
+    """Host->device copies of at least ``min_bytes`` in a profiler trace,
+    in time order, each with the microseconds during which a kernel ran on
+    another stream; None when the trace holds no such copy."""
+    with open(trace_path) as f:
+        events = json.load(f).get("traceEvents", [])
+    copies = sorted((e for e in events if e.get("cat") == "gpu_memcpy"
+                     and "HtoD" in e.get("name", "")
+                     and e.get("args", {}).get("bytes", 0) >= min_bytes),
+                    key=lambda e: e["ts"])
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    if not copies or not kernels:
+        return None
+    out = []
+    for c in copies:
+        a, b = c["ts"], c["ts"] + c["dur"]
+        stream = c.get("args", {}).get("stream")
+        ov = sum(max(0.0, min(b, k["ts"] + k["dur"]) - max(a, k["ts"]))
+                 for k in kernels if k.get("args", {}).get("stream") != stream)
+        out.append(dict(mbytes=c["args"]["bytes"] / 2**20, copy_us=c["dur"],
+                        stream=stream, overlap_us=ov))
+    return out
+
+
+def _phase_serving(np, torch, fails, ASR, cfg, wavs, counters, gpu, golden):
+    """Phase 3d: ``serve_http`` at the flagship width on the card, then the
+    golden shard over HTTP.  Returns the latency report."""
+    import threading
+    import urllib.request
+    from chinese_asr_tpu_torch.data import audio_io
+    gold, gcfg, gvocab, gpaths, expected = golden
+    scales32 = [audio_io.peak_scale(w) for w in wavs]
+    bodies = [_wav_bytes(w) for w in wavs]
+    audio32 = sum(len(w) for w in wavs) / cfg.audio.sample_rate
+    sasr = ASR(bw=16, cfg=cfg, seed=0)
+    direct_tw = sasr.transcribe_wavs
+    served = []                 # (wavs, scales) of every decode served
+
+    def recording(ws, max_batch=128, scales=None):
+        served.append((list(ws), list(scales)))
+        return direct_tw(ws, max_batch=max_batch, scales=scales)
+
+    sasr.transcribe_wavs = recording
+    srv, url = _start_server(sasr, max_batch=32, window_ms=5000.0)
+    n_warm = srv.batcher.warm(wavs[0], scales32[0])
+    fails.check(n_warm == 6 and [len(w) for w, _ in served]
+                == [1, 2, 4, 8, 16, 32],
+                f"serve: warm ran the ladder {[len(w) for w, _ in served]}")
+    with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
+        health = json.loads(r.read())
+    fails.check(health.get("backend") == "cuda",
+                f"serve: /healthz answers {health}")
+    served.clear()
+    batches0 = srv.batcher.batches
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    replies, burst_wall = _burst(url + "/transcribe", bodies)
+    served_counts = {n: getattr(mod, attr) for n, (mod, attr)
+                     in counters.items()}
+    ok_all = all(r is not None and r[0] == 200 for r in replies)
+    fails.check(ok_all and srv.batcher.batches - batches0 == 1
+                and len(served) == 1,
+                f"serve: 32 concurrent requests (5000 ms window) formed "
+                f"{srv.batcher.batches - batches0} batch(es), statuses "
+                f"{sorted({r[0] for r in replies if r})}")
+    row_of = {}
+    if served:
+        rows = {w.tobytes(): j for j, w in enumerate(served[0][0])}
+        row_of = {i: rows.get(w.tobytes()) for i, w in enumerate(wavs)}
+        direct = direct_tw(served[0][0], max_batch=32, scales=served[0][1])
+        same = ok_all and all(
+            row_of[i] is not None
+            and replies[i][1]["text"] == direct[row_of[i]]
+            for i in range(len(wavs)))
+    else:
+        same = False
+    fails.check(same, "serve: every reply equals transcribe_wavs of the "
+                      "same 32 wavs, peak scales and row order, exactly")
+    fails.check(all(served_counts[n] > 0 for n in ("logmel", "lstm", "topk"))
+                and served_counts["topk_fused"] == 0,
+                f"serve: kernels launched in the served batch "
+                f"{served_counts}")
+    in_order = [row_of.get(i) for i in range(len(wavs))] == \
+        list(range(len(wavs)))
+    plain = direct_tw(wavs, max_batch=32, scales=scales32)
+    plain_differ = (sum(r[1]["text"] != t for r, t in zip(replies, plain))
+                    if ok_all else None)
+    print(f"serve: the batch's rows in request order: {in_order}; "
+          f"transcribe_wavs in request order differs on {plain_differ} of "
+          f"32 replies (report only: row order may change nothing, but the "
+          f"check above compares the batch's own order)", flush=True)
+    status, body, _ = _post(url + "/transcribe", b"not audio at all")
+    status2, body2, _ = _post(url + "/transcribe", bodies[1])
+    fails.check(status == 400 and status2 == 200
+                and body2.get("text") == plain[1],
+                f"serve: a bad body gets {status}, the next request "
+                f"{status2}")
+    _stop_server(srv)
+
+    # load shedding: max_queue=1 with the worker held inside a decode
+    entered, release = threading.Event(), threading.Event()
+
+    def held(ws, max_batch=128, scales=None):
+        entered.set()
+        release.wait(120)
+        return direct_tw(ws, max_batch=max_batch, scales=scales)
+
+    sasr.transcribe_wavs = held
+    osrv, ourl = _start_server(sasr, max_batch=32, max_queue=1)
+    first = threading.Thread(target=_post, args=(ourl + "/transcribe",
+                                                 bodies[0]))
+    first.start()
+    entered.wait(120)
+    flood_out = [None] * 16
+    flood = [threading.Thread(target=lambda i=i: flood_out.__setitem__(
+        i, _post(ourl + "/transcribe", bodies[1 + i]))) for i in range(16)]
+    for th in flood:
+        th.start()
+    deadline = time.time() + 120      # every flood request shed or queued
+    while (osrv.batcher.rejected + osrv.batcher._q.qsize() < 16
+           and time.time() < deadline):
+        time.sleep(0.01)
+    release.set()
+    for th in [first] + flood:
+        th.join(timeout=300)
+    codes = [o[0] if o else None for o in flood_out]
+    fails.check(codes.count(429) > 0 and codes.count(429) + codes.count(200)
+                == 16 and osrv.batcher.rejected == codes.count(429),
+                f"serve: max_queue=1, worker held: flood of 16 got "
+                f"{codes.count(429)} x 429 and {codes.count(200)} x 200")
+    _stop_server(osrv)
+
+    # latency at the default 15 ms window (report only)
+    sasr.transcribe_wavs = recording
+    lsrv, lurl = _start_server(sasr, max_batch=32)
+    srv_warm = lsrv.batcher.warm(wavs[0], scales32[0])
+    singles = [_post(lurl + "/transcribe", b)[2] for b in bodies[:8]]
+    served.clear()
+    replies, wall = _burst(lurl + "/transcribe", bodies)
+    lat = [r[2] for r in replies if r and r[0] == 200]
+    sizes = [sum(len(w) > 1 for w in ws) for ws, _ in served]
+    serving = dict(
+        window_ms=15.0, warm_calls=srv_warm,
+        single_s=singles, single_p50_s=float(np.median(singles)),
+        single_max_s=max(singles),
+        burst_n=len(bodies), burst_ok=len(lat), burst_wall_s=wall,
+        burst_p50_s=float(np.percentile(lat, 50)) if lat else None,
+        burst_p99_s=float(np.percentile(lat, 99)) if lat else None,
+        burst_req_per_s=len(lat) / wall, burst_audio_s_per_s=audio32 / wall,
+        burst_batches=sizes, burst_padded=[len(ws) for ws, _ in served],
+        burst_5000ms_wall_s=burst_wall)
+    _stop_server(lsrv)
+    print(f"serve (report, {gpu}): 8 single requests one after another, "
+          f"p50 {serving['single_p50_s'] * 1e3:.1f} ms, max "
+          f"{serving['single_max_s'] * 1e3:.1f} ms; burst of 32 (9-10 s "
+          f"wavs) p50 {serving['burst_p50_s'] * 1e3:.1f} ms, p99 "
+          f"{serving['burst_p99_s'] * 1e3:.1f} ms, "
+          f"{serving['burst_req_per_s']:.1f} req/s, "
+          f"{serving['burst_audio_s_per_s']:.1f} audio-s/s, batches formed "
+          f"{sizes} (padded {serving['burst_padded']})", flush=True)
+    del sasr.transcribe_wavs
+
+    # the golden shard served over HTTP
+    gbodies = []
+    for p in gpaths:
+        with open(p, "rb") as f:
+            gbodies.append(f.read())
+    for mode, bw in (("greedy", None), ("beam_bw4", 4)):
+        gasr = ASR(ckpt_path=os.path.join(gold, "model.ckpt"), cfg=gcfg,
+                   vocab=gvocab, bw=bw)
+        gsrv, gurl = _start_server(gasr, max_batch=8, window_ms=2000.0)
+        got, _ = _burst(gurl + "/transcribe", gbodies)
+        fails.check([r[1].get("text") if r else None for r in got]
+                    == expected[mode] and gsrv.batcher.batches == 1,
+                    f"serve: golden shard {mode} over HTTP on the card "
+                    f"matches expected.json")
+        _stop_server(gsrv)
+    return serving
+
+
+def _phase_entry_points(np, torch, fails, ASR, cfg, wavs, wavs128, rng,
+                        counters, gpu, golden, build_dir):
+    """Phase 3e: the overlapped chunk upload, ``transcribe_long``,
+    ``transcribe_bytes`` and ``evaluate_manifest`` on the card.  Returns
+    the report entries."""
+    import shutil
+    from torch.profiler import ProfilerActivity, profile
+    from chinese_asr_tpu_torch.data import dataset as ds_mod
+    from chinese_asr_tpu_torch.evaluate import evaluate_manifest
+    from chinese_asr_tpu_torch.lm import ngram
+    from chinese_asr_tpu_torch.models import las
+    from chinese_asr_tpu_torch.utils.checkpoint import load_checkpoint
+    gold, gcfg, gvocab, gpaths, expected = golden
+    wavs160 = wavs128 + _synthetic_wavs(np, rng, 32, 9.0, 10.0)
+    audio160 = sum(len(w) for w in wavs160) / cfg.audio.sample_rate
+    casr = ASR(bw=16, cfg=cfg, seed=0)
+    chunked = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        texts = casr.transcribe_wavs(wavs160, max_batch=128)
+        torch.cuda.synchronize()
+        chunked.append((texts, time.perf_counter() - t))
+    order = sorted(range(len(wavs160)), key=lambda i: len(wavs160[i]))
+    alone, alone_s = {}, []
+    for s in (0, 128):
+        idx = order[s:s + 128]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        alone.update(zip(idx, casr.transcribe_wavs(
+            [wavs160[i] for i in idx], max_batch=128)))
+        torch.cuda.synchronize()
+        alone_s.append(time.perf_counter() - t)
+    fails.check(chunked[0][0] == chunked[1][0]
+                and chunked[0][0] == [alone[i] for i in range(len(wavs160))],
+                "chunks: 160 wavs at max_batch=128 (chunks of 128 and 32, "
+                "the second uploaded on the side stream during the first): "
+                "two runs agree and equal each sorted chunk alone")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        casr.transcribe_wavs(wavs160, max_batch=128)
+        torch.cuda.synchronize()
+    trace = os.path.join(build_dir, "chunks_trace.json")
+    prof.export_chrome_trace(trace)
+    overlap = _copy_overlap(trace)
+    os.remove(trace)
+    chunk_walls = [w for _, w in chunked]
+    report = {}
+    report["chunked_160"] = dict(
+        wall_s=chunk_walls, audio_s=audio160,
+        audio_s_per_s=[audio160 / w for w in chunk_walls],
+        chunks_alone_s=alone_s, copies=overlap)
+    print(f"chunks (report, {gpu}): 160 wavs, {audio160:.1f} s audio, wall "
+          f"{chunk_walls[0]:.3f} / {chunk_walls[1]:.3f} s -> "
+          f"{audio160 / chunk_walls[1]:.1f} audio-s/s; the two chunks alone "
+          f"{alone_s[0]:.3f} + {alone_s[1]:.3f} s; host->device copies "
+          f">= 1 MiB in the profiled run (time order; overlap with kernels "
+          f"on another stream): {json.dumps(overlap)}", flush=True)
+
+    lwav = _synthetic_wavs(np, rng, 1, 60.0, 60.0)[0]
+    lpath = os.path.join(build_dir, "long60.wav")
+    _write_wav_i16(lpath, lwav)
+    calls = []
+
+    def spy(ws, max_batch=128, scales=None):
+        calls.append((list(ws), list(scales)))
+        return ASR.transcribe_wavs(casr, ws, max_batch=max_batch,
+                                   scales=scales)
+
+    casr.transcribe_wavs = spy
+    long_text = casr.transcribe_long(lpath)
+    del casr.transcribe_wavs
+    cut = calls[0][0] if calls else []
+    fails.check(bool(calls) and len(cut) >= 6
+                and np.array_equal(np.concatenate(cut), lwav)
+                and long_text == "".join(casr.transcribe_wavs(
+                    cut, scales=calls[0][1])),
+                f"transcribe_long: a 60 s wav in {len(cut)} disjoint chunks "
+                f"(lengths {[len(c) for c in cut]}) equals the joined "
+                f"transcribe_wavs of those chunks")
+    one = os.path.join(build_dir, "one.wav")
+    _write_wav_i16(one, wavs[3])
+    with open(one, "rb") as f:
+        data = f.read()
+    fails.check(casr.transcribe_bytes(data) == casr.transcribe_files([one])[0],
+                "transcribe_bytes of WAV bytes equals transcribe_files of "
+                "the file")
+    os.remove(lpath)
+    os.remove(one)
+
+    # evaluate_manifest on the golden shard, card against CPU
+    with open(os.path.join(gold, "expected.json"), encoding="utf-8") as f:
+        gtexts = json.load(f)["texts"]
+    gman = os.path.join(build_dir, "golden.tsv")
+    ds_mod.write_manifest(gman, [ds_mod.Utterance(p, t)
+                                 for p, t in zip(gpaths, gtexts)])
+    graw = load_checkpoint(os.path.join(gold, "model.ckpt"))["params"]
+    gparams = {"card": las.params_from_numpy(graw, casr.device),
+               "cpu": las.params_from_numpy(graw, "cpu")}
+    garpa = os.path.join(gold, "lm.arpa")
+    for mode, kw in (("greedy", {}), ("beam_bw4", dict(bw=4)),
+                     ("lm_second", dict(bw=4, lm_mode="second")),
+                     ("lm_second_host", dict(bw=4, lm_mode="second_host")),
+                     ("lm_first", dict(bw=4, lm_mode="first", topn=8))):
+        res = {}
+        for d in ("card", "cpu"):
+            if "lm_mode" in kw:
+                kw["lm"] = (ngram.load_lm(garpa)
+                            if kw["lm_mode"] == "second_host" else garpa)
+            for mod, attr in counters.values():
+                setattr(mod, attr, 0)
+            res[d] = evaluate_manifest(gparams[d], gcfg, gvocab, gman,
+                                       verbose=False, **kw)
+            if d == "card":
+                ec = {n: getattr(mod, attr) for n, (mod, attr)
+                      in counters.items()}
+        fails.check(res["card"]["pred"] == expected[mode]
+                    and res["card"]["cer"] == res["cpu"]["cer"]
+                    and ec["logmel"] > 0 and ec["lstm"] > 0,
+                    f"evaluate_manifest golden {mode} on the card: "
+                    f"expected.json's predictions, CER "
+                    f"{res['card']['cer']:.4f} (CPU {res['cpu']['cer']:.4f}); "
+                    f"launches {ec}")
+    os.remove(gman)
+
+    # evaluate_manifest at flagship width on phase 3's 32 wavs (report)
+    edir = os.path.join(build_dir, "eval32")
+    os.makedirs(edir, exist_ok=True)
+    eutts = []
+    for i, w in enumerate(wavs):
+        p = os.path.join(edir, f"w{i}.wav")
+        _write_wav_i16(p, w)
+        eutts.append(ds_mod.Utterance(p, "x"))
+    eman = os.path.join(edir, "m.tsv")
+    ds_mod.write_manifest(eman, eutts)
+    evals = [evaluate_manifest(casr.params, cfg, casr.vocab, eman, bw=16,
+                               verbose=False) for _ in range(2)]
+    ediff = sum(a != b for a, b in zip(evals[1]["pred"],
+                                       casr.transcribe_wavs(wavs)))
+    report["evaluate_32"] = dict(utts_per_s=[e["utts_per_sec"] for e in evals],
+                                seconds=[e["seconds"] for e in evals],
+                                differ_from_transcribe_wavs=ediff)
+    print(f"evaluate_manifest (report, {gpu}): 32 wavs, bw 16, flagship: "
+          f"{evals[1]['utts_per_sec']:.1f} utts/s ({evals[1]['seconds']:.3f}"
+          f" s; first run {evals[0]['seconds']:.3f} s); {ediff} of 32 "
+          f"predictions differ from transcribe_wavs (report only: the eval "
+          f"loader pads to 4800-sample buckets with no peak gain and "
+          f"instance-norm eps 1e-7, the flat wire pads otherwise with eps "
+          f"1e-6, so f32 rounding differs)", flush=True)
+    shutil.rmtree(edir)
+    return report
 
 
 class Failures:
@@ -1047,7 +1457,7 @@ def main() -> int:
     prep = cards["cpu"]._prep(small_wavs, None)
     out = {}
     for d, a in cards.items():
-        feats, flens = a._featurize(prep)
+        feats, flens = a._featurize(a._upload(prep))
         eb = las.encode(a.params, cfg, feats, flens)
         out[d] = (feats.cpu(), eb.enc_out.cpu(), eb.keys.cpu())
     ef = float((out["cuda"][0] - out["cpu"][0]).abs().max())
@@ -1137,6 +1547,21 @@ def main() -> int:
                     f"{texts['klm'][1]}")
     os.remove(tri)
     os.remove(rebuilt)
+
+
+    # ---- phase 3d: the HTTP server at full width ----------------------------
+    t3d = time.time()
+    golden = (gold, gcfg, gvocab, gpaths, expected)
+    paths["serving"] = _phase_serving(np, torch, fails, ASR, cfg, wavs,
+                                      counters, gpu, golden)
+    print(f"phase 3d: {time.time() - t3d:.1f} s", flush=True)
+
+    # ---- phase 3e: the other entry points on the card -----------------------
+    t3e = time.time()
+    paths.update(_phase_entry_points(np, torch, fails, ASR, cfg, wavs,
+                                     wavs128, rng, counters, gpu, golden,
+                                     build.BUILD_DIR))
+    print(f"phase 3e: {time.time() - t3e:.1f} s", flush=True)
 
     # ---- phase 4: report -----------------------------------------------------
     print("main path: " + json.dumps(paths), flush=True)

@@ -300,7 +300,7 @@ def _golden_feats(dev_cuda):
     from chinese_asr_tpu_torch.api import ASR
     asr = ASR(cfg=golden_cfg(tcfg), device="cpu")
     wavs = [asr._as_wav(w) for w in _golden_wavs()]
-    feats, lens = asr._featurize(asr._prep(wavs, None))
+    feats, lens = asr._featurize(asr._upload(asr._prep(wavs, None)))
     return (feats, lens), (feats.to(dev_cuda), lens.to(dev_cuda))
 
 
@@ -489,3 +489,67 @@ def test_golden_lm_modes_on_the_card(dev, lm_mode, fused, monkeypatch):
         assert ttopk.fused_launches > counts[1] and ttopk.launches == counts[0]
     else:
         assert ttopk.launches > counts[0] and ttopk.fused_launches == counts[1]
+
+
+def _golden_asr(**kw):
+    from chinese_asr_tpu_torch.api import ASR
+    return ASR(ckpt_path=os.path.join(GOLD, "model.ckpt"),
+               cfg=golden_cfg(tcfg),
+               vocab=Vocab.build([CHARS * 3], max_num_words=8), **kw)
+
+
+def test_served_burst_on_the_card(dev):
+    """The golden shard served over HTTP on the card: six concurrent
+    requests form one batch whose replies equal expected.json; K1 and K2
+    launched on the worker thread, /healthz reports cuda."""
+    import threading
+    import urllib.request
+    from chinese_asr_tpu_torch.serve import serve_http
+    with open(os.path.join(GOLD, "expected.json"), encoding="utf-8") as f:
+        expected = json.load(f)["modes"]["greedy"]
+    srv = serve_http(_golden_asr(), port=0, window_ms=2000.0, max_batch=8)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{srv.server_port}"
+    try:
+        with urllib.request.urlopen(url + "/healthz", timeout=30) as r:
+            assert json.loads(r.read())["backend"] == "cuda"
+        counts = (tlogmel.launches, tlstm.launches)
+        out = [None] * 6
+
+        def post(i):
+            with open(golden_wav_paths()[i], "rb") as f:
+                req = urllib.request.Request(url + "/transcribe",
+                                             data=f.read(), method="POST")
+            with urllib.request.urlopen(req, timeout=120) as r:
+                out[i] = json.loads(r.read())["text"]
+
+        threads = [threading.Thread(target=post, args=(i,)) for i in range(6)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=180)
+        assert out == expected and srv.batcher.batches == 1
+        assert tlogmel.launches > counts[0] and tlstm.launches > counts[1]
+    finally:
+        srv.shutdown()
+        srv.server_close()
+
+
+def test_overlapped_chunks_on_the_card(dev):
+    """Three chunks uploaded on the side stream while the one before
+    decodes: the transcripts equal each sorted chunk decoded alone, two
+    runs agree, and the CPU path gives the same."""
+    rng = np.random.default_rng(4)
+    wavs = _golden_wavs()
+    wavs = wavs + [w[: int(rng.integers(8000, 16000))] for w in wavs]
+    asr = _golden_asr(bw=4)
+    first = asr.transcribe_wavs(wavs, max_batch=4)
+    assert asr._copy_stream is not None
+    assert asr.transcribe_wavs(wavs, max_batch=4) == first
+    order = sorted(range(len(wavs)), key=lambda i: len(wavs[i]))
+    for s in range(0, len(order), 4):
+        idx = order[s:s + 4]
+        assert [first[i] for i in idx] == asr.transcribe_wavs(
+            [wavs[i] for i in idx])
+    assert first == _golden_asr(bw=4, device="cpu").transcribe_wavs(
+        wavs, max_batch=4)
