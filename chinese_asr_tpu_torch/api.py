@@ -15,9 +15,11 @@ The LM is an ARPA text file or a KenLM binary (``.klm``), read by the C++
 reader of ``lm/ngram.py`` in every mode.
 
 [optional ffmpeg transcode] -> wav read + peak scale (in-process ``sox
---norm=-1``) -> upload over the flat (default) or padded wire ->
-featurization with per-utterance instance norm (eps 1e-6, reference
-main.py:37) -> greedy/beam decode -> winner picked on the device (or by
+--norm=-1``) -> upload over the flat (default), padded, 8-bit mu-law or
+4-bit ADPCM wire -> featurization with per-utterance instance norm (eps
+1e-6, reference main.py:37) -> greedy/beam decode (in float32, or with
+``compute_dtype="bfloat16"`` weights and activations in bf16 and the
+score arithmetic in float32) -> winner picked on the device (or by
 the host rescorer) -> host detokenize.  ``transcribe_bytes`` takes audio
 bytes, ``transcribe_long`` cuts long audio at silences, and the CLI's
 ``--serve``/``--serve-http`` keep a model loaded (``serve.py``).
@@ -50,6 +52,8 @@ from .utils.device import resolve_device
 from .vocab import SPECIALS, Vocab
 
 _LATER = "comes with a later slice of the PyTorch port"
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_WIRES = ("flat", "mulaw", "adpcm", "padded")
 
 
 def _identity_vocab(n: int) -> Vocab:
@@ -89,27 +93,34 @@ class ASR:
                  device: Union[str, torch.device, None] = None,
                  seed: int = 0):
         """``wire``: "flat" ships exactly sum(lens) samples and expands to
-        the padded layout on the device (lossless); "padded" ships the
-        zero-padded [B, N] matrix.  The flat buffer's length rounds up to
+        the padded layout on the device (lossless); "mulaw" companders
+        them to 8-bit mu-law codes (half the bytes, lossy); "adpcm" codes
+        4-bit block-adaptive ADPCM (a quarter, lossy; decoded on the card
+        by kernel K5); "padded" ships the zero-padded [B, N] matrix.  The
+        lossy wires need int16 PCM: a batch holding a float wav ships
+        over the float32 flat wire.  The flat buffer's length rounds up to
         a multiple of ``8 * wav_bucket``, or with ``flat_pow2`` to the
         next power-of-two multiple of ``wav_bucket``: at most 2x wire
         padding, but log-many buffer shapes for a server's arbitrary
         traffic (``serve.MicroBatcher`` pairs it with its power-of-two
         batch ladder).  Without ``ckpt_path`` the weights are
-        random, drawn from ``seed``.  The LM (ARPA text or ``.klm``) loads
-        only for beam widths > 1 (main.py:78-84); ``lm_topn`` is the
-        number of proposals per beam of ``lm_mode="first"``."""
+        random, drawn from ``seed``.  ``compute_dtype="bfloat16"`` casts
+        the floating weights and the features to bf16 (the front end
+        runs in float32; the decode's scores stay float32).  The LM
+        (ARPA text or ``.klm``) loads only for beam widths > 1
+        (main.py:78-84); ``lm_topn`` is the number of proposals per beam
+        of ``lm_mode="first"``."""
         if lm_mode not in ("second", "second_host", "first"):
             raise ValueError(f"lm_mode={lm_mode!r}: one of second, "
                              f"second_host, first")
         use_lm = bool(lm_path and bw and bw > 1)
         if mesh is not None:
             raise NotImplementedError(f"multi-device decoding {_LATER}")
-        if compute_dtype != "float32":
-            raise NotImplementedError(f"compute_dtype={compute_dtype!r} "
-                                      f"(bf16 inference) {_LATER}")
-        if wire not in ("flat", "padded"):
-            raise NotImplementedError(f"the lossy {wire!r} wire {_LATER}")
+        if compute_dtype not in _DTYPES:
+            raise ValueError(f"compute_dtype={compute_dtype!r}: one of "
+                             f"{', '.join(_DTYPES)}")
+        if wire not in _WIRES:
+            raise ValueError(f"wire={wire!r}: one of {', '.join(_WIRES)}")
         self.device = resolve_device(device)
         self.cfg = cfg or Config()
         self.bw = bw
@@ -118,6 +129,7 @@ class ASR:
         self.wav_bucket = wav_bucket
         self.wire = wire
         self.flat_pow2 = flat_pow2
+        self.compute_dtype = _DTYPES[compute_dtype]
         self._copy_stream = None        # the card's upload stream, at first use
         if isinstance(vocab, str):
             self.vocab = Vocab.load(vocab)
@@ -156,6 +168,10 @@ class ASR:
                 f"checkpoint vocab size {emb_rows} != config vocab size "
                 f"{self.cfg.vocab.vocab_size}; pass cfg=Config().with_("
                 f"'vocab', max_num_words={emb_rows - 4})")
+        if self.compute_dtype != torch.float32:
+            self.params = las.tree_map(
+                lambda t: t.to(self.compute_dtype)
+                if t.is_floating_point() else t, self.params)
 
     @staticmethod
     def _is_torch_ckpt(path: str) -> bool:
@@ -184,10 +200,12 @@ class ASR:
 
     def _prep(self, wavs: List[np.ndarray], scales):
         """(wire buffer, lens [B] int32, scales [B] f32, padded length N).
-        The flat wire concatenates the wavs with no padding bytes; the
-        padded wire is the zero-padded [B, N] matrix.  A uniform int16
-        batch ships raw PCM; any float wav makes it float32 (int16
-        members are scaled on the host)."""
+        The flat wires concatenate the wavs with no padding bytes (as raw
+        PCM, mu-law codes, or the ADPCM wire of the buffer rounded up to
+        whole blocks); the padded wire is the zero-padded [B, N] matrix.
+        A uniform int16 batch ships raw PCM (or its lossy code); any
+        float wav makes it float32 (int16 members are scaled on the
+        host)."""
         wavs = [self._as_wav(w) for w in wavs]
         lens = np.array([len(w) for w in wavs], np.int32)
         N = audio_io.round_up(max(1, int(lens.max())), self.wav_bucket)
@@ -195,10 +213,22 @@ class ASR:
         dt = np.int16 if all_i16 else np.float32
         wavs = [w if w.dtype == dt else w.astype(np.float32) / 32768.0
                 for w in wavs]
-        if self.wire == "flat":
+        if self.wire != "padded":
+            codec = self.wire if all_i16 else "flat"
             total = int(lens.sum())
-            buf = np.zeros(self._flat_len(total), dt)
+            n = self._flat_len(total)
+            if codec == "adpcm":
+                # whole blocks: a multiple of wav_bucket need not be one
+                # of ADPCM_K, and the block boundaries fix the code
+                n = audio_io.round_up(n, features.ADPCM_K)
+            buf = np.zeros(n, dt)
             buf[:total] = np.concatenate(wavs) if total else 0
+            if codec == "adpcm":
+                buf = features.adpcm_encode_flat(buf)
+            elif codec == "mulaw":                  # padding bytes stay 0
+                code = np.zeros(n, np.uint8)
+                code[:total] = features.mulaw_encode_i16(buf[:total])
+                buf = code
         else:
             buf = np.zeros((len(wavs), N), dt)
             for i, w in enumerate(wavs):
@@ -238,13 +268,20 @@ class ASR:
             stream.wait_event(up.done)
             for t in up.tensors:
                 t.record_stream(stream)
-        if self.wire == "flat":
-            feats, feat_lens = features.featurize_flat(
-                buf_d, lens_d, up.N, self.cfg.audio, norm_eps=1e-6,
-                scale=sc_d)
-        else:
+        # a batch holding a float wav ships over the float32 flat wire
+        # whatever ``wire`` says, so the buffer's dtype picks the decode
+        acfg = self.cfg.audio
+        if self.wire == "padded":
             feats, feat_lens = features.featurize_batch(
-                buf_d, lens_d, self.cfg.audio, norm_eps=1e-6, scale=sc_d)
+                buf_d, lens_d, acfg, norm_eps=1e-6, scale=sc_d)
+        else:
+            adpcm = self.wire == "adpcm" and buf_d.dtype == torch.uint8
+            featurize = (features.featurize_adpcm if adpcm
+                         else features.featurize_flat)
+            feats, feat_lens = featurize(buf_d, lens_d, up.N, acfg,
+                                         norm_eps=1e-6, scale=sc_d)
+        # the front end runs in float32; the model in compute_dtype
+        feats = feats.to(self.compute_dtype)
         # degenerate (shorter than one frame) utterances attend to one zero
         # frame instead of an all -inf softmax mask
         return feats, torch.clamp(feat_lens, min=1)

@@ -16,6 +16,10 @@ plain PyTorch with the JAX module's parity details:
 * zero power floored to float32 eps before the log (data.py:223-224);
 * 9-tap identity/delta/delta-delta filters, L2-normalized, zero-padded
   'same' (data.py:129-164), and channel-major x3 stacking (data.py:244).
+
+The wires the waveforms arrive over (``unpack_flat``, the lossy mu-law and
+ADPCM codecs at the end of this module) are the JAX module's too; the
+ADPCM decode is kernel K5 (``ops/cuda/adpcm.py``) on a CUDA tensor.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ import numpy as np
 import torch
 
 from ..config import AudioConfig
+from ..ops.cuda import adpcm as adpcm_k
 from ..ops.cuda import logmel as logmel_k
 
 
@@ -254,16 +259,20 @@ def featurize_batch(wavs, wav_lens, cfg: AudioConfig, norm_eps: float = 1e-7,
 
 
 def unpack_flat(flat, lens, N: int):
-    """Expand a flat concatenated wav buffer ([sum(lens)+pad] int16 PCM or
-    float32) to the padded [B, N] float32 batch, with exact zeros in the
-    padding region.  Row b is the contiguous run starting at the exclusive
-    cumsum of ``lens``."""
+    """Expand a flat concatenated wav buffer ([sum(lens)+pad] of int16
+    PCM, uint8 mu-law codes or float32) to the padded [B, N] float32
+    batch, with exact zeros in the padding region.  Row b is the
+    contiguous run starting at the exclusive cumsum of ``lens``.  Mu-law
+    codes are decoded after the row gather and masked after the decode
+    (code 0, the wire's padding, decodes to -1.0)."""
     lens = lens.to(torch.int64)
     start = torch.cumsum(lens, 0) - lens
     # pad by N so every row's window [start, start+N) is in bounds
     flat = torch.cat([flat, flat.new_zeros(N)])
     x = flat.unfold(0, N, 1)[start]                       # [B, N] row copies
-    if x.dtype == torch.int16:
+    if x.dtype == torch.uint8:
+        x = mulaw_decode(x)
+    elif x.dtype == torch.int16:
         x = x.to(torch.float32) / 32768.0
     else:
         x = x.to(torch.float32)
@@ -274,5 +283,126 @@ def unpack_flat(flat, lens, N: int):
 def featurize_flat(flat, lens, N: int, cfg: AudioConfig,
                    norm_eps: float = 1e-7, scale=None):
     """featurize_batch over the flat wire layout (see unpack_flat)."""
+    return featurize_batch(unpack_flat(flat, lens, N), lens, cfg,
+                           norm_eps=norm_eps, scale=scale)
+
+
+# --------------------------------------------------------------------------
+# lossy wires (opt-in): 8-bit mu-law and 4-bit block-adaptive ADPCM
+# --------------------------------------------------------------------------
+# mu-law: the G.711 curve (mu = 255) over the full int16 range, one byte a
+# sample, encoded on the host through a lookup table over all 65536 values
+# and decoded on the device elementwise.  ADPCM: blocks of ADPCM_K samples
+# that decode independently (each header carries the initial predictor and
+# step index), a sign and a 3-bit adaptive magnitude per sample, the step
+# ``(8 + (idx & 7)) << (idx >> 3)`` in integers, so encoder and decoder run
+# the same integer state machine and the decode is bit-exact.
+
+MULAW_MU = 255.0
+ADPCM_K = adpcm_k.ADPCM_K
+_ADPCM_IDX_MAX = adpcm_k.ADPCM_IDX_MAX
+_adpcm_step = adpcm_k.adpcm_step
+adpcm_bytes = adpcm_k.adpcm_bytes
+
+
+@functools.lru_cache(maxsize=1)
+def _mulaw_encode_lut() -> np.ndarray:
+    v = np.arange(-32768, 32768, dtype=np.int64) / 32768.0
+    u = np.sign(v) * np.log1p(MULAW_MU * np.abs(v)) / np.log1p(MULAW_MU)
+    return np.round((u + 1.0) * 127.5).astype(np.uint8)
+
+
+def mulaw_encode_i16(x: np.ndarray) -> np.ndarray:
+    """int16 PCM -> uint8 mu-law code (host side, one table gather)."""
+    return _mulaw_encode_lut()[x.astype(np.int64) + 32768]
+
+
+def mulaw_decode_table() -> np.ndarray:
+    """[256] float32 decode table: code -> sample in [-1, 1] (the centres
+    of the encoder's quantization bins)."""
+    q = np.arange(256, dtype=np.float64)
+    u = q / 127.5 - 1.0
+    x = np.sign(u) * ((1.0 + MULAW_MU) ** np.abs(u) - 1.0) / MULAW_MU
+    return x.astype(np.float32)
+
+
+def mulaw_decode(q):
+    """uint8 mu-law code tensor -> float32 sample, elementwise (the JAX
+    package's ``mulaw_decode_jnp``)."""
+    u = q.to(torch.float32) * (1.0 / 127.5) - 1.0
+    return torch.sign(u) * (torch.exp2(8.0 * torch.abs(u)) - 1.0) / MULAW_MU
+
+
+def adpcm_encode_flat(x: np.ndarray, out: np.ndarray = None) -> np.ndarray:
+    """Encode an int16 flat buffer (length a multiple of ADPCM_K) into the
+    packed uint8 wire: [pred0 lo | pred0 hi | idx0 | nibbles], the nibble
+    block [K/2, nb] with byte j holding codes (2j, 2j+1).  Runs the C++
+    encoder (``runtime/cpp/adpcm.cpp``) where it builds, else numpy; the
+    two are byte-identical (integer-only math)."""
+    K = ADPCM_K
+    if x.dtype != np.int16 or x.ndim != 1 or len(x) % K:
+        raise ValueError(f"adpcm_encode_flat: int16 [n * {K}] expected, "
+                         f"got {x.dtype} {x.shape}")
+    if out is None:
+        out = np.empty(adpcm_bytes(len(x)), np.uint8)
+    elif (out.dtype != np.uint8 or not out.flags["C_CONTIGUOUS"]
+          or out.size != adpcm_bytes(len(x))):
+        # the C++ encoder writes through raw pointers: validate up front
+        raise ValueError(f"adpcm_encode_flat: out must be a contiguous "
+                         f"uint8 [{adpcm_bytes(len(x))}], got {out.dtype} "
+                         f"{out.shape}")
+    if not len(x):
+        return out
+    from ..runtime import native
+    lib = native.get_adpcm()
+    if lib is not None:
+        lib(np.ascontiguousarray(x), out)
+        return out
+    xi = x.astype(np.int32)
+    nb = len(x) // K
+    blocks = xi.reshape(nb, K)
+    # initial predictor: the last original sample of the previous block
+    pred0 = np.concatenate([[0], blocks[:-1, -1]]).astype(np.int32)
+    # initial step index: the first step >= 2 * mean |first difference|,
+    # in integers (sum >> 7 == 2 * mean for K = 256)
+    acc = np.abs(np.diff(blocks, axis=1,
+                         prepend=pred0[:, None])).sum(1, np.int64)
+    table = _adpcm_step(np.arange(_ADPCM_IDX_MAX + 1, dtype=np.int32))
+    idx0 = np.minimum(np.searchsorted(table, np.maximum(acc >> 7, 8)),
+                      _ADPCM_IDX_MAX).astype(np.int32)
+    pred, idx = pred0.copy(), idx0.copy()
+    codes = np.empty((K, nb), np.uint8)
+    for t in range(K):
+        s = blocks[:, t]
+        step = _adpcm_step(idx)
+        diff = s - pred
+        sign = (diff < 0).astype(np.int32)
+        mag = np.minimum((np.abs(diff) << 2) // step, 7)
+        dq = ((2 * mag + 1) * step) >> 3
+        pred = np.clip(pred + np.where(sign, -dq, dq), -32768, 32767)
+        idx = np.clip(idx + np.where(mag < 4, -1, 2 * (mag - 3)),
+                      0, _ADPCM_IDX_MAX)
+        codes[t] = ((sign << 3) | mag).astype(np.uint8)
+    nib = (codes[0::2] | (codes[1::2] << 4)).reshape(-1)
+    out[:nb] = (pred0 & 255).astype(np.uint8)
+    out[nb: 2 * nb] = ((pred0 >> 8) & 255).astype(np.uint8)
+    out[2 * nb: 3 * nb] = idx0.astype(np.uint8)
+    out[3 * nb:] = nib
+    return out
+
+
+def adpcm_decode_flat(buf, nb: int):
+    """Packed ADPCM wire (uint8 tensor) -> float32 flat buffer of
+    ``nb * ADPCM_K`` samples in [-1, 1): kernel K5 on a CUDA tensor, its
+    plain twin on a CPU tensor (``ops/cuda/adpcm.py``)."""
+    return adpcm_k.adpcm_decode_flat(buf, nb)
+
+
+def featurize_adpcm(buf, lens, N: int, cfg: AudioConfig,
+                    norm_eps: float = 1e-7, scale=None):
+    """featurize_batch over the ADPCM wire (decode, then the flat row
+    unpack)."""
+    nb = buf.shape[0] // (3 + ADPCM_K // 2)
+    flat = adpcm_decode_flat(buf, nb)
     return featurize_batch(unpack_flat(flat, lens, N), lens, cfg,
                            norm_eps=norm_eps, scale=scale)

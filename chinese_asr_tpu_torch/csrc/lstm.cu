@@ -52,9 +52,24 @@
 // Left for later: `wgmma` for the step's product, a pipelined exchange of h
 // (bulk copies completing on an mbarrier in place of the cluster barrier),
 // 16-CTA clusters so that B=128 uses 128 SMs.
+//
+// bf16 (`asr_bilstm_bf16`, for compute_dtype="bfloat16"): both kernels are
+// templated on the operand type E.  The JAX package runs a bf16 layer
+// through a lax.scan whose carry is bf16 (chinese_asr_tpu/ops/rnn.py:246,
+// `_bidir_core_scan`); here xg, the masks, W_hh and every output are bf16,
+// and the arithmetic is: h @ W_hh as bf16 x bf16 products with f32
+// accumulation (`mma.m16n8k16` with bf16 operands: one mma per k16 step
+// and tile where f32 takes three per k8 step), xg_t added in f32, the cell
+// update in f32 (exact expf / tanhf), and at the end of each step y, h and
+// c rounded to bf16.  The W_hh slice is 64 registers a thread at H=256
+// (packed pairs), the step's gates move half the bytes, and h sits in
+// shared memory in the m16n8k16 A-fragment order (below).  Bound at
+// [332, 128, 256]: 2 * 2 * T * B * H * 4H flops at the dense bf16 rate,
+// 0.035 ms; bytes 0.06 ms.
 #include "common.cuh"
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -62,8 +77,58 @@ namespace cg = cooperative_groups;
 
 namespace {
 
+using bf16 = __nv_bfloat16;
+
 __device__ __forceinline__ float sigmoid(float x) {
     return 1.f / (1.f + expf(-x));
+}
+
+// What the two operand types differ in.  Loads widen to f32; `rnd` rounds
+// an f32 value to the type's precision (where the carry is rounded).
+template <typename E>
+struct Elt;
+
+template <>
+struct Elt<float> {
+    static constexpr bool BF16 = false;
+    static constexpr int KSTEP = 8;     // k depth of one mma (tf32 m16n8k8)
+    using W = float;                    // a register of the W_hh fragments
+    static __device__ __forceinline__ float ld(const float* p) { return *p; }
+    static __device__ __forceinline__ float ldg(const float* p) {
+        return __ldg(p);
+    }
+    static __device__ __forceinline__ float rnd(float x) { return x; }
+    static __device__ __forceinline__ void st(float* p, float x) { *p = x; }
+};
+
+template <>
+struct Elt<bf16> {
+    static constexpr bool BF16 = true;
+    static constexpr int KSTEP = 16;    // bf16 m16n8k16
+    using W = uint32_t;                 // two bf16 of one B fragment
+    static __device__ __forceinline__ float ld(const bf16* p) {
+        return __bfloat162float(*p);
+    }
+    static __device__ __forceinline__ float ldg(const bf16* p) {
+        return __bfloat162float(*p);
+    }
+    static __device__ __forceinline__ float rnd(float x) {
+        return __bfloat162float(__float2bfloat16_rn(x));
+    }
+    static __device__ __forceinline__ void st(bf16* p, float x) {
+        *p = __float2bfloat16_rn(x);
+    }
+};
+
+// two bf16-exact floats -> one 32-bit word, a in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
+    return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(a))
+           | ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(b)) << 16);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(bf16 a, bf16 b) {
+    return (uint32_t)__bfloat16_as_ushort(a)
+           | ((uint32_t)__bfloat16_as_ushort(b) << 16);
 }
 
 // ---------------------------------------------------------------------------
@@ -117,62 +182,87 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const float4& a,
           "r"(__float_as_uint(b0)), "r"(__float_as_uint(b1)));
 }
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+// d += a * b on the tensor cores, bf16 inputs, f32 accumulators.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint4& a,
+                                         uint32_t b0, uint32_t b1) {
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
+}
+
+// 4 bytes global -> shared, zero-filled where !pred
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
                                           bool pred) {
     const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
     asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;"
                  ::"r"(d), "l"(src), "r"(pred ? 4 : 0) : "memory");
 }
 
-// The shapes of one instantiation: hidden size H (a multiple of 64, at
-// most 256), MT m16 tiles of batch rows per cluster.
-template <int H, int MT>
+// The shapes of one instantiation: operand type E, hidden size H (a
+// multiple of 64, at most 256), MT m16 tiles of batch rows per cluster.
+template <typename E, int H, int MT>
 struct TcShape {
+    static constexpr int KSTEP = Elt<E>::KSTEP;
     static constexpr int UC = H / CL;       // hidden units of one CTA
     static constexpr int COLS = 4 * UC;     // its gate columns (q*UC + u)
     static constexpr int NT = COLS / 8;     // n8 tiles of those columns
     static constexpr int NPW = NT / NG;     // n-tiles of one warp
-    static constexpr int KS = H / 8;        // k8 steps over h
+    static constexpr int KS = H / KSTEP;    // mma k-steps over h
     static constexpr int KPW = KS / KG;     // k-steps of one warp
-    static constexpr int SPC = UC / 8;      // k-steps of h one CTA produces
+    static constexpr int SPC = UC / 8;      // 8-unit groups one CTA produces
     static constexpr int R = 16 * MT;       // batch rows of one cluster
     static constexpr int PS = COLS + 8;     // partial-sum row stride
-    static constexpr int HBUF = MT * KS * 32 * 4;  // floats of one h buffer
-    static constexpr int NSLOT = MT * SPC * 32;    // float4 slots of a slice
+    static constexpr int HBUF = MT * 16 * H;       // elements of one h buffer
+    static constexpr int NSLOT = MT * SPC * 32;    // 4-element slots of a slice
     // (row, unit) pairs per thread of the cell update: the four of a slot,
-    // or two (one unit, rows g and g + 8) where the CTA has the threads
+    // or two where the CTA has the threads
     static constexpr int PP = 2 * NSLOT <= TC_THREADS ? 2 : 4;
     static constexpr int NLT = NSLOT * 4 / PP;     // threads of the cell update
-    static constexpr size_t SMEM =
-        (size_t)(2 * HBUF + KG * R * PS + 4 * PP * NLT) * sizeof(float);
-    static_assert(H % 64 == 0 && NPW >= 1 && NLT <= TC_THREADS, "shape");
+    // 32-bit words of one thread's prefetched gates: 4 gates of each pair,
+    // packed two to a word in bf16
+    static constexpr int XGW = Elt<E>::BF16 ? 2 * PP : 4 * PP;
+    static constexpr size_t SMEM = (size_t)2 * HBUF * sizeof(E)
+        + (size_t)(KG * R * PS + XGW * NLT) * sizeof(float);
+    static_assert(H % 64 == 0 && NPW >= 1 && NLT <= TC_THREADS
+                  && KS % KG == 0, "shape");
 };
 
-// h lives in shared memory in A-fragment order: for m-tile m, k-step s and
-// lane l = 4g + c, the float4
+// h lives in shared memory in A-fragment order.  f32 (m16n8k8, tf32): for
+// m-tile m, k8-step s and lane l = 4g + c, the float4
 //   h(g, 8s+c), h(g+8, 8s+c), h(g, 8s+c+4), h(g+8, 8s+c+4)
 // (rows within the m-tile, units over H), so a warp's A operand of one
 // (m, s) is one conflict-free float4 load, split into TF32 hi and lo as it
-// is loaded.  The threads of the cell update that own those four (row,
-// unit) pairs write them as one float4 (or two float2) into every CTA of
-// the cluster.
-template <int H, int MT>
+// is loaded.  bf16 (m16n8k16): for k16-step s, the eight bf16
+//   h(g, 16s+2c), h(g, 16s+2c+1), h(g+8, 16s+2c), h(g+8, 16s+2c+1),
+//   h(g, 16s+2c+8), h(g, 16s+2c+9), h(g+8, 16s+2c+8), h(g+8, 16s+2c+9),
+// one 16-byte load.  Either way the unit group of 8 units 8j .. 8j+7 of
+// one m-tile is a "slot" per lane: 4 elements (16 bytes of f32 at k8-step
+// j, or 8 bytes of bf16 in half j % 2 of k16-step j / 2).  Element e of a
+// slot is row g + 8 (e & 1), unit c + 4 (e >> 1) in f32, and row
+// g + 8 (e >> 1), unit 2c + (e & 1) in bf16.  The threads of the cell
+// update that own a slot's elements write them with one store into every
+// CTA of the cluster.
+template <typename E, int H, int MT>
 __global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(TC_THREADS, 1)
-bilstm_tc_kernel(const float* __restrict__ xg_f,
-                 const float* __restrict__ xg_b,
-                 const float* __restrict__ m_f,
-                 const float* __restrict__ m_b,
-                 const float* __restrict__ w_hh,
-                 float* __restrict__ ys_f,
-                 float* __restrict__ ys_b,
-                 float* __restrict__ hT,
-                 float* __restrict__ cT,
+bilstm_tc_kernel(const E* __restrict__ xg_f,
+                 const E* __restrict__ xg_b,
+                 const E* __restrict__ m_f,
+                 const E* __restrict__ m_b,
+                 const E* __restrict__ w_hh,
+                 E* __restrict__ ys_f,
+                 E* __restrict__ ys_b,
+                 E* __restrict__ hT,
+                 E* __restrict__ cT,
                  int T, int B) {
-    using S = TcShape<H, MT>;
+    using S = TcShape<E, H, MT>;
+    using X = Elt<E>;
+    constexpr bool BF = X::BF16;
     extern __shared__ float4 smem4[];
-    float* hbuf = reinterpret_cast<float*>(smem4);   // [2][MT][KS][32][4]
-    float* part = hbuf + 2 * S::HBUF;                // [KG][R][PS]
-    float* xgs = part + KG * S::R * S::PS;           // [4 PP][NLT] gates
+    E* hbuf = reinterpret_cast<E*>(smem4);           // [2][MT][KS][32][*]
+    float* part = reinterpret_cast<float*>(hbuf + 2 * S::HBUF);  // [KG][R][PS]
+    float* xgs = part + KG * S::R * S::PS;           // [XGW][NLT] gates
+    uint32_t* xgw = reinterpret_cast<uint32_t*>(xgs);
     cg::cluster_group cluster = cg::this_cluster();
     const int rank = (int)cluster.block_rank();
     constexpr int H4 = 4 * H;
@@ -182,58 +272,102 @@ bilstm_tc_kernel(const float* __restrict__ xg_f,
     const int warp = tid >> 5, lane = tid & 31;
     const int g = lane >> 2, tig = lane & 3;
     const int kg = warp / NG, ng = warp % NG;
-    const float* xg = dir ? xg_b : xg_f;
-    const float* mk = dir ? m_b : m_f;
-    float* ys = dir ? ys_b : ys_f;
-    const float* W = w_hh + (size_t)dir * H * H4;
+    const E* xg = dir ? xg_b : xg_f;
+    const E* mk = dir ? m_b : m_f;
+    E* ys = dir ? ys_b : ys_f;
+    const E* W = w_hh + (size_t)dir * H * H4;
 
     // This warp's B fragments of the W_hh slice stay in registers for the
-    // whole time loop (f32; split into TF32 hi/lo at each use).
-    float wr[S::KPW][S::NPW][2];
+    // whole time loop (f32, split into TF32 hi/lo at each use; or bf16
+    // pairs: rows k, k+1 of one column in a word).
+    typename X::W wr[S::KPW][S::NPW][2];
 #pragma unroll
     for (int ks = 0; ks < S::KPW; ++ks) {
 #pragma unroll
         for (int j = 0; j < S::NPW; ++j) {
-            const int k = (kg * S::KPW + ks) * 8 + tig;
             const int col = (ng * S::NPW + j) * 8 + g;
             const int q = col / S::UC, u = col % S::UC;
-            const float* w = W + (size_t)k * H4 + q * H + rank * S::UC + u;
-            wr[ks][j][0] = w[0];
-            wr[ks][j][1] = w[(size_t)4 * H4];
+            if constexpr (BF) {
+                const int k = (kg * S::KPW + ks) * 16 + 2 * tig;
+                const E* w = W + (size_t)k * H4 + q * H + rank * S::UC + u;
+                wr[ks][j][0] = pack_bf16(w[0], w[H4]);
+                wr[ks][j][1] = pack_bf16(w[(size_t)8 * H4],
+                                         w[(size_t)9 * H4]);
+            } else {
+                const int k = (kg * S::KPW + ks) * 8 + tig;
+                const E* w = W + (size_t)k * H4 + q * H + rank * S::UC + u;
+                wr[ks][j][0] = w[0];
+                wr[ks][j][1] = w[(size_t)4 * H4];
+            }
         }
     }
-    for (int i = tid; i < 2 * S::HBUF; i += TC_THREADS) hbuf[i] = 0.f;
+    {
+        uint32_t* hw = reinterpret_cast<uint32_t*>(hbuf);
+        constexpr int NW = (int)(2 * S::HBUF * sizeof(E) / 4);
+        for (int i = tid; i < NW; i += TC_THREADS) hw[i] = 0u;
+    }
     // every CTA's buffers are zero before any CTA of the cluster writes
     cluster.sync();
 
-    // cell-update role: the (row, unit) pairs of one slot of the fragment
-    // order above (all four, or the two of unit half uh); pair p has row
-    // index p & 1 and unit index p >> 1 (PP = 4) or uh (PP = 2)
+    // cell-update role: elements e = p + 2 uh (p < PP) of one slot (all
+    // four, or the two of half uh)
     constexpr int PP = S::PP;
     const bool nl = tid < S::NLT;
     const int slot = tid % S::NSLOT, uh = PP == 2 ? tid / S::NSLOT : 0;
-    const int sl = (slot >> 5) % S::SPC;             // k-step of this CTA
+    const int sl = (slot >> 5) % S::SPC;             // unit group of this CTA
     const int mm = slot / (32 * S::SPC);             // m-tile
     const int rr = mm * 16 + g;                      // row in the cluster
     const int row0 = b0 + rr;
     const bool valid0 = nl && row0 < B, valid1 = nl && row0 + 8 < B;
-    const int ug0 = rank * S::UC + sl * 8 + tig + 4 * uh;  // hidden unit
-    const int dst = ((mm * S::KS + rank * S::SPC + sl) * 32 + lane) * 4
-                    + 2 * uh;
-    // gates of step t for this thread's pairs, brought into xgs[p*4 + q]
-    // by cp.async (zeros for rows past B) one step ahead
+    const int ub = rank * S::UC + sl * 8;            // first unit of the group
+    // the slot's place in the fragment order of the h buffers
+    constexpr int GPS = S::KSTEP / 8;                // unit groups a k-step
+    const int ug8 = rank * S::SPC + sl;
+    const int dst = ((mm * S::KS + ug8 / GPS) * 32 + lane) * (S::KSTEP / 2)
+                    + (ug8 % GPS) * 4 + 2 * uh;
+    // row bit and unit offset (within the group) of element e
+    auto rowbit = [](int e) { return BF ? e >> 1 : e & 1; };
+    auto uoff = [&](int e) { return BF ? 2 * tig + (e & 1)
+                                       : tig + 4 * (e >> 1); };
+    // gates of step t for this thread's pairs, brought into shared memory
+    // by cp.async (zeros for rows past B) one step ahead: f32 one word a
+    // (pair, gate) at xgs[(p*4 + q)*NLT + tid]; bf16 one word a (row, gate)
+    // holding units 2c and 2c+1, at xgw[(rp*4 + q)*NLT + tid]
     auto fetch = [&](int t) {
+        if constexpr (BF) {
 #pragma unroll
-        for (int p = 0; p < PP; ++p) {
-            const bool v = (p & 1) ? valid1 : valid0;
-            const float* x = xg + ((size_t)t * B + row0 + 8 * (p & 1)) * H4
-                             + ug0 + 4 * (p >> 1);
+            for (int rp = 0; rp < PP / 2; ++rp) {
+                const int rb = rp + uh;
+                const bool v = rb ? valid1 : valid0;
+                const E* x = xg + ((size_t)t * B + row0 + 8 * rb) * H4 + ub
+                             + 2 * tig;
 #pragma unroll
-            for (int q = 0; q < 4; ++q)
-                cp_async4(xgs + (p * 4 + q) * S::NLT + tid,
-                          v ? x + q * H : xg, v);
+                for (int q = 0; q < 4; ++q)
+                    cp_async4(xgw + (rp * 4 + q) * S::NLT + tid,
+                              v ? x + q * H : xg, v);
+            }
+        } else {
+#pragma unroll
+            for (int p = 0; p < PP; ++p) {
+                const int e = p + 2 * uh;
+                const bool v = rowbit(e) ? valid1 : valid0;
+                const E* x = xg + ((size_t)t * B + row0 + 8 * rowbit(e)) * H4
+                             + ub + uoff(e);
+#pragma unroll
+                for (int q = 0; q < 4; ++q)
+                    cp_async4(xgs + (p * 4 + q) * S::NLT + tid,
+                              v ? x + q * H : xg, v);
+            }
         }
         asm volatile("cp.async.commit_group;" ::: "memory");
+    };
+    auto xgate = [&](int p, int q) -> float {
+        if constexpr (BF) {
+            const uint32_t w = xgw[((p >> 1) * 4 + q) * S::NLT + tid];
+            return __uint_as_float((p & 1) ? (w & 0xffff0000u) : (w << 16));
+        } else {
+            return xgs[(p * 4 + q) * S::NLT + tid];
+        }
     };
     float h[PP], c[PP], nm0 = 0.f, nm1 = 0.f;
 #pragma unroll
@@ -243,14 +377,14 @@ bilstm_tc_kernel(const float* __restrict__ xg_f,
     }
     if (nl && T > 0) {
         fetch(0);
-        if (valid0) nm0 = mk[row0];
-        if (valid1) nm1 = mk[row0 + 8];
+        if (valid0) nm0 = X::ld(mk + row0);
+        if (valid1) nm1 = X::ld(mk + row0 + 8);
     }
 
     int cur = 0;
     for (int t = 0; t < T; ++t) {
-        // ---- gates' h @ W_hh part: 3xTF32 products on the tensor cores ----
-        const float* hc = hbuf + cur * S::HBUF;
+        // ---- gates' h @ W_hh part on the tensor cores ----
+        const E* hc = hbuf + cur * S::HBUF;
         float acc[MT][S::NPW][4];
 #pragma unroll
         for (int m = 0; m < MT; ++m)
@@ -261,41 +395,57 @@ bilstm_tc_kernel(const float* __restrict__ xg_f,
 #pragma unroll
         for (int ks = 0; ks < S::KPW; ++ks) {
             const int s = kg * S::KPW + ks;
-            float4 ahi[MT], alo[MT];
+            if constexpr (BF) {
+                // bf16 x bf16, f32 accumulation: one mma a k16 step
+                uint4 a[MT];
 #pragma unroll
-            for (int m = 0; m < MT; ++m) {
-                const float4 a = *reinterpret_cast<const float4*>(
-                    hc + ((m * S::KS + s) * 32 + lane) * 4);
-                ahi[m] = make_float4(tf32_rna(a.x), tf32_rna(a.y),
-                                     tf32_rna(a.z), tf32_rna(a.w));
-                alo[m] = make_float4(tf32_rna(a.x - ahi[m].x),
-                                     tf32_rna(a.y - ahi[m].y),
-                                     tf32_rna(a.z - ahi[m].z),
-                                     tf32_rna(a.w - ahi[m].w));
+                for (int m = 0; m < MT; ++m)
+                    a[m] = *reinterpret_cast<const uint4*>(
+                        hc + ((m * S::KS + s) * 32 + lane) * 8);
+#pragma unroll
+                for (int j = 0; j < S::NPW; ++j)
+#pragma unroll
+                    for (int m = 0; m < MT; ++m)
+                        mma_bf16(acc[m][j], a[m], wr[ks][j][0],
+                                 wr[ks][j][1]);
+            } else {
+                // 3xTF32: f32 accuracy from three TF32 products
+                float4 ahi[MT], alo[MT];
+#pragma unroll
+                for (int m = 0; m < MT; ++m) {
+                    const float4 a = *reinterpret_cast<const float4*>(
+                        hc + ((m * S::KS + s) * 32 + lane) * 4);
+                    ahi[m] = make_float4(tf32_rna(a.x), tf32_rna(a.y),
+                                         tf32_rna(a.z), tf32_rna(a.w));
+                    alo[m] = make_float4(tf32_rna(a.x - ahi[m].x),
+                                         tf32_rna(a.y - ahi[m].y),
+                                         tf32_rna(a.z - ahi[m].z),
+                                         tf32_rna(a.w - ahi[m].w));
+                }
+                float bh[S::NPW][2], bl[S::NPW][2];
+#pragma unroll
+                for (int j = 0; j < S::NPW; ++j) {
+                    split_tf32(wr[ks][j][0], bh[j][0], bl[j][0]);
+                    split_tf32(wr[ks][j][1], bh[j][1], bl[j][1]);
+                }
+                // the three products term by term, so that consecutive mma
+                // instructions use different accumulators
+#pragma unroll
+                for (int j = 0; j < S::NPW; ++j)
+#pragma unroll
+                    for (int m = 0; m < MT; ++m)
+                        mma_tf32(acc[m][j], alo[m], bh[j][0], bh[j][1]);
+#pragma unroll
+                for (int j = 0; j < S::NPW; ++j)
+#pragma unroll
+                    for (int m = 0; m < MT; ++m)
+                        mma_tf32(acc[m][j], ahi[m], bl[j][0], bl[j][1]);
+#pragma unroll
+                for (int j = 0; j < S::NPW; ++j)
+#pragma unroll
+                    for (int m = 0; m < MT; ++m)
+                        mma_tf32(acc[m][j], ahi[m], bh[j][0], bh[j][1]);
             }
-            float bh[S::NPW][2], bl[S::NPW][2];
-#pragma unroll
-            for (int j = 0; j < S::NPW; ++j) {
-                split_tf32(wr[ks][j][0], bh[j][0], bl[j][0]);
-                split_tf32(wr[ks][j][1], bh[j][1], bl[j][1]);
-            }
-            // the three products term by term, so that consecutive mma
-            // instructions use different accumulators
-#pragma unroll
-            for (int j = 0; j < S::NPW; ++j)
-#pragma unroll
-                for (int m = 0; m < MT; ++m)
-                    mma_tf32(acc[m][j], alo[m], bh[j][0], bh[j][1]);
-#pragma unroll
-            for (int j = 0; j < S::NPW; ++j)
-#pragma unroll
-                for (int m = 0; m < MT; ++m)
-                    mma_tf32(acc[m][j], ahi[m], bl[j][0], bl[j][1]);
-#pragma unroll
-            for (int j = 0; j < S::NPW; ++j)
-#pragma unroll
-                for (int m = 0; m < MT; ++m)
-                    mma_tf32(acc[m][j], ahi[m], bh[j][0], bh[j][1]);
         }
         // partial sums of this k-group: rows g, g+8 of each m-tile, columns
         // 2c, 2c+1 of each n-tile
@@ -319,54 +469,87 @@ bilstm_tc_kernel(const float* __restrict__ xg_f,
             asm volatile("cp.async.wait_all;" ::: "memory");
 #pragma unroll
             for (int p = 0; p < PP; ++p) {
-                const int r = rr + 8 * (p & 1);
-                const int u = sl * 8 + tig + 4 * (p >> 1) + 4 * uh;
+                const int e = p + 2 * uh;
+                const int r = rr + 8 * rowbit(e);
+                const int u = sl * 8 + uoff(e);
                 float gt[4];
 #pragma unroll
                 for (int q = 0; q < 4; ++q) {
                     const int o = r * S::PS + q * S::UC + u;
-                    gt[q] = xgs[(p * 4 + q) * S::NLT + tid]
+                    gt[q] = xgate(p, q)
                             + (part[o] + part[S::R * S::PS + o]);
                 }
-                const float m = (p & 1) ? nm1 : nm0;
+                const float m = rowbit(e) ? nm1 : nm0;
                 const float ig = sigmoid(gt[0]);
                 const float fg = sigmoid(gt[1]);
                 const float gg = tanhf(gt[2]);
                 const float og = sigmoid(gt[3]);
                 const float c2 = fg * c[p] + ig * gg;
                 const float h2 = og * tanhf(c2);
-                y[p] = h2 * m;
-                h[p] = y[p] + (1.f - m) * h[p];
-                c[p] = m * c2 + (1.f - m) * c[p];
+                // the carry's precision: bf16 rounds y, h and c here
+                y[p] = X::rnd(h2 * m);
+                h[p] = X::rnd(y[p] + (1.f - m) * h[p]);
+                c[p] = X::rnd(m * c2 + (1.f - m) * c[p]);
             }
             // publish this CTA's slice of the new h to the whole cluster
-            float* d = hbuf + (cur ^ 1) * S::HBUF + dst;
-            if constexpr (PP == 4) {
-                float4* d4 = reinterpret_cast<float4*>(d);
-                const float4 v = make_float4(h[0], h[1], h[2], h[3]);
+            E* d = hbuf + (cur ^ 1) * S::HBUF + dst;
+            if constexpr (BF) {
+                if constexpr (PP == 4) {
+                    uint2* d2 = reinterpret_cast<uint2*>(d);
+                    const uint2 v = make_uint2(pack_bf16(h[0], h[1]),
+                                               pack_bf16(h[2], h[3]));
 #pragma unroll
-                for (int q = 0; q < CL; ++q)
-                    *cluster.map_shared_rank(d4, q) = v;
+                    for (int q = 0; q < CL; ++q)
+                        *cluster.map_shared_rank(d2, q) = v;
+                } else {
+                    uint32_t* d1 = reinterpret_cast<uint32_t*>(d);
+                    const uint32_t v = pack_bf16(h[0], h[1]);
+#pragma unroll
+                    for (int q = 0; q < CL; ++q)
+                        *cluster.map_shared_rank(d1, q) = v;
+                }
             } else {
-                float2* d2 = reinterpret_cast<float2*>(d);
-                const float2 v = make_float2(h[0], h[1]);
+                if constexpr (PP == 4) {
+                    float4* d4 = reinterpret_cast<float4*>(d);
+                    const float4 v = make_float4(h[0], h[1], h[2], h[3]);
 #pragma unroll
-                for (int q = 0; q < CL; ++q)
-                    *cluster.map_shared_rank(d2, q) = v;
+                    for (int q = 0; q < CL; ++q)
+                        *cluster.map_shared_rank(d4, q) = v;
+                } else {
+                    float2* d2 = reinterpret_cast<float2*>(d);
+                    const float2 v = make_float2(h[0], h[1]);
+#pragma unroll
+                    for (int q = 0; q < CL; ++q)
+                        *cluster.map_shared_rank(d2, q) = v;
+                }
             }
         }
         cluster_arrive_release();
         // while the barrier completes: store y, fetch step t+1's gates
         if (nl) {
+            if constexpr (BF) {
+                // units 2c and 2c+1 of a row as one word
 #pragma unroll
-            for (int p = 0; p < PP; ++p)
-                if ((p & 1) ? valid1 : valid0)
-                    ys[((size_t)t * B + row0 + 8 * (p & 1)) * H + ug0
-                       + 4 * (p >> 1)] = y[p];
+                for (int rp = 0; rp < PP / 2; ++rp) {
+                    const int rb = rp + uh;
+                    if (rb ? valid1 : valid0)
+                        *reinterpret_cast<uint32_t*>(
+                            ys + ((size_t)t * B + row0 + 8 * rb) * H + ub
+                            + 2 * tig) = pack_bf16(y[2 * rp], y[2 * rp + 1]);
+                }
+            } else {
+#pragma unroll
+                for (int p = 0; p < PP; ++p) {
+                    const int e = p + 2 * uh;
+                    if (rowbit(e) ? valid1 : valid0)
+                        ys[((size_t)t * B + row0 + 8 * rowbit(e)) * H + ub
+                           + uoff(e)] = y[p];
+                }
+            }
             if (t + 1 < T) {
                 fetch(t + 1);
-                if (valid0) nm0 = mk[(size_t)(t + 1) * B + row0];
-                if (valid1) nm1 = mk[(size_t)(t + 1) * B + row0 + 8];
+                if (valid0) nm0 = X::ld(mk + (size_t)(t + 1) * B + row0);
+                if (valid1) nm1 = X::ld(mk + (size_t)(t + 1) * B + row0 + 8);
             }
         }
         cluster_wait_acquire();
@@ -375,11 +558,12 @@ bilstm_tc_kernel(const float* __restrict__ xg_f,
 
 #pragma unroll
     for (int p = 0; p < PP; ++p) {
-        if ((p & 1) ? valid1 : valid0) {
-            const size_t o = ((size_t)dir * B + row0 + 8 * (p & 1)) * H + ug0
-                             + 4 * (p >> 1);
-            hT[o] = h[p];
-            cT[o] = c[p];
+        const int e = p + 2 * uh;
+        if (rowbit(e) ? valid1 : valid0) {
+            const size_t o = ((size_t)dir * B + row0 + 8 * rowbit(e)) * H
+                             + ub + uoff(e);
+            X::st(hT + o, h[p]);
+            X::st(cT + o, c[p]);
         }
     }
 }
@@ -394,15 +578,20 @@ bool tc_fits(int H) {
     return H == 64 || H == 128 || H == 192 || H == 256;
 }
 
-template <int H, int MT>
-int tc_launch(const float* xg_f, const float* xg_b, const float* m_f,
-              const float* m_b, const float* w_hh, float* ys_f, float* ys_b,
-              float* hT, float* cT, int T, int B, cudaStream_t s,
-              int* plan) {
-    using S = TcShape<H, MT>;
-    const int rc = asr_allow_smem(bilstm_tc_kernel<H, MT>, S::SMEM);
+// The operands of one call of either kernel.
+template <typename E>
+struct Args {
+    const E *xg_f, *xg_b, *m_f, *m_b, *w_hh;
+    E *ys_f, *ys_b, *hT, *cT;
+    int T, B;
+};
+
+template <typename E, int H, int MT>
+int tc_launch(const Args<E>& a, cudaStream_t s, int* plan) {
+    using S = TcShape<E, H, MT>;
+    const int rc = asr_allow_smem(bilstm_tc_kernel<E, H, MT>, S::SMEM);
     if (rc) return rc;
-    const dim3 grid((B + S::R - 1) / S::R * CL, 2);
+    const dim3 grid((a.B + S::R - 1) / S::R * CL, 2);
     if (plan) {                 // rows per cluster, clusters, max resident
         cudaLaunchConfig_t cfg = {};
         cfg.gridDim = grid;
@@ -410,47 +599,36 @@ int tc_launch(const float* xg_f, const float* xg_b, const float* m_f,
         cfg.dynamicSmemBytes = S::SMEM;
         int n = 0;
         const cudaError_t e = cudaOccupancyMaxActiveClusters(
-            &n, (const void*)bilstm_tc_kernel<H, MT>, &cfg);
+            &n, (const void*)bilstm_tc_kernel<E, H, MT>, &cfg);
         if (e != cudaSuccess) return (int)e;
         plan[0] = S::R;
         plan[1] = (int)(grid.x / CL * grid.y);
         plan[2] = n;
         return 0;
     }
-    bilstm_tc_kernel<H, MT><<<grid, TC_THREADS, S::SMEM, s>>>(
-        xg_f, xg_b, m_f, m_b, w_hh, ys_f, ys_b, hT, cT, T, B);
+    bilstm_tc_kernel<E, H, MT><<<grid, TC_THREADS, S::SMEM, s>>>(
+        a.xg_f, a.xg_b, a.m_f, a.m_b, a.w_hh, a.ys_f, a.ys_b, a.hT, a.cT, a.T,
+        a.B);
     return (int)cudaGetLastError();
 }
 
-template <int H>
-int tc_dispatch_mt(int B, const float* xg_f, const float* xg_b,
-                   const float* m_f, const float* m_b, const float* w_hh,
-                   float* ys_f, float* ys_b, float* hT, float* cT, int T,
-                   cudaStream_t s, int* plan) {
-    if (tc_mtiles(B) == 1)
-        return tc_launch<H, 1>(xg_f, xg_b, m_f, m_b, w_hh, ys_f, ys_b, hT, cT,
-                               T, B, s, plan);
-    return tc_launch<H, 2>(xg_f, xg_b, m_f, m_b, w_hh, ys_f, ys_b, hT, cT, T,
-                           B, s, plan);
+template <typename E, int H>
+int tc_dispatch_mt(const Args<E>& a, cudaStream_t s, int* plan) {
+    if (tc_mtiles(a.B) == 1) return tc_launch<E, H, 1>(a, s, plan);
+    return tc_launch<E, H, 2>(a, s, plan);
 }
 
-int tc_dispatch(int H, int B, const float* xg_f, const float* xg_b,
-                const float* m_f, const float* m_b, const float* w_hh,
-                float* ys_f, float* ys_b, float* hT, float* cT, int T,
-                cudaStream_t s, int* plan) {
+template <typename E>
+int tc_dispatch(int H, const Args<E>& a, cudaStream_t s, int* plan) {
     switch (H) {
     case 64:
-        return tc_dispatch_mt<64>(B, xg_f, xg_b, m_f, m_b, w_hh, ys_f, ys_b,
-                                  hT, cT, T, s, plan);
+        return tc_dispatch_mt<E, 64>(a, s, plan);
     case 128:
-        return tc_dispatch_mt<128>(B, xg_f, xg_b, m_f, m_b, w_hh, ys_f, ys_b,
-                                   hT, cT, T, s, plan);
+        return tc_dispatch_mt<E, 128>(a, s, plan);
     case 192:
-        return tc_dispatch_mt<192>(B, xg_f, xg_b, m_f, m_b, w_hh, ys_f, ys_b,
-                                   hT, cT, T, s, plan);
+        return tc_dispatch_mt<E, 192>(a, s, plan);
     default:
-        return tc_dispatch_mt<256>(B, xg_f, xg_b, m_f, m_b, w_hh, ys_f, ys_b,
-                                   hT, cT, T, s, plan);
+        return tc_dispatch_mt<E, 256>(a, s, plan);
     }
 }
 
@@ -459,16 +637,18 @@ int tc_dispatch(int H, int B, const float* xg_f, const float* xg_b,
 // ---------------------------------------------------------------------------
 constexpr int BT = 8;  // batch rows per block
 
-__global__ void bilstm_kernel(const float* __restrict__ xg_f,
-                              const float* __restrict__ xg_b,
-                              const float* __restrict__ m_f,
-                              const float* __restrict__ m_b,
-                              const float* __restrict__ w_hh,
-                              float* __restrict__ ys_f,
-                              float* __restrict__ ys_b,
-                              float* __restrict__ hT,
-                              float* __restrict__ cT,
+template <typename E>
+__global__ void bilstm_kernel(const E* __restrict__ xg_f,
+                              const E* __restrict__ xg_b,
+                              const E* __restrict__ m_f,
+                              const E* __restrict__ m_b,
+                              const E* __restrict__ w_hh,
+                              E* __restrict__ ys_f,
+                              E* __restrict__ ys_b,
+                              E* __restrict__ hT,
+                              E* __restrict__ cT,
                               int T, int B, int H) {
+    using X = Elt<E>;
     extern __shared__ float hs[];  // [2][BT][H]
     const int dir = blockIdx.y;
     const int b0 = blockIdx.x * BT;
@@ -476,10 +656,10 @@ __global__ void bilstm_kernel(const float* __restrict__ xg_f,
     const int j = threadIdx.x;
     const bool active = j < H;
     const int H4 = 4 * H;
-    const float* xg = dir ? xg_b : xg_f;
-    const float* mk = dir ? m_b : m_f;
-    float* ys = dir ? ys_b : ys_f;
-    const float* W = w_hh + (size_t)dir * H * H4;
+    const E* xg = dir ? xg_b : xg_f;
+    const E* mk = dir ? m_b : m_f;
+    E* ys = dir ? ys_b : ys_f;
+    const E* W = w_hh + (size_t)dir * H * H4;
 
     for (int i = threadIdx.x; i < 2 * BT * H; i += blockDim.x) hs[i] = 0.f;
 
@@ -497,10 +677,10 @@ __global__ void bilstm_kernel(const float* __restrict__ xg_f,
 #pragma unroll
         for (int b = 0; b < BT; ++b) {
             if (b < nb) {
-                const float* x = xg + ((size_t)b0 + b) * H4 + j;
+                const E* x = xg + ((size_t)b0 + b) * H4 + j;
 #pragma unroll
-                for (int g = 0; g < 4; ++g) nx[b][g] = x[g * H];
-                nm[b] = mk[b0 + b];
+                for (int g = 0; g < 4; ++g) nx[b][g] = X::ld(x + g * H);
+                nm[b] = X::ld(mk + b0 + b);
             }
         }
     }
@@ -522,22 +702,23 @@ __global__ void bilstm_kernel(const float* __restrict__ xg_f,
 #pragma unroll
                 for (int b = 0; b < BT; ++b) {
                     if (b < nb) {
-                        const float* x =
+                        const E* x =
                             xg + ((size_t)(t + 1) * B + b0 + b) * H4 + j;
 #pragma unroll
-                        for (int g = 0; g < 4; ++g) nx[b][g] = x[g * H];
-                        nm[b] = mk[(size_t)(t + 1) * B + b0 + b];
+                        for (int g = 0; g < 4; ++g)
+                            nx[b][g] = X::ld(x + g * H);
+                        nm[b] = X::ld(mk + (size_t)(t + 1) * B + b0 + b);
                     }
                 }
             }
-            const float* wj = W + j;
+            const E* wj = W + j;
 #pragma unroll 4
             for (int kk = 0; kk < H; ++kk) {
-                const float* wr = wj + (size_t)kk * H4;
-                const float w0 = __ldg(wr);
-                const float w1 = __ldg(wr + H);
-                const float w2 = __ldg(wr + 2 * H);
-                const float w3 = __ldg(wr + 3 * H);
+                const E* wr = wj + (size_t)kk * H4;
+                const float w0 = X::ldg(wr);
+                const float w1 = X::ldg(wr + H);
+                const float w2 = X::ldg(wr + 2 * H);
+                const float w3 = X::ldg(wr + 3 * H);
 #pragma unroll
                 for (int b = 0; b < BT; ++b) {
                     const float hv = hcur[b * H + kk];
@@ -556,10 +737,11 @@ __global__ void bilstm_kernel(const float* __restrict__ xg_f,
                     const float og = sigmoid(acc[b][3]);
                     const float c2 = fg * c[b] + ig * gg;
                     const float h2 = og * tanhf(c2);
-                    const float y = h2 * m[b];
-                    h[b] = y + (1.f - m[b]) * h[b];
-                    c[b] = m[b] * c2 + (1.f - m[b]) * c[b];
-                    ys[((size_t)t * B + b0 + b) * H + j] = y;
+                    // the carry's precision: bf16 rounds y, h and c here
+                    const float y = X::rnd(h2 * m[b]);
+                    h[b] = X::rnd(y + (1.f - m[b]) * h[b]);
+                    c[b] = X::rnd(m[b] * c2 + (1.f - m[b]) * c[b]);
+                    X::st(ys + ((size_t)t * B + b0 + b) * H + j, y);
                     hnext[b * H + j] = h[b];
                 }
             }
@@ -573,11 +755,41 @@ __global__ void bilstm_kernel(const float* __restrict__ xg_f,
         for (int b = 0; b < BT; ++b) {
             if (b < nb) {
                 const size_t o = ((size_t)dir * B + b0 + b) * H + j;
-                hT[o] = h[b];
-                cT[o] = c[b];
+                X::st(hT + o, h[b]);
+                X::st(cT + o, c[b]);
             }
         }
     }
+}
+
+template <typename E>
+int bilstm_entry(const Args<E>& a, int H, void* stream) {
+    if (a.B <= 0 || H <= 0) return 0;
+    if (H > 1024) return (int)cudaErrorInvalidValue;
+    const cudaStream_t s = (cudaStream_t)stream;
+    if (tc_fits(H)) return tc_dispatch<E>(H, a, s, nullptr);
+    const size_t smem = (size_t)2 * BT * H * sizeof(float);
+    const int rc = asr_allow_smem(bilstm_kernel<E>, smem);
+    if (rc) return rc;
+    const int threads = (H + 31) / 32 * 32;
+    const dim3 grid((a.B + BT - 1) / BT, 2);
+    bilstm_kernel<E><<<grid, threads, smem, s>>>(
+        a.xg_f, a.xg_b, a.m_f, a.m_b, a.w_hh, a.ys_f, a.ys_b, a.hT, a.cT, a.T,
+        a.B, H);
+    return (int)cudaGetLastError();
+}
+
+template <typename E>
+int bilstm_plan(int B, int H, int* plan) {
+    if (B <= 0 || H <= 0 || H > 1024) return (int)cudaErrorInvalidValue;
+    if (!tc_fits(H)) {
+        plan[0] = BT;
+        plan[1] = plan[2] = 0;
+        return 0;
+    }
+    Args<E> a = {};
+    a.B = B;
+    return tc_dispatch<E>(H, a, nullptr, plan);
 }
 
 }  // namespace
@@ -590,33 +802,31 @@ ASR_API int asr_bilstm(const float* xg_f, const float* xg_b, const float* m_f,
                        const float* m_b, const float* w_hh, float* ys_f,
                        float* ys_b, float* hT, float* cT, int T, int B, int H,
                        void* stream) {
-    if (B <= 0 || H <= 0) return 0;
-    if (H > 1024) return (int)cudaErrorInvalidValue;
-    const cudaStream_t s = (cudaStream_t)stream;
-    if (tc_fits(H))
-        return tc_dispatch(H, B, xg_f, xg_b, m_f, m_b, w_hh, ys_f, ys_b, hT,
-                           cT, T, s, nullptr);
-    const size_t smem = (size_t)2 * BT * H * sizeof(float);
-    const int rc = asr_allow_smem(bilstm_kernel, smem);
-    if (rc) return rc;
-    const int threads = (H + 31) / 32 * 32;
-    const dim3 grid((B + BT - 1) / BT, 2);
-    bilstm_kernel<<<grid, threads, smem, s>>>(
-        xg_f, xg_b, m_f, m_b, w_hh, ys_f, ys_b, hT, cT, T, B, H);
-    return (int)cudaGetLastError();
+    const Args<float> a = {xg_f, xg_b, m_f, m_b, w_hh, ys_f, ys_b, hT, cT,
+                           T, B};
+    return bilstm_entry<float>(a, H, stream);
 }
 
-// How asr_bilstm would launch at (B, H), without launching: plan[0] batch
-// rows per cluster, plan[1] clusters in the grid, plan[2] clusters the card
-// holds at once (cudaOccupancyMaxActiveClusters).  For the simple kernel
-// (no cluster) plan = {8, 0, 0}.  Returns 0 or a cudaError_t.
+// The same contract with every operand bf16 (xg 4-byte aligned).
+ASR_API int asr_bilstm_bf16(const bf16* xg_f, const bf16* xg_b,
+                            const bf16* m_f, const bf16* m_b,
+                            const bf16* w_hh, bf16* ys_f, bf16* ys_b,
+                            bf16* hT, bf16* cT, int T, int B, int H,
+                            void* stream) {
+    const Args<bf16> a = {xg_f, xg_b, m_f, m_b, w_hh, ys_f, ys_b, hT, cT,
+                          T, B};
+    return bilstm_entry<bf16>(a, H, stream);
+}
+
+// How asr_bilstm (asr_bilstm_bf16) would launch at (B, H), without
+// launching: plan[0] batch rows per cluster, plan[1] clusters in the grid,
+// plan[2] clusters the card holds at once (cudaOccupancyMaxActiveClusters).
+// For the simple kernel (no cluster) plan = {8, 0, 0}.  Returns 0 or a
+// cudaError_t.
 ASR_API int asr_bilstm_plan(int B, int H, int* plan) {
-    if (B <= 0 || H <= 0 || H > 1024) return (int)cudaErrorInvalidValue;
-    if (!tc_fits(H)) {
-        plan[0] = BT;
-        plan[1] = plan[2] = 0;
-        return 0;
-    }
-    return tc_dispatch(H, B, nullptr, nullptr, nullptr, nullptr, nullptr,
-                       nullptr, nullptr, nullptr, nullptr, 0, nullptr, plan);
+    return bilstm_plan<float>(B, H, plan);
+}
+
+ASR_API int asr_bilstm_bf16_plan(int B, int H, int* plan) {
+    return bilstm_plan<bf16>(B, H, plan);
 }

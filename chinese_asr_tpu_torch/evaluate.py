@@ -51,8 +51,12 @@ def evaluate_manifest(params, cfg: Config, vocab: Vocab, manifest_path: str,
     host scorer (reference model.py:755; ``lm`` must then be an
     NgramLM); "first" runs the LM-driven first pass on the device
     (``decode/lm_fused.py``).  For the device modes ``lm`` may be an
-    ARPA/.klm path, a DeviceNgramLM or an NgramLM."""
+    ARPA/.klm path, a DeviceNgramLM or an NgramLM.  The features are made
+    in float32 and cast to the dtype of the params' floating leaves, as
+    ``ASR(compute_dtype=...)`` casts them, so the params of a bf16 ASR
+    decode in bf16."""
     dev = params["decoder"]["embedding"].device
+    dtype = params["decoder"]["embedding"].dtype
     dlm = tok2lm = None
     if lm is not None and lm_mode in ("first", "second") and bw and bw > 1:
         dlm = _device_lm(lm, dev)
@@ -65,7 +69,7 @@ def evaluate_manifest(params, cfg: Config, vocab: Vocab, manifest_path: str,
     refs: List[str] = []
     t0 = time.perf_counter()
     for b in ds_mod.batches_to_device(loader, cfg, dev):
-        feats, feat_lens = b.feats, b.feat_lens
+        feats, feat_lens = b.feats.to(dtype), b.feat_lens
         # one device->host copy per batch for the reference token rows
         to_np = b.tokens_out.cpu().numpy()
         tl_np = b.text_lens.cpu().numpy()

@@ -50,10 +50,21 @@ def params_from_numpy(tree, device=None, dtype=torch.float32) -> Params:
     """The JAX package's parameter tree with numpy leaves (as
     ``jax.tree_util.tree_map(np.asarray, params)`` or a
     ``chinese_asr_tpu.v1`` checkpoint gives it) -> the port's tensors on
-    ``device``, same names and layouts."""
-    return tree_map(
-        lambda a: torch.from_numpy(np.array(a, np.float32, order="C")).to(
-            device=device, dtype=dtype), tree)
+    ``device``, same names and layouts.  Floating leaves are cast to
+    ``dtype`` (bf16 leaves, ml_dtypes arrays, carry across bit for bit),
+    others keep their type, as the JAX package casts."""
+    def leaf(a):
+        a = np.asarray(a)
+        if a.dtype.name == "bfloat16":
+            t = torch.from_numpy(np.ascontiguousarray(a).view(np.int16)
+                                 .copy()).view(torch.bfloat16)
+        else:
+            t = torch.from_numpy(np.array(a, order="C"))
+        if t.is_floating_point():
+            t = t.to(dtype)
+        return t.to(device)
+
+    return tree_map(leaf, tree)
 
 
 class EncodedBatch(NamedTuple):

@@ -10,7 +10,10 @@ stack: the input projection of each direction is one hoisted matmul
 producing [T, B, 4H], the backward direction runs on the statically
 flipped sequence with the flipped mask freezing its carry, and the
 recurrence of both directions is one launch of kernel K2
-(``ops/cuda/lstm.py``).
+(``ops/cuda/lstm.py``).  The stack runs in the activations' dtype: bf16
+activations (``compute_dtype="bfloat16"``) take bf16 weights, masks and
+zero states, the hoisted ``x @ W_ih`` in bf16, and K2's bf16 instance
+(its bf16 twin on the CPU), as the JAX package's bf16 scan does.
 """
 
 from __future__ import annotations

@@ -1,15 +1,16 @@
 """Build and bind the host C++ runtime (``runtime/cpp``) with ctypes.
 
 A copy of ``chinese_asr_tpu/runtime/native.py`` for the port: the n-gram
-LM (``ngram_lm.cpp``, bound in ``lm/ngram.py``) and the edit distance
-(``edit_distance.cpp``, used by ``ops/metrics.py``) are compiled at first
-use with ``g++ -O3 -shared -fPIC -std=c++17`` into
+LM (``ngram_lm.cpp``, bound in ``lm/ngram.py``), the edit distance
+(``edit_distance.cpp``, used by ``ops/metrics.py``) and the ADPCM wire
+encoder (``adpcm.cpp``, used by ``audio/features.py``) are compiled at
+first use with ``g++ -O3 -shared -fPIC -std=c++17`` into
 ``chinese_asr_tpu_torch/_build/``, under a name that hashes the source,
 the flags and the compiler's version, so a library built by another
 toolchain is never loaded.  The build writes a temporary file and renames
 it, so processes that build at once never load a half-written library.
 Without a compiler every caller falls back to pure Python (ARPA text
-only, for the LM).
+only, for the LM; numpy for the ADPCM encoder).
 """
 
 from __future__ import annotations
@@ -133,3 +134,37 @@ def get() -> Optional[_EditDistanceLib]:
                 except OSError:
                     _lib_holder["lib"] = None
         return _lib_holder["lib"]
+
+
+_adpcm_holder = {"fn": None, "tried": False}
+
+
+def get_adpcm():
+    """A callable ``(x_int16, out_uint8) -> None`` wrapping the C++ ADPCM
+    wire encoder (``cpp/adpcm.cpp``), compiled on first use; None if
+    unavailable.  Byte-identical to the numpy encoder of
+    ``audio/features.py`` ``adpcm_encode_flat``."""
+    with _lock:
+        if _adpcm_holder["tried"]:
+            return _adpcm_holder["fn"]
+        _adpcm_holder["tried"] = True
+        so = compile_source("adpcm")
+        if so is None:
+            return None
+        try:
+            lib = ctypes.CDLL(so)
+            lib.adpcm_encode_i16.restype = None
+            lib.adpcm_encode_i16.argtypes = [
+                ctypes.POINTER(ctypes.c_int16), ctypes.c_int64,
+                ctypes.POINTER(ctypes.c_uint8)]
+
+            def encode(x: np.ndarray, out: np.ndarray) -> None:
+                lib.adpcm_encode_i16(
+                    x.ctypes.data_as(ctypes.POINTER(ctypes.c_int16)),
+                    ctypes.c_int64(x.size),
+                    out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)))
+
+            _adpcm_holder["fn"] = encode
+        except OSError:
+            _adpcm_holder["fn"] = None
+        return _adpcm_holder["fn"]

@@ -26,6 +26,12 @@ every phase passed):
    kernel, twin and the nearest single PyTorch call (K3 and K4 as CUDA
    graphs of 50 calls, on inputs cycled past the L2; also at one and at
    four warps a row, at R = 512, 1024 and 2048);
+2b-bf16. hold K2's bf16 instance (K2-bf16) against its bf16 twin at the
+   same shapes, B=32 and H=16, with its cluster plan, its registers and
+   spills, and cuDNN's bf16 layer beside it;
+2e. hold K5, the ADPCM wire decode, against its twin bit for bit on the
+   B=32 batch's wire, a B=1 wire, a full-scale square wave and silence,
+   and time it beside the C++ host encoder;
 3. drive the main path: ``ASR(bw=16).transcribe_wavs`` at the flagship
    ``Config()`` with seeded random weights on 32 synthetic 9-10 s int16
    wavs over the flat wire, then greedy on the same batch, then the LM
@@ -34,7 +40,10 @@ every phase passed):
    fused stage 1 (K4, ``CHINESE_ASR_PALLAS_FUSED=1``), and over a
    synthetic order-5 ARPA at the reference's pruned 5-gram size through
    K3, then the LM-driven first pass (``lm_mode="first"``, topn 20) over
-   the order-3 ARPA; every LM's tables are hashed, built through the C++
+   the order-3 ARPA, then bf16 inference (``compute_dtype="bfloat16"``)
+   at B=32 and B=128 and the mu-law and ADPCM wires at B=32 (their wire
+   bytes, host preparation and host-to-device copy times printed); every
+   LM's tables are hashed, built through the C++
    reader (the parse and build times are printed, and the order-3 one
    through the pure-Python parse beside it); checking that
    every kernel of each path launched (and K4 on no path but the fused
@@ -43,7 +52,9 @@ every phase passed):
    those on the CPU, and that the golden shard (tests/golden) reproduces
    its expected transcripts in every mode (``lm_first`` included), and a
    ``.klm`` fixture gives its ARPA's transcripts through both device LM
-   modes; each wall time is the median of warm runs, and one more warm
+   modes, and that bf16, mu-law and ADPCM give the CPU port's golden
+   transcripts (greedy and beam; bf16 also with cuBLAS's reduced-precision
+   bf16 reductions off, report only); each wall time is the median of warm runs, and one more warm
    run of each beam path goes under torch.profiler for the device-time
    split; the B=128 batch is also decoded with the fused and the unfused
    stage 1, and the first pass's batch by its host-loop oracle, counting
@@ -88,8 +99,15 @@ import time
 #     of magnitude < 32 then differ by a few f32 ulps (<= 4e-6), so 1e-5;
 #     indices must be equal on rows whose top-(k+1) keys are more than
 #     that apart, and exact rows (-inf bias, NaN logit) must match exactly.
+# K2-bf16: both it and its twin round y, h and c to bf16 at the end of each
+#     step from f32 sums taken in other orders; a value within an f32
+#     rounding of a bf16 rounding boundary lands one bf16 ulp apart (7.8e-3
+#     for values in [1, 2)), and the recurrence carries it on; 3e-2 is the
+#     margin, a layout bug errs by O(1).
+# K5: integer decode, exact.
 TOL_LOGMEL = 2e-3
 TOL_LSTM = 1e-4
+TOL_LSTM_BF16 = 3e-2
 TOL_FUSED = 1e-5
 # card output vs the plain CPU path on a small input (same weights)
 TOL_FEATS = 1e-3
@@ -127,6 +145,7 @@ ngram 3=2
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12          # f32 outside the tensor cores
 H100_TF32_FLOPS = 495e12        # TF32 tensor cores, dense
+H100_BF16_FLOPS = 989e12        # bf16 tensor cores, dense
 
 
 def _gpu_line() -> str:
@@ -151,10 +170,54 @@ def _time_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _bound_ms(nbytes: float, ops: float):
+def _bound_ms(nbytes: float, ops: float, flops: float = H100_F32_FLOPS):
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = ops / H100_F32_FLOPS * 1e3
+    t_ops = ops / flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _k2_ptxas_lines(log_path: str, marker: str):
+    """``-Xptxas -v``'s register and spill lines of the K2 instances whose
+    mangled name contains ``marker``."""
+    out, keep = [], False
+    with open(log_path) as f:
+        for line in f:
+            if "Compiling entry function" in line:
+                name = re.search(r"'([^']+)'", line)
+                keep = marker in line and name is not None
+                if keep:               # the kernel's name and template
+                    m = name.group(1)  # arguments, as mangled
+                    out.append(m[m.find("bilstm"):m.find("EEv")])
+            elif keep and ("registers" in line or "spill" in line):
+                out[-1] += " | " + line.strip().replace("ptxas info    : ",
+                                                        "")
+    return out
+
+
+def _wire_cost(np, torch, asr, batch) -> dict:
+    """One batch's wire: the buffer's type and bytes (lens and scales
+    included), the host preparation (encoders included; host clock) and
+    the host-to-device copy of the pinned buffers (CUDA events on a side
+    stream, median of 5)."""
+    t = time.perf_counter()
+    prep = asr._prep(batch, None)
+    host_ms = (time.perf_counter() - t) * 1e3
+    pinned = [torch.from_numpy(a).pin_memory() for a in prep[:3]]
+    stream = torch.cuda.Stream()
+    times = []
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with torch.cuda.stream(stream):
+            start.record(stream)
+            for p in pinned:
+                p.to("cuda", non_blocking=True)
+            end.record(stream)
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return dict(buffer=str(prep[0].dtype),
+                wire_bytes=int(sum(a.nbytes for a in prep[:3])),
+                host_prep_ms=host_ms, htod_ms=float(np.median(times)))
 
 
 def _synthetic_wavs(np, rng, n: int, lo_s: float, hi_s: float, sr=16000):
@@ -259,7 +322,7 @@ def _profile_main_path(torch, asr, wavs, label: str, wall_ms: float) -> None:
           f"{wall_ms:.1f} ms, {sum(e.count for e in rows)} kernel launches")
     # the twelve largest, then the port's own kernels further down
     ours = [e for e in rows[12:] if any(
-        n in e.key for n in ("topk_kernel", "bilstm", "logmel"))]
+        n in e.key for n in ("topk_kernel", "bilstm", "logmel", "adpcm"))]
     for e in rows[:12] + ours:
         print(f"  {dev_us(e) / 1e3:9.3f} ms  x{e.count:<5d} "
               f"{e.key[:90]}")
@@ -743,6 +806,7 @@ def main() -> int:
     from chinese_asr_tpu_torch.lm import device_ngram as dev_ngram
     from chinese_asr_tpu_torch.lm.device_ngram import DeviceNgramLM
     from chinese_asr_tpu_torch.models import las
+    from chinese_asr_tpu_torch.ops.cuda import adpcm as adpcm_k
     from chinese_asr_tpu_torch.ops.cuda import build
     from chinese_asr_tpu_torch.ops.cuda import logmel as logmel_k
     from chinese_asr_tpu_torch.ops.cuda import lstm as lstm_k
@@ -926,6 +990,95 @@ def main() -> int:
         cudnn_layer_ms=cudnn_ms,
         shape=f"xg [2 x {T2}, {B2}, {4 * H}] -> ys [2 x {T2}, {B2}, {H}]")
     del args2, xg_f, xg_b, got, ref
+
+    # ---- phase 2b-bf16: K2's bf16 instance (K2-bf16) -------------------------
+    t2b = time.time()
+    bf = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(1)
+    xg_f = torch.randn(T2, B2, 4 * H, device=dev, generator=g).to(bf)
+    xg_b = torch.randn(T2, B2, 4 * H, device=dev, generator=g).to(bf)
+    w_hh = (torch.randn(2, H, 4 * H, device=dev, generator=g)
+            / H ** 0.5).to(bf)
+    args16 = (xg_f, xg_b, m_f.to(bf), m_b.to(bf), w_hh)
+
+    def err_bf16(args):
+        got = lstm_k.bidir_lstm_time_loop(*args)
+        ref = lstm_k.bidir_lstm_time_loop_plain(*args)
+        if not all(a.dtype == bf for a in got):
+            return float("inf"), got
+        return max(float((a.float() - b.float()).abs().max())
+                   for a, b in zip(got, ref)), got
+
+    err16, got = err_bf16(args16)
+    fails.check(err16 <= TOL_LSTM_BF16,
+                f"K2-bf16 (cluster kernel) T={T2} B={B2} H={H}: bf16 outputs, "
+                f"max_abs_err {err16:.3g} <= {TOL_LSTM_BF16}")
+    fails.check(float(got[0].float()[m_f == 0].abs().max()) == 0.0,
+                "K2-bf16 (cluster kernel) masked steps emit exact zeros")
+    plan16 = lstm_k.plan(B2, H, bf)
+    fails.check(plan16["waves"] == 1,
+                f"K2-bf16 at B={B2}: one wave ({plan16['clusters']} clusters "
+                f"of 8, {plan16['rows']} rows each; the card holds "
+                f"{plan16['max_active_clusters']})")
+    args16_32 = tuple(a[:, :32].contiguous() for a in args16[:4]) + (w_hh,)
+    err16_32, _ = err_bf16(args16_32)
+    fails.check(err16_32 <= TOL_LSTM_BF16,
+                f"K2-bf16 (cluster kernel) T={T2} B=32 H={H}: max_abs_err "
+                f"{err16_32:.3g} <= {TOL_LSTM_BF16}")
+    ms16_32 = _time_ms(torch, lambda: lstm_k.bidir_lstm_time_loop(*args16_32),
+                       20)
+    del args16_32
+    err16_s, _ = err_bf16((xg_f[..., :4 * hs].contiguous(),
+                           xg_b[..., :4 * hs].contiguous(), args16[2],
+                           args16[3], w_hh[:, :hs, :4 * hs].contiguous()))
+    fails.check(err16_s <= TOL_LSTM_BF16,
+                f"K2-bf16 (simple kernel) T={T2} B={B2} H={hs}: max_abs_err "
+                f"{err16_s:.3g} <= {TOL_LSTM_BF16}")
+    ptx16 = _k2_ptxas_lines(log, "nv_bfloat16")
+    for line in ptx16:
+        print("  K2-bf16 ptxas:", line, flush=True)
+    # the nearest library call, as for K2: cuDNN's whole bf16 layer
+    cudnn = torch.nn.LSTM(2 * H, H, bidirectional=True).to(dev, bf)
+    packed = torch.nn.utils.rnn.pack_padded_sequence(
+        torch.randn(T2, B2, 2 * H, device=dev, generator=g).to(bf),
+        lens2.cpu(), enforce_sorted=False)
+    with torch.no_grad():
+        cudnn16_ms = _time_ms(torch, lambda: cudnn(packed), 20)
+    del cudnn, packed
+    # bytes of bf16 operands; the products at the dense bf16 tensor-core
+    # rate, the cell update (10 H operations a row and step, f32) at the
+    # f32 rate: the least time is the largest of the three
+    bound16, by16 = _bound_ms(
+        2 * (2 * T2 * B2 * 4 * H + 2 * T2 * B2 + 2 * H * 4 * H
+             + 2 * T2 * B2 * H + 4 * B2 * H),
+        2 * steps * 2 * H * 4 * H, H100_BF16_FLOPS)
+    cell_ms = 2 * steps * 10 * H / H100_F32_FLOPS * 1e3
+    if cell_ms > bound16:
+        bound16, by16 = cell_ms, "operations"
+    ms16 = _time_ms(torch, lambda: lstm_k.bidir_lstm_time_loop(*args16), 20)
+    kernels["lstm_bf16"] = dict(
+        name="K2-bf16 BiLSTM time loop (bf16)", route="cuda",
+        source="chinese_asr_tpu_torch/csrc/lstm.cu",
+        replaces="chinese_asr_tpu/ops/rnn.py:246",
+        max_abs_err=max(err16, err16_32, err16_s),
+        ms=ms16, step_us=ms16 * 1e3 / T2,
+        waves=plan16["waves"], clusters=plan16["clusters"],
+        max_active_clusters=plan16["max_active_clusters"],
+        rows_per_cluster=plan16["rows"],
+        ms_b32=ms16_32, step_us_b32=ms16_32 * 1e3 / T2,
+        plain_ms=_time_ms(torch,
+                          lambda: lstm_k.bidir_lstm_time_loop_plain(*args16),
+                          2, warmup=1),
+        bound_ms=bound16, bound_by=by16, bound_peak="bf16 989 TFLOP/s",
+        library_ms=None, cudnn_layer_ms=cudnn16_ms, ptxas=ptx16,
+        shape=f"xg bf16 [2 x {T2}, {B2}, {4 * H}] -> ys [2 x {T2}, {B2}, "
+              f"{H}]")
+    print(f"K2-bf16: {ms16:.4f} ms at B={B2} ({ms16_32:.4f} ms at B=32), "
+          f"K2 f32 {kernels['lstm']['ms']:.4f} ms; bound {bound16:.4f} ms "
+          f"({by16}); cuDNN bf16 layer {cudnn16_ms:.4f} ms; max_abs_err "
+          f"{kernels['lstm_bf16']['max_abs_err']:.3g}", flush=True)
+    del args16, xg_f, xg_b, w_hh, got
+    print(f"phase 2b-bf16: {time.time() - t2b:.1f} s", flush=True)
 
     # ---- phase 2c: K3 top-k -------------------------------------------------
     R, V, k = 2048, 5004, 17
@@ -1263,8 +1416,73 @@ def main() -> int:
     # each kernel's launch counter (module, attribute)
     counters = {"logmel": (logmel_k, "launches"),
                 "lstm": (lstm_k, "launches"),
+                "lstm_bf16": (lstm_k, "bf16_launches"),
                 "topk": (topk_k, "launches"),
-                "topk_fused": (topk_k, "fused_launches")}
+                "topk_fused": (topk_k, "fused_launches"),
+                "adpcm": (adpcm_k, "launches")}
+
+    # ---- phase 2e: K5 ADPCM wire decode ---------------------------------------
+    t2e = time.time()
+    asr_adpcm = ASR(bw=16, cfg=cfg, seed=0, wire="adpcm")
+    K5 = features.ADPCM_K
+    t = time.perf_counter()
+    wires = {"b32": asr_adpcm._prep(wavs, None)[0],
+             "b1": asr_adpcm._prep(wavs[:1], None)[0],
+             "square": features.adpcm_encode_flat(np.where(
+                 (np.arange(64 * K5) // 16) % 2, 32767, -32768).astype(
+                     np.int16)),
+             "silence": features.adpcm_encode_flat(np.zeros(64 * K5,
+                                                            np.int16))}
+    print(f"  ADPCM wires prepared in {time.perf_counter() - t:.2f} s (the "
+          f"C++ encoder built on first use)", flush=True)
+    k5 = {}
+    errs5 = []
+    for name, buf in wires.items():
+        nb5 = len(buf) // (3 + K5 // 2)
+        d = torch.from_numpy(buf).to(dev)
+        got = adpcm_k.adpcm_decode_flat(d, nb5)
+        ref = adpcm_k.adpcm_decode_flat_plain(d, nb5)
+        same = got.shape == (nb5 * K5,) and torch.equal(got, ref)
+        # a shape mismatch counts as NaN; np.max keeps any NaN
+        errs5.append(float((got - ref).abs().max())
+                     if got.shape == ref.shape else float("nan"))
+        fails.check(same, f"K5 ADPCM decode {name} (nb={nb5}): bit-exact "
+                          f"against its twin")
+        k5[name] = (d, nb5)
+    d32, nb32 = k5["b32"]
+    d1, nb1 = k5["b1"]
+    # the host encoder on the same batch (warm; the int16 flat buffer as
+    # _prep fills it, encoded alone)
+    flat32 = np.zeros(nb32 * K5, np.int16)
+    cat = np.concatenate(wavs)
+    flat32[:len(cat)] = cat
+    enc = []
+    for _ in range(5):
+        t = time.perf_counter()
+        features.adpcm_encode_flat(flat32)
+        enc.append((time.perf_counter() - t) * 1e3)
+    bound5, by5 = _bound_ms((3 + K5 // 2 + 4 * K5) * nb32,
+                            12 * K5 * nb32)
+    kernels["adpcm"] = dict(
+        name="K5 ADPCM wire decode", route="cuda",
+        source="chinese_asr_tpu_torch/csrc/adpcm.cu",
+        replaces="chinese_asr_tpu/audio/features.py:500",
+        max_abs_err=float(np.max(errs5)),
+        ms=_time_ms(torch, lambda: adpcm_k.adpcm_decode_flat(d32, nb32), 50),
+        ms_b1=_time_ms(torch, lambda: adpcm_k.adpcm_decode_flat(d1, nb1), 50),
+        plain_ms=_time_ms(torch,
+                          lambda: adpcm_k.adpcm_decode_flat_plain(d32, nb32),
+                          3, warmup=1),
+        bound_ms=bound5, bound_by=by5, library_ms=None,
+        host_encode_ms=float(np.median(enc)), blocks=nb32, blocks_b1=nb1,
+        shape=f"wire uint8 [{nb32} x {3 + K5 // 2}] -> [{nb32 * K5}] f32")
+    print(f"K5: {kernels['adpcm']['ms']:.4f} ms for {nb32} blocks (B=32), "
+          f"{kernels['adpcm']['ms_b1']:.4f} ms for {nb1} (B=1); bound "
+          f"{bound5:.5f} ms ({by5}); twin {kernels['adpcm']['plain_ms']:.2f} "
+          f"ms; the C++ host encoder {np.median(enc):.2f} ms on the same "
+          f"batch", flush=True)
+    del k5, d32, d1, wires
+    print(f"phase 2e: {time.time() - t2e:.1f} s", flush=True)
     # the LMs of the second pass, over the identity vocab's words: an
     # order 3, and an order 5 with the entries per level of the reference's
     # pruned 5-gram class (5k/500k/1M/1M/500k, zh_giga...prune01244.klm)
@@ -1311,27 +1529,42 @@ def main() -> int:
         os.remove(arpa)
         lm_asrs[lm_order] = a
 
-    runs_spec = (  # mode, ASR, batch, fused stage 1, kernels that must run
-        ("beam_bw16", ASR(bw=16, cfg=cfg, seed=0), wavs, False,  # cuda
-         ("logmel", "lstm", "topk")),
+    # mode, ASR, batch, fused stage 1, the kernels that must run: each with
+    # its exact launches per batch (4 encoder layers, 40 decode steps, as
+    # random weights never stop early, one ADPCM decode) or None for "> 0"
+    any3 = dict.fromkeys(("logmel", "lstm", "topk"))
+    runs_spec = (
+        ("beam_bw16", ASR(bw=16, cfg=cfg, seed=0), wavs, False, any3),  # cuda
         ("greedy", ASR(bw=None, cfg=cfg, seed=0), wavs, False,
-         ("logmel", "lstm")),
-        ("beam_bw16_b128", ASR(bw=16, cfg=cfg, seed=0), wavs128, False,
-         ("logmel", "lstm", "topk")),
-        ("beam_bw16_lm2", lm_asrs[3], wavs, False,
-         ("logmel", "lstm", "topk")),
+         dict.fromkeys(("logmel", "lstm"))),
+        ("beam_bw16_b128", ASR(bw=16, cfg=cfg, seed=0), wavs128, False, any3),
+        ("beam_bw16_lm2", lm_asrs[3], wavs, False, any3),
         ("beam_bw16_lm2_fused", lm_asrs[3], wavs, True,
-         ("logmel", "lstm", "topk_fused")),
-        ("beam_bw16_lm2_o5", lm_asrs[5], wavs, False,
-         ("logmel", "lstm", "topk")),
-        ("beam_bw16_lm1", lm_asrs["first"], wavs, False,
-         ("logmel", "lstm", "topk")))
+         dict.fromkeys(("logmel", "lstm", "topk_fused"))),
+        ("beam_bw16_lm2_o5", lm_asrs[5], wavs, False, any3),
+        ("beam_bw16_lm1", lm_asrs["first"], wavs, False, any3),
+        ("beam_bw16_bf16", ASR(bw=16, cfg=cfg, seed=0,
+                               compute_dtype="bfloat16"), wavs, False,
+         {"logmel": 1, "lstm_bf16": 4, "topk": 40}),
+        ("beam_bw16_b128_bf16", ASR(bw=16, cfg=cfg, seed=0,
+                                    compute_dtype="bfloat16"), wavs128,
+         False, {"logmel": 1, "lstm_bf16": 4, "topk": 40}),
+        ("beam_bw16_mulaw", ASR(bw=16, cfg=cfg, seed=0, wire="mulaw"), wavs,
+         False, {"logmel": 1, "lstm": 4, "topk": 40}),
+        ("beam_bw16_adpcm", asr_adpcm, wavs, False,
+         {"logmel": 1, "lstm": 4, "topk": 40, "adpcm": 1}))
+    # the bf16 and lossy-wire runs, reported against the f32 flat wire's
+    lossy_suffixes = ("_bf16", "_mulaw", "_adpcm")
+    t3_lossy = 0.0
     # the run each kernel's launch count is read from: K1-K3 the main
     # path's, K4 the fused LM path's
     launches_from = {"logmel": "beam_bw16", "lstm": "beam_bw16",
-                     "topk": "beam_bw16", "topk_fused": "beam_bw16_lm2_fused"}
+                     "lstm_bf16": "beam_bw16_bf16", "topk": "beam_bw16",
+                     "topk_fused": "beam_bw16_lm2_fused",
+                     "adpcm": "beam_bw16_adpcm"}
     paths, texts_of = {}, {}
     for mode, asr, batch, fused, need in runs_spec:
+        t_run = time.time()
         os.environ["CHINESE_ASR_PALLAS_FUSED"] = "1" if fused else "0"
         audio_s = sum(len(w) for w in batch) / cfg.audio.sample_rate
         runs = []
@@ -1347,10 +1580,11 @@ def main() -> int:
                                        in counters.items()}))
         (t1, w1, c1), (t2, w2, c2) = runs
         texts_of[mode] = t1
-        fails.check(all(c1[n] > 0 for n in need)
-                    and all(c1[n] == 0 for n in ("topk", "topk_fused")
-                            if n not in need),
-                    f"{mode}: kernels launched in the main path {c1}")
+        fails.check(all(c1[n] > 0 if v is None else c1[n] == v
+                        for n, v in need.items())
+                    and all(c1[n] == 0 for n in counters if n not in need),
+                    f"{mode}: kernels launched in the main path {c1}, "
+                    f"wanted {need} (None: at least once)")
         fails.check(t1 == t2 and len(t1) == len(batch),
                     f"{mode}: two runs give identical transcripts")
         fails.check(all(isinstance(s, str) for s in t1) and any(t1),
@@ -1375,6 +1609,20 @@ def main() -> int:
         for n in kernels:
             if launches_from[n] == mode:
                 kernels[n]["launches"] = c1[n]
+        if mode.endswith(lossy_suffixes):
+            paths[mode]["wire"] = _wire_cost(np, torch, asr, batch)
+            base = texts_of["beam_bw16_b128" if len(batch) == 128
+                            else "beam_bw16"]
+            paths[mode]["rows_differ_from_f32_flat"] = sum(
+                a != b for a, b in zip(t1, base))
+            print(f"{mode}: wire {json.dumps(paths[mode]['wire'])}; "
+                  f"{paths[mode]['rows_differ_from_f32_flat']} of "
+                  f"{len(batch)} transcripts differ from the f32 flat "
+                  f"wire's (report only: random weights)", flush=True)
+            t3_lossy += time.time() - t_run
+    paths["beam_bw16"]["wire"] = _wire_cost(np, torch, runs_spec[0][1], wavs)
+    print(f"beam_bw16: wire {json.dumps(paths['beam_bw16']['wire'])}; the "
+          f"bf16 and lossy-wire runs took {t3_lossy:.1f} s", flush=True)
     kernels["topk"]["launches_lm1"] = paths["beam_bw16_lm1"]["launches"]["topk"]
     print(f"beam_bw16_lm1: K3 launched {kernels['topk']['launches_lm1']} times "
           f"per batch (k=20 proposals), K4 "
@@ -1547,6 +1795,44 @@ def main() -> int:
                     f"{texts['klm'][1]}")
     os.remove(tri)
     os.remove(rebuilt)
+    # bf16 and the lossy wires on the golden shard: the card against the
+    # CPU port, through K2-bf16 and K5; bf16 also with cuBLAS's
+    # reduced-precision bf16 reductions flipped (report only)
+    t3c = time.time()
+    matmul = torch.backends.cuda.matmul
+    red = matmul.allow_bf16_reduced_precision_reduction
+    golden_lossy = {}
+    for name, kw in (("bf16", dict(compute_dtype="bfloat16")),
+                     ("mulaw", dict(wire="mulaw")),
+                     ("adpcm", dict(wire="adpcm"))):
+        k2 = "lstm_bf16" if name == "bf16" else "lstm"
+        for mode, bw in (("greedy", None), ("beam_bw4", 4)):
+            def golden_asr(**more):
+                return ASR(ckpt_path=os.path.join(gold, "model.ckpt"),
+                           cfg=gcfg, vocab=gvocab, bw=bw, **kw, **more)
+            before = {n: getattr(m, a) for n, (m, a) in counters.items()}
+            card = golden_asr().transcribe_files(gpaths)
+            ran = {n: getattr(m, a) - before[n]
+                   for n, (m, a) in counters.items()}
+            cpu = golden_asr(device="cpu").transcribe_files(gpaths)
+            fails.check(card == cpu and ran[k2] > 0
+                        and (ran["adpcm"] > 0) == (name == "adpcm"),
+                        f"golden shard {mode} {name} on the card (through "
+                        f"{k2}{' and K5' if name == 'adpcm' else ''}) equals "
+                        f"the CPU port; equals expected.json: "
+                        f"{card == expected[mode]}")
+            golden_lossy[f"{name}_{mode}"] = dict(
+                equals_cpu=card == cpu, equals_expected=card == expected[mode])
+            if name == "bf16":
+                matmul.allow_bf16_reduced_precision_reduction = not red
+                flipped = golden_asr().transcribe_files(gpaths)
+                matmul.allow_bf16_reduced_precision_reduction = red
+                golden_lossy[f"{name}_{mode}"]["same_when_reduction_flipped"] \
+                    = flipped == card
+    paths["golden_lossy"] = golden_lossy
+    print(f"golden shard, bf16 and lossy wires (allow_bf16_reduced_precision"
+          f"_reduction default {red}): {json.dumps(golden_lossy)}; "
+          f"{time.time() - t3c:.1f} s", flush=True)
 
 
     # ---- phase 3d: the HTTP server at full width ----------------------------

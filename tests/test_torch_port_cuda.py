@@ -6,9 +6,10 @@ fixture, never at import).  Run on a GPU machine with
     python -m pytest tests/test_torch_port_cuda.py -m cuda --noconftest -o addopts=""
 
 Tolerances are the ones chip_smoke.py states: log-mel 2e-3 absolute,
-BiLSTM 1e-4 absolute, top-k exact, fused top-k 1e-5 absolute on values
-(the logsumexp is summed in another order), indices exact where the
-values are separated by more than that.
+BiLSTM 1e-4 absolute (bf16: TOL_LSTM_BF16, below), top-k exact, fused
+top-k 1e-5 absolute on values (the logsumexp is summed in another order),
+indices exact where the values are separated by more than that, ADPCM
+decode exact.
 """
 
 import json
@@ -19,6 +20,8 @@ import pytest
 import torch
 
 from chinese_asr_tpu_torch import config as tcfg
+from chinese_asr_tpu_torch.audio import features as tfeat
+from chinese_asr_tpu_torch.ops.cuda import adpcm as tadpcm
 from chinese_asr_tpu_torch.ops.cuda import logmel as tlogmel
 from chinese_asr_tpu_torch.ops.cuda import lstm as tlstm
 from chinese_asr_tpu_torch.ops.cuda import topk as ttopk
@@ -27,6 +30,12 @@ from chinese_asr_tpu_torch.vocab import Vocab
 from torch_port_util import CHARS, GOLD, golden_cfg, golden_wav_paths
 
 pytestmark = pytest.mark.cuda
+
+# K2-bf16 against its twin: both round y, h and c to bf16 at the end of
+# each step from f32 sums taken in other orders, so a value within an f32
+# rounding of a bf16 rounding boundary lands one bf16 ulp apart (<= 7.8e-3
+# below 2) and the recurrence carries it on; chip_smoke.py's bound
+TOL_LSTM_BF16 = 3e-2
 
 
 @pytest.fixture
@@ -553,3 +562,97 @@ def test_overlapped_chunks_on_the_card(dev):
             [wavs[i] for i in idx])
     assert first == _golden_asr(bw=4, device="cpu").transcribe_wavs(
         wavs, max_batch=4)
+
+
+@pytest.mark.parametrize("H", [16, 256])
+@pytest.mark.parametrize("B", [1, 32, 128, 224, 225])
+def test_lstm_bf16_kernel_matches_twin(dev, B, H):
+    """K2-bf16: the cluster kernel (H=256) and the simple one (H=16), B on
+    both sides of the rows-per-cluster switch and of one wave (224), with
+    ragged masks (row 0 never stepped)."""
+    T = 12
+    bf = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(B * H)
+    xg_f = torch.randn(T, B, 4 * H, device=dev, generator=g).to(bf)
+    xg_b = torch.randn(T, B, 4 * H, device=dev, generator=g).to(bf)
+    w = (torch.randn(2, H, 4 * H, device=dev, generator=g) / H ** 0.5).to(bf)
+    lens = torch.randint(0, T + 1, (B,), device=dev, generator=g)
+    lens[0] = 0
+    m_f = (torch.arange(T, device=dev)[:, None] < lens[None]).to(bf)
+    m_b = torch.flip(m_f, dims=(0,)).contiguous()
+    before = (tlstm.launches, tlstm.bf16_launches)
+    got = tlstm.bidir_lstm_time_loop(xg_f, xg_b, m_f, m_b, w)
+    assert (tlstm.launches, tlstm.bf16_launches) == (before[0],
+                                                     before[1] + 1)
+    ref = tlstm.bidir_lstm_time_loop_plain(xg_f, xg_b, m_f, m_b, w)
+    for a, b in zip(got, ref):
+        assert a.dtype == bf and a.shape == b.shape
+        assert float((a.float() - b.float()).abs().max()) <= TOL_LSTM_BF16
+    assert float(got[0][m_f == 0].float().abs().max()) == 0.0
+    assert float(got[2][:, 0].float().abs().max()) == 0.0
+    if H == 256:
+        plan = tlstm.plan(B, H, bf)
+        assert plan["rows"] == (16 if B <= 112 else 32)
+        assert plan["waves"] == 1 or B > 224
+
+
+def _adpcm_wire(x):
+    buf = tfeat.adpcm_encode_flat(x)
+    return torch.from_numpy(buf), len(x) // tfeat.ADPCM_K
+
+
+@pytest.mark.parametrize("case", ["one_block", "odd", "square", "silence",
+                                  "speech_like"])
+def test_adpcm_kernel_matches_twin_exactly(dev, case):
+    """K5: nb = 1, an odd nb (a partial last warp), a full-scale square
+    wave (step index up to 95) and silence (down to 0)."""
+    K = tfeat.ADPCM_K
+    rng = np.random.default_rng(3)
+    x = {"one_block": lambda: rng.standard_normal(K) * 4000,
+         "odd": lambda: rng.standard_normal(37 * K) * 9000,
+         "square": lambda: np.where((np.arange(65 * K) // 16) % 2,
+                                    32767.0, -32768.0),
+         "silence": lambda: np.zeros(33 * K),
+         "speech_like": lambda: 12000 * np.sin(
+             np.cumsum(rng.uniform(0.01, 0.2, 1001 * K)))}[case]()
+    buf, nb = _adpcm_wire(np.clip(x, -32768, 32767).astype(np.int16))
+    ref = tadpcm.adpcm_decode_flat_plain(buf, nb)
+    before = tadpcm.launches
+    got = tfeat.adpcm_decode_flat(buf.to(dev), nb)
+    assert tadpcm.launches == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), ref)
+
+
+@pytest.mark.parametrize("mode,bw", [("greedy", None), ("beam_bw4", 4)])
+@pytest.mark.parametrize("kw", [dict(compute_dtype="bfloat16"),
+                                dict(wire="mulaw"), dict(wire="adpcm")],
+                         ids=["bf16", "mulaw", "adpcm"])
+def test_golden_shard_lossy_modes_on_the_card(dev, kw, mode, bw):
+    """bf16 and the lossy wires on the card give the CPU port's
+    transcripts, through K2's bf16 instance and K5."""
+    card = _golden_asr(bw=bw, **kw)
+    counts = (tlstm.launches, tlstm.bf16_launches, tadpcm.launches)
+    got = card.transcribe_files(golden_wav_paths())
+    bf16 = "compute_dtype" in kw
+    assert (tlstm.launches > counts[0]) != bf16
+    assert (tlstm.bf16_launches > counts[1]) == bf16
+    assert (tadpcm.launches > counts[2]) == (kw.get("wire") == "adpcm")
+    assert got == _golden_asr(bw=bw, device="cpu", **kw).transcribe_files(
+        golden_wav_paths())
+
+
+def test_lstm_bf16_and_adpcm_reject_bad_operands(dev):
+    T, B, H = 3, 2, 64
+    bf = torch.bfloat16
+    odd = torch.zeros(T * B * 4 * H + 1, device=dev, dtype=bf)[1:]
+    xg = odd.view(T, B, 4 * H)                  # contiguous, 2-byte aligned
+    m = torch.ones(T, B, device=dev, dtype=bf)
+    w = torch.zeros(2, H, 4 * H, device=dev, dtype=bf)
+    with pytest.raises(ValueError, match="aligned"):
+        tlstm.bidir_lstm_time_loop(xg, xg, m, m, w)
+    with pytest.raises(ValueError):
+        tlstm.bidir_lstm_time_loop(xg.double(), xg.double(), m, m, w)
+    with pytest.raises(ValueError):                       # wrong wire size
+        tadpcm.adpcm_decode_flat(torch.zeros(130, dtype=torch.uint8,
+                                             device=dev), 1)

@@ -161,6 +161,31 @@ def test_golden_shard_evaluation(weights, golden_manifest, mode, kw):
         jax_batch_cer(expected["modes"][mode], expected["texts"]), abs=1e-12)
 
 
+@pytest.mark.parametrize("mode,kw", [("greedy", {}), ("beam_bw4", dict(bw=4))])
+def test_golden_shard_evaluation_bf16(golden_manifest, mode, kw):
+    """The params of a bf16 ASR (floating leaves cast to bfloat16): the
+    port casts the float32 features to bf16 and decodes in bf16; its
+    predictions equal the JAX package's evaluation with the same bf16
+    params and ``expected.json``."""
+    import jax
+    path, expected = golden_manifest
+    tree = load_checkpoint(os.path.join(GOLD, "model.ckpt"))["params"]
+    jp = jax.tree_util.tree_map(
+        lambda x: jnp.asarray(x).astype(jnp.bfloat16)
+        if np.issubdtype(np.asarray(x).dtype, np.floating)
+        else jnp.asarray(x), tree)
+    tp = las.params_from_numpy(tree, "cpu", dtype=torch.bfloat16)
+    assert tp["decoder"]["embedding"].dtype == torch.bfloat16
+    j = jeval.evaluate_manifest(jp, golden_cfg(jcfg),
+                                JVocab.build([CHARS * 3], max_num_words=8),
+                                path, verbose=False, **kw)
+    t = teval.evaluate_manifest(tp, golden_cfg(tcfg),
+                                TVocab.build([CHARS * 3], max_num_words=8),
+                                path, verbose=False, **kw)
+    assert t["pred"] == j["pred"] == expected["modes"][mode]
+    assert t["cer"] == pytest.approx(j["cer"], abs=1e-12)
+
+
 def test_evaluate_cli_device(golden_manifest, monkeypatch, capsys):
     """The CLI decodes on cuda by default (raising without a GPU) and on
     the CPU under --device cpu."""
