@@ -77,22 +77,51 @@ def _logit(p: Params, last_h, ahs):
 
 
 def decoder_step(p: Params, attn_p, dcfg: DecoderConfig, acfg: AttentionConfig,
-                 mask, keys, values, token, cell_state, attn_hidden_state
-                 ) -> DecoderOut:
+                 mask, keys, values, token, cell_state, attn_hidden_state,
+                 compute_logit: bool = True, token_emb=None,
+                 gate_partial=None) -> DecoderOut:
     """Reference decoder.py:94-137.  token [B] int; attn_hidden_state
-    [B, ctx] or None (zeros)."""
-    x = p["embedding"][token]                             # row gather
-    if dcfg.input_feeding:
+    [B, ctx] or None (zeros).
+
+    ``token_emb`` [B, E]: the input already embedded (the teacher-forced
+    trainer embeds all [B, S] tokens at once); ``token`` is then ignored.
+    ``gate_partial`` [B, 4H]: layer 0's gate contribution of the embedding
+    with both biases (``emb @ W_ih[:E] + b_ih + b_hh``), computed outside
+    the step loop; layer 0 then multiplies only the fed-back attentional
+    state and W_hh.  ``compute_logit=False`` leaves ``logit`` None (the
+    trainer projects all steps at once).  Input feeding only, as in JAX."""
+    if gate_partial is not None:
+        if not dcfg.input_feeding:
+            raise ValueError("gate_partial needs input feeding")
+        B = gate_partial.shape[0]
         if attn_hidden_state is None:
-            attn_hidden_state = x.new_zeros((x.shape[0], values.shape[-1]))
-        x = torch.cat([x, attn_hidden_state], dim=1)
-    cell_state = rnn_ops.cell_stack_step(dcfg.decoder_type, p["cells"], x,
-                                         cell_state)
+            attn_hidden_state = gate_partial.new_zeros((B, values.shape[-1]))
+        if cell_state is None:
+            cell_state = [(gate_partial.new_zeros((B, l["w_hh"].shape[0])),) * 2
+                          for l in p["cells"]]
+        p0 = p["cells"][0]
+        E = p0["w_ih"].shape[0] - attn_hidden_state.shape[1]
+        h0, c0 = cell_state[0]
+        gates = (gate_partial + attn_hidden_state @ p0["w_ih"][E:]
+                 + h0 @ p0["w_hh"])
+        h, c = rnn_ops.lstm_from_gates(gates, c0)
+        cell_state = [(h, c)] + (rnn_ops.cell_stack_step(
+            dcfg.decoder_type, p["cells"][1:], h, cell_state[1:])
+            if len(p["cells"]) > 1 else [])
+    else:
+        x = token_emb if token_emb is not None else p["embedding"][token]
+        if dcfg.input_feeding:
+            if attn_hidden_state is None:
+                attn_hidden_state = x.new_zeros((x.shape[0],
+                                                 values.shape[-1]))
+            x = torch.cat([x, attn_hidden_state], dim=1)
+        cell_state = rnn_ops.cell_stack_step(dcfg.decoder_type, p["cells"],
+                                             x, cell_state)
     last_h = cell_state[-1][0]
     context, alignment = attn_ops.attend(attn_p, acfg, mask, last_h, keys,
                                          values)
-    return DecoderOut(_logit(p, last_h, context), context, alignment,
-                      cell_state)
+    logit = _logit(p, last_h, context) if compute_logit else None
+    return DecoderOut(logit, context, alignment, cell_state)
 
 
 def decoder_step_beam(p: Params, attn_p, dcfg: DecoderConfig,

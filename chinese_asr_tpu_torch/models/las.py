@@ -67,6 +67,38 @@ def params_from_numpy(tree, device=None, dtype=torch.float32) -> Params:
     return tree_map(leaf, tree)
 
 
+def tree_paths(tree, path: tuple = ()) -> list:
+    """(path, leaf) in ``jax.tree_util`` order: dict keys sorted, lists in
+    order; a path is the tuple of keys and indices down to the leaf."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_paths(tree[k],
+                                                            path + (k,))]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree)
+                for x in tree_paths(v, path + (i,))]
+    return [(path, tree)]
+
+
+def tree_leaves(tree) -> list:
+    return [leaf for _, leaf in tree_paths(tree)]
+
+
+def params_to_numpy(params: Params):
+    """The inverse of ``params_from_numpy``: the same tree with numpy
+    leaves on the host (floating leaves as float32), the ``params`` of a
+    ``chinese_asr_tpu.v1`` checkpoint, which the JAX package loads as it
+    loads its own."""
+    def leaf(t):
+        t = t.detach().cpu()
+        return (t.float() if t.is_floating_point() else t).numpy()
+
+    return tree_map(leaf, params)
+
+
+def count_params(params: Params) -> int:
+    return int(sum(t.numel() for t in tree_leaves(params)))
+
+
 class EncodedBatch(NamedTuple):
     enc_out: torch.Tensor    # [B, L, enc]
     mask: torch.Tensor       # [B, L] additive softmax mask
@@ -75,9 +107,13 @@ class EncodedBatch(NamedTuple):
     init_cell_state: Optional[list]
 
 
-def encode(params: Params, cfg: Config, feats, feat_lens) -> EncodedBatch:
+def encode(params: Params, cfg: Config, feats, feat_lens,
+           train: bool = False) -> EncodedBatch:
     """Shared decode prologue (reference model.py:523-534): encoder forward,
-    softmax mask, decoder initial state, attention key/value precompute."""
+    softmax mask, decoder initial state, attention key/value precompute.
+    ``train`` is JAX's switch to BatchNorm batch statistics; the LSTM
+    encoder has no BatchNorm, so it changes nothing here (the BatchNorm
+    families raise in ``models/encoder.py``)."""
     enc = enc_ops.apply_encoder(params["encoder"], cfg, feats, feat_lens)
     mask = softmax_mask(enc.out_lens, enc.out.shape[1], enc.out.dtype)
     cell_state = dec_ops.get_initial_state(params["decoder"], cfg.decoder,
@@ -160,3 +196,62 @@ def load_torch_checkpoint(path: str, cfg: Config, device=None) -> Params:
     enc_sd = {k: v.numpy() for k, v in ckpt["encoder_state_dict"].items()}
     dec_sd = {k: v.numpy() for k, v in ckpt["decoder_state_dict"].items()}
     return params_from_torch_state(enc_sd, dec_sd, cfg, device)
+
+
+def params_to_torch_state(params: Params, cfg: Config):
+    """Inverse of ``params_from_torch_state``: (enc_sd, dec_sd) numpy dicts
+    in the reference's tensor names and orientation, so that a model
+    trained here loads in the reference code (or re-imports).  The LSTM
+    encoder and the learned decoder init state, as the importer takes."""
+    enc_ops._require_lstm(cfg)
+    p = params_to_numpy(params)
+    enc_sd: Dict[str, np.ndarray] = {}
+    for i, layer in enumerate(p["encoder"]["layers"]):
+        base = f"rnn.rnn.{i}."
+        for dname, suffix in (("fwd", ""), ("bwd", "_reverse")):
+            if dname not in layer:
+                continue
+            d = layer[dname]
+            enc_sd[base + "weight_ih_l0" + suffix] = d["w_ih"].T
+            enc_sd[base + "weight_hh_l0" + suffix] = d["w_hh"].T
+            enc_sd[base + "bias_ih_l0" + suffix] = d["b_ih"]
+            enc_sd[base + "bias_hh_l0" + suffix] = d["b_hh"]
+    ap, dp = p["attention"], p["decoder"]
+    dec_sd: Dict[str, np.ndarray] = {
+        "embedding.weight": dp["embedding"],
+        "proj_linear.weight": dp["proj_w"].T,
+        "proj_linear.bias": dp["proj_b"],
+        "attn_mechanism.W_enc": ap["w_enc"],
+        "attn_mechanism.b_attn": ap["b_attn"],
+        "attn_mechanism.W_hidden": ap["w_hidden"],
+        "attn_mechanism.v": ap["v"],
+    }
+    for i, cell in enumerate(dp["cells"]):
+        base = f"cell.cell.{i}."
+        dec_sd[base + "weight_ih"] = cell["w_ih"].T
+        dec_sd[base + "weight_hh"] = cell["w_hh"].T
+        dec_sd[base + "bias_ih"] = cell["b_ih"]
+        dec_sd[base + "bias_hh"] = cell["b_hh"]
+    # reference naming (decoder.py:36-40), so that its load_state_dict
+    # takes a learned-init checkpoint exported from here
+    for i, e in enumerate(dp.get("init_state", [])):
+        dec_sd[f"dec_init_cell_state.{i}"] = e
+    return enc_sd, dec_sd
+
+
+def save_torch_checkpoint(path: str, params: Params, cfg: Config,
+                          args=None) -> str:
+    """Write a reference-schema .ckpt (model.py:347-355:
+    {'encoder_state_dict', 'decoder_state_dict', 'optimizer_state_dict',
+    'args'}), loadable by the reference code and by
+    ``load_torch_checkpoint``."""
+    enc_sd, dec_sd = params_to_torch_state(params, cfg)
+
+    def sd(d):
+        return {k: torch.from_numpy(np.ascontiguousarray(v))
+                for k, v in d.items()}
+
+    torch.save({"encoder_state_dict": sd(enc_sd),
+                "decoder_state_dict": sd(dec_sd),
+                "optimizer_state_dict": {}, "args": args}, path)
+    return path

@@ -21,9 +21,11 @@ golden model's 16) runs the simple per-block kernel.  B alone picks the
 cluster kernel's rows per cluster (16, or 32 from B=113 on), so that
 B <= 224 runs in one wave (``csrc/lstm.cu`` explains both).
 
-Inference only: the ``torch.autograd.Function`` whose backward
-recomputes through the twin (as ``ops/rnn.py`` ``_bidir_core_bwd`` does)
-comes with the training slice.
+K2-bwd (``csrc/lstm_bwd.cu``) is the recurrence's backward, the VJP
+that JAX takes of its ``lax.scan`` (``chinese_asr_tpu/ops/rnn.py``
+``_bidir_core_bwd``), and ``bidir_lstm`` the ``torch.autograd.Function``
+around K2 that calls it: K2 forward, K2-bwd backward on the card, the two
+twins on the CPU.  Float32 only; the bf16 instance has no backward yet.
 """
 
 from __future__ import annotations
@@ -31,11 +33,13 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from . import build
 
 launches = 0          # f32 kernel launches (the twin never counts)
 bf16_launches = 0     # bf16 kernel (K2-bf16) launches
+bwd_launches = 0      # K2-bwd launches
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -138,3 +142,150 @@ def bidir_lstm_time_loop(xg_f, xg_b, m_f, m_b, w_hh):
     else:
         launches += 1
     return ys_f, ys_b, hT, cT
+
+
+# --------------------------------------------------------------------------
+# K2-bwd: the recurrence's backward
+# --------------------------------------------------------------------------
+def bidir_lstm_time_loop_bwd_plain(xg_f, xg_b, m_f, m_b, w_hh, ys_f, ys_b,
+                                   gy_f, gy_b, ghT, gcT):
+    """The VJP of ``bidir_lstm_time_loop``'s outputs (ys_f, ys_b, hT, cT)
+    with respect to xg_f, xg_b and w_hh, given their cotangents gy_f, gy_b
+    [T, B, H], ghT, gcT [2, B, H]; the masks get none.  Per direction, as
+    K2-bwd computes it:
+
+    1. forward in time: the carried h rebuilt from ys and the masks
+       (h_t = y_t + (1 - m_t) h_{t-1}), the gates recomputed from it
+       (xg_t + h_{t-1} @ W_hh) and c rolled forward (K2's step formulas);
+    2. backward in time from dh = ghT, dc = gcT: dy = gy_t + dh; the
+       step's gate cotangents dxg_t; dh <- (1 - m) dh + dxg_t @ W_hh^T,
+       dc <- (1 - m) dc + dc2 * f;
+    3. dW_hh = sum_t h_{t-1}^T dxg_t, one product.
+
+    Returns (dxg_f, dxg_b [T, B, 4H], dw_hh [2, H, 4H]), float32."""
+    T, B, H4 = xg_f.shape
+    dxgs, dws = [], []
+    for d, (xg, m, ys, gy) in enumerate(((xg_f, m_f, ys_f, gy_f),
+                                         (xg_b, m_b, ys_b, gy_b))):
+        w = w_hh[d]
+        h = xg.new_zeros((B, H4 // 4))
+        c = xg.new_zeros((B, H4 // 4))
+        hs, cs, acts = [], [], []
+        for t in range(T):
+            mt = m[t][:, None].to(xg.dtype)
+            i, f, g, o = torch.chunk(xg[t] + h @ w, 4, dim=-1)
+            i, f, g, o = (torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g),
+                          torch.sigmoid(o))
+            hs.append(h)
+            cs.append(c)
+            acts.append((i, f, g, o))
+            c = mt * (f * c + i * g) + (1.0 - mt) * c
+            h = ys[t] + (1.0 - mt) * h
+        dh, dc = ghT[d], gcT[d]
+        dxg = xg.new_empty((T, B, H4))
+        for t in range(T - 1, -1, -1):
+            mt = m[t][:, None].to(xg.dtype)
+            i, f, g, o = acts[t]
+            cp = cs[t]
+            tc = torch.tanh(f * cp + i * g)
+            dh2 = (gy[t] + dh) * mt
+            dc2 = mt * dc + dh2 * o * (1.0 - tc * tc)
+            da = torch.cat([dc2 * g * i * (1.0 - i), dc2 * cp * f * (1.0 - f),
+                            dc2 * i * (1.0 - g * g), dh2 * tc * o * (1.0 - o)],
+                           dim=-1)
+            dxg[t] = da
+            dc = (1.0 - mt) * dc + dc2 * f
+            dh = (1.0 - mt) * dh + da @ w.T
+        dxgs.append(dxg)
+        dws.append(torch.stack(hs).reshape(T * B, -1).T
+                   @ dxg.reshape(T * B, H4))
+    return dxgs[0], dxgs[1], torch.stack(dws)
+
+
+def bidir_lstm_time_loop_bwd(xg_f, xg_b, m_f, m_b, w_hh, ys_f, ys_b, gy_f,
+                             gy_b, ghT, gcT):
+    """A CPU tensor takes the plain twin; a CUDA tensor launches K2-bwd
+    (one launch runs both directions' two passes) and forms dW_hh as one
+    batched product of the h sequence it wrote with the gate
+    cotangents.  Float32 only."""
+    if xg_f.device.type == "cpu":
+        return bidir_lstm_time_loop_bwd_plain(xg_f, xg_b, m_f, m_b, w_hh,
+                                              ys_f, ys_b, gy_f, gy_b, ghT,
+                                              gcT)
+    T, B, H4 = xg_f.shape
+    H = H4 // 4
+    f32 = torch.float32
+    if H4 != 4 * H or H > 1024:
+        raise ValueError(f"bidir_lstm_time_loop_bwd: hidden size {H4 / 4} "
+                         f"unsupported (4H must divide, H <= 1024)")
+    ins = dict(xg_f=(xg_f, (T, B, H4)), xg_b=(xg_b, (T, B, H4)),
+               m_f=(m_f, (T, B)), m_b=(m_b, (T, B)),
+               w_hh=(w_hh, (2, H, H4)), ys_f=(ys_f, (T, B, H)),
+               ys_b=(ys_b, (T, B, H)), gy_f=(gy_f, (T, B, H)),
+               gy_b=(gy_b, (T, B, H)), ghT=(ghT, (2, B, H)),
+               gcT=(gcT, (2, B, H)))
+    args = []
+    for name, (t, shape) in ins.items():
+        if t.dtype != f32:
+            if name.startswith("m_"):
+                t = t.to(f32)
+            else:
+                raise ValueError(f"bidir_lstm_time_loop_bwd: {name} is "
+                                 f"{t.dtype}; only float32 has a backward")
+        t = t.contiguous()
+        build.require(name, t, f32, shape)
+        args.append(t)
+    dev = xg_f.device
+    dxg = torch.empty((2, T, B, H4), dtype=f32, device=dev)
+    hs = torch.empty((2, T, B, H), dtype=f32, device=dev)
+    cs = torch.empty((2, T, B, H), dtype=f32, device=dev)
+    if B == 0 or T == 0:
+        return dxg[0], dxg[1], torch.zeros_like(w_hh)
+    wt = w_hh.transpose(1, 2).contiguous()          # [2, 4H, H]
+    fn = build.kernel("asr_bilstm_bwd", [_P] * 15 + [_I] * 3 + [_P])
+    rc = fn(*(a.data_ptr() for a in args[:5]), wt.data_ptr(),
+            *(a.data_ptr() for a in args[5:]), dxg.data_ptr(),
+            hs.data_ptr(), cs.data_ptr(), T, B, H,
+            torch.cuda.current_stream(dev).cuda_stream)
+    build.check("asr_bilstm_bwd", rc)
+    global bwd_launches
+    bwd_launches += 1
+    dw = torch.bmm(hs.view(2, T * B, H).transpose(1, 2),
+                   dxg.view(2, T * B, H4))
+    return dxg[0], dxg[1], dw
+
+
+class _BidirLSTM(torch.autograd.Function):
+    """K2 with K2-bwd as its backward (the port of JAX's
+    ``_bidir_core_pallas`` custom_vjp).  The forward keeps xg, the masks,
+    W_hh and ys; the backward rebuilds the rest.  Not twice
+    differentiable."""
+
+    @staticmethod
+    def forward(ctx, xg_f, xg_b, m_f, m_b, w_hh):
+        out = bidir_lstm_time_loop(xg_f, xg_b, m_f, m_b, w_hh)
+        ctx.save_for_backward(xg_f, xg_b, m_f, m_b, w_hh, out[0], out[1])
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gy_f, gy_b, ghT, gcT):
+        xg_f, xg_b, m_f, m_b, w_hh, ys_f, ys_b = ctx.saved_tensors
+        dxg_f, dxg_b, dw = bidir_lstm_time_loop_bwd(
+            xg_f, xg_b, m_f, m_b, w_hh, ys_f, ys_b, gy_f, gy_b, ghT, gcT)
+        return dxg_f, dxg_b, None, None, dw
+
+
+def bidir_lstm(xg_f, xg_b, m_f, m_b, w_hh):
+    """``bidir_lstm_time_loop`` with a gradient.  Under ``torch.no_grad``
+    (every inference path), or when no operand requires a gradient, it is
+    the plain call: one K2 launch on the card, nothing saved."""
+    if not (torch.is_grad_enabled()
+            and (xg_f.requires_grad or xg_b.requires_grad
+                 or w_hh.requires_grad)):
+        return bidir_lstm_time_loop(xg_f, xg_b, m_f, m_b, w_hh)
+    if xg_f.dtype != torch.float32:
+        raise NotImplementedError(
+            "bf16 training is not ported yet: it needs a backward of K2's "
+            "bf16 instance (a later slice of the port)")
+    return _BidirLSTM.apply(xg_f, xg_b, m_f, m_b, w_hh)

@@ -10,7 +10,8 @@ stack: the input projection of each direction is one hoisted matmul
 producing [T, B, 4H], the backward direction runs on the statically
 flipped sequence with the flipped mask freezing its carry, and the
 recurrence of both directions is one launch of kernel K2
-(``ops/cuda/lstm.py``).  The stack runs in the activations' dtype: bf16
+(``ops/cuda/lstm.py``), and its backward, under autograd, one launch of
+K2-bwd.  The stack runs in the activations' dtype: bf16
 activations (``compute_dtype="bfloat16"``) take bf16 weights, masks and
 zero states, the hoisted ``x @ W_ih`` in bf16, and K2's bf16 instance
 (its bf16 twin on the CPU), as the JAX package's bf16 scan does.
@@ -131,8 +132,7 @@ def _bidir_lstm_layer_tm(p_fwd: Params, p_bwd: Params, x_tm, mask_tm):
     m_f = mask_tm.contiguous()
     m_b = torch.flip(mask_tm, dims=(0,)).contiguous()
     w_hh = torch.stack([p_fwd["w_hh"], p_bwd["w_hh"]])     # [2, H, 4H]
-    ys_f, ys_b, hT, cT = lstm_k.bidir_lstm_time_loop(xg_f, xg_b, m_f, m_b,
-                                                     w_hh)
+    ys_f, ys_b, hT, cT = lstm_k.bidir_lstm(xg_f, xg_b, m_f, m_b, w_hh)
     y = torch.cat([ys_f, torch.flip(ys_b, dims=(0,))], dim=-1)
     return y, (hT[0], cT[0]), (hT[1], cT[1])
 

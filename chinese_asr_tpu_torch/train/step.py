@@ -1,0 +1,181 @@
+"""The training step (port of ``chinese_asr_tpu/train/step.py``):
+teacher-forced decode over the whole target matrix, label-smoothed CE,
+gradients, the optimizer update.
+
+The reference trains by looping over ``PackedSequence`` steps with a
+shrinking batch (reference model.py:414-453) and one CE over all steps
+(model.py:456-469).  Here, as in JAX, fixed [B, S] token matrices and
+masks replace the packed batch, and scheduled sampling (model.py:434-443)
+is a per-step Bernoulli draw.  JAX compiles the step into one program;
+the port runs it eagerly: the encoder's recurrences through K2 forward and
+K2-bwd backward (``ops/cuda/lstm.py`` ``bidir_lstm``), the decoder as a
+Python loop of S steps under autograd.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.utils.checkpoint
+
+from ..config import Config
+from ..data.dataset import Batch
+from ..models import decoder as dec_ops
+from ..models import las
+from . import optim
+from .loss import label_smoothed_ce
+
+
+def require_f32(cfg: Config) -> None:
+    if cfg.train.compute_dtype != "float32":
+        raise NotImplementedError(
+            f"train.compute_dtype={cfg.train.compute_dtype!r}: bf16 "
+            f"mixed-precision training is not ported yet; it needs the "
+            f"backward of K2's bf16 instance, a later slice of the port")
+
+
+def _step(body, remat: bool, *args):
+    """One decoder step; under ``remat`` its activations are dropped and
+    recomputed in the backward (``jax.checkpoint`` of the scan body)."""
+    if remat and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(
+            body, *args, use_reentrant=False, preserve_rng_state=False)
+    return body(*args)
+
+
+def forward_logits(params, cfg: Config, batch: Batch,
+                   gen: Optional[torch.Generator] = None, ss: float = 0.0,
+                   gate_hoist: Optional[bool] = None) -> torch.Tensor:
+    """Teacher-forced logits [B, S, V] for the whole target matrix.
+
+    ``ss`` > 0 with a generator ``gen`` turns on scheduled sampling: with
+    probability ss the input token at step t > 0 is the model's own argmax
+    from step t-1 instead of gold (reference model.py:434-443).  The coins
+    are drawn from ``gen`` on its own device ([S, B] at once), so a seed
+    gives the same draws on the CPU and the card.
+
+    Without it (the flagship regime) the inputs are known up front, so the
+    embedding and the logit products leave the step loop: one [B*S, .]
+    product each way, the loop carrying only the [S, B, H+ctx] trajectory.
+    ``gate_hoist`` also hoists layer 0's embedding part of the gate product
+    with both biases (JAX: on by default from B >= 64).
+    """
+    B, S = batch.tokens_in.shape
+    dcfg, acfg = cfg.decoder, cfg.attention
+    remat = cfg.train.remat
+    eb = las.encode(params, cfg, batch.feats, batch.feat_lens, train=True)
+    ctx = dec_ops.attn_hidden_width(acfg, eb.values.shape[-1])
+    cell0 = eb.init_cell_state
+    if cell0 is None:
+        z = batch.feats.new_zeros((B, dcfg.hidden_size))
+        cell0 = [(z, z)] * dcfg.num_layers
+    attn0 = batch.feats.new_zeros((B, ctx))
+    dp, ap = params["decoder"], params["attention"]
+    emb = dp["embedding"]
+
+    if ss > 0.0 and gen is not None:
+        # each step's logits are needed inside the loop (the argmax feeds
+        # step t+1), so nothing hoists
+        coins = (torch.rand((S, B), generator=gen, device=gen.device) < ss
+                 ).to(batch.tokens_in.device)
+
+        def body(cell, attn, tok):
+            out = dec_ops.decoder_step(dp, ap, dcfg, acfg, eb.mask, eb.keys,
+                                       eb.values, None, cell, attn,
+                                       token_emb=emb[tok])
+            return out.cell_state, out.attn_hidden_state, out.logit
+
+        cell, attn = cell0, attn0
+        prev = batch.tokens_in[:, 0]
+        logits = []
+        for t in range(S):
+            tok = batch.tokens_in[:, t]
+            if t > 0:
+                tok = torch.where(coins[t], prev, tok)
+            cell, attn, logit = _step(body, remat, cell, attn, tok)
+            prev = torch.argmax(logit, dim=-1)
+            logits.append(logit)
+        return torch.stack(logits, dim=1)                      # [B, S, V]
+
+    emb_seq = emb[batch.tokens_in]                             # [B, S, E]
+    if gate_hoist is None:
+        gate_hoist = B >= 64
+    gate_hoist = (gate_hoist and dcfg.decoder_type == "LSTM"
+                  and dcfg.input_feeding)
+    if gate_hoist:
+        p0 = dp["cells"][0]
+        E = emb.shape[1]
+        xs = (emb_seq.reshape(B * S, E) @ p0["w_ih"][:E]
+              + p0["b_ih"] + p0["b_hh"]).reshape(B, S, -1)     # [B, S, 4H]
+    else:
+        xs = emb_seq
+
+    def body(cell, attn, x_t):
+        out = dec_ops.decoder_step(
+            dp, ap, dcfg, acfg, eb.mask, eb.keys, eb.values, None, cell,
+            attn, compute_logit=False,
+            token_emb=None if gate_hoist else x_t,
+            gate_partial=x_t if gate_hoist else None)
+        return out.cell_state, out.attn_hidden_state
+
+    cell, attn = cell0, attn0
+    h_seq, a_seq = [], []
+    for t in range(S):
+        cell, attn = _step(body, remat, cell, attn, xs[:, t])
+        h_seq.append(cell[-1][0])
+        a_seq.append(attn)
+    proj_in = torch.cat([torch.stack(h_seq), torch.stack(a_seq)], dim=-1)
+    logits = proj_in @ dp["proj_w"] + dp["proj_b"]             # [S, B, V]
+    return logits.transpose(0, 1)
+
+
+def loss_fn(params, cfg: Config, batch: Batch,
+            gen: Optional[torch.Generator] = None
+            ) -> Tuple[torch.Tensor, Dict]:
+    """(label-smoothed CE over the valid tokens, {"accuracy",
+    "num_tokens"}); the CE is taken from float32 logits.  The LSTM
+    encoder has no BatchNorm, so JAX's running-stat folding has nothing to
+    do here."""
+    require_f32(cfg)
+    logits = forward_logits(params, cfg, batch, gen, cfg.train.ss).float()
+    S = batch.tokens_out.shape[1]
+    mask = (torch.arange(S, device=logits.device)[None, :]
+            < batch.text_lens[:, None])
+    tokens_out = batch.tokens_out.long()
+    loss = label_smoothed_ce(logits, tokens_out, mask,
+                             cfg.train.label_smooth)
+    n = mask.sum()
+    acc = ((torch.argmax(logits, -1) == tokens_out) & mask).sum() \
+        / torch.clamp(n, min=1)
+    return loss, {"accuracy": acc, "num_tokens": n}
+
+
+def train_step(params, opt_state, cfg: Config, tx: optim.Optimizer,
+               batch: Batch, gen: Optional[torch.Generator] = None):
+    """One update.  Returns (params, opt_state, metrics); the metrics are
+    tensors on the device (no host sync here).
+
+    A non-finite loss skips the update: params and optimizer state come
+    back unchanged, the reference's NaN/Inf guard (model.py:473-475)."""
+    flat = optim.flatten(params)
+    leaves = {n: t.detach().requires_grad_(True) for n, t in flat.items()}
+    loss, aux = loss_fn(optim.unflatten(params, leaves), cfg, batch, gen)
+    grads = torch.autograd.grad(loss, list(leaves.values()),
+                                allow_unused=True)
+    with torch.no_grad():
+        grads = {n: torch.zeros_like(flat[n]) if g is None else g
+                 for n, g in zip(leaves, grads)}
+        gnorm = torch.sqrt(sum(torch.sum(g.float() ** 2)
+                               for g in grads.values()))
+        finite = torch.isfinite(loss)
+        grads = {n: torch.where(finite, g, torch.zeros_like(g))
+                 for n, g in grads.items()}
+        updates, new_state = tx.update(grads, opt_state, flat)
+        new_flat = {n: torch.where(finite, p + updates[n], p)
+                    for n, p in flat.items()}
+        new_state = {k: torch.where(finite, v, opt_state[k])
+                     for k, v in new_state.items()}
+        loss = loss.detach()
+    metrics = {"loss": loss, "grad_norm": gnorm, "skipped": ~finite, **aux}
+    return optim.unflatten(params, new_flat), new_state, metrics

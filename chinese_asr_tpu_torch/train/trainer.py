@@ -1,0 +1,178 @@
+"""Training loop (port of ``chinese_asr_tpu/train/trainer.py``; reference
+Model.train, model.py:84-345): epoch loop, LR ramp-up, EMA-smoothed
+console line, periodic greedy eval with CER, reduce-on-plateau LR, a
+checkpoint per eval named ``step-X_wer-Y.ckpt``.  One device, no mesh.
+
+Checkpoints are ``chinese_asr_tpu.v1`` (``utils/checkpoint.py``): the JAX
+package loads the params of one written here, and a checkpoint of the JAX
+trainer resumes here (its optax optimizer state does not carry over).
+"""
+
+from __future__ import annotations
+
+import sys
+from typing import Callable, Iterable, Optional
+
+import numpy as np
+import torch
+
+from ..config import Config
+from ..decode.greedy import finalize_greedy, greedy_decode
+from ..models import las
+from ..utils.checkpoint import CheckpointManager, TrainVar, load_checkpoint
+from ..utils.device import resolve_device
+from ..utils.observe import (EMA, Duration, MetricsLogger,
+                             batch_alignment_images, rand_disp_list)
+from . import optim, step as step_mod
+from .step import Batch
+
+
+class Trainer:
+    def __init__(self, cfg: Config, params, vocab=None,
+                 logger: Optional[MetricsLogger] = None, device=None):
+        """``params``: a parameter tree (``las.init_params``), moved to
+        ``device`` in float32; ``device`` defaults to ``cuda`` and raises
+        without a GPU."""
+        step_mod.require_f32(cfg)
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.vocab = vocab
+        self.params = las.tree_map(
+            lambda t: t.detach().to(self.device, torch.float32), params)
+        self.tx = optim.make_optimizer(cfg.train)
+        self.opt_state = self.tx.init(self.params)
+        self._step_fn = lambda p, o, batch, gen: step_mod.train_step(
+            p, o, cfg, self.tx, batch, gen)
+        self.tv = TrainVar(lr=cfg.train.base_lr)
+        self.plateau = optim.PlateauLR(cfg.train)
+        self.ckpt = CheckpointManager(cfg.train.save_dir)
+        self.logger = logger or MetricsLogger(cfg.train.save_dir)
+        self.ema = EMA(0.99)
+        self.duration = Duration()
+        # scheduled sampling's coins, drawn on the CPU
+        self._gen = torch.Generator().manual_seed(cfg.train.seed)
+
+    # ---- resume (reference model.py:137-158) ------------------------------
+    def resume(self, path: Optional[str] = None) -> bool:
+        """Params and train state from ``path`` (default: the config's
+        ``continue_train_ckpt_path`` or the newest checkpoint in the save
+        dir).  A checkpoint of this port resumes in full; one of the JAX
+        trainer (optax state) or of another optimizer gives params and
+        train state, and the optimizer state starts fresh."""
+        path = path or self.cfg.train.continue_train_ckpt_path \
+            or self.ckpt.latest_checkpoint()
+        if not path:
+            return False
+        payload = load_checkpoint(path)
+        self.params = las.params_from_numpy(payload["params"], self.device)
+        self.opt_state = self.tx.init(self.params)
+        saved = payload.get("opt_state")
+        if (payload.get("extra", {}).get("optimizer") == self.tx.kind
+                and isinstance(saved, dict)
+                and set(saved) == set(self.opt_state)):
+            self.opt_state = {k: torch.as_tensor(np.asarray(v)).to(
+                self.device, self.opt_state[k].dtype)
+                for k, v in saved.items()}
+        elif saved is not None:
+            print(f"resume: {path} holds no {self.tx.kind} state of this "
+                  f"port (a JAX trainer's optax state, or another "
+                  f"optimizer's); the optimizer state starts fresh",
+                  file=sys.stderr)
+        if payload.get("train_var") is not None:
+            self.tv = TrainVar.from_dict(payload["train_var"])
+            self.plateau = optim.PlateauLR(
+                self.cfg.train, lr=self.tv.lr, best=self.tv.best_wer,
+                num_no_imprv=self.tv.num_no_imprv)
+            self.duration.seconds = self.tv.duration
+            self.opt_state = optim.set_lr(self.opt_state, self.tv.lr)
+        return True
+
+    # ---- eval (reference model.py:240-261) ---------------------------------
+    def evaluate(self, eval_loader: Iterable[Batch]) -> float:
+        cers, weights = [], []
+        first = True
+        for b in eval_loader:
+            res = greedy_decode(self.params, self.cfg, b.feats, b.feat_lens)
+            to_np = b.tokens_out.cpu().numpy()
+            tl_np = b.text_lens.cpu().numpy()
+            text = [to_np[i, : tl_np[i] - 1].tolist()
+                    for i in range(len(tl_np))]                # strip eos
+            out = finalize_greedy(res, self.vocab, text=text,
+                                  want_alignment=first)
+            cers.append(out.wer)
+            weights.append(out.n)
+            if first:
+                # alignment heatmaps + sample transcripts of the first eval
+                # batch (reference model.py:268-281)
+                first = False
+                lens = b.feat_lens.cpu().numpy()
+                tl = res.final_lens.cpu().numpy()
+                for i, img in enumerate(batch_alignment_images(
+                        out.alignment[:2], lens[:2], np.maximum(tl[:2], 1))):
+                    self.logger.image(f"eval/alignment{i}", img, self.tv.step)
+                for line in rand_disp_list(out.pred_text, out.text,
+                                           n=min(3, out.n)):
+                    self.logger.text("eval/sample", line, self.tv.step)
+        if not cers:
+            return float("inf")
+        return float(np.average(cers, weights=weights))
+
+    # ---- main loop (reference model.py:160-345) ----------------------------
+    def fit(self, train_loader_fn: Callable[[], Iterable[Batch]],
+            eval_loader_fn: Optional[Callable[[], Iterable[Batch]]] = None,
+            max_steps: Optional[int] = None) -> TrainVar:
+        cfg = self.cfg.train
+        steps_per_eval = cfg.num_eval_steps
+        for epoch in range(cfg.epochs):
+            for batch in train_loader_fn():
+                self.duration.tic()
+                # LR ramp-up (model.py:185-187)
+                if cfg.ramp_up_iters > 0 and self.tv.step < cfg.ramp_up_iters:
+                    self.opt_state = optim.set_lr(
+                        self.opt_state,
+                        optim.ramp_up_lr(self.plateau.lr, self.tv.step,
+                                         cfg.ramp_up_iters))
+                self.params, self.opt_state, metrics = self._step_fn(
+                    self.params, self.opt_state, batch, self._gen)
+                loss = float(metrics["loss"])
+                self.tv.step += 1
+                self.tv.loss = loss
+                dt = self.duration.toc()
+                ema = self.ema.update(loss)
+                if self.cfg.verbose and self.tv.step % 10 == 0:
+                    # console line (model.py:216-224)
+                    print(f"step {self.tv.step} epoch {epoch} "
+                          f"loss {loss:.4f} ema {ema:.4f} {dt * 1e3:.0f}ms "
+                          f"lr {optim.get_lr(self.opt_state):.2e} "
+                          f"best_wer {self.tv.best_wer:.5f} "
+                          f"no_imprv {self.plateau.num_no_imprv}",
+                          file=sys.stderr)
+                self.logger.scalar("train/loss", loss, self.tv.step)
+                self.logger.scalar("train/grad_norm",
+                                   float(metrics["grad_norm"]), self.tv.step)
+                if steps_per_eval > 0 and self.tv.step % steps_per_eval == 0:
+                    self._eval_and_checkpoint(eval_loader_fn)
+                if max_steps is not None and self.tv.step >= max_steps:
+                    self._eval_and_checkpoint(eval_loader_fn)
+                    return self.tv
+            # num_eval_steps == -1 -> eval once per epoch (gpd.py:117)
+            if steps_per_eval <= 0:
+                self._eval_and_checkpoint(eval_loader_fn)
+        return self.tv
+
+    def _eval_and_checkpoint(self, eval_loader_fn) -> str:
+        wer = self.evaluate(eval_loader_fn()) if eval_loader_fn else \
+            float(self.tv.loss)
+        self.tv.best_wer = min(self.tv.best_wer, wer)
+        self.logger.scalar("eval/wer", wer, self.tv.step)
+        # plateau LR (model.py:286-291, util.py:673-688)
+        if self.plateau.step(wer):
+            self.opt_state = optim.set_lr(self.opt_state, self.plateau.lr)
+        self.tv.lr = self.plateau.lr
+        self.tv.num_no_imprv = self.plateau.num_no_imprv
+        self.tv.duration = self.duration.seconds
+        # checkpoint per eval (model.py:294)
+        return self.ckpt.save(
+            self.tv.step, wer, las.params_to_numpy(self.params),
+            {k: v.cpu().numpy() for k, v in self.opt_state.items()},
+            self.tv, self.cfg.to_json(), extra={"optimizer": self.tx.kind})

@@ -1,0 +1,142 @@
+"""Observability: timers, EMA smoothing, metric logging, alignment images
+(port of ``chinese_asr_tpu/utils/observe.py``; reference util.py:1576-1588
+``Duration``, util.py:2379-2397 ``EMA``, util.py:307-423 alignment image
+export, util.py:298-304 transcript sampling), a JSONL metrics logger in
+place of the reference's missing TensorBoard ``Logger`` (model.py:6), and
+a ``torch.profiler`` hook.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import random
+import time
+from typing import List, Optional, Sequence
+
+import numpy as np
+
+
+class Duration:
+    """Accumulating tic/toc timer (reference util.py:1576-1588)."""
+
+    def __init__(self, seconds: float = 0.0):
+        self.seconds = seconds
+        self._t0: Optional[float] = None
+
+    def tic(self) -> None:
+        self._t0 = time.perf_counter()
+
+    def toc(self) -> float:
+        assert self._t0 is not None, "toc() before tic()"
+        dt = time.perf_counter() - self._t0
+        self.seconds += dt
+        self._t0 = None
+        return dt
+
+    def __enter__(self):
+        self.tic()
+        return self
+
+    def __exit__(self, *exc):
+        self.toc()
+
+    def __str__(self) -> str:
+        s = int(self.seconds)
+        return f"{s // 3600}:{s % 3600 // 60:02d}:{s % 60:02d}"
+
+
+class EMA:
+    """Exponential moving average of a scalar (reference util.py:2379-2397)."""
+
+    def __init__(self, decay: float = 0.99):
+        self.decay = decay
+        self.value: Optional[float] = None
+
+    def update(self, x: float) -> float:
+        x = float(x)
+        self.value = x if self.value is None else \
+            self.decay * self.value + (1.0 - self.decay) * x
+        return self.value
+
+
+class MetricsLogger:
+    """JSONL scalar/text logger — the working replacement for the reference's
+    missing TensorBoard Logger (model.py:227-231 call sites).  One line per
+    event: {"step": int, "tag": str, "value": ...}."""
+
+    def __init__(self, log_dir: str, filename: str = "metrics.jsonl"):
+        os.makedirs(log_dir, exist_ok=True)
+        self.path = os.path.join(log_dir, filename)
+        self._f = open(self.path, "a", buffering=1)
+
+    def scalar(self, tag: str, value: float, step: int) -> None:
+        self._f.write(json.dumps(
+            {"step": step, "tag": tag, "value": float(value)}) + "\n")
+
+    def text(self, tag: str, value: str, step: int) -> None:
+        self._f.write(json.dumps(
+            {"step": step, "tag": tag, "text": value}) + "\n")
+
+    def image(self, tag: str, img: np.ndarray, step: int) -> None:
+        """Store image summaries as .npy next to the log (no TB dependency)."""
+        d = os.path.join(os.path.dirname(self.path), "images")
+        os.makedirs(d, exist_ok=True)
+        p = os.path.join(d, f"{tag.replace('/', '_')}-{step}.npy")
+        np.save(p, img)
+        self._f.write(json.dumps({"step": step, "tag": tag, "image": p}) + "\n")
+
+    def close(self) -> None:
+        self._f.close()
+
+
+def alignment_to_image(align: np.ndarray, feat_len: int, text_len: int
+                       ) -> np.ndarray:
+    """One attention alignment [S, L] -> uint8 heatmap [text_len, feat_len]
+    (reference parse_batch_alignment util.py:307-355: crop to true lengths,
+    scale to 0-255)."""
+    a = np.asarray(align)[:text_len, :feat_len]
+    lo, hi = float(a.min()), float(a.max())
+    if hi <= lo:
+        return np.zeros_like(a, dtype=np.uint8)
+    return ((a - lo) / (hi - lo) * 255.0).astype(np.uint8)
+
+
+def batch_alignment_images(aligns: np.ndarray, feat_lens: Sequence[int],
+                           text_lens: Sequence[int]) -> List[np.ndarray]:
+    """[B, S, L] -> list of per-sample heatmaps (util.py:358-423)."""
+    return [alignment_to_image(aligns[i], int(feat_lens[i]), int(text_lens[i]))
+            for i in range(len(aligns))]
+
+
+def rand_disp_list(preds: Sequence[str], refs: Sequence[str], n: int = 3,
+                   rng: Optional[random.Random] = None) -> List[str]:
+    """Sample n (pred, ref) pairs for console/TB display (util.py:298-304)."""
+    rng = rng or random
+    idx = rng.sample(range(len(preds)), min(n, len(preds)))
+    return [f"pred: {preds[i]} | ref: {refs[i]}" for i in idx]
+
+
+class Profiler:
+    """``torch.profiler`` over the block (CPU, and CUDA when a card is
+    present); the Chrome trace goes to ``<log_dir>/trace.json`` and the
+    profile stays on ``.prof`` for ``key_averages()``."""
+
+    def __init__(self, log_dir: str):
+        self.log_dir = log_dir
+        self.prof = None
+
+    def __enter__(self):
+        import torch
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        self.prof = torch.profiler.profile(activities=acts)
+        self.prof.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.prof.__exit__(*exc)
+        os.makedirs(self.log_dir, exist_ok=True)
+        self.prof.export_chrome_trace(os.path.join(self.log_dir,
+                                                   "trace.json"))

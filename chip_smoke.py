@@ -29,6 +29,10 @@ every phase passed):
 2b-bf16. hold K2's bf16 instance (K2-bf16) against its bf16 twin at the
    same shapes, B=32 and H=16, with its cluster plan, its registers and
    spills, and cuDNN's bf16 layer beside it;
+2f. hold K2-bwd, the recurrence's backward, against its twin at the
+   flagship layer's shape (xg 2 x [332, 32, 1024]) and at H=16, with random
+   non-prefix masks and nonzero final-state cotangents; time it beside its
+   bound, its twin and cuDNN's backward of one bidirectional layer;
 2e. hold K5, the ADPCM wire decode, against its twin bit for bit on the
    B=32 batch's wire, a B=1 wire, a full-scale square wave and silence,
    and time it beside the C++ host encoder;
@@ -73,7 +77,18 @@ every phase passed):
    ``transcribe_bytes`` against ``transcribe_files``, and
    ``evaluate_manifest`` on the golden shard in all five modes (card
    against CPU); report ``evaluate_manifest`` at flagship width;
-4. print one ``{"kernels": [...]}`` line and, last, the ok line.
+4. train at the flagship ``Config()`` (f32, ADAM, seeded random weights):
+   ``Trainer.fit`` for 6 steps of B=32 over 32 synthetic 9-10 s wavs with
+   seeded 15-30-character transcripts written into ``_build/``, through
+   the port's train loader and ``batches_to_device``, ending in one greedy
+   eval and a checkpoint; check the launches (K1 1, K2 4, K2-bwd 4 a step,
+   the eval K1 1 and K2 4), that the loss is finite and falls, the golden
+   model's train step on the card against the CPU port, that the
+   checkpoint transcribes in ``ASR`` on the card, and the train CLI for 2
+   steps; report ms per step (median of the warm steps), the forward /
+   backward / optimizer split by CUDA events, the profiler's busy share
+   and launches of one step, and peak device memory;
+5. print one ``{"kernels": [...]}`` line and, last, the ok line.
 
 It imports nothing of JAX nor of the JAX package.
 """
@@ -105,9 +120,15 @@ import time
 #     for values in [1, 2)), and the recurrence carries it on; 3e-2 is the
 #     margin, a layout bug errs by O(1).
 # K5: integer decode, exact.
+# K2-bwd: sums in other orders over 4H-term products and through the
+#     reverse recurrence (f32 against f64 on the CPU twin: ~2e-7 of the
+#     output's magnitude at the flagship shape); dW sums T*B terms, so the
+#     error is taken relative to max(1, max |ref|) of each output; 1e-4 is
+#     the margin, a layout bug errs by O(1).
 TOL_LOGMEL = 2e-3
 TOL_LSTM = 1e-4
 TOL_LSTM_BF16 = 3e-2
+TOL_LSTM_BWD = 1e-4
 TOL_FUSED = 1e-5
 # card output vs the plain CPU path on a small input (same weights)
 TOL_FEATS = 1e-3
@@ -781,6 +802,321 @@ def _phase_entry_points(np, torch, fails, ASR, cfg, wavs, wavs128, rng,
     return report
 
 
+def _phase_k2_bwd(np, torch, fails, dev, lstm_k):
+    """Phase 2f: K2-bwd against its twin on the card at the flagship
+    encoder layer's shape (xg 2 x [332, 32, 1024]) and at H=16, with random
+    non-prefix masks and nonzero final-state cotangents; its time, bound,
+    twin and cuDNN's backward of one bidirectional layer beside it.
+    Returns the kernel's row of the ``kernels`` line."""
+    T, B, H = 332, 32, 256
+    g = torch.Generator(device=dev).manual_seed(7)
+
+    def case(h):
+        def f(*s):
+            return torch.randn(*s, device=dev, generator=g)
+
+        xg_f, xg_b = f(T, B, 4 * h), f(T, B, 4 * h)
+        w = f(2, h, 4 * h) / h ** 0.5
+        m_f, m_b = ((torch.rand(T, B, device=dev, generator=g) > 0.25)
+                    .float() for _ in range(2))
+        ys_f, ys_b, _, _ = lstm_k.bidir_lstm_time_loop(xg_f, xg_b, m_f, m_b,
+                                                       w)
+        return (xg_f, xg_b, m_f, m_b, w, ys_f, ys_b, f(T, B, h), f(T, B, h),
+                f(2, B, h), f(2, B, h))
+
+    errs, raw = {}, {}
+    for h in (H, 16):
+        args = case(h)
+        before = lstm_k.bwd_launches
+        got = lstm_k.bidir_lstm_time_loop_bwd(*args)
+        launched = lstm_k.bwd_launches - before
+        ref = lstm_k.bidir_lstm_time_loop_bwd_plain(*args)
+        raw[h] = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+        errs[h] = max(float((a - b).abs().max())
+                      / max(1.0, float(b.abs().max()))
+                      for a, b in zip(got, ref))
+        fails.check(launched == 1 and errs[h] <= TOL_LSTM_BWD
+                    and all(bool(torch.isfinite(a).all()) for a in got),
+                    f"K2-bwd T={T} B={B} H={h} (random non-prefix masks, "
+                    f"nonzero ghT/gcT): max_abs_err {raw[h]:.3g}, relative "
+                    f"to max(1, |ref|) {errs[h]:.3g} <= {TOL_LSTM_BWD}; one "
+                    f"launch")
+        if h == H:
+            big = args
+    ms = _time_ms(torch, lambda: lstm_k.bidir_lstm_time_loop_bwd(*big), 10)
+    plain_ms = _time_ms(
+        torch, lambda: lstm_k.bidir_lstm_time_loop_bwd_plain(*big), 1,
+        warmup=1)
+    # cuDNN's backward of one bidirectional nn.LSTM layer of the same
+    # shape (input 2H, as encoder layers 1-3 take it; the whole layer's
+    # backward, input projection and weight gradients included), timed
+    # as a yardstick and never used by the port
+    cudnn = torch.nn.LSTM(2 * H, H, bidirectional=True).to(dev)
+    x = torch.randn(T, B, 2 * H, device=dev, generator=g, requires_grad=True)
+    out, _ = cudnn(x)
+    gout = torch.randn_like(out)
+    wts = [x] + list(cudnn.parameters())
+    cudnn_ms = _time_ms(torch, lambda: torch.autograd.grad(
+        out, wts, gout, retain_graph=True), 10)
+    del cudnn, x, out, gout, wts
+    # the least work: each input read once (xg, masks, W_hh, ys, their
+    # cotangents), dxg and dW_hh written once; per valid (row, step) three
+    # 2 * H * 4H products (the gates' recompute, dh's and dW's) and ~30
+    # flops a unit of elementwise work, at the f32 rate
+    valid = float(big[2].sum() + big[3].sum())
+    nbytes = 4 * (2 * T * B * 4 * H * 2 + 2 * T * B + 2 * H * 4 * H * 2
+                  + 4 * T * B * H + 4 * B * H)
+    bound, by = _bound_ms(nbytes, valid * (3 * 2 * H * 4 * H + 30 * H))
+    print(f"K2-bwd: {ms:.4f} ms at xg 2 x [{T}, {B}, {4 * H}] "
+          f"({100 * valid / (2 * T * B):.1f}% of steps valid); bound "
+          f"{bound:.4f} ms ({by}), {100 * bound / ms:.2f}%; twin "
+          f"{plain_ms:.1f} ms; cuDNN's backward of one layer {cudnn_ms:.4f} "
+          f"ms", flush=True)
+    del big, args, got, ref
+    return dict(
+        name="K2-bwd BiLSTM backward", route="cuda",
+        source="chinese_asr_tpu_torch/csrc/lstm_bwd.cu",
+        replaces="chinese_asr_tpu/ops/rnn.py:295",
+        max_abs_err=max(raw.values()), rel_err=max(errs.values()),
+        ms=ms, step_us=ms * 1e3 / T, plain_ms=plain_ms, bound_ms=bound,
+        bound_by=by, library_ms=None, cudnn_layer_bwd_ms=cudnn_ms,
+        shape=f"xg, dxg [2 x {T}, {B}, {4 * H}], W_hh [2, {H}, {4 * H}]")
+
+
+def _train_corpus(np, rng, root: str, n: int, vocab_chars: str):
+    """``n`` speech-like int16 9-10 s wavs with seeded 15-30-character
+    transcripts over ``vocab_chars``, and their manifest."""
+    from chinese_asr_tpu_torch.data import dataset
+    os.makedirs(root, exist_ok=True)
+    utts = []
+    for i, pcm in enumerate(_synthetic_wavs(np, rng, n, 9.0, 10.0)):
+        path = os.path.join(root, f"t{i}.wav")
+        _write_wav_i16(path, pcm)
+        k = int(rng.integers(15, 31))
+        text = "".join(vocab_chars[j] for j in
+                       rng.integers(0, len(vocab_chars), k))
+        utts.append(dataset.Utterance(path, text))
+    manifest = os.path.join(root, "train.tsv")
+    dataset.write_manifest(manifest, utts)
+    return manifest, utts
+
+
+def _phase_training(np, torch, fails, dev, gpu, counters, build_dir):
+    """Phase 4: training at the flagship ``Config()`` on the card (f32,
+    ADAM, seeded random weights): ``Trainer.fit`` over a synthetic corpus
+    through the port's loader, checks and per-step numbers, the golden
+    model's train step against the CPU port, the checkpoint in ``ASR``,
+    and the train CLI.  Returns the path's report."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from chinese_asr_tpu_torch.api import ASR
+    from chinese_asr_tpu_torch.config import Config
+    from chinese_asr_tpu_torch.data import dataset
+    from chinese_asr_tpu_torch.data.dataset import Batch
+    from chinese_asr_tpu_torch.models import las
+    from chinese_asr_tpu_torch.train import optim, step as step_mod
+    from chinese_asr_tpu_torch.train.trainer import Trainer
+    from chinese_asr_tpu_torch.utils.checkpoint import load_checkpoint
+    from chinese_asr_tpu_torch.vocab import Vocab
+
+    rng = np.random.default_rng(8)
+    root = os.path.join(build_dir, "train_corpus")
+    save = os.path.join(build_dir, "train_ckpt")
+    chars = "".join(chr(0x4E00 + i) for i in range(5000))
+    vocab = Vocab.build([chars], max_num_words=5000)
+    steps = 6
+    cfg = Config().with_("train", batch_size=32, eval_batch_size=32,
+                         epochs=steps, num_eval_steps=1000, save_dir=save,
+                         seed=0)
+    assert len(vocab) == cfg.vocab.vocab_size
+    manifest, utts = _train_corpus(np, rng, root, 32, chars)
+    tr = Trainer(cfg, las.init_params(cfg, 0), vocab, device=dev)
+
+    def train_loader():
+        return dataset.batches_to_device(
+            dataset.make_train_loader(manifest, cfg, vocab, seed=0), cfg, dev)
+
+    def eval_loader():
+        return dataset.batches_to_device(
+            dataset.make_eval_loader(manifest, cfg, vocab), cfg, dev)
+
+    losses, walls = [], []
+    orig = tr._step_fn
+
+    def timed(*a):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = orig(*a)
+        losses.append(float(out[2]["loss"]))      # the loop's own sync
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        return out
+
+    tr._step_fn = timed
+    torch.cuda.reset_peak_memory_stats()
+    held_gib = torch.cuda.memory_allocated() / 2**30   # earlier phases
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    t_fit = time.perf_counter()
+    tv = tr.fit(train_loader, eval_loader, max_steps=steps)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t_fit
+    launched = {n: getattr(mod, attr) for n, (mod, attr) in counters.items()}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    # per step K1 1 (the loader featurizes), K2 4 and K2-bwd 4; the eval
+    # at the end (one batch of 32) adds K1 1 and K2 4
+    want = dict.fromkeys(counters, 0)
+    want.update(logmel=steps + 1, lstm=4 * steps + 4, lstm_bwd=4 * steps)
+    fails.check(launched == want, f"training: kernels launched in {steps} "
+                                  f"steps and one eval {launched}, wanted "
+                                  f"{want}")
+    fails.check(tv.step == steps and all(np.isfinite(losses))
+                and losses[-1] < losses[0],
+                f"training: {steps} steps at the flagship Config(), B=32; "
+                f"the loss finite and falling {[round(l, 4) for l in losses]}")
+    ckpt = tr.ckpt.latest_checkpoint()
+    fails.check(ckpt is not None and os.path.basename(ckpt).startswith(
+        f"step-{steps}_wer-"), f"training: fit wrote {ckpt}")
+    warm = walls[1:]
+    step_ms = float(np.median(warm)) * 1e3
+    print(f"training: {steps} steps of B=32, fit {fit_s:.1f} s with its "
+          f"eval and checkpoint; step "
+          f"walls {[round(w * 1e3, 1) for w in walls]} ms, median of the "
+          f"warm {step_ms:.1f} ms on {gpu}; wer {tv.best_wer:.4f}; peak "
+          f"device memory {peak_gib:.2f} GiB, of it {held_gib:.2f} GiB held "
+          f"before the phase", flush=True)
+
+    # one more step on the last batch, split by CUDA events, then profiled
+    batch = next(iter(train_loader()))
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    flat = optim.flatten(tr.params)
+    leaves = {n: t.detach().requires_grad_(True) for n, t in flat.items()}
+    torch.cuda.synchronize()
+    ev[0].record()
+    loss, _ = step_mod.loss_fn(optim.unflatten(tr.params, leaves), cfg,
+                               batch, tr._gen)
+    ev[1].record()
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    ev[2].record()
+    with torch.no_grad():
+        upd, _ = tr.tx.update(dict(zip(leaves, grads)), tr.opt_state, flat)
+        _ = {n: p + upd[n] for n, p in flat.items()}
+    ev[3].record()
+    torch.cuda.synchronize()
+    print(f"training batch: feats {tuple(batch.feats.shape)}, tokens "
+          f"{tuple(batch.tokens_in.shape)}", flush=True)
+    split = dict(forward_ms=ev[0].elapsed_time(ev[1]),
+                 backward_ms=ev[1].elapsed_time(ev[2]),
+                 optimizer_ms=ev[2].elapsed_time(ev[3]))
+    del leaves, grads, upd, loss
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        p2, o2, _ = step_mod.train_step(tr.params, tr.opt_state, cfg, tr.tx,
+                                        batch, tr._gen)
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t) * 1e3
+    del p2, o2
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+
+    rows = sorted((e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and dev_us(e) > 0),
+                  key=lambda e: -dev_us(e))
+    busy_ms = sum(dev_us(e) for e in rows) / 1e3
+    n_launch = sum(e.count for e in rows)
+    # the busy share against the median warm step, as the decode paths
+    # take theirs (the profiler slows the profiled step's host side)
+    print(f"training step split by CUDA events: {json.dumps(split)}; one "
+          f"profiled step ({prof_ms:.1f} ms under the profiler): kernels "
+          f"busy {busy_ms:.1f} ms = {100 * busy_ms / step_ms:.1f}% of the "
+          f"median warm step {step_ms:.1f} ms, {n_launch} kernel launches",
+          flush=True)
+    for e in rows[:12]:
+        print(f"  {dev_us(e) / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
+
+    # the golden model: one train_step on the card against the CPU port
+    # from the same params and batch (the tolerances of
+    # tests/test_torch_port_cuda.py)
+    gold = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "golden")
+    gcfg = (Config().with_("audio", n_mels=8, delta_delta=False,
+                           downsample=False)
+            .with_("encoder", hidden_size=16, num_layers=2)
+            .with_("decoder", hidden_size=32, embed_dim=12)
+            .with_("attention", attn_size=8)
+            .with_("vocab", max_num_words=8)
+            .with_("decode", max_len=8).with_("train", clip=1.0))
+    pn = load_checkpoint(os.path.join(gold, "model.ckpt"))["params"]
+    grng = np.random.RandomState(0)
+    gB, gT, gS = 6, 40, 5
+    feats = grng.randn(gB, gT, gcfg.audio.feat_dim).astype(np.float32)
+    lens = np.array([40, 31, 40, 25, 12, 40], np.int32)
+    feats[np.arange(gT)[None, :] >= lens[:, None]] = 0
+    text = grng.randint(4, gcfg.vocab.vocab_size, (gB, gS))
+    host = (feats, lens, np.concatenate([np.ones((gB, 1), int), text[:, :-1]],
+                                        1),
+            np.concatenate([text[:, :-1], np.full((gB, 1), 2)], 1),
+            np.full(gB, gS, np.int32))
+    res = []
+    for d in ("cpu", dev):
+        params = las.params_from_numpy(pn, d)
+        tx = optim.make_optimizer(gcfg.train)
+        b = Batch(*(torch.tensor(a).to(d) for a in host))
+        res.append(step_mod.train_step(params, tx.init(params), gcfg, tx, b))
+    (pc, _, mc), (pg, _, mg) = res
+    dloss = abs(float(mg["loss"]) / float(mc["loss"]) - 1)
+    dnorm = abs(float(mg["grad_norm"]) / float(mc["grad_norm"]) - 1)
+    dpar = max(float((a.cpu() - b).abs().max()) for a, b in
+               zip(las.tree_leaves(pg), las.tree_leaves(pc)))
+    fails.check(dloss <= 1e-5 and dnorm <= 1e-4 and dpar <= 2e-5,
+                f"golden train_step card vs CPU port: loss rel {dloss:.3g} "
+                f"<= 1e-5, grad norm rel {dnorm:.3g} <= 1e-4, params "
+                f"{dpar:.3g} <= 2e-5")
+
+    # the checkpoint fit wrote, in ASR on the card
+    asr = ASR(ckpt_path=ckpt, cfg=cfg, vocab=vocab, bw=4, device=dev)
+    texts = asr.transcribe_files([u.path for u in utts[:4]])
+    fails.check(len(texts) == 4 and all(isinstance(s, str) for s in texts),
+                f"training: {os.path.basename(ckpt)} transcribes in ASR on "
+                f"the card {[s[:12] for s in texts]}")
+    del asr
+
+    # the train CLI, 2 steps on the card (its default device)
+    vpath = os.path.join(root, "vocab.pkl")
+    vocab.save(vpath)
+    cli_save = os.path.join(build_dir, "train_cli_ckpt")
+    t = time.perf_counter()
+    cli = subprocess.run(
+        [sys.executable, "-m", "chinese_asr_tpu_torch.train",
+         "--train-manifest", manifest, "--vocab", vpath, "--batch-size",
+         "32", "--epochs", "2", "--max-steps", "2", "--save-dir", cli_save],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        timeout=600)
+    cli_s = time.perf_counter() - t
+    fails.check(cli.returncode == 0 and "done: step 2" in cli.stdout
+                and any(f.startswith("step-2_wer-")
+                        for f in os.listdir(cli_save)),
+                f"train CLI: 2 steps on the card in {cli_s:.1f} s "
+                f"({cli.stdout.strip().splitlines()[-1][:100] if cli.stdout else ''})")
+    for d in (root, save, cli_save):
+        for f in os.listdir(d):
+            if f.endswith((".ckpt", ".wav", ".npy")):
+                os.remove(os.path.join(d, f))
+    return dict(steps=steps, batch=32, step_ms=step_ms,
+                step_walls_ms=[w * 1e3 for w in walls], fit_s=fit_s,
+                losses=losses, split=split, profiled_step_ms=prof_ms,
+                busy_ms=busy_ms, busy_share=busy_ms / step_ms,
+                launches_per_step=n_launch, kernel_launches=launched,
+                peak_gib=peak_gib, held_gib=held_gib, golden_card_vs_cpu=dict(
+                    loss_rel=dloss, grad_norm_rel=dnorm, params=dpar),
+                cli_s=cli_s)
+
+
 class Failures:
     def __init__(self):
         self.items = []
@@ -1079,6 +1415,11 @@ def main() -> int:
           f"{kernels['lstm_bf16']['max_abs_err']:.3g}", flush=True)
     del args16, xg_f, xg_b, w_hh, got
     print(f"phase 2b-bf16: {time.time() - t2b:.1f} s", flush=True)
+
+    # ---- phase 2f: K2-bwd, the recurrence's backward ------------------------
+    t2f = time.time()
+    kernels["lstm_bwd"] = _phase_k2_bwd(np, torch, fails, dev, lstm_k)
+    print(f"phase 2f: {time.time() - t2f:.1f} s", flush=True)
 
     # ---- phase 2c: K3 top-k -------------------------------------------------
     R, V, k = 2048, 5004, 17
@@ -1419,7 +1760,8 @@ def main() -> int:
                 "lstm_bf16": (lstm_k, "bf16_launches"),
                 "topk": (topk_k, "launches"),
                 "topk_fused": (topk_k, "fused_launches"),
-                "adpcm": (adpcm_k, "launches")}
+                "adpcm": (adpcm_k, "launches"),
+                "lstm_bwd": (lstm_k, "bwd_launches")}
 
     # ---- phase 2e: K5 ADPCM wire decode ---------------------------------------
     t2e = time.time()
@@ -1561,7 +1903,7 @@ def main() -> int:
     launches_from = {"logmel": "beam_bw16", "lstm": "beam_bw16",
                      "lstm_bf16": "beam_bw16_bf16", "topk": "beam_bw16",
                      "topk_fused": "beam_bw16_lm2_fused",
-                     "adpcm": "beam_bw16_adpcm"}
+                     "adpcm": "beam_bw16_adpcm", "lstm_bwd": "training"}
     paths, texts_of = {}, {}
     for mode, asr, batch, fused, need in runs_spec:
         t_run = time.time()
@@ -1849,7 +2191,17 @@ def main() -> int:
                                      build.BUILD_DIR))
     print(f"phase 3e: {time.time() - t3e:.1f} s", flush=True)
 
-    # ---- phase 4: report -----------------------------------------------------
+    # ---- phase 4: training at full width ------------------------------------
+    t4 = time.time()
+    paths["training"] = _phase_training(np, torch, fails, dev, gpu, counters,
+                                        build.BUILD_DIR)
+    kernels["lstm_bwd"]["launches"] = \
+        paths["training"]["kernel_launches"]["lstm_bwd"]
+    kernels["lstm_bwd"]["launches_per_step"] = \
+        kernels["lstm_bwd"]["launches"] // paths["training"]["steps"]
+    print(f"phase 4: {time.time() - t4:.1f} s", flush=True)
+
+    # ---- phase 5: report -----------------------------------------------------
     print("main path: " + json.dumps(paths), flush=True)
     print(json.dumps({"kernels": [
         dict(kernels[n], kernel_ms=kernels[n]["ms"]) for n in kernels]}),

@@ -656,3 +656,113 @@ def test_lstm_bf16_and_adpcm_reject_bad_operands(dev):
     with pytest.raises(ValueError):                       # wrong wire size
         tadpcm.adpcm_decode_flat(torch.zeros(130, dtype=torch.uint8,
                                              device=dev), 1)
+
+
+# K2-bwd against its twin: sums in other orders over 4H-term products and
+# through the reverse recurrence; relative to the output's magnitude (dW
+# sums T*B terms), chip_smoke.py's bound.
+TOL_LSTM_BWD = 1e-4
+
+
+def _lstm_bwd_case(dev, T, B, H, seed, ys_from_twin=False):
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def f(*s):
+        return torch.randn(*s, device=dev, generator=g)
+
+    xg_f, xg_b, w = f(T, B, 4 * H), f(T, B, 4 * H), f(2, H, 4 * H) / H ** 0.5
+    # random non-prefix masks (the backward direction's padding comes first
+    # once flipped, which random masks cover)
+    m_f, m_b = ((torch.rand(T, B, device=dev, generator=g) > 0.3).float()
+                for _ in range(2))
+    fwd = tlstm.bidir_lstm_time_loop_plain if ys_from_twin \
+        else tlstm.bidir_lstm_time_loop
+    ys_f, ys_b, _, _ = fwd(xg_f, xg_b, m_f, m_b, w)
+    return (xg_f, xg_b, m_f, m_b, w, ys_f, ys_b, f(T, B, H), f(T, B, H),
+            f(2, B, H), f(2, B, H))
+
+
+def _rel_err(got, ref):
+    return max(float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+               for a, b in zip(got, ref))
+
+
+@pytest.mark.parametrize("H", [16, 256])
+@pytest.mark.parametrize("T,B", [(40, 1), (33, 5), (64, 32)])
+def test_lstm_bwd_kernel_matches_twin(dev, T, B, H):
+    args = _lstm_bwd_case(dev, T, B, H, seed=T + B + H)
+    before = tlstm.bwd_launches
+    got = tlstm.bidir_lstm_time_loop_bwd(*args)
+    assert tlstm.bwd_launches == before + 1
+    ref = tlstm.bidir_lstm_time_loop_bwd_plain(*args)
+    assert all(bool(torch.isfinite(a).all()) for a in got)
+    assert _rel_err(got, ref) <= TOL_LSTM_BWD
+
+
+@pytest.mark.parametrize("H", [12, 500, 1024])
+def test_lstm_bwd_kernel_any_hidden_size(dev, H):
+    """One design for every H <= 1024 (4, 2 or 1 threads a hidden unit); ys
+    from the twin, since K2's forward does not launch at H = 1024."""
+    args = _lstm_bwd_case(dev, 6, 3, H, seed=H, ys_from_twin=True)
+    got = tlstm.bidir_lstm_time_loop_bwd(*args)
+    assert _rel_err(got, tlstm.bidir_lstm_time_loop_bwd_plain(*args)) \
+        <= TOL_LSTM_BWD
+
+
+def test_k2_autograd_on_the_card_launches_k2_and_k2_bwd(dev):
+    args = _lstm_bwd_case(dev, 20, 4, 16, seed=1)
+    prim = [a.detach().clone().requires_grad_(i in (0, 1, 4))
+            for i, a in enumerate(args[:5])]
+    before = (tlstm.launches, tlstm.bwd_launches)
+    out = tlstm.bidir_lstm(*prim)
+    got = torch.autograd.grad(out, [prim[0], prim[1], prim[4]],
+                              list(args[7:]))
+    assert (tlstm.launches, tlstm.bwd_launches) == (before[0] + 1,
+                                                    before[1] + 1)
+    cpu = [a.detach().cpu().requires_grad_(a.requires_grad) for a in prim]
+    out_c = tlstm.bidir_lstm(*cpu)
+    ref = torch.autograd.grad(out_c, [cpu[0], cpu[1], cpu[4]],
+                              [a.cpu() for a in args[7:]])
+    assert _rel_err([a.cpu() for a in got], ref) <= TOL_LSTM_BWD
+    with torch.no_grad():
+        tlstm.bidir_lstm(*prim)
+    assert tlstm.bwd_launches == before[1] + 1
+
+
+def test_golden_train_step_on_the_card_equals_cpu(dev):
+    """One train_step of the golden model from the same params and batch:
+    the card (K1 outside, K2, K2-bwd, cuBLAS f32) against the CPU port
+    (the twins).  Loss 1e-5 relative, grad norm 1e-4 relative, params
+    2e-5 absolute (an ADAM step of lr 1e-3)."""
+    from chinese_asr_tpu_torch.data.dataset import Batch
+    from chinese_asr_tpu_torch.models import las
+    from chinese_asr_tpu_torch.train import optim, step
+    from chinese_asr_tpu_torch.utils.checkpoint import load_checkpoint
+
+    cfg = golden_cfg(tcfg).with_("train", clip=1.0)
+    pn = load_checkpoint(os.path.join(GOLD, "model.ckpt"))["params"]
+    rng = np.random.RandomState(0)
+    B, T, S = 6, 40, 5
+    feats = rng.randn(B, T, cfg.audio.feat_dim).astype(np.float32)
+    lens = np.array([40, 31, 40, 25, 12, 40], np.int32)
+    feats[np.arange(T)[None, :] >= lens[:, None]] = 0
+    text = rng.randint(4, cfg.vocab.vocab_size, (B, S))
+    ti = np.concatenate([np.full((B, 1), 1), text[:, :-1]], 1)
+    to = np.concatenate([text[:, :-1], np.full((B, 1), 2)], 1)
+    tl = np.full(B, S, np.int32)
+    out = {}
+    for d in ("cpu", dev):
+        params = las.params_from_numpy(pn, d)
+        tx = optim.make_optimizer(cfg.train)
+        batch = Batch(*(torch.tensor(a).to(d) for a in (feats, lens, ti, to,
+                                                        tl)))
+        before = tlstm.bwd_launches
+        p, _, m = step.train_step(params, tx.init(params), cfg, tx, batch)
+        out[str(d)] = (p, m, tlstm.bwd_launches - before)
+    (pc, mc, nc), (pg, mg, ng) = out["cpu"], out[str(dev)]
+    assert nc == 0 and ng == cfg.encoder.num_layers
+    assert float(mg["loss"]) == pytest.approx(float(mc["loss"]), rel=1e-5)
+    assert float(mg["grad_norm"]) == pytest.approx(float(mc["grad_norm"]),
+                                                   rel=1e-4)
+    for a, b in zip(las.tree_leaves(pg), las.tree_leaves(pc)):
+        assert float((a.cpu() - b).abs().max()) <= 2e-5
