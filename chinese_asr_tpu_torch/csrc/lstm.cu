@@ -38,9 +38,11 @@
 //   step publishes it (h double-buffered), and the y stores and the cp.async
 //   of step t+1's gates are issued between its arrive and its wait.
 // * `bilstm_kernel` (any other H <= 1024; the golden model's 16): the
-//   simple persistent kernel, grid = (batch tiles of 8 rows) x (2
-//   directions); each block owns its rows' h (shared memory) and c
-//   (registers) for the whole loop and re-reads W_hh from L2 every step.
+//   simple persistent kernel, grid = (batch tiles of 8 rows, 2 above
+//   H = 512 where a block has up to 1024 threads and a thread 64
+//   registers) x (2 directions); each block owns its rows' h (shared
+//   memory) and c (registers) for the whole loop and re-reads W_hh from L2
+//   every step.
 //
 // No block ever waits on a block outside its cluster.
 //
@@ -67,6 +69,7 @@
 // [332, 128, 256]: 2 * 2 * T * B * H * 4H flops at the dense bf16 rate,
 // 0.035 ms; bytes 0.06 ms.
 #include "common.cuh"
+#include "tc.cuh"
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -78,10 +81,6 @@ namespace cg = cooperative_groups;
 namespace {
 
 using bf16 = __nv_bfloat16;
-
-__device__ __forceinline__ float sigmoid(float x) {
-    return 1.f / (1.f + expf(-x));
-}
 
 // What the two operand types differ in.  Loads widen to f32; `rnd` rounds
 // an f32 value to the type's precision (where the carry is rounded).
@@ -132,55 +131,10 @@ __device__ __forceinline__ uint32_t pack_bf16(bf16 a, bf16 b) {
 }
 
 // ---------------------------------------------------------------------------
-// tensor-core cluster kernel
+// tensor-core cluster kernel (CL, TC_THREADS and the helpers: tc.cuh)
 // ---------------------------------------------------------------------------
-constexpr int CL = 8;              // CTAs per cluster (portable maximum)
-constexpr int TC_THREADS = 256;    // 8 warps = 2 k-groups x 4 n-groups
-constexpr int KG = 2;
+constexpr int KG = 2;              // 8 warps = 2 k-groups x 4 n-groups
 constexpr int NG = 4;
-constexpr int CLUSTER_BUDGET = 14; // clusters of 8 the H100 holds at once
-                                   // (15, less one of margin)
-
-// One cluster barrier split in two halves: arrive publishes this thread's
-// prior writes (the distributed-shared-memory stores of h) to the cluster,
-// wait makes every other thread's visible here.
-__device__ __forceinline__ void cluster_arrive_release() {
-    asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_wait_acquire() {
-    asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
-}
-
-__device__ __forceinline__ float tf32_rna(float x) {
-    uint32_t r;
-    asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-    return __uint_as_float(r);
-}
-
-// w = hi + lo, both TF32 (truncated).  The asm is volatile so that the
-// split stays inside the time loop: hoisted out of it, the split slice
-// would take twice the registers of the f32 one and spill.
-__device__ __forceinline__ void split_tf32(float w, float& hi, float& lo) {
-    uint32_t h, l;
-    asm volatile("and.b32 %0, %1, 0xffffe000;"
-                 : "=r"(h) : "r"(__float_as_uint(w)));
-    hi = __uint_as_float(h);
-    asm volatile("and.b32 %0, %1, 0xffffe000;"
-                 : "=r"(l) : "r"(__float_as_uint(w - hi)));
-    lo = __uint_as_float(l);
-}
-
-// d += a * b on the tensor cores, TF32 inputs, f32 accumulators.
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const float4& a,
-                                         float b0, float b1) {
-    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(__float_as_uint(a.x)), "r"(__float_as_uint(a.y)),
-          "r"(__float_as_uint(a.z)), "r"(__float_as_uint(a.w)),
-          "r"(__float_as_uint(b0)), "r"(__float_as_uint(b1)));
-}
 
 // d += a * b on the tensor cores, bf16 inputs, f32 accumulators.
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint4& a,
@@ -189,14 +143,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint4& a,
         "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
         : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
-}
-
-// 4 bytes global -> shared, zero-filled where !pred
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool pred) {
-    const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;"
-                 ::"r"(d), "l"(src), "r"(pred ? 4 : 0) : "memory");
 }
 
 // The shapes of one instantiation: operand type E, hidden size H (a
@@ -343,8 +289,8 @@ bilstm_tc_kernel(const E* __restrict__ xg_f,
                              + 2 * tig;
 #pragma unroll
                 for (int q = 0; q < 4; ++q)
-                    cp_async4(xgw + (rp * 4 + q) * S::NLT + tid,
-                              v ? x + q * H : xg, v);
+                    cp_async<4>(xgw + (rp * 4 + q) * S::NLT + tid,
+                                v ? x + q * H : xg, v);
             }
         } else {
 #pragma unroll
@@ -355,11 +301,11 @@ bilstm_tc_kernel(const E* __restrict__ xg_f,
                              + ub + uoff(e);
 #pragma unroll
                 for (int q = 0; q < 4; ++q)
-                    cp_async4(xgs + (p * 4 + q) * S::NLT + tid,
-                              v ? x + q * H : xg, v);
+                    cp_async<4>(xgs + (p * 4 + q) * S::NLT + tid,
+                                v ? x + q * H : xg, v);
             }
         }
-        asm volatile("cp.async.commit_group;" ::: "memory");
+        cp_async_commit();
     };
     auto xgate = [&](int p, int q) -> float {
         if constexpr (BF) {
@@ -412,16 +358,10 @@ bilstm_tc_kernel(const E* __restrict__ xg_f,
                 // 3xTF32: f32 accuracy from three TF32 products
                 float4 ahi[MT], alo[MT];
 #pragma unroll
-                for (int m = 0; m < MT; ++m) {
-                    const float4 a = *reinterpret_cast<const float4*>(
-                        hc + ((m * S::KS + s) * 32 + lane) * 4);
-                    ahi[m] = make_float4(tf32_rna(a.x), tf32_rna(a.y),
-                                         tf32_rna(a.z), tf32_rna(a.w));
-                    alo[m] = make_float4(tf32_rna(a.x - ahi[m].x),
-                                         tf32_rna(a.y - ahi[m].y),
-                                         tf32_rna(a.z - ahi[m].z),
-                                         tf32_rna(a.w - ahi[m].w));
-                }
+                for (int m = 0; m < MT; ++m)
+                    split_rna(*reinterpret_cast<const float4*>(
+                                  hc + ((m * S::KS + s) * 32 + lane) * 4),
+                              ahi[m], alo[m]);
                 float bh[S::NPW][2], bl[S::NPW][2];
 #pragma unroll
                 for (int j = 0; j < S::NPW; ++j) {
@@ -466,7 +406,7 @@ bilstm_tc_kernel(const E* __restrict__ xg_f,
         // ---- the cell update (f32, exact expf / tanhf) ----
         float y[PP];
         if (nl) {
-            asm volatile("cp.async.wait_all;" ::: "memory");
+            cp_async_wait_all();
 #pragma unroll
             for (int p = 0; p < PP; ++p) {
                 const int e = p + 2 * uh;
@@ -568,16 +508,6 @@ bilstm_tc_kernel(const E* __restrict__ xg_f,
     }
 }
 
-// Batch rows per cluster, from B alone: 16 while both directions' clusters
-// fit the card at once, else 32 (B <= 224 in one wave).
-int tc_mtiles(int B) {
-    return 2 * ((B + 15) / 16) <= CLUSTER_BUDGET ? 1 : 2;
-}
-
-bool tc_fits(int H) {
-    return H == 64 || H == 128 || H == 192 || H == 256;
-}
-
 // The operands of one call of either kernel.
 template <typename E>
 struct Args {
@@ -635,19 +565,27 @@ int tc_dispatch(int H, const Args<E>& a, cudaStream_t s, int* plan) {
 // ---------------------------------------------------------------------------
 // simple per-block kernel
 // ---------------------------------------------------------------------------
-constexpr int BT = 8;  // batch rows per block
+// BT batch rows a block, one thread a hidden unit.  A thread keeps ~12 f32
+// values a row live (h, c, the prefetched gates and mask, the sums), so 8
+// rows fit the 128 registers a thread of a 512-thread block may use, and
+// 2 rows (with fewer W_hh loads in flight) the 64 of a 1024-thread block
+// (H > 512).
+inline int simple_rows(int H) {
+    return (H + 31) / 32 * 32 <= 512 ? 8 : 2;
+}
 
-template <typename E>
-__global__ void bilstm_kernel(const E* __restrict__ xg_f,
-                              const E* __restrict__ xg_b,
-                              const E* __restrict__ m_f,
-                              const E* __restrict__ m_b,
-                              const E* __restrict__ w_hh,
-                              E* __restrict__ ys_f,
-                              E* __restrict__ ys_b,
-                              E* __restrict__ hT,
-                              E* __restrict__ cT,
-                              int T, int B, int H) {
+template <typename E, int BT>
+__global__ void __launch_bounds__(BT == 8 ? 512 : 1024)
+bilstm_kernel(const E* __restrict__ xg_f,
+              const E* __restrict__ xg_b,
+              const E* __restrict__ m_f,
+              const E* __restrict__ m_b,
+              const E* __restrict__ w_hh,
+              E* __restrict__ ys_f,
+              E* __restrict__ ys_b,
+              E* __restrict__ hT,
+              E* __restrict__ cT,
+              int T, int B, int H) {
     using X = Elt<E>;
     extern __shared__ float hs[];  // [2][BT][H]
     const int dir = blockIdx.y;
@@ -712,7 +650,7 @@ __global__ void bilstm_kernel(const E* __restrict__ xg_f,
                 }
             }
             const E* wj = W + j;
-#pragma unroll 4
+#pragma unroll(BT == 8 ? 4 : 2)
             for (int kk = 0; kk < H; ++kk) {
                 const E* wr = wj + (size_t)kk * H4;
                 const float w0 = X::ldg(wr);
@@ -762,28 +700,34 @@ __global__ void bilstm_kernel(const E* __restrict__ xg_f,
     }
 }
 
-template <typename E>
-int bilstm_entry(const Args<E>& a, int H, void* stream) {
-    if (a.B <= 0 || H <= 0) return 0;
-    if (H > 1024) return (int)cudaErrorInvalidValue;
-    const cudaStream_t s = (cudaStream_t)stream;
-    if (tc_fits(H)) return tc_dispatch<E>(H, a, s, nullptr);
+template <typename E, int BT>
+int simple_launch(const Args<E>& a, int H, cudaStream_t s) {
     const size_t smem = (size_t)2 * BT * H * sizeof(float);
-    const int rc = asr_allow_smem(bilstm_kernel<E>, smem);
+    const int rc = asr_allow_smem(bilstm_kernel<E, BT>, smem);
     if (rc) return rc;
     const int threads = (H + 31) / 32 * 32;
     const dim3 grid((a.B + BT - 1) / BT, 2);
-    bilstm_kernel<E><<<grid, threads, smem, s>>>(
+    bilstm_kernel<E, BT><<<grid, threads, smem, s>>>(
         a.xg_f, a.xg_b, a.m_f, a.m_b, a.w_hh, a.ys_f, a.ys_b, a.hT, a.cT, a.T,
         a.B, H);
     return (int)cudaGetLastError();
 }
 
 template <typename E>
+int bilstm_entry(const Args<E>& a, int H, void* stream) {
+    if (a.B <= 0 || H <= 0) return 0;
+    if (H > 1024) return (int)cudaErrorInvalidValue;
+    const cudaStream_t s = (cudaStream_t)stream;
+    if (tc_fits(H)) return tc_dispatch<E>(H, a, s, nullptr);
+    if (simple_rows(H) == 8) return simple_launch<E, 8>(a, H, s);
+    return simple_launch<E, 2>(a, H, s);
+}
+
+template <typename E>
 int bilstm_plan(int B, int H, int* plan) {
     if (B <= 0 || H <= 0 || H > 1024) return (int)cudaErrorInvalidValue;
     if (!tc_fits(H)) {
-        plan[0] = BT;
+        plan[0] = simple_rows(H);
         plan[1] = plan[2] = 0;
         return 0;
     }
@@ -821,7 +765,8 @@ ASR_API int asr_bilstm_bf16(const bf16* xg_f, const bf16* xg_b,
 // How asr_bilstm (asr_bilstm_bf16) would launch at (B, H), without
 // launching: plan[0] batch rows per cluster, plan[1] clusters in the grid,
 // plan[2] clusters the card holds at once (cudaOccupancyMaxActiveClusters).
-// For the simple kernel (no cluster) plan = {8, 0, 0}.  Returns 0 or a
+// For the simple kernel (no cluster) plan = {rows a block, 0, 0}: 8, or 2
+// above H = 512.  Returns 0 or a
 // cudaError_t.
 ASR_API int asr_bilstm_plan(int B, int H, int* plan) {
     return bilstm_plan<float>(B, H, plan);

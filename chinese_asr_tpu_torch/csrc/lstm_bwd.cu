@@ -3,7 +3,7 @@
 //
 // JAX trains through its Pallas loop (chinese_asr_tpu/ops/pallas/lstm.py:142)
 // with a custom_vjp whose backward takes the VJP of the same recurrence as a
-// lax.scan (chinese_asr_tpu/ops/rnn.py:295-297, `_bidir_core_bwd` of
+// lax.scan (chinese_asr_tpu/ops/rnn.py:297, `_bidir_core_bwd` of
 // `_bidir_core_scan`); this kernel is that VJP's serial part.  Per direction
 // (the backward one arrives time-flipped, as K2 took it), with K2's step
 //   a = xg_t + h @ W_hh;  i, f, o = sig(a_i, a_f, a_o), g = tanh(a_g)
@@ -28,37 +28,612 @@
 // all of W_hh.  Counted against the card, the work is three products of
 // 2 * 4H * H flops per valid (row, step) (the gate recompute, dh's product
 // and dW's), 0.38 ms at the f32 rate at [332, 32, 256] with 75 % of the
-// steps valid; in practice each step of this simple kernel is bound by
-// issuing its FMAs and shared-memory loads on the few SMs its batch tiles
-// occupy, and by W_hh's re-read from L2 (1 MiB per direction at H=256).
+// steps valid; in practice each step is bound by the latency of one
+// product on the few SMs a row tile uses and by one synchronisation.
 //
-// Design: K2's simple persistent kernel (csrc/lstm.cu `bilstm_kernel`), one
-// for every H <= 1024: grid = (batch tiles of R rows) x (2 directions), KS
-// threads a hidden unit j (KS = 4 up to H=256, 2 up to 512, 1 above, so
-// that a block has at most 1024 threads; R = min(KS, 2)).  Thread (q, j)
-// sums every KS-th k of the step's products for all R rows, the KS partial
-// sums meet in shared memory, and thread (q, j) finishes row q < R: its h,
-// c (pass 1) and dh, dc (pass 2) stay in its registers.  The shared row
-// tile carries h_{t-1} (pass 1) or dxg_t (pass 2, read as float4) to every
-// thread; pass 1 reads W_hh a column j of each gate, pass 2 its transpose
-// [4H, H] (passed by the wrapper) a column j, so both reads are coalesced.
-// Plain f32 FMAs; two block barriers a step.  No block waits on another.
-// Splitting k over KS threads puts 32 warps on an SM at H=256, which hides
-// the L2 latency of W_hh's reads that 8 warps (one thread a j) could not;
-// 2 rows a block, not 1 or 4, balance the FMAs each SM issues a step
-// against the SMs the grid fills (PERF.md, Findings).  Left for later: the
-// cluster / tensor-core design of K2's `bilstm_tc_kernel` (W_hh resident
-// in registers across a cluster).
+// Two kernels, one contract; H alone picks, as in K2:
+//
+// * `bilstm_bwd_tc_kernel` (H in {64, 128, 192, 256}; the flagship 256):
+//   K2's cluster / tensor-core plan.  One cluster of 8 CTAs (256 threads)
+//   per direction and tile of 16 or 32 batch rows (B alone picks, by K2's
+//   rule, tc.cuh `tc_mtiles`); CTA r owns hidden units [r*H/8, (r+1)*H/8)
+//   and their 4 gate columns.  Its W_hh slice (128 KB at H=256) stays in
+//   registers as the B fragments of `mma.m16n8k8` (128 a thread), the
+//   products are 3xTF32 (f32 accuracy), as in K2.
+//   - Pass 1 needs no exchange: the rebuilt h does not depend on an earlier
+//     product, so every CTA rebuilds the whole h_{t-1} of its rows in
+//     shared memory (A-fragment order) from ys and the masks, prefetched a
+//     step ahead with cp.async with xg_t, and multiplies it by its slice
+//     (K2's product, warps = 2 k-halves x 4 column quarters).  Two block
+//     barriers a step; no CTA waits on another.
+//   - Pass 2, the serial part: the cell threads keep dh and dc of their
+//     units in registers and form the CTA's [R, 4H/8] slice of dxg_t (pass
+//     1's scratch of the step prefetched a step ahead).  dxg_t @ W_hh^T is
+//     a reduce-scatter: warp w multiplies the slice by the [4H/8, H/8]
+//     block of W_hh^T that feeds CTA w's units (the W registers reloaded at
+//     the pass boundary) and stores its partial dh into CTA w's shared
+//     memory; one cluster barrier a step, then the owner adds the 8
+//     partials.  The bytes exchanged are K2's, and the product needs no
+//     remote data, so nothing waits between the cell update and the
+//     product but a block barrier.  The next step's prefetch goes between
+//     the barrier's arrive and wait.  The other exchange, an all-gather of
+//     dxg_t into every CTA (4x the bytes, the product behind the cluster
+//     barrier, each CTA multiplying the whole dxg_t by the W_hh^T slice of
+//     its own units), was built at H=256 and 16 rows and timed against
+//     this one on an H100 80GB HBM3 at 700 W: 4.66 ms at [332, 32, 256]
+//     against the reduce-scatter's 2.99 (PERF.md), its 64 remote 4-byte
+//     stores a thread a step costing more than the bytes alone suggest.
+//     It was then deleted.
+//   Each thread of the cell role owns the same (row, unit) elements in both
+//   passes, so pass 2 reads back only what it wrote in pass 1.
+// * `bilstm_bwd_kernel` (any other H <= 1024; the golden model's 16): the
+//   simple persistent kernel, grid = (batch tiles of R rows) x (2
+//   directions), KS threads a hidden unit j (KS = 4 up to H=256, 2 up to
+//   512, 1 above, so that a block has at most 1024 threads; R = min(KS,
+//   2)).  Thread (q, j) sums every KS-th k of the step's products for all R
+//   rows, the KS partial sums meet in shared memory, and thread (q, j)
+//   finishes row q < R.  Pass 1 reads W_hh a column j of each gate, pass 2
+//   its transpose [4H, H] (passed by the wrapper) a column j, both
+//   coalesced, from L2 every step; plain f32 FMAs, two block barriers a
+//   step.
+//
+// What bounds the cluster kernel: each step of either pass is one chain of
+// 3xTF32 `mma.sync` (three a k8 step and tile; 192 a warp at H=256 and 16
+// rows) behind the cell's exact expf / tanhf and a barrier, on the 8 SMs
+// of a tile: 4.5 us a step at [332, 32, 256] (3.02 ms, 12 % of the bound,
+// on the same H100), 8.8 us at 32 rows a cluster.  Left for later: `wgmma`
+// for the products, a pipelined exchange (bulk copies completing on an
+// mbarrier in place of the cluster barrier), and 16-CTA clusters so that
+// one tile spreads over twice the SMs.
 #include "common.cuh"
+#include "tc.cuh"
 
+#include <cooperative_groups.h>
 #include <math.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-__device__ __forceinline__ float sigm(float x) {
-    return 1.f / (1.f + expf(-x));
+// ---------------------------------------------------------------------------
+// tensor-core cluster kernel (CL, TC_THREADS and the helpers: tc.cuh)
+// ---------------------------------------------------------------------------
+constexpr int KG = 2;              // pass 1's warps: 2 k-halves x 4 column
+constexpr int NG = 4;              // quarters (K2's product)
+
+// The shapes of one instantiation: hidden size H (a multiple of 64, at most
+// 256) and MT m16 tiles of batch rows per cluster.
+template <int H, int MT>
+struct BwdShape {
+    static constexpr int UC = H / CL;       // hidden units of one CTA
+    static constexpr int COLS = 4 * UC;     // its gate columns (q*UC + u)
+    static constexpr int R = 16 * MT;       // batch rows of one cluster
+    // pass 1, K2's product h[R, H] @ W_hh[:, cols]: warps KG x NG
+    static constexpr int KS = H / 8;        // k8 steps over h
+    static constexpr int KPW = KS / KG;     // k8 steps of one warp
+    static constexpr int NPW = COLS / 8 / NG;   // n8 tiles of one warp
+    static constexpr int PS = COLS + 8;     // partial-sum row stride
+    // pass 2, dxg[R, cols] @ W_hh[units of CTA w, cols]^T on warp w
+    static constexpr int KS2 = COLS / 8;    // k8 steps over the columns
+    static constexpr int NTU = UC / 8;      // n8 tiles of one CTA's units
+    // the cell role: slot (m, j, lane) of pass 2's accumulator fragments
+    // holds rows g, g+8 of m-tile m by units 8j + 2c, 8j + 2c + 1; a
+    // thread takes one row of a slot (PP = 2) or both (PP = 4)
+    static constexpr int NSLOT = MT * NTU * 32;
+    static constexpr int PP = 2 * NSLOT <= TC_THREADS ? 2 : 4;
+    static constexpr int RP = PP / 2;       // rows of one cell thread
+    static constexpr int NLT = NSLOT * 4 / PP;  // threads of the cell role
+    static constexpr int HB = R * H;        // floats of one h buffer
+    static constexpr int YS = H + 4;        // ys tile row stride (no bank
+                                            // conflicts in the rebuild)
+    // shared memory in floats, pass 1: h [2][HB] in A-fragment order,
+    // part [KG][R][PS], ys [2][R][YS], masks [2][R], gates [2][RP*4][NLT]
+    // (float2); pass 2, over the same bytes: recv [2][CL][NSLOT] (float4)
+    // and the CTA's dxg slice [R * COLS] in A-fragment order, prefetch [RP*6][NLT] (float2) and masks [RP][NLT]
+    static constexpr int P1 = 2 * HB + KG * R * PS + 2 * R * YS + 2 * R
+                              + 2 * RP * 4 * NLT * 2;
+    static constexpr int RECV = 2 * CL * NSLOT * 4;
+    static constexpr int ATILE = R * COLS;
+    static constexpr int P2 = RECV + ATILE + RP * 6 * NLT * 2 + RP * NLT;
+    static constexpr size_t SMEM = (size_t)(P1 > P2 ? P1 : P2) * 4;
+    static_assert(H % 64 == 0 && KS % KG == 0 && NPW >= 1
+                  && KPW == KS2 && NPW == NTU && NLT <= TC_THREADS
+                  && SMEM <= 232448, "shape");
+};
+
+// Index of element (row r, column k) of an [R, 8*ks] operand kept in
+// A-fragment order (m16n8k8 tf32): for m-tile m, k8-step s and lane
+// l = 4g + c the float4 (r g, k 8s+c), (g+8, 8s+c), (g, 8s+c+4),
+// (g+8, 8s+c+4), so a warp's A operand of one (m, s) is one conflict-free
+// float4 load.
+template <int KSTEPS>
+__device__ __forceinline__ int afrag(int r, int k) {
+    return ((((r >> 4) * KSTEPS + (k >> 3)) * 32 + (r & 7) * 4 + (k & 3)) * 4)
+           + ((r >> 3) & 1) + 2 * ((k >> 2) & 1);
 }
 
+template <int H, int MT>
+__global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(TC_THREADS, 1)
+bilstm_bwd_tc_kernel(const float* __restrict__ xg_f,
+                     const float* __restrict__ xg_b,
+                     const float* __restrict__ m_f,
+                     const float* __restrict__ m_b,
+                     const float* __restrict__ w_hh,
+                     const float* __restrict__ ys_f,
+                     const float* __restrict__ ys_b,
+                     const float* __restrict__ gy_f,
+                     const float* __restrict__ gy_b,
+                     const float* __restrict__ ghT,
+                     const float* __restrict__ gcT,
+                     float* __restrict__ dxg,
+                     float* __restrict__ hs,
+                     float* __restrict__ cs,
+                     int T, int B) {
+    using S = BwdShape<H, MT>;
+    constexpr int H4 = 4 * H;
+    constexpr int R = S::R, UC = S::UC, NLT = S::NLT, RP = S::RP;
+    extern __shared__ float4 smem4[];
+    float* sm = reinterpret_cast<float*>(smem4);
+    cg::cluster_group cluster = cg::this_cluster();
+    const int rank = (int)cluster.block_rank();
+    const int dir = blockIdx.y;
+    const int b0 = (blockIdx.x / CL) * R;
+    const int tid = threadIdx.x;
+    const int warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, tig = lane & 3;
+    const float* xg = dir ? xg_b : xg_f;
+    const float* mk = dir ? m_b : m_f;
+    const float* ys = dir ? ys_b : ys_f;
+    const float* gy = dir ? gy_b : gy_f;
+    const float* W = w_hh + (size_t)dir * H * H4;
+    float* dx = dxg + (size_t)dir * T * B * H4;
+    float* hq = hs + (size_t)dir * T * B * H;
+    float* cq = cs + (size_t)dir * T * B * H;
+
+    // the cell role: rows rrow(rp) (cluster-relative), units u0, u0 + 1 of
+    // this CTA (U0 = its global unit), in both passes, so that pass 2
+    // reads back only what this thread wrote in pass 1
+    const bool nl = tid < NLT;
+    const int slot = tid % S::NSLOT;
+    const int half = S::PP == 2 ? tid / S::NSLOT : 0;
+    const int cm = slot / (S::NTU * 32);
+    const int u0 = ((slot >> 5) % S::NTU) * 8 + 2 * tig;
+    const int U0 = rank * UC + u0;
+    auto rrow = [&](int rp) { return cm * 16 + g + 8 * (half + rp); };
+    bool valid[RP];
+#pragma unroll
+    for (int rp = 0; rp < RP; ++rp) valid[rp] = nl && b0 + rrow(rp) < B;
+
+    // ---- pass 1: forward in time --------------------------------------
+    // Every CTA rebuilds the whole h_{t-1} of its rows from ys and the
+    // masks, multiplies it by its W_hh slice (K2's product), activates its
+    // units' gates and rolls their c forward; no CTA waits on another.
+    float* hbuf = sm;                                  // [2][HB]
+    float* part = hbuf + 2 * S::HB;                    // [KG][R][PS]
+    float* ysb = part + KG * R * S::PS;                // [2][R][YS]
+    float* mkb = ysb + 2 * R * S::YS;                  // [2][R]
+    float2* xgb = reinterpret_cast<float2*>(mkb + 2 * R);  // [2][RP*4][NLT]
+
+    // This warp's B fragments of the W_hh slice, in registers for the whole
+    // pass (split into TF32 hi/lo at each use); pass 2 reloads them.
+    float wr[S::KPW][S::NPW][2];
+    {
+        const int kg = warp / NG, ng = warp % NG;
+#pragma unroll
+        for (int ks = 0; ks < S::KPW; ++ks) {
+#pragma unroll
+            for (int j = 0; j < S::NPW; ++j) {
+                const int col = (ng * S::NPW + j) * 8 + g;
+                const int k = (kg * S::KPW + ks) * 8 + tig;
+                const float* w = W + (size_t)k * H4 + (col / UC) * H
+                                 + rank * UC + col % UC;
+                wr[ks][j][0] = w[0];
+                wr[ks][j][1] = w[(size_t)4 * H4];
+            }
+        }
+    }
+    for (int i = tid; i < S::HB; i += TC_THREADS) hbuf[i] = 0.f;   // h_{-1}
+
+    // step t's ys rows and masks (the rebuild's) and this thread's gates,
+    // into buffer b; rows past B read as zeros
+    auto fetch1 = [&](int t, int b) {
+        constexpr int C4 = H / 4;
+        for (int i = tid; i < R * C4; i += TC_THREADS) {
+            const int r = i / C4, k4 = i % C4;
+            const bool v = b0 + r < B;
+            cp_async<16>(ysb + (b * R + r) * S::YS + 4 * k4,
+                         v ? ys + ((size_t)t * B + b0 + r) * H + 4 * k4 : ys,
+                         v);
+        }
+        if (tid < R)
+            cp_async<4>(mkb + b * R + tid,
+                        b0 + tid < B ? mk + (size_t)t * B + b0 + tid : mk,
+                        b0 + tid < B);
+        if (nl) {
+#pragma unroll
+            for (int rp = 0; rp < RP; ++rp) {
+                const float* x = xg + ((size_t)t * B + b0 + rrow(rp)) * H4
+                                 + U0;
+#pragma unroll
+                for (int q = 0; q < 4; ++q)
+                    cp_async<8>(xgb + (b * RP * 4 + rp * 4 + q) * NLT + tid,
+                                valid[rp] ? x + q * H : xg, valid[rp]);
+            }
+        }
+        cp_async_commit();
+    };
+
+    float c[S::PP];
+#pragma unroll
+    for (int p = 0; p < S::PP; ++p) c[p] = 0.f;
+    fetch1(0, 0);
+    cp_async_wait_all();
+    __syncthreads();
+    for (int t = 0; t < T; ++t) {
+        const int cur = t & 1;
+        if (t + 1 < T) fetch1(t + 1, cur ^ 1);
+        const float* hc = hbuf + cur * S::HB;
+        // ---- gates' h_{t-1} @ W_hh part, 3xTF32 (K2's product) ----
+        {
+            const int kg = warp / NG, ng = warp % NG;
+            float acc[MT][S::NPW][4];
+#pragma unroll
+            for (int m = 0; m < MT; ++m)
+#pragma unroll
+                for (int j = 0; j < S::NPW; ++j)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) acc[m][j][e] = 0.f;
+#pragma unroll
+            for (int ks = 0; ks < S::KPW; ++ks) {
+                const int s = kg * S::KPW + ks;
+                float4 ahi[MT], alo[MT];
+#pragma unroll
+                for (int m = 0; m < MT; ++m)
+                    split_rna(*reinterpret_cast<const float4*>(
+                                  hc + ((m * S::KS + s) * 32 + lane) * 4),
+                              ahi[m], alo[m]);
+                float bh[S::NPW][2], bl[S::NPW][2];
+#pragma unroll
+                for (int j = 0; j < S::NPW; ++j) {
+                    split_tf32(wr[ks][j][0], bh[j][0], bl[j][0]);
+                    split_tf32(wr[ks][j][1], bh[j][1], bl[j][1]);
+                }
+#pragma unroll
+                for (int j = 0; j < S::NPW; ++j)
+#pragma unroll
+                    for (int m = 0; m < MT; ++m)
+                        mma_tf32(acc[m][j], alo[m], bh[j][0], bh[j][1]);
+#pragma unroll
+                for (int j = 0; j < S::NPW; ++j)
+#pragma unroll
+                    for (int m = 0; m < MT; ++m)
+                        mma_tf32(acc[m][j], ahi[m], bl[j][0], bl[j][1]);
+#pragma unroll
+                for (int j = 0; j < S::NPW; ++j)
+#pragma unroll
+                    for (int m = 0; m < MT; ++m)
+                        mma_tf32(acc[m][j], ahi[m], bh[j][0], bh[j][1]);
+            }
+#pragma unroll
+            for (int m = 0; m < MT; ++m) {
+#pragma unroll
+                for (int j = 0; j < S::NPW; ++j) {
+                    const int col = (ng * S::NPW + j) * 8 + 2 * tig;
+                    float* p0 = part + (kg * R + m * 16 + g) * S::PS + col;
+                    *reinterpret_cast<float2*>(p0) =
+                        make_float2(acc[m][j][0], acc[m][j][1]);
+                    *reinterpret_cast<float2*>(p0 + 8 * S::PS) =
+                        make_float2(acc[m][j][2], acc[m][j][3]);
+                }
+            }
+        }
+        __syncthreads();
+
+        // ---- the cell: activated gates, h_{t-1}, c_{t-1} to scratch ----
+        if (nl) {
+#pragma unroll
+            for (int rp = 0; rp < RP; ++rp) {
+                const int r = rrow(rp);
+                float a[4][2];
+#pragma unroll
+                for (int q = 0; q < 4; ++q) {
+                    const float2 x = xgb[(cur * RP * 4 + rp * 4 + q) * NLT
+                                         + tid];
+                    const int o = r * S::PS + q * UC + u0;
+                    const float2 p0 = *reinterpret_cast<const float2*>(
+                        part + o);
+                    const float2 p1 = *reinterpret_cast<const float2*>(
+                        part + R * S::PS + o);
+                    a[q][0] = x.x + (p0.x + p1.x);
+                    a[q][1] = x.y + (p0.y + p1.y);
+                }
+                const float m = mkb[cur * R + r];
+                float cp[2];
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                    const int p = 2 * rp + e;
+                    a[0][e] = sigmoid(a[0][e]);
+                    a[1][e] = sigmoid(a[1][e]);
+                    a[2][e] = tanhf(a[2][e]);
+                    a[3][e] = sigmoid(a[3][e]);
+                    cp[e] = c[p];
+                    c[p] = m * (a[1][e] * c[p] + a[0][e] * a[2][e])
+                           + (1.f - m) * c[p];
+                }
+                if (valid[rp]) {
+                    const size_t row = (size_t)t * B + b0 + r;
+                    float* d = dx + row * H4 + U0;
+#pragma unroll
+                    for (int q = 0; q < 4; ++q)
+                        *reinterpret_cast<float2*>(d + q * H) =
+                            make_float2(a[q][0], a[q][1]);
+                    *reinterpret_cast<float2*>(hq + row * H + U0) =
+                        make_float2(hc[afrag<S::KS>(r, U0)],
+                                    hc[afrag<S::KS>(r, U0 + 1)]);
+                    *reinterpret_cast<float2*>(cq + row * H + U0) =
+                        make_float2(cp[0], cp[1]);
+                }
+            }
+        }
+        // ---- the rebuild: h_t = y_t + (1 - m_t) h_{t-1}, all units ----
+        if (t + 1 < T) {
+            const float4* hp4 = reinterpret_cast<const float4*>(hc);
+            float4* hn4 = reinterpret_cast<float4*>(hbuf + (cur ^ 1) * S::HB);
+            const float* yb = ysb + cur * R * S::YS;
+            const float* mb = mkb + cur * R;
+            for (int i = tid; i < S::HB / 4; i += TC_THREADS) {
+                const int r = (i / (S::KS * 32)) * 16 + ((i & 31) >> 2);
+                const int k = ((i >> 5) % S::KS) * 8 + (i & 3);
+                const float k0 = 1.f - mb[r], k1 = 1.f - mb[r + 8];
+                const float4 h = hp4[i];
+                hn4[i] = make_float4(yb[r * S::YS + k] + k0 * h.x,
+                                     yb[(r + 8) * S::YS + k] + k1 * h.y,
+                                     yb[r * S::YS + k + 4] + k0 * h.z,
+                                     yb[(r + 8) * S::YS + k + 4] + k1 * h.w);
+            }
+        }
+        cp_async_wait_all();
+        __syncthreads();
+    }
+
+    // ---- pass 2: backward in time -------------------------------------
+    // Each step a CTA forms its units' slice of dxg_t from dh, dc (in the
+    // cell threads' registers), gy_t and pass 1's scratch; then warp w
+    // multiplies the slice by W_hh[units of CTA w, this CTA's columns]^T
+    // and stores the partial dh into CTA w's shared memory (reduce-scatter:
+    // K2's bytes, and no wait before the product); one cluster barrier a
+    // step, and the owner sums the 8 partials.
+    float4* recv = smem4;
+    float* atile = sm + S::RECV;
+    float2* pf = reinterpret_cast<float2*>(atile + S::ATILE);
+    float* pm = reinterpret_cast<float*>(pf + RP * 6 * NLT);
+
+    // B fragments of W_hh[units of CTA `warp`, this CTA's columns]^T
+#pragma unroll
+    for (int s = 0; s < S::KS2; ++s) {
+#pragma unroll
+        for (int j = 0; j < S::NTU; ++j) {
+#pragma unroll
+            for (int b = 0; b < 2; ++b) {
+                const int k = 8 * s + tig + 4 * b;
+                wr[s][j][b] = W[(size_t)(warp * UC + j * 8 + g) * H4
+                                + (k / UC) * H + rank * UC + k % UC];
+            }
+        }
+    }
+    // step t's activated gates, c_{t-1}, gy_t and mask of this thread's
+    // elements (what it wrote in pass 1), zeros past B
+    auto fetch2 = [&](int t) {
+#pragma unroll
+        for (int rp = 0; rp < RP; ++rp) {
+            const size_t row = (size_t)t * B + b0 + rrow(rp);
+            const bool v = valid[rp];
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+                cp_async<8>(pf + (rp * 6 + q) * NLT + tid,
+                            v ? dx + row * H4 + q * H + U0 : dx, v);
+            cp_async<8>(pf + (rp * 6 + 4) * NLT + tid,
+                        v ? cq + row * H + U0 : cq, v);
+            cp_async<8>(pf + (rp * 6 + 5) * NLT + tid,
+                        v ? gy + row * H + U0 : gy, v);
+            cp_async<4>(pm + rp * NLT + tid, v ? mk + row : mk, v);
+        }
+        cp_async_commit();
+    };
+    float dh[S::PP], dc[S::PP];
+#pragma unroll
+    for (int rp = 0; rp < RP; ++rp) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+            const size_t o = ((size_t)dir * B + b0 + rrow(rp)) * H + U0 + e;
+            dh[2 * rp + e] = valid[rp] ? ghT[o] : 0.f;
+            dc[2 * rp + e] = valid[rp] ? gcT[o] : 0.f;
+        }
+    }
+    // every CTA is done with pass 1's buffers before any writes into them
+    cluster.sync();
+    if (nl) fetch2(T - 1);
+
+    for (int t = T - 1; t >= 0; --t) {
+        if (t < T - 1) {
+            // the partial sums of dxg_{t+1} @ W_hh^T for this CTA's units
+            cluster_wait_acquire();
+            if (nl) {
+                const float4* in = recv + slot + ((t + 1) & 1) * CL * S::NSLOT;
+                float sum[S::PP];
+#pragma unroll
+                for (int p = 0; p < S::PP; ++p) sum[p] = 0.f;
+#pragma unroll
+                for (int src = 0; src < CL; ++src) {
+                    // rows g (.x, .y) and g+8 (.z, .w) of the slot
+                    const float4 v = in[src * S::NSLOT];
+                    if constexpr (S::PP == 4) {
+                        sum[0] += v.x;
+                        sum[1] += v.y;
+                        sum[S::PP - 2] += v.z;
+                        sum[S::PP - 1] += v.w;
+                    } else {
+                        sum[0] += half ? v.z : v.x;
+                        sum[1] += half ? v.w : v.y;
+                    }
+                }
+#pragma unroll
+                for (int p = 0; p < S::PP; ++p) dh[p] += sum[p];
+            }
+        }
+        // ---- the cell: dxg_t of this thread's elements ----
+        if (nl) {
+            cp_async_wait_all();
+#pragma unroll
+            for (int rp = 0; rp < RP; ++rp) {
+                const int r = rrow(rp);
+                float2 a[4];
+#pragma unroll
+                for (int q = 0; q < 4; ++q)
+                    a[q] = pf[(rp * 6 + q) * NLT + tid];
+                const float2 cp2 = pf[(rp * 6 + 4) * NLT + tid];
+                const float2 gy2 = pf[(rp * 6 + 5) * NLT + tid];
+                const float m = pm[rp * NLT + tid];
+                float da[4][2];
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                    const int p = 2 * rp + e;
+                    const float ig = e ? a[0].y : a[0].x;
+                    const float fg = e ? a[1].y : a[1].x;
+                    const float gg = e ? a[2].y : a[2].x;
+                    const float og = e ? a[3].y : a[3].x;
+                    const float cp = e ? cp2.y : cp2.x;
+                    const float tc = tanhf(fg * cp + ig * gg);
+                    const float dh2 = ((e ? gy2.y : gy2.x) + dh[p]) * m;
+                    const float dc2 = m * dc[p] + dh2 * og * (1.f - tc * tc);
+                    da[0][e] = dc2 * gg * ig * (1.f - ig);
+                    da[1][e] = dc2 * cp * fg * (1.f - fg);
+                    da[2][e] = dc2 * ig * (1.f - gg * gg);
+                    da[3][e] = dh2 * tc * og * (1.f - og);
+                    dc[p] = (1.f - m) * dc[p] + dc2 * fg;
+                    dh[p] = (1.f - m) * dh[p];
+#pragma unroll
+                    for (int q = 0; q < 4; ++q)
+                        atile[afrag<S::KS2>(r, q * UC + u0 + e)] = da[q][e];
+                }
+                if (valid[rp]) {
+                    float* d = dx + ((size_t)t * B + b0 + r) * H4 + U0;
+#pragma unroll
+                    for (int q = 0; q < 4; ++q)
+                        *reinterpret_cast<float2*>(d + q * H) =
+                            make_float2(da[q][0], da[q][1]);
+                }
+            }
+        }
+        if (t == 0) break;            // h_{-1} = 0 is no input: no dh_{-1}
+        __syncthreads();
+
+        // ---- dxg_t slice @ W_hh[units of CTA warp, cols]^T, 3xTF32 ----
+        float acc[MT][S::NTU][4];
+#pragma unroll
+        for (int m = 0; m < MT; ++m)
+#pragma unroll
+            for (int j = 0; j < S::NTU; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) acc[m][j][e] = 0.f;
+#pragma unroll
+        for (int s = 0; s < S::KS2; ++s) {
+            float4 ahi[MT], alo[MT];
+#pragma unroll
+            for (int m = 0; m < MT; ++m)
+                split_rna(*reinterpret_cast<const float4*>(
+                              atile + ((m * S::KS2 + s) * 32 + lane) * 4),
+                          ahi[m], alo[m]);
+            float bh[S::NTU][2], bl[S::NTU][2];
+#pragma unroll
+            for (int j = 0; j < S::NTU; ++j) {
+                split_tf32(wr[s][j][0], bh[j][0], bl[j][0]);
+                split_tf32(wr[s][j][1], bh[j][1], bl[j][1]);
+            }
+#pragma unroll
+            for (int j = 0; j < S::NTU; ++j)
+#pragma unroll
+                for (int m = 0; m < MT; ++m)
+                    mma_tf32(acc[m][j], alo[m], bh[j][0], bh[j][1]);
+#pragma unroll
+            for (int j = 0; j < S::NTU; ++j)
+#pragma unroll
+                for (int m = 0; m < MT; ++m)
+                    mma_tf32(acc[m][j], ahi[m], bl[j][0], bl[j][1]);
+#pragma unroll
+            for (int j = 0; j < S::NTU; ++j)
+#pragma unroll
+                for (int m = 0; m < MT; ++m)
+                    mma_tf32(acc[m][j], ahi[m], bh[j][0], bh[j][1]);
+        }
+        // the partial of CTA `warp`'s units into its slot for this CTA
+        float4* out = recv + ((t & 1) * CL + rank) * S::NSLOT + lane;
+#pragma unroll
+        for (int m = 0; m < MT; ++m)
+#pragma unroll
+            for (int j = 0; j < S::NTU; ++j)
+                *cluster.map_shared_rank(out + (m * S::NTU + j) * 32, warp) =
+                    make_float4(acc[m][j][0], acc[m][j][1], acc[m][j][2],
+                                acc[m][j][3]);
+        cluster_arrive_release();
+        // while the barrier completes: fetch step t-1's operands
+        if (nl) fetch2(t - 1);
+    }
+}
+
+template <int H, int MT>
+int bwd_tc_launch(const float* const* in, float* dxg, float* hs, float* cs,
+                  int T, int B, cudaStream_t s, int* plan) {
+    using S = BwdShape<H, MT>;
+    const auto kernel = bilstm_bwd_tc_kernel<H, MT>;
+    const int rc = asr_allow_smem(kernel, S::SMEM);
+    if (rc) return rc;
+    const dim3 grid((B + S::R - 1) / S::R * CL, 2);
+    if (plan) {                 // rows per cluster, clusters, max resident
+        cudaLaunchConfig_t cfg = {};
+        cfg.gridDim = grid;
+        cfg.blockDim = dim3(TC_THREADS);
+        cfg.dynamicSmemBytes = S::SMEM;
+        int n = 0;
+        const cudaError_t e = cudaOccupancyMaxActiveClusters(
+            &n, (const void*)kernel, &cfg);
+        if (e != cudaSuccess) return (int)e;
+        plan[0] = S::R;
+        plan[1] = (int)(grid.x / CL * grid.y);
+        plan[2] = n;
+        return 0;
+    }
+    bilstm_bwd_tc_kernel<H, MT><<<grid, TC_THREADS, S::SMEM, s>>>(
+        in[0], in[1], in[2], in[3], in[4], in[6], in[7], in[8], in[9],
+        in[10], in[11], dxg, hs, cs, T, B);
+    return (int)cudaGetLastError();
+}
+
+template <int H>
+int bwd_tc_dispatch_mt(const float* const* in, float* dxg, float* hs,
+                       float* cs, int T, int B, cudaStream_t s, int* plan) {
+    if (tc_mtiles(B) == 1)
+        return bwd_tc_launch<H, 1>(in, dxg, hs, cs, T, B, s, plan);
+    return bwd_tc_launch<H, 2>(in, dxg, hs, cs, T, B, s, plan);
+}
+
+int bwd_tc_dispatch(int H, const float* const* in, float* dxg, float* hs,
+                    float* cs, int T, int B, cudaStream_t s, int* plan) {
+    switch (H) {
+    case 64:
+        return bwd_tc_dispatch_mt<64>(in, dxg, hs, cs, T, B, s, plan);
+    case 128:
+        return bwd_tc_dispatch_mt<128>(in, dxg, hs, cs, T, B, s, plan);
+    case 192:
+        return bwd_tc_dispatch_mt<192>(in, dxg, hs, cs, T, B, s, plan);
+    default:
+        return bwd_tc_dispatch_mt<256>(in, dxg, hs, cs, T, B, s, plan);
+    }
+}
+
+// ---------------------------------------------------------------------------
+// simple per-block kernel
+// ---------------------------------------------------------------------------
 // A block holds R batch rows and KS >= R threads a hidden unit j: thread
 // (q, j) sums every KS-th k of the step's products for all R rows, and
 // finishes row q < R (its h, c in pass 1 and dh, dc in pass 2 stay in its
@@ -159,10 +734,10 @@ bilstm_bwd_kernel(const float* __restrict__ xg_f,
                 for (int p = 1; p < KS; ++p)
                     a[g] += part[((p * R + q) * 4 + g) * H + j];
             }
-            const float ig = sigm(a[0]);
-            const float fg = sigm(a[1]);
+            const float ig = sigmoid(a[0]);
+            const float fg = sigmoid(a[1]);
             const float gg = tanhf(a[2]);
-            const float og = sigm(a[3]);
+            const float og = sigmoid(a[3]);
             const float m = mk[row];
             c = m * (fg * c + ig * gg) + (1.f - m) * c;
             h = ys[row * H + j] + (1.f - m) * h;
@@ -263,11 +838,14 @@ int bwd_launch(const float* const* in, float* dxg, float* hs, float* cs,
 }  // namespace
 
 // xg_f, xg_b [T, B, 4H]; m_f, m_b [T, B]; w_hh [2, H, 4H] and its transpose
-// w_t [2, 4H, H]; ys_f, ys_b and their cotangents gy_f, gy_b [T, B, H];
-// the final state's cotangents ghT, gcT [2, B, H] ->
-// dxg [2, T, B, 4H] (the gate cotangents, = d xg), hs [2, T, B, H] (the
-// carried h_{t-1} of each step, for dW_hh), cs [2, T, B, H] (scratch).  All
-// float32 and contiguous; any H <= 1024.  Returns 0 or a cudaError_t.
+// w_t [2, 4H, H] (read by the simple kernel only: the cluster kernel
+// ignores it); ys_f, ys_b and their
+// cotangents gy_f, gy_b [T, B, H]; the final state's cotangents ghT, gcT
+// [2, B, H] -> dxg [2, T, B, 4H] (the gate cotangents, = d xg), hs [2, T,
+// B, H] (the carried h_{t-1} of each step, for dW_hh), cs [2, T, B, H]
+// (scratch).  All float32, contiguous and 16-byte aligned; any H <= 1024
+// (the cluster kernel for H in {64, 128, 192, 256}, else the simple one).
+// Returns 0 or a cudaError_t.
 ASR_API int asr_bilstm_bwd(const float* xg_f, const float* xg_b,
                            const float* m_f, const float* m_b,
                            const float* w_hh, const float* w_t,
@@ -281,10 +859,28 @@ ASR_API int asr_bilstm_bwd(const float* xg_f, const float* xg_b,
     const float* in[12] = {xg_f, xg_b, m_f, m_b, w_hh, w_t,
                            ys_f, ys_b, gy_f, gy_b, ghT, gcT};
     const cudaStream_t s = (cudaStream_t)stream;
+    if (tc_fits(H))
+        return bwd_tc_dispatch(H, in, dxg, hs, cs, T, B, s, nullptr);
     const int Hp = (H + 31) / 32 * 32;
     // KS threads a hidden unit, as many as 1024 threads a block allow (up
     // to 4), and R = min(KS, 2) rows a block
     if (Hp <= 256) return bwd_launch<4, 2>(in, dxg, hs, cs, T, B, H, s);
     if (Hp <= 512) return bwd_launch<2, 2>(in, dxg, hs, cs, T, B, H, s);
     return bwd_launch<1, 1>(in, dxg, hs, cs, T, B, H, s);
+}
+
+// How asr_bilstm_bwd would launch at (B, H), without launching: plan[0]
+// batch rows per cluster, plan[1] clusters in the grid, plan[2] clusters
+// the card holds at once (cudaOccupancyMaxActiveClusters).  For the simple
+// kernel (no cluster) plan = {rows a block, 0, 0}.  Returns 0 or a
+// cudaError_t.
+ASR_API int asr_bilstm_bwd_plan(int B, int H, int* plan) {
+    if (B <= 0 || H <= 0 || H > 1024) return (int)cudaErrorInvalidValue;
+    if (!tc_fits(H)) {
+        plan[0] = (H + 31) / 32 * 32 <= 512 ? 2 : 1;
+        plan[1] = plan[2] = 0;
+        return 0;
+    }
+    return bwd_tc_dispatch(H, nullptr, nullptr, nullptr, nullptr, 0, B,
+                           nullptr, plan);
 }

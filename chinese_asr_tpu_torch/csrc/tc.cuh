@@ -1,0 +1,101 @@
+// Device helpers shared by K2 (lstm.cu) and K2-bwd (lstm_bwd.cu): the
+// thread-block-cluster plan both use for H in {64, 128, 192, 256}, the
+// 3xTF32 tensor-core product, the split cluster barrier and cp.async.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int CL = 8;              // CTAs per cluster (portable maximum)
+constexpr int TC_THREADS = 256;    // 8 warps a CTA
+constexpr int CLUSTER_BUDGET = 14; // clusters of 8 the H100 holds at once
+                                   // (15, less one of margin)
+
+// Batch rows per cluster, in m16 tiles, from B alone: 16 rows while both
+// directions' clusters fit the card at once, else 32 (B <= 224 in one
+// wave).
+inline int tc_mtiles(int B) {
+    return 2 * ((B + 15) / 16) <= CLUSTER_BUDGET ? 1 : 2;
+}
+
+// The hidden sizes the cluster kernels take: CTA r of 8 owns H/8 units,
+// a whole number of n8 tiles of each of the four gates.
+inline bool tc_fits(int H) {
+    return H == 64 || H == 128 || H == 192 || H == 256;
+}
+
+__device__ __forceinline__ float sigmoid(float x) {
+    return 1.f / (1.f + expf(-x));
+}
+
+// One cluster barrier split in two halves: arrive publishes this thread's
+// prior writes (distributed-shared-memory stores included) to the cluster,
+// wait makes every other thread's visible here.
+__device__ __forceinline__ void cluster_arrive_release() {
+    asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait_acquire() {
+    asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ float tf32_rna(float x) {
+    uint32_t r;
+    asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+    return __uint_as_float(r);
+}
+
+// w = hi + lo, both TF32 (truncated).  The asm is volatile so that the
+// split stays inside the time loop: hoisted out of it, the split slice
+// would take twice the registers of the f32 one and spill.
+__device__ __forceinline__ void split_tf32(float w, float& hi, float& lo) {
+    uint32_t h, l;
+    asm volatile("and.b32 %0, %1, 0xffffe000;"
+                 : "=r"(h) : "r"(__float_as_uint(w)));
+    hi = __uint_as_float(h);
+    asm volatile("and.b32 %0, %1, 0xffffe000;"
+                 : "=r"(l) : "r"(__float_as_uint(w - hi)));
+    lo = __uint_as_float(l);
+}
+
+// a = hi + lo, both rounded to TF32 with cvt.rna (the A operand's split)
+__device__ __forceinline__ void split_rna(const float4& a, float4& hi,
+                                          float4& lo) {
+    hi = make_float4(tf32_rna(a.x), tf32_rna(a.y), tf32_rna(a.z),
+                     tf32_rna(a.w));
+    lo = make_float4(tf32_rna(a.x - hi.x), tf32_rna(a.y - hi.y),
+                     tf32_rna(a.z - hi.z), tf32_rna(a.w - hi.w));
+}
+
+// d += a * b on the tensor cores, TF32 inputs, f32 accumulators.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const float4& a,
+                                         float b0, float b1) {
+    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(__float_as_uint(a.x)), "r"(__float_as_uint(a.y)),
+          "r"(__float_as_uint(a.z)), "r"(__float_as_uint(a.w)),
+          "r"(__float_as_uint(b0)), "r"(__float_as_uint(b1)));
+}
+
+// N bytes (4, 8 or 16) global -> shared, zero-filled where !pred
+template <int N>
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         bool pred) {
+    const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;"
+                 ::"r"(d), "l"(src), "n"(N), "r"(pred ? N : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+    asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+}  // namespace

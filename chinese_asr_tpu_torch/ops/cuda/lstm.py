@@ -26,6 +26,10 @@ that JAX takes of its ``lax.scan`` (``chinese_asr_tpu/ops/rnn.py``
 ``_bidir_core_bwd``), and ``bidir_lstm`` the ``torch.autograd.Function``
 around K2 that calls it: K2 forward, K2-bwd backward on the card, the two
 twins on the CPU.  Float32 only; the bf16 instance has no backward yet.
+As in K2, H alone picks K2-bwd's kernel: H in {64, 128, 192, 256} runs the
+cluster kernel on K2's plan (W_hh resident in registers, 3xTF32 products,
+dxg_t @ W_hh^T reduce-scattered across the cluster), any other H the
+simple per-block kernel; ``bwd_plan`` shows the launch.
 """
 
 from __future__ import annotations
@@ -42,6 +46,9 @@ bf16_launches = 0     # bf16 kernel (K2-bf16) launches
 bwd_launches = 0      # K2-bwd launches
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+
+# the hidden sizes of the cluster kernels (csrc/tc.cuh `tc_fits`)
+_CLUSTER_H = frozenset((64, 128, 192, 256))
 
 
 def bidir_lstm_time_loop_plain(xg_f, xg_b, m_f, m_b, w_hh):
@@ -82,20 +89,30 @@ def bidir_lstm_time_loop_plain(xg_f, xg_b, m_f, m_b, w_hh):
 _ENTRY = {torch.float32: "asr_bilstm", torch.bfloat16: "asr_bilstm_bf16"}
 
 
-def plan(B: int, H: int, dtype=torch.float32) -> dict:
-    """How the kernel launches at (B, H) for operands of ``dtype``,
-    without launching: batch rows per cluster, clusters in the grid,
-    clusters the card holds at once (``cudaOccupancyMaxActiveClusters``)
-    and the waves that makes.  The simple kernel (H outside the cluster
-    kernel's) has no clusters."""
+def _plan(name: str, B: int, H: int) -> dict:
     buf = (ctypes.c_int * 3)()
-    name = _ENTRY[dtype] + "_plan"
     fn = build.kernel(name, [_I, _I, _P])
     build.check(name, fn(B, H, ctypes.addressof(buf)))
     rows, clusters, resident = buf
     waves = -(-clusters // resident) if clusters else 0
     return dict(rows=rows, clusters=clusters, max_active_clusters=resident,
                 waves=waves)
+
+
+def plan(B: int, H: int, dtype=torch.float32) -> dict:
+    """How the kernel launches at (B, H) for operands of ``dtype``,
+    without launching: batch rows per cluster, clusters in the grid,
+    clusters the card holds at once (``cudaOccupancyMaxActiveClusters``)
+    and the waves that makes.  The simple kernel (H outside the cluster
+    kernel's) has no clusters; its rows are those of a block."""
+    return _plan(_ENTRY[dtype] + "_plan", B, H)
+
+
+def bwd_plan(B: int, H: int) -> dict:
+    """``plan`` for K2-bwd (float32): rows per cluster, clusters, clusters
+    the card holds at once and waves of the cluster kernel, or the simple
+    kernel's rows a block and no clusters."""
+    return _plan("asr_bilstm_bwd_plan", B, H)
 
 
 def bidir_lstm_time_loop(xg_f, xg_b, m_f, m_b, w_hh):
@@ -205,9 +222,9 @@ def bidir_lstm_time_loop_bwd_plain(xg_f, xg_b, m_f, m_b, w_hh, ys_f, ys_b,
 def bidir_lstm_time_loop_bwd(xg_f, xg_b, m_f, m_b, w_hh, ys_f, ys_b, gy_f,
                              gy_b, ghT, gcT):
     """A CPU tensor takes the plain twin; a CUDA tensor launches K2-bwd
-    (one launch runs both directions' two passes) and forms dW_hh as one
-    batched product of the h sequence it wrote with the gate
-    cotangents.  Float32 only."""
+    (one launch runs both directions' two passes; H picks the cluster or
+    the simple kernel) and forms dW_hh as one batched product of the h
+    sequence it wrote with the gate cotangents.  Float32 only."""
     if xg_f.device.type == "cpu":
         return bidir_lstm_time_loop_bwd_plain(xg_f, xg_b, m_f, m_b, w_hh,
                                               ys_f, ys_b, gy_f, gy_b, ghT,
@@ -233,6 +250,8 @@ def bidir_lstm_time_loop_bwd(xg_f, xg_b, m_f, m_b, w_hh, ys_f, ys_b, gy_f,
                 raise ValueError(f"bidir_lstm_time_loop_bwd: {name} is "
                                  f"{t.dtype}; only float32 has a backward")
         t = t.contiguous()
+        if t.data_ptr() % 16:          # the kernels copy 16-byte chunks
+            t = t.clone()
         build.require(name, t, f32, shape)
         args.append(t)
     dev = xg_f.device
@@ -241,7 +260,9 @@ def bidir_lstm_time_loop_bwd(xg_f, xg_b, m_f, m_b, w_hh, ys_f, ys_b, gy_f,
     cs = torch.empty((2, T, B, H), dtype=f32, device=dev)
     if B == 0 or T == 0:
         return dxg[0], dxg[1], torch.zeros_like(w_hh)
-    wt = w_hh.transpose(1, 2).contiguous()          # [2, 4H, H]
+    # W_hh^T [2, 4H, H], read by the simple kernel's pass 2 only (the
+    # cluster kernel holds W_hh in registers and ignores the pointer)
+    wt = args[4] if H in _CLUSTER_H else args[4].transpose(1, 2).contiguous()
     fn = build.kernel("asr_bilstm_bwd", [_P] * 15 + [_I] * 3 + [_P])
     rc = fn(*(a.data_ptr() for a in args[:5]), wt.data_ptr(),
             *(a.data_ptr() for a in args[5:]), dxg.data_ptr(),

@@ -30,9 +30,12 @@ every phase passed):
    same shapes, B=32 and H=16, with its cluster plan, its registers and
    spills, and cuDNN's bf16 layer beside it;
 2f. hold K2-bwd, the recurrence's backward, against its twin at the
-   flagship layer's shape (xg 2 x [332, 32, 1024]) and at H=16, with random
-   non-prefix masks and nonzero final-state cotangents; time it beside its
-   bound, its twin and cuDNN's backward of one bidirectional layer;
+   flagship layer's shape (xg 2 x [332, 32, 1024], the cluster kernel), at
+   B=128 and at H=16 (the simple kernel), with random non-prefix masks and
+   nonzero final-state cotangents; print its plan and time it beside its
+   bound, its twin and cuDNN's backward of one bidirectional layer at B=32
+   and B=128; print the command that times another tree's K2-bwd beside
+   this one's (``chinese_asr_tpu_torch/tools/lstm_bwd_ab.py``);
 2e. hold K5, the ADPCM wire decode, against its twin bit for bit on the
    B=32 batch's wire, a B=1 wire, a full-scale square wave and silence,
    and time it beside the C++ host encoder;
@@ -802,85 +805,132 @@ def _phase_entry_points(np, torch, fails, ASR, cfg, wavs, wavs128, rng,
     return report
 
 
+def lstm_bwd_case(torch, lstm, g, Tn, B, h):
+    """K2-bwd's operands at [Tn, B, h] on ``g``'s device: random gates and
+    W_hh, random non-prefix masks (a quarter of the steps masked), ys from
+    K2, random cotangents of ys and of the final state.  Also used by
+    chinese_asr_tpu_torch/tools/lstm_bwd_ab.py."""
+    dev = g.device
+
+    def f(*s):
+        return torch.randn(*s, device=dev, generator=g)
+
+    xg_f, xg_b = f(Tn, B, 4 * h), f(Tn, B, 4 * h)
+    w = f(2, h, 4 * h) / h ** 0.5
+    m_f, m_b = ((torch.rand(Tn, B, device=dev, generator=g) > 0.25).float()
+                for _ in range(2))
+    ys_f, ys_b, _, _ = lstm.bidir_lstm_time_loop(xg_f, xg_b, m_f, m_b, w)
+    return (xg_f, xg_b, m_f, m_b, w, ys_f, ys_b, f(Tn, B, h), f(Tn, B, h),
+            f(2, B, h), f(2, B, h))
+
+
+def rel_err(got, ref) -> float:
+    """The largest error of each output relative to max(1, its scale)."""
+    return max(float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+               for a, b in zip(got, ref))
+
+
 def _phase_k2_bwd(np, torch, fails, dev, lstm_k):
     """Phase 2f: K2-bwd against its twin on the card at the flagship
-    encoder layer's shape (xg 2 x [332, 32, 1024]) and at H=16, with random
-    non-prefix masks and nonzero final-state cotangents; its time, bound,
-    twin and cuDNN's backward of one bidirectional layer beside it.
+    encoder layer's shape (xg 2 x [332, 32, 1024], the cluster kernel), at
+    B=128 and at H=16 (the simple kernel), with random non-prefix masks
+    and nonzero final-state cotangents; its plan, time, bound, twin and
+    cuDNN's backward of one bidirectional layer at B=32 and B=128.
     Returns the kernel's row of the ``kernels`` line."""
-    T, B, H = 332, 32, 256
+    T, H = 332, 256
     g = torch.Generator(device=dev).manual_seed(7)
-
-    def case(h):
-        def f(*s):
-            return torch.randn(*s, device=dev, generator=g)
-
-        xg_f, xg_b = f(T, B, 4 * h), f(T, B, 4 * h)
-        w = f(2, h, 4 * h) / h ** 0.5
-        m_f, m_b = ((torch.rand(T, B, device=dev, generator=g) > 0.25)
-                    .float() for _ in range(2))
-        ys_f, ys_b, _, _ = lstm_k.bidir_lstm_time_loop(xg_f, xg_b, m_f, m_b,
-                                                       w)
-        return (xg_f, xg_b, m_f, m_b, w, ys_f, ys_b, f(T, B, h), f(T, B, h),
-                f(2, B, h), f(2, B, h))
-
-    errs, raw = {}, {}
-    for h in (H, 16):
-        args = case(h)
+    errs, raw, at = {}, {}, {}
+    for B, h in ((32, H), (32, 16), (128, H)):
+        args = lstm_bwd_case(torch, lstm_k, g, T, B, h)
         before = lstm_k.bwd_launches
         got = lstm_k.bidir_lstm_time_loop_bwd(*args)
         launched = lstm_k.bwd_launches - before
         ref = lstm_k.bidir_lstm_time_loop_bwd_plain(*args)
-        raw[h] = max(float((a - b).abs().max()) for a, b in zip(got, ref))
-        errs[h] = max(float((a - b).abs().max())
-                      / max(1.0, float(b.abs().max()))
-                      for a, b in zip(got, ref))
-        fails.check(launched == 1 and errs[h] <= TOL_LSTM_BWD
-                    and all(bool(torch.isfinite(a).all()) for a in got),
-                    f"K2-bwd T={T} B={B} H={h} (random non-prefix masks, "
-                    f"nonzero ghT/gcT): max_abs_err {raw[h]:.3g}, relative "
-                    f"to max(1, |ref|) {errs[h]:.3g} <= {TOL_LSTM_BWD}; one "
-                    f"launch")
+        raw[B, h] = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+        errs[B, h] = rel_err(got, ref)
+        plan = lstm_k.bwd_plan(B, h)
+        kind = "cluster" if plan["clusters"] else "simple"
+        fails.check(launched == 1 and errs[B, h] <= TOL_LSTM_BWD
+                    and all(bool(torch.isfinite(a).all()) for a in got)
+                    and (kind == "cluster") == (h == H),
+                    f"K2-bwd ({kind} kernel) T={T} B={B} H={h} (random "
+                    f"non-prefix masks, nonzero ghT/gcT): max_abs_err "
+                    f"{raw[B, h]:.3g}, relative to max(1, |ref|) "
+                    f"{errs[B, h]:.3g} <= {TOL_LSTM_BWD}; one launch; plan "
+                    f"{plan}")
         if h == H:
-            big = args
-    ms = _time_ms(torch, lambda: lstm_k.bidir_lstm_time_loop_bwd(*big), 10)
-    plain_ms = _time_ms(
-        torch, lambda: lstm_k.bidir_lstm_time_loop_bwd_plain(*big), 1,
-        warmup=1)
-    # cuDNN's backward of one bidirectional nn.LSTM layer of the same
-    # shape (input 2H, as encoder layers 1-3 take it; the whole layer's
-    # backward, input projection and weight gradients included), timed
-    # as a yardstick and never used by the port
-    cudnn = torch.nn.LSTM(2 * H, H, bidirectional=True).to(dev)
-    x = torch.randn(T, B, 2 * H, device=dev, generator=g, requires_grad=True)
-    out, _ = cudnn(x)
-    gout = torch.randn_like(out)
-    wts = [x] + list(cudnn.parameters())
-    cudnn_ms = _time_ms(torch, lambda: torch.autograd.grad(
-        out, wts, gout, retain_graph=True), 10)
-    del cudnn, x, out, gout, wts
-    # the least work: each input read once (xg, masks, W_hh, ys, their
-    # cotangents), dxg and dW_hh written once; per valid (row, step) three
-    # 2 * H * 4H products (the gates' recompute, dh's and dW's) and ~30
-    # flops a unit of elementwise work, at the f32 rate
-    valid = float(big[2].sum() + big[3].sum())
-    nbytes = 4 * (2 * T * B * 4 * H * 2 + 2 * T * B + 2 * H * 4 * H * 2
-                  + 4 * T * B * H + 4 * B * H)
-    bound, by = _bound_ms(nbytes, valid * (3 * 2 * H * 4 * H + 30 * H))
-    print(f"K2-bwd: {ms:.4f} ms at xg 2 x [{T}, {B}, {4 * H}] "
-          f"({100 * valid / (2 * T * B):.1f}% of steps valid); bound "
-          f"{bound:.4f} ms ({by}), {100 * bound / ms:.2f}%; twin "
-          f"{plain_ms:.1f} ms; cuDNN's backward of one layer {cudnn_ms:.4f} "
-          f"ms", flush=True)
-    del big, args, got, ref
+            at[B] = dict(args=args, plan=plan)
+        del got, ref
+    rows = {}
+    for B, run in at.items():
+        big = run["args"]
+        ms = _time_ms(torch, lambda: lstm_k.bidir_lstm_time_loop_bwd(*big),
+                      10)
+        plain_ms = _time_ms(
+            torch, lambda: lstm_k.bidir_lstm_time_loop_bwd_plain(*big), 1,
+            warmup=1)
+        # cuDNN's backward of one bidirectional nn.LSTM layer of the same
+        # shape (input 2H, as encoder layers 1-3 take it; the whole layer's
+        # backward, input projection and weight gradients included), timed
+        # as a yardstick and never used by the port
+        cudnn = torch.nn.LSTM(2 * H, H, bidirectional=True).to(dev)
+        x = torch.randn(T, B, 2 * H, device=dev, generator=g,
+                        requires_grad=True)
+        out, _ = cudnn(x)
+        gout = torch.randn_like(out)
+        wts = [x] + list(cudnn.parameters())
+        cudnn_ms = _time_ms(torch, lambda: torch.autograd.grad(
+            out, wts, gout, retain_graph=True), 10)
+        del cudnn, x, out, gout, wts
+        # the least work: each input read once (xg, masks, W_hh, ys, their
+        # cotangents), dxg and dW_hh written once; per valid (row, step)
+        # three 2 * H * 4H products (the gates' recompute, dh's and dW's)
+        # and ~30 flops a unit of elementwise work, at the f32 rate
+        valid = float(big[2].sum() + big[3].sum())
+        nbytes = 4 * (2 * T * B * 4 * H * 2 + 2 * T * B + 2 * H * 4 * H * 2
+                      + 4 * T * B * H + 4 * B * H)
+        prod = valid * 2 * H * 4 * H
+        bound, by = _bound_ms(nbytes, 3 * prod + valid * 30 * H)
+        # the design's own floor: the kernel's two products as three TF32
+        # products each at the tensor cores' dense rate, dW's bmm and the
+        # elementwise work at the f32 rate
+        bound_tc = max(_bound_ms(nbytes, 0)[0],
+                       3 * 2 * prod / H100_TF32_FLOPS * 1e3
+                       + (prod + valid * 30 * H) / H100_F32_FLOPS * 1e3)
+        plan = run["plan"]
+        print(f"K2-bwd at xg 2 x [{T}, {B}, {4 * H}] "
+              f"({100 * valid / (2 * T * B):.1f}% of steps valid): {ms:.4f} "
+              f"ms ({ms * 1e3 / (2 * T):.2f} us a step of either pass); "
+              f"bound {bound:.4f} ms ({by}), {100 * bound / ms:.2f}%; at "
+              f"3xTF32 {bound_tc:.4f} ms, {100 * bound_tc / ms:.2f}%; twin "
+              f"{plain_ms:.1f} ms; cuDNN's backward of one layer "
+              f"{cudnn_ms:.4f} ms; plan {plan['clusters']} clusters of 8 "
+              f"CTAs, {plan['rows']} rows each, {plan['waves']} wave(s) "
+              f"(the card holds {plan['max_active_clusters']})", flush=True)
+        rows[B] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                       bound_tf32x3_ms=bound_tc, cudnn_layer_bwd_ms=cudnn_ms,
+                       plan=plan)
+        del big
+    at.clear()
+    print("K2-bwd against another tree on this card (report): python3 "
+          "chinese_asr_tpu_torch/tools/lstm_bwd_ab.py DIR, DIR another "
+          "commit unpacked with git archive", flush=True)
+    r32 = rows[32]
     return dict(
         name="K2-bwd BiLSTM backward", route="cuda",
         source="chinese_asr_tpu_torch/csrc/lstm_bwd.cu",
-        replaces="chinese_asr_tpu/ops/rnn.py:295",
+        replaces="chinese_asr_tpu/ops/rnn.py:297",
+        design="cluster of 8 CTAs a tile and direction, W_hh in registers, "
+               "3xTF32 mma.sync; pass 2 reduce-scatters dxg_t @ W_hh^T",
+        plan=r32["plan"],
         max_abs_err=max(raw.values()), rel_err=max(errs.values()),
-        ms=ms, step_us=ms * 1e3 / T, plain_ms=plain_ms, bound_ms=bound,
-        bound_by=by, library_ms=None, cudnn_layer_bwd_ms=cudnn_ms,
-        shape=f"xg, dxg [2 x {T}, {B}, {4 * H}], W_hh [2, {H}, {4 * H}]")
+        ms=r32["ms"], step_us=r32["ms"] * 1e3 / T,
+        pass_step_us=r32["ms"] * 1e3 / (2 * T),
+        plain_ms=r32["plain_ms"], bound_ms=r32["bound_ms"],
+        bound_by=r32["bound_by"], bound_tf32x3_ms=r32["bound_tf32x3_ms"],
+        library_ms=None, cudnn_layer_bwd_ms=r32["cudnn_layer_bwd_ms"],
+        b128=rows[128],
+        shape=f"xg, dxg [2 x {T}, 32, {4 * H}], W_hh [2, {H}, {4 * H}]")
 
 
 def _train_corpus(np, rng, root: str, n: int, vocab_chars: str):
@@ -1419,6 +1469,9 @@ def main() -> int:
     # ---- phase 2f: K2-bwd, the recurrence's backward ------------------------
     t2f = time.time()
     kernels["lstm_bwd"] = _phase_k2_bwd(np, torch, fails, dev, lstm_k)
+    kernels["lstm_bwd"]["ptxas"] = _k2_ptxas_lines(log, "bilstm_bwd")
+    for line in kernels["lstm_bwd"]["ptxas"]:
+        print("  K2-bwd ptxas:", line, flush=True)
     print(f"phase 2f: {time.time() - t2f:.1f} s", flush=True)
 
     # ---- phase 2c: K3 top-k -------------------------------------------------

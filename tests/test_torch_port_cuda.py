@@ -79,6 +79,35 @@ def test_lstm_kernel_matches_twin(dev, T, B, H):
         assert float((a - b).abs().max()) <= 1e-4
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("H", [12, 500, 1000, 1024])
+def test_lstm_kernel_any_hidden_size(dev, H, dtype):
+    """The simple kernel at every H the wrapper accepts: 8 rows a block up
+    to H = 512, 2 rows (1024 threads, 64 registers a thread) above; H=1024
+    used to be refused with CUDA error 701 (too many resources)."""
+    T, B = 9, 11
+    g = torch.Generator(device=dev).manual_seed(H)
+    xg_f, xg_b = (torch.randn(T, B, 4 * H, device=dev, generator=g).to(dtype)
+                  for _ in range(2))
+    w = (torch.randn(2, H, 4 * H, device=dev, generator=g)
+         / H ** 0.5).to(dtype)
+    m_f, m_b = ((torch.rand(T, B, device=dev, generator=g) > 0.3).to(dtype)
+                for _ in range(2))
+    before = tlstm.launches + tlstm.bf16_launches
+    got = tlstm.bidir_lstm_time_loop(xg_f, xg_b, m_f, m_b, w)
+    torch.cuda.synchronize()
+    assert tlstm.launches + tlstm.bf16_launches == before + 1
+    ref = tlstm.bidir_lstm_time_loop_plain(xg_f, xg_b, m_f, m_b, w)
+    tol = 1e-4 if dtype == torch.float32 else TOL_LSTM_BF16
+    for a, b in zip(got, ref):
+        assert a.dtype == dtype
+        assert float((a.float() - b.float()).abs().max()) <= tol
+    assert tlstm.plan(B, H, dtype) == dict(
+        rows=8 if H <= 512 else 2, clusters=0, max_active_clusters=0,
+        waves=0)
+
+
 @pytest.mark.parametrize("cfg", [tcfg.AudioConfig(),
                                  golden_cfg(tcfg).audio],
                          ids=["flagship", "golden"])
@@ -664,7 +693,7 @@ def test_lstm_bf16_and_adpcm_reject_bad_operands(dev):
 TOL_LSTM_BWD = 1e-4
 
 
-def _lstm_bwd_case(dev, T, B, H, seed, ys_from_twin=False):
+def _lstm_bwd_case(dev, T, B, H, seed):
     g = torch.Generator(device=dev).manual_seed(seed)
 
     def f(*s):
@@ -675,9 +704,7 @@ def _lstm_bwd_case(dev, T, B, H, seed, ys_from_twin=False):
     # once flipped, which random masks cover)
     m_f, m_b = ((torch.rand(T, B, device=dev, generator=g) > 0.3).float()
                 for _ in range(2))
-    fwd = tlstm.bidir_lstm_time_loop_plain if ys_from_twin \
-        else tlstm.bidir_lstm_time_loop
-    ys_f, ys_b, _, _ = fwd(xg_f, xg_b, m_f, m_b, w)
+    ys_f, ys_b, _, _ = tlstm.bidir_lstm_time_loop(xg_f, xg_b, m_f, m_b, w)
     return (xg_f, xg_b, m_f, m_b, w, ys_f, ys_b, f(T, B, H), f(T, B, H),
             f(2, B, H), f(2, B, H))
 
@@ -701,12 +728,64 @@ def test_lstm_bwd_kernel_matches_twin(dev, T, B, H):
 
 @pytest.mark.parametrize("H", [12, 500, 1024])
 def test_lstm_bwd_kernel_any_hidden_size(dev, H):
-    """One design for every H <= 1024 (4, 2 or 1 threads a hidden unit); ys
-    from the twin, since K2's forward does not launch at H = 1024."""
-    args = _lstm_bwd_case(dev, 6, 3, H, seed=H, ys_from_twin=True)
+    """The simple kernel for every H <= 1024 outside the cluster kernel's
+    (4, 2 or 1 threads a hidden unit)."""
+    args = _lstm_bwd_case(dev, 6, 3, H, seed=H)
     got = tlstm.bidir_lstm_time_loop_bwd(*args)
     assert _rel_err(got, tlstm.bidir_lstm_time_loop_bwd_plain(*args)) \
         <= TOL_LSTM_BWD
+
+
+@pytest.mark.parametrize("T", [1, 33])
+@pytest.mark.parametrize("B", [1, 5, 16, 17, 32, 113, 128])
+@pytest.mark.parametrize("H", [64, 128, 192, 256])
+def test_lstm_bwd_cluster_kernel_matches_twin(dev, H, B, T):
+    """The cluster kernel: one and two row tiles, a ragged tile, K2's
+    16 -> 32 rows-per-cluster switch at B = 113; random non-prefix masks
+    and nonzero ghT, gcT; one launch a call."""
+    args = _lstm_bwd_case(dev, T, B, H, seed=7 * T + B + H)
+    before = tlstm.bwd_launches
+    got = tlstm.bidir_lstm_time_loop_bwd(*args)
+    assert tlstm.bwd_launches == before + 1
+    ref = tlstm.bidir_lstm_time_loop_bwd_plain(*args)
+    assert all(bool(torch.isfinite(a).all()) for a in got)
+    assert _rel_err(got, ref) <= TOL_LSTM_BWD
+
+
+@pytest.mark.parametrize("H", [64, 256])
+def test_lstm_bwd_cluster_plan_and_past_one_wave(dev, H):
+    """``bwd_plan`` shows the cluster geometry (K2's rows rule: one wave up
+    to B = 224), and B = 225, past one wave, is still right."""
+    for B, rows in ((32, 16), (112, 16), (113, 32), (224, 32)):
+        plan = tlstm.bwd_plan(B, H)
+        assert plan["rows"] == rows
+        assert plan["clusters"] == 2 * -(-B // rows)
+        assert plan["max_active_clusters"] >= 14 and plan["waves"] == 1
+    plan = tlstm.bwd_plan(225, H)
+    assert plan["rows"] == 32 and plan["clusters"] == 16
+    assert plan["waves"] == -(-16 // plan["max_active_clusters"])
+    assert tlstm.bwd_plan(32, 16) == dict(rows=2, clusters=0,
+                                          max_active_clusters=0, waves=0)
+    args = _lstm_bwd_case(dev, 5, 225, H, seed=H)
+    got = tlstm.bidir_lstm_time_loop_bwd(*args)
+    assert _rel_err(got, tlstm.bidir_lstm_time_loop_bwd_plain(*args)) \
+        <= TOL_LSTM_BWD
+
+
+def test_lstm_bwd_takes_unaligned_operands(dev):
+    """Operands that are contiguous views at a 4-byte offset (the cluster
+    kernel copies 16-byte chunks) give the aligned call's result."""
+    args = _lstm_bwd_case(dev, 9, 5, 64, seed=3)
+
+    def shifted(a):
+        buf = torch.empty(a.numel() + 1, device=dev, dtype=a.dtype)
+        return buf[1:].view(a.shape).copy_(a)
+
+    moved = [shifted(a) for a in args]
+    assert all(a.data_ptr() % 16 for a in moved)
+    for a, b in zip(tlstm.bidir_lstm_time_loop_bwd(*moved),
+                    tlstm.bidir_lstm_time_loop_bwd(*args)):
+        assert torch.equal(a, b)
 
 
 def test_k2_autograd_on_the_card_launches_k2_and_k2_bwd(dev):

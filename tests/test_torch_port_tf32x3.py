@@ -1,6 +1,6 @@
-"""The 3xTF32 arithmetic of the tensor-core kernels K1 (log-mel) and K2
-(BiLSTM time loop), emulated in plain torch on the CPU at the flagship
-widths.
+"""The 3xTF32 arithmetic of the tensor-core kernels K1 (log-mel), K2
+(BiLSTM time loop) and K2-bwd's cluster kernel (its backward), emulated in
+plain torch on the CPU at the flagship widths.
 
 Each operand of a tensor-core product is split into a TF32 hi word and a
 TF32 lo word, and lo*hi + hi*lo + hi*hi is summed in f32 (the lo*lo term is
@@ -9,9 +9,11 @@ dropped).  K1 rounds its samples' hi word and its DFT table with
 rest to TF32; K2 rounds h with ``cvt.rna`` and truncates its W_hh slice.
 The emulation takes the kernels' own split tables (``ops/cuda/logmel.py``
 ``_kernel_tables``) where they have them, so the fragment layout is
-checked too.  Tolerances are chip_smoke.py's: log-mel
-2e-3 absolute, BiLSTM 1e-4 absolute.  Inputs are made with numpy from a
-seed.
+checked too.  K2-bwd splits both its products the way K2 does: the
+rebuilt h (pass 1) and dxg_t (pass 2) with ``cvt.rna``, its W_hh slice by
+truncation.  Tolerances are chip_smoke.py's: log-mel 2e-3 absolute,
+BiLSTM 1e-4 absolute, K2-bwd 1e-4 of each output's scale.  Inputs are
+made with numpy from a seed.
 """
 
 import numpy as np
@@ -28,6 +30,7 @@ from torch_port_util import (golden_cfg, matmul_tf32x1, matmul_tf32x3,
 
 TOL_LOGMEL = 2e-3
 TOL_LSTM = 1e-4
+TOL_LSTM_BWD = 1e-4
 
 
 def _fp32(bits):
@@ -190,3 +193,93 @@ def test_lstm_one_tf32_product_is_not_enough():
     got = _lstm_emulated(*args, lambda h, w: matmul_tf32x1(h, w, "rna",
                                                            "rna"))
     assert _max_err(got, want) > TOL_LSTM
+
+
+def _lstm_bwd_emulated(xg_f, xg_b, m_f, m_b, w_hh, ys_f, ys_b, gy_f, gy_b,
+                       ghT, gcT, product):
+    """K2-bwd's twin with both serial products, the gates' recompute
+    h_{t-1} @ W_hh and dh's dxg_t @ W_hh^T, computed by ``product``; dW_hh
+    is the wrapper's f32 batched product."""
+    T, B, H4 = xg_f.shape
+    dxgs, dws = [], []
+    for d, (xg, m, ys, gy) in enumerate(((xg_f, m_f, ys_f, gy_f),
+                                         (xg_b, m_b, ys_b, gy_b))):
+        w = w_hh[d]
+        h = xg.new_zeros((B, H4 // 4))
+        c = xg.new_zeros((B, H4 // 4))
+        hs, cs, acts = [], [], []
+        for t in range(T):
+            mt = m[t][:, None]
+            i, f, g, o = torch.chunk(xg[t] + product(h, w), 4, dim=-1)
+            i, f, g, o = (torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g),
+                          torch.sigmoid(o))
+            hs.append(h)
+            cs.append(c)
+            acts.append((i, f, g, o))
+            c = mt * (f * c + i * g) + (1.0 - mt) * c
+            h = ys[t] + (1.0 - mt) * h
+        dh, dc = ghT[d], gcT[d]
+        dxg = xg.new_empty((T, B, H4))
+        for t in range(T - 1, -1, -1):
+            mt = m[t][:, None]
+            i, f, g, o = acts[t]
+            cp = cs[t]
+            tc = torch.tanh(f * cp + i * g)
+            dh2 = (gy[t] + dh) * mt
+            dc2 = mt * dc + dh2 * o * (1.0 - tc * tc)
+            da = torch.cat([dc2 * g * i * (1.0 - i), dc2 * cp * f * (1.0 - f),
+                            dc2 * i * (1.0 - g * g), dh2 * tc * o * (1.0 - o)],
+                           dim=-1)
+            dxg[t] = da
+            dc = (1.0 - mt) * dc + dc2 * f
+            dh = (1.0 - mt) * dh + product(da, w.T)
+        dxgs.append(dxg)
+        dws.append(torch.stack(hs).reshape(T * B, -1).T
+                   @ dxg.reshape(T * B, H4))
+    return dxgs[0], dxgs[1], torch.stack(dws)
+
+
+def _lstm_bwd_case(T=332, B=4, H=256, seed=6):
+    """Random non-prefix masks (the backward direction's too), ys from the
+    forward twin, random cotangents of ys and of the final state."""
+    rng = np.random.default_rng(seed)
+    xg_f, xg_b = (torch.from_numpy(rng.standard_normal((T, B, 4 * H),
+                                                       np.float32))
+                  for _ in range(2))
+    w = torch.from_numpy((rng.standard_normal((2, H, 4 * H)) / H ** 0.5)
+                         .astype(np.float32))
+    m_f, m_b = (torch.from_numpy((rng.random((T, B)) > 0.3)
+                                 .astype(np.float32)) for _ in range(2))
+    ys_f, ys_b, _, _ = tlstm.bidir_lstm_time_loop_plain(xg_f, xg_b, m_f, m_b,
+                                                        w)
+    cot = [torch.from_numpy(rng.standard_normal(s, np.float32))
+           for s in ((T, B, H), (T, B, H), (2, B, H), (2, B, H))]
+    return (xg_f, xg_b, m_f, m_b, w, ys_f, ys_b, *cot)
+
+
+def _rel_err(got, want):
+    return max(float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+               for a, b in zip(got, want))
+
+
+@pytest.fixture(scope="module")
+def lstm_bwd_case():
+    args = _lstm_bwd_case()
+    return args, tlstm.bidir_lstm_time_loop_bwd_plain(*args)
+
+
+def test_lstm_bwd_3xtf32_within_tolerance(lstm_bwd_case):
+    args, want = lstm_bwd_case
+    got = _lstm_bwd_emulated(*args, lambda a, b: matmul_tf32x3(a, b, "rna",
+                                                               "trunc"))
+    assert all(bool(torch.isfinite(a).all()) for a in got)
+    assert _rel_err(got, want) <= TOL_LSTM_BWD
+
+
+def test_lstm_bwd_one_tf32_product_is_not_enough(lstm_bwd_case):
+    """Why three, in the backward too: hi*hi alone drifts past the
+    tolerance through the reverse recurrence and the gates' recompute."""
+    args, want = lstm_bwd_case
+    got = _lstm_bwd_emulated(*args, lambda a, b: matmul_tf32x1(a, b, "rna",
+                                                               "rna"))
+    assert _rel_err(got, want) > TOL_LSTM_BWD

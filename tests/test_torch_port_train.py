@@ -286,8 +286,10 @@ def _lstm_case(Tn, B, H, seed):
 
 
 @pytest.mark.parametrize("shape", [(7, 3, 8, 0), (12, 5, 16, 1),
-                                   (5, 2, 12, 2)])
+                                   (5, 2, 12, 2), (9, 17, 64, 3)])
 def test_k2_function_gradients_match_jax_vjp(shape):
+    """(T, B, H, seed); H=64 is the cluster K2-bwd's smallest hidden size
+    on the card, B=17 a ragged second row tile."""
     prim, cot = _lstm_case(*shape)
     out_j, vjp = jax.vjp(_bidir_core_scan, *map(jnp.asarray, prim))
     g_j = vjp(tuple(map(jnp.asarray, cot)))
