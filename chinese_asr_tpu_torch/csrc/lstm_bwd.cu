@@ -39,7 +39,8 @@
 //   rule, tc.cuh `tc_mtiles`); CTA r owns hidden units [r*H/8, (r+1)*H/8)
 //   and their 4 gate columns.  Its W_hh slice (128 KB at H=256) stays in
 //   registers as the B fragments of `mma.m16n8k8` (128 a thread), the
-//   products are 3xTF32 (f32 accuracy), as in K2.
+//   products are 3xTF32 (f32 accuracy), as in K2 (the f32 instance; the
+//   bf16 one is below).
 //   - Pass 1 needs no exchange: the rebuilt h does not depend on an earlier
 //     product, so every CTA rebuilds the whole h_{t-1} of its rows in
 //     shared memory (A-fragment order) from ys and the masks, prefetched a
@@ -85,15 +86,62 @@
 // for the products, a pipelined exchange (bulk copies completing on an
 // mbarrier in place of the cluster barrier), and 16-CTA clusters so that
 // one tile spreads over twice the SMs.
+//
+// bf16 (`asr_bilstm_bwd_bf16`, K2-bwd-bf16, for bf16 training): both
+// kernels are templated on the operand type E, with K2-bf16's traits
+// (tc.cuh `Elt`).  JAX's bf16 backward is the VJP of its bf16 scan
+// (chinese_asr_tpu/ops/rnn.py:297 of :248), every op rounded to bf16.
+// Here xg, the masks, W_hh, ys, the cotangents, dxg and the scratch hs and
+// cs are bf16; the products are bf16 x bf16 with f32 accumulation
+// (`mma.m16n8k16`, one a k16 step where f32 takes three 3xTF32 m16n8k8);
+// each step's arithmetic is f32; and the rounding points are
+//   pass 1: c rounded at the end of each step, where K2-bf16 rounds it
+//     (the rolled-forward c is the forward's, or an ulp from it where sums
+//     run in another order); the activated gates rounded as they are kept
+//     in dxg's buffer (JAX keeps them in bf16 too); h, rebuilt from ys and
+//     0/1 masks, is exact;
+//   pass 2: dxg_t rounded as it is stored, that rounded value the A
+//     operand of dxg_t @ W_hh^T; the dh and dc carries rounded at the end
+//     of each step (JAX's carry type).
+// The W_hh slice is held as packed bf16 pairs (64 registers a thread at
+// H=256; pass 2 reloads W_hh^T's block in k16 B-fragment order), h and the
+// dxg slice sit in shared memory in m16n8k16 A-fragment order (`afrag`),
+// and a bf16 mask (2 bytes, under cp.async's 4) is loaded into a register
+// a step ahead.  dW_hh = hs^T dxg is accumulated in f32 and rounded once
+// (the wrapper's product), where JAX's reverse scan carries it as a bf16
+// running sum over the T steps: at [332, 32, 256] the port's dW_hh is
+// 4.2e-3 of its magnitude from a float64 VJP of the same bf16 inputs,
+// JAX's 5.0e-2 (tests/torch_port_bf16_gap.py).  Bound at [332, 32, 256]
+// with 75 % of the steps valid: the bf16 bytes, 0.033 ms; the three
+// products at the dense bf16 rate, 0.025 ms.
 #include "common.cuh"
 #include "tc.cuh"
 
 #include <cooperative_groups.h>
 #include <math.h>
+#include <stdint.h>
+#include <type_traits>
 
 namespace cg = cooperative_groups;
 
 namespace {
+
+// Two units' values: one float2 (f32) or one word of two bf16 (bf16, the
+// first unit in the low half; st2 rounds to nearest).
+__device__ __forceinline__ float2 unpack2(float2 v) { return v; }
+
+__device__ __forceinline__ float2 unpack2(uint32_t w) {
+    return make_float2(__uint_as_float(w << 16),
+                       __uint_as_float(w & 0xffff0000u));
+}
+
+__device__ __forceinline__ void st2(float* p, float a, float b) {
+    *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+__device__ __forceinline__ void st2(bf16* p, float a, float b) {
+    *reinterpret_cast<uint32_t*>(p) = pack_bf16(a, b);
+}
 
 // ---------------------------------------------------------------------------
 // tensor-core cluster kernel (CL, TC_THREADS and the helpers: tc.cuh)
@@ -101,20 +149,22 @@ namespace {
 constexpr int KG = 2;              // pass 1's warps: 2 k-halves x 4 column
 constexpr int NG = 4;              // quarters (K2's product)
 
-// The shapes of one instantiation: hidden size H (a multiple of 64, at most
-// 256) and MT m16 tiles of batch rows per cluster.
-template <int H, int MT>
+// The shapes of one instantiation: operand type E, hidden size H (a
+// multiple of 64, at most 256) and MT m16 tiles of batch rows per cluster.
+template <typename E, int H, int MT>
 struct BwdShape {
+    static constexpr bool BF = Elt<E>::BF16;
+    static constexpr int KSTEP = Elt<E>::KSTEP;  // k depth of one mma
     static constexpr int UC = H / CL;       // hidden units of one CTA
     static constexpr int COLS = 4 * UC;     // its gate columns (q*UC + u)
     static constexpr int R = 16 * MT;       // batch rows of one cluster
     // pass 1, K2's product h[R, H] @ W_hh[:, cols]: warps KG x NG
-    static constexpr int KS = H / 8;        // k8 steps over h
-    static constexpr int KPW = KS / KG;     // k8 steps of one warp
+    static constexpr int KS = H / KSTEP;    // mma k-steps over h
+    static constexpr int KPW = KS / KG;     // k-steps of one warp
     static constexpr int NPW = COLS / 8 / NG;   // n8 tiles of one warp
     static constexpr int PS = COLS + 8;     // partial-sum row stride
     // pass 2, dxg[R, cols] @ W_hh[units of CTA w, cols]^T on warp w
-    static constexpr int KS2 = COLS / 8;    // k8 steps over the columns
+    static constexpr int KS2 = COLS / KSTEP;    // mma k-steps over the cols
     static constexpr int NTU = UC / 8;      // n8 tiles of one CTA's units
     // the cell role: slot (m, j, lane) of pass 2's accumulator fragments
     // holds rows g, g+8 of m-tile m by units 8j + 2c, 8j + 2c + 1; a
@@ -123,57 +173,83 @@ struct BwdShape {
     static constexpr int PP = 2 * NSLOT <= TC_THREADS ? 2 : 4;
     static constexpr int RP = PP / 2;       // rows of one cell thread
     static constexpr int NLT = NSLOT * 4 / PP;  // threads of the cell role
-    static constexpr int HB = R * H;        // floats of one h buffer
-    static constexpr int YS = H + 4;        // ys tile row stride (no bank
-                                            // conflicts in the rebuild)
-    // shared memory in floats, pass 1: h [2][HB] in A-fragment order,
-    // part [KG][R][PS], ys [2][R][YS], masks [2][R], gates [2][RP*4][NLT]
-    // (float2); pass 2, over the same bytes: recv [2][CL][NSLOT] (float4)
-    // and the CTA's dxg slice [R * COLS] in A-fragment order, prefetch [RP*6][NLT] (float2) and masks [RP][NLT]
-    static constexpr int P1 = 2 * HB + KG * R * PS + 2 * R * YS + 2 * R
-                              + 2 * RP * 4 * NLT * 2;
-    static constexpr int RECV = 2 * CL * NSLOT * 4;
-    static constexpr int ATILE = R * COLS;
-    static constexpr int P2 = RECV + ATILE + RP * 6 * NLT * 2 + RP * NLT;
-    static constexpr size_t SMEM = (size_t)(P1 > P2 ? P1 : P2) * 4;
+    static constexpr int HB = R * H;        // elements of one h buffer
+    // ys tile row stride in elements (16-byte rows, no bank conflicts in
+    // the rebuild)
+    static constexpr int YS = H + (BF ? 8 : 4);
+    using P = std::conditional_t<BF, uint32_t, float2>;   // a unit pair
+    // shared memory, byte offsets.  Pass 1: h [2][HB] (E, A-fragment
+    // order), part [KG][R][PS] (f32), ys [2][R][YS] (E), masks [2][R]
+    // (f32), gates [2][RP*4][NLT] (P).  Pass 2, over the same bytes: recv
+    // [2][CL][NSLOT] (float4 partials), the CTA's dxg slice [R][COLS] (E,
+    // A-fragment order), prefetch [RP*6][NLT] (P), masks [RP][NLT] (f32).
+    static constexpr size_t O_PART = (size_t)2 * HB * sizeof(E);
+    static constexpr size_t O_YS = O_PART + (size_t)KG * R * PS * 4;
+    static constexpr size_t O_MK = O_YS + (size_t)2 * R * YS * sizeof(E);
+    static constexpr size_t O_XG = O_MK + (size_t)2 * R * 4;
+    static constexpr size_t P1 = O_XG + (size_t)2 * RP * 4 * NLT * sizeof(P);
+    static constexpr size_t O_AT = (size_t)2 * CL * NSLOT * 16;
+    static constexpr size_t O_PF = O_AT + (size_t)R * COLS * sizeof(E);
+    static constexpr size_t O_PM = O_PF + (size_t)RP * 6 * NLT * sizeof(P);
+    static constexpr size_t P2 = O_PM + (size_t)RP * NLT * 4;
+    static constexpr size_t SMEM = P1 > P2 ? P1 : P2;
     static_assert(H % 64 == 0 && KS % KG == 0 && NPW >= 1
                   && KPW == KS2 && NPW == NTU && NLT <= TC_THREADS
-                  && SMEM <= 232448, "shape");
+                  && O_XG % 16 == 0 && O_PF % 16 == 0 && SMEM <= 232448,
+                  "shape");
 };
 
-// Index of element (row r, column k) of an [R, 8*ks] operand kept in
-// A-fragment order (m16n8k8 tf32): for m-tile m, k8-step s and lane
-// l = 4g + c the float4 (r g, k 8s+c), (g+8, 8s+c), (g, 8s+c+4),
-// (g+8, 8s+c+4), so a warp's A operand of one (m, s) is one conflict-free
-// float4 load.
-template <int KSTEPS>
+// Index of element (row r, column k) of an [R, KSTEP*ks] operand kept in
+// A-fragment order, so that a warp's A operand of one (m-tile, k-step) is
+// one conflict-free 16-byte load a lane.  f32 (m16n8k8 tf32): for m-tile
+// m, k8-step s and lane l = 4g + c the float4 (r g, k 8s+c), (g+8, 8s+c),
+// (g, 8s+c+4), (g+8, 8s+c+4).  bf16 (m16n8k16): for k16-step s the eight
+// (g, 16s+2c), (g, 16s+2c+1), (g+8, 16s+2c), (g+8, 16s+2c+1), then the
+// same at columns 16s+2c+8 and +9 (K2-bf16's layout); units 2c and 2c+1
+// of a row are one word.
+template <typename E, int KSTEPS>
 __device__ __forceinline__ int afrag(int r, int k) {
-    return ((((r >> 4) * KSTEPS + (k >> 3)) * 32 + (r & 7) * 4 + (k & 3)) * 4)
-           + ((r >> 3) & 1) + 2 * ((k >> 2) & 1);
+    if constexpr (Elt<E>::BF16)
+        return (((r >> 4) * KSTEPS + (k >> 4)) * 32 + (r & 7) * 4
+                + ((k & 7) >> 1)) * 8
+               + ((k >> 3) & 1) * 4 + ((r >> 3) & 1) * 2 + (k & 1);
+    else
+        return ((((r >> 4) * KSTEPS + (k >> 3)) * 32 + (r & 7) * 4 + (k & 3))
+                * 4) + ((r >> 3) & 1) + 2 * ((k >> 2) & 1);
 }
 
-template <int H, int MT>
+// the rebuild of two bf16 units: y + k h, rounded (exact for 0/1 masks)
+__device__ __forceinline__ uint32_t rebuild2(uint32_t y, uint32_t h,
+                                             float k) {
+    const float2 a = unpack2(y), b = unpack2(h);
+    return pack_bf16(a.x + k * b.x, a.y + k * b.y);
+}
+
+template <typename E, int H, int MT>
 __global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(TC_THREADS, 1)
-bilstm_bwd_tc_kernel(const float* __restrict__ xg_f,
-                     const float* __restrict__ xg_b,
-                     const float* __restrict__ m_f,
-                     const float* __restrict__ m_b,
-                     const float* __restrict__ w_hh,
-                     const float* __restrict__ ys_f,
-                     const float* __restrict__ ys_b,
-                     const float* __restrict__ gy_f,
-                     const float* __restrict__ gy_b,
-                     const float* __restrict__ ghT,
-                     const float* __restrict__ gcT,
-                     float* __restrict__ dxg,
-                     float* __restrict__ hs,
-                     float* __restrict__ cs,
+bilstm_bwd_tc_kernel(const E* __restrict__ xg_f,
+                     const E* __restrict__ xg_b,
+                     const E* __restrict__ m_f,
+                     const E* __restrict__ m_b,
+                     const E* __restrict__ w_hh,
+                     const E* __restrict__ ys_f,
+                     const E* __restrict__ ys_b,
+                     const E* __restrict__ gy_f,
+                     const E* __restrict__ gy_b,
+                     const E* __restrict__ ghT,
+                     const E* __restrict__ gcT,
+                     E* __restrict__ dxg,
+                     E* __restrict__ hs,
+                     E* __restrict__ cs,
                      int T, int B) {
-    using S = BwdShape<H, MT>;
+    using S = BwdShape<E, H, MT>;
+    using X = Elt<E>;
+    using P = typename S::P;
+    constexpr bool BF = S::BF;
     constexpr int H4 = 4 * H;
     constexpr int R = S::R, UC = S::UC, NLT = S::NLT, RP = S::RP;
     extern __shared__ float4 smem4[];
-    float* sm = reinterpret_cast<float*>(smem4);
+    char* smc = reinterpret_cast<char*>(smem4);
     cg::cluster_group cluster = cg::this_cluster();
     const int rank = (int)cluster.block_rank();
     const int dir = blockIdx.y;
@@ -181,25 +257,25 @@ bilstm_bwd_tc_kernel(const float* __restrict__ xg_f,
     const int tid = threadIdx.x;
     const int warp = tid >> 5, lane = tid & 31;
     const int g = lane >> 2, tig = lane & 3;
-    const float* xg = dir ? xg_b : xg_f;
-    const float* mk = dir ? m_b : m_f;
-    const float* ys = dir ? ys_b : ys_f;
-    const float* gy = dir ? gy_b : gy_f;
-    const float* W = w_hh + (size_t)dir * H * H4;
-    float* dx = dxg + (size_t)dir * T * B * H4;
-    float* hq = hs + (size_t)dir * T * B * H;
-    float* cq = cs + (size_t)dir * T * B * H;
+    const E* xg = dir ? xg_b : xg_f;
+    const E* mk = dir ? m_b : m_f;
+    const E* ys = dir ? ys_b : ys_f;
+    const E* gy = dir ? gy_b : gy_f;
+    const E* W = w_hh + (size_t)dir * H * H4;
+    E* dx = dxg + (size_t)dir * T * B * H4;
+    E* hq = hs + (size_t)dir * T * B * H;
+    E* cq = cs + (size_t)dir * T * B * H;
 
     // the cell role: rows rrow(rp) (cluster-relative), units u0, u0 + 1 of
     // this CTA (U0 = its global unit), in both passes, so that pass 2
     // reads back only what this thread wrote in pass 1
     const bool nl = tid < NLT;
     const int slot = tid % S::NSLOT;
-    const int half = S::PP == 2 ? tid / S::NSLOT : 0;
+    const int hrow = S::PP == 2 ? tid / S::NSLOT : 0;   // the row half
     const int cm = slot / (S::NTU * 32);
     const int u0 = ((slot >> 5) % S::NTU) * 8 + 2 * tig;
     const int U0 = rank * UC + u0;
-    auto rrow = [&](int rp) { return cm * 16 + g + 8 * (half + rp); };
+    auto rrow = [&](int rp) { return cm * 16 + g + 8 * (hrow + rp); };
     bool valid[RP];
 #pragma unroll
     for (int rp = 0; rp < RP; ++rp) valid[rp] = nl && b0 + rrow(rp) < B;
@@ -208,15 +284,16 @@ bilstm_bwd_tc_kernel(const float* __restrict__ xg_f,
     // Every CTA rebuilds the whole h_{t-1} of its rows from ys and the
     // masks, multiplies it by its W_hh slice (K2's product), activates its
     // units' gates and rolls their c forward; no CTA waits on another.
-    float* hbuf = sm;                                  // [2][HB]
-    float* part = hbuf + 2 * S::HB;                    // [KG][R][PS]
-    float* ysb = part + KG * R * S::PS;                // [2][R][YS]
-    float* mkb = ysb + 2 * R * S::YS;                  // [2][R]
-    float2* xgb = reinterpret_cast<float2*>(mkb + 2 * R);  // [2][RP*4][NLT]
+    E* hbuf = reinterpret_cast<E*>(smc);                      // [2][HB]
+    float* part = reinterpret_cast<float*>(smc + S::O_PART);  // [KG][R][PS]
+    E* ysb = reinterpret_cast<E*>(smc + S::O_YS);             // [2][R][YS]
+    float* mkb = reinterpret_cast<float*>(smc + S::O_MK);     // [2][R]
+    P* xgb = reinterpret_cast<P*>(smc + S::O_XG);     // [2][RP*4][NLT]
 
     // This warp's B fragments of the W_hh slice, in registers for the whole
-    // pass (split into TF32 hi/lo at each use); pass 2 reloads them.
-    float wr[S::KPW][S::NPW][2];
+    // pass (f32, split into TF32 hi/lo at each use; or bf16 pairs: rows k,
+    // k+1 of one column in a word); pass 2 reloads them.
+    typename X::W wr[S::KPW][S::NPW][2];
     {
         const int kg = warp / NG, ng = warp % NG;
 #pragma unroll
@@ -224,56 +301,79 @@ bilstm_bwd_tc_kernel(const float* __restrict__ xg_f,
 #pragma unroll
             for (int j = 0; j < S::NPW; ++j) {
                 const int col = (ng * S::NPW + j) * 8 + g;
-                const int k = (kg * S::KPW + ks) * 8 + tig;
-                const float* w = W + (size_t)k * H4 + (col / UC) * H
-                                 + rank * UC + col % UC;
-                wr[ks][j][0] = w[0];
-                wr[ks][j][1] = w[(size_t)4 * H4];
+                const int c0 = (col / UC) * H + rank * UC + col % UC;
+                if constexpr (BF) {
+                    const int k = (kg * S::KPW + ks) * 16 + 2 * tig;
+                    const E* w = W + (size_t)k * H4 + c0;
+                    wr[ks][j][0] = pack_bf16(w[0], w[H4]);
+                    wr[ks][j][1] = pack_bf16(w[(size_t)8 * H4],
+                                             w[(size_t)9 * H4]);
+                } else {
+                    const int k = (kg * S::KPW + ks) * 8 + tig;
+                    const E* w = W + (size_t)k * H4 + c0;
+                    wr[ks][j][0] = w[0];
+                    wr[ks][j][1] = w[(size_t)4 * H4];
+                }
             }
         }
     }
-    for (int i = tid; i < S::HB; i += TC_THREADS) hbuf[i] = 0.f;   // h_{-1}
+    {                                                          // h_{-1}
+        uint32_t* hw = reinterpret_cast<uint32_t*>(hbuf);
+        constexpr int NW = (int)(S::HB * sizeof(E) / 4);
+        for (int i = tid; i < NW; i += TC_THREADS) hw[i] = 0u;
+    }
 
     // step t's ys rows and masks (the rebuild's) and this thread's gates,
-    // into buffer b; rows past B read as zeros
+    // into buffer b; rows past B read as zeros.  A bf16 mask (2 bytes, no
+    // cp.async) is loaded into mnext and stored by put_mask.
+    float mnext = 0.f;
     auto fetch1 = [&](int t, int b) {
-        constexpr int C4 = H / 4;
-        for (int i = tid; i < R * C4; i += TC_THREADS) {
-            const int r = i / C4, k4 = i % C4;
+        constexpr int CE = 16 / (int)sizeof(E);    // elements of 16 bytes
+        constexpr int C16 = H / CE;
+        for (int i = tid; i < R * C16; i += TC_THREADS) {
+            const int r = i / C16, k = (i % C16) * CE;
             const bool v = b0 + r < B;
-            cp_async<16>(ysb + (b * R + r) * S::YS + 4 * k4,
-                         v ? ys + ((size_t)t * B + b0 + r) * H + 4 * k4 : ys,
-                         v);
+            cp_async<16>(ysb + (b * R + r) * S::YS + k,
+                         v ? ys + ((size_t)t * B + b0 + r) * H + k : ys, v);
         }
-        if (tid < R)
-            cp_async<4>(mkb + b * R + tid,
-                        b0 + tid < B ? mk + (size_t)t * B + b0 + tid : mk,
-                        b0 + tid < B);
+        if (tid < R) {
+            const bool v = b0 + tid < B;
+            if constexpr (BF)
+                mnext = v ? X::ld(mk + (size_t)t * B + b0 + tid) : 0.f;
+            else
+                cp_async<4>(mkb + b * R + tid,
+                            v ? mk + (size_t)t * B + b0 + tid : mk, v);
+        }
         if (nl) {
 #pragma unroll
             for (int rp = 0; rp < RP; ++rp) {
-                const float* x = xg + ((size_t)t * B + b0 + rrow(rp)) * H4
-                                 + U0;
+                const E* x = xg + ((size_t)t * B + b0 + rrow(rp)) * H4 + U0;
 #pragma unroll
                 for (int q = 0; q < 4; ++q)
-                    cp_async<8>(xgb + (b * RP * 4 + rp * 4 + q) * NLT + tid,
-                                valid[rp] ? x + q * H : xg, valid[rp]);
+                    cp_async<(int)sizeof(P)>(
+                        xgb + (b * RP * 4 + rp * 4 + q) * NLT + tid,
+                        valid[rp] ? x + q * H : xg, valid[rp]);
             }
         }
         cp_async_commit();
+    };
+    auto put_mask = [&](int b) {
+        if constexpr (BF)
+            if (tid < R) mkb[b * R + tid] = mnext;
     };
 
     float c[S::PP];
 #pragma unroll
     for (int p = 0; p < S::PP; ++p) c[p] = 0.f;
     fetch1(0, 0);
+    put_mask(0);
     cp_async_wait_all();
     __syncthreads();
     for (int t = 0; t < T; ++t) {
         const int cur = t & 1;
         if (t + 1 < T) fetch1(t + 1, cur ^ 1);
-        const float* hc = hbuf + cur * S::HB;
-        // ---- gates' h_{t-1} @ W_hh part, 3xTF32 (K2's product) ----
+        const E* hc = hbuf + cur * S::HB;
+        // ---- gates' h_{t-1} @ W_hh part on the tensor cores (K2's) ----
         {
             const int kg = warp / NG, ng = warp % NG;
             float acc[MT][S::NPW][4];
@@ -286,33 +386,49 @@ bilstm_bwd_tc_kernel(const float* __restrict__ xg_f,
 #pragma unroll
             for (int ks = 0; ks < S::KPW; ++ks) {
                 const int s = kg * S::KPW + ks;
-                float4 ahi[MT], alo[MT];
+                if constexpr (BF) {
+                    // bf16 x bf16, f32 accumulation: one mma a k16 step
+                    uint4 a[MT];
 #pragma unroll
-                for (int m = 0; m < MT; ++m)
-                    split_rna(*reinterpret_cast<const float4*>(
-                                  hc + ((m * S::KS + s) * 32 + lane) * 4),
-                              ahi[m], alo[m]);
-                float bh[S::NPW][2], bl[S::NPW][2];
+                    for (int m = 0; m < MT; ++m)
+                        a[m] = *reinterpret_cast<const uint4*>(
+                            hc + ((m * S::KS + s) * 32 + lane) * 8);
 #pragma unroll
-                for (int j = 0; j < S::NPW; ++j) {
-                    split_tf32(wr[ks][j][0], bh[j][0], bl[j][0]);
-                    split_tf32(wr[ks][j][1], bh[j][1], bl[j][1]);
+                    for (int j = 0; j < S::NPW; ++j)
+#pragma unroll
+                        for (int m = 0; m < MT; ++m)
+                            mma_bf16(acc[m][j], a[m], wr[ks][j][0],
+                                     wr[ks][j][1]);
+                } else {
+                    // 3xTF32: f32 accuracy from three TF32 products
+                    float4 ahi[MT], alo[MT];
+#pragma unroll
+                    for (int m = 0; m < MT; ++m)
+                        split_rna(*reinterpret_cast<const float4*>(
+                                      hc + ((m * S::KS + s) * 32 + lane) * 4),
+                                  ahi[m], alo[m]);
+                    float bh[S::NPW][2], bl[S::NPW][2];
+#pragma unroll
+                    for (int j = 0; j < S::NPW; ++j) {
+                        split_tf32(wr[ks][j][0], bh[j][0], bl[j][0]);
+                        split_tf32(wr[ks][j][1], bh[j][1], bl[j][1]);
+                    }
+#pragma unroll
+                    for (int j = 0; j < S::NPW; ++j)
+#pragma unroll
+                        for (int m = 0; m < MT; ++m)
+                            mma_tf32(acc[m][j], alo[m], bh[j][0], bh[j][1]);
+#pragma unroll
+                    for (int j = 0; j < S::NPW; ++j)
+#pragma unroll
+                        for (int m = 0; m < MT; ++m)
+                            mma_tf32(acc[m][j], ahi[m], bl[j][0], bl[j][1]);
+#pragma unroll
+                    for (int j = 0; j < S::NPW; ++j)
+#pragma unroll
+                        for (int m = 0; m < MT; ++m)
+                            mma_tf32(acc[m][j], ahi[m], bh[j][0], bh[j][1]);
                 }
-#pragma unroll
-                for (int j = 0; j < S::NPW; ++j)
-#pragma unroll
-                    for (int m = 0; m < MT; ++m)
-                        mma_tf32(acc[m][j], alo[m], bh[j][0], bh[j][1]);
-#pragma unroll
-                for (int j = 0; j < S::NPW; ++j)
-#pragma unroll
-                    for (int m = 0; m < MT; ++m)
-                        mma_tf32(acc[m][j], ahi[m], bl[j][0], bl[j][1]);
-#pragma unroll
-                for (int j = 0; j < S::NPW; ++j)
-#pragma unroll
-                    for (int m = 0; m < MT; ++m)
-                        mma_tf32(acc[m][j], ahi[m], bh[j][0], bh[j][1]);
             }
 #pragma unroll
             for (int m = 0; m < MT; ++m) {
@@ -337,8 +453,8 @@ bilstm_bwd_tc_kernel(const float* __restrict__ xg_f,
                 float a[4][2];
 #pragma unroll
                 for (int q = 0; q < 4; ++q) {
-                    const float2 x = xgb[(cur * RP * 4 + rp * 4 + q) * NLT
-                                         + tid];
+                    const float2 x = unpack2(
+                        xgb[(cur * RP * 4 + rp * 4 + q) * NLT + tid]);
                     const int o = r * S::PS + q * UC + u0;
                     const float2 p0 = *reinterpret_cast<const float2*>(
                         part + o);
@@ -357,40 +473,69 @@ bilstm_bwd_tc_kernel(const float* __restrict__ xg_f,
                     a[2][e] = tanhf(a[2][e]);
                     a[3][e] = sigmoid(a[3][e]);
                     cp[e] = c[p];
-                    c[p] = m * (a[1][e] * c[p] + a[0][e] * a[2][e])
-                           + (1.f - m) * c[p];
+                    // bf16 rounds c where K2-bf16 does
+                    c[p] = X::rnd(m * (a[1][e] * c[p] + a[0][e] * a[2][e])
+                                  + (1.f - m) * c[p]);
                 }
                 if (valid[rp]) {
                     const size_t row = (size_t)t * B + b0 + r;
-                    float* d = dx + row * H4 + U0;
+                    E* d = dx + row * H4 + U0;
+                    // the activated gates, rounded to E for pass 2
 #pragma unroll
                     for (int q = 0; q < 4; ++q)
-                        *reinterpret_cast<float2*>(d + q * H) =
-                            make_float2(a[q][0], a[q][1]);
-                    *reinterpret_cast<float2*>(hq + row * H + U0) =
-                        make_float2(hc[afrag<S::KS>(r, U0)],
-                                    hc[afrag<S::KS>(r, U0 + 1)]);
-                    *reinterpret_cast<float2*>(cq + row * H + U0) =
-                        make_float2(cp[0], cp[1]);
+                        st2(d + q * H, a[q][0], a[q][1]);
+                    if constexpr (BF) {
+                        *reinterpret_cast<uint32_t*>(hq + row * H + U0) =
+                            *reinterpret_cast<const uint32_t*>(
+                                hc + afrag<E, S::KS>(r, U0));
+                    } else {
+                        st2(hq + row * H + U0, hc[afrag<E, S::KS>(r, U0)],
+                            hc[afrag<E, S::KS>(r, U0 + 1)]);
+                    }
+                    st2(cq + row * H + U0, cp[0], cp[1]);
                 }
             }
         }
         // ---- the rebuild: h_t = y_t + (1 - m_t) h_{t-1}, all units ----
         if (t + 1 < T) {
-            const float4* hp4 = reinterpret_cast<const float4*>(hc);
-            float4* hn4 = reinterpret_cast<float4*>(hbuf + (cur ^ 1) * S::HB);
-            const float* yb = ysb + cur * R * S::YS;
+            const E* yb = ysb + cur * R * S::YS;
             const float* mb = mkb + cur * R;
-            for (int i = tid; i < S::HB / 4; i += TC_THREADS) {
-                const int r = (i / (S::KS * 32)) * 16 + ((i & 31) >> 2);
-                const int k = ((i >> 5) % S::KS) * 8 + (i & 3);
-                const float k0 = 1.f - mb[r], k1 = 1.f - mb[r + 8];
-                const float4 h = hp4[i];
-                hn4[i] = make_float4(yb[r * S::YS + k] + k0 * h.x,
-                                     yb[(r + 8) * S::YS + k] + k1 * h.y,
-                                     yb[r * S::YS + k + 4] + k0 * h.z,
-                                     yb[(r + 8) * S::YS + k + 4] + k1 * h.w);
+            if constexpr (BF) {
+                // one 16-byte chunk (m, s, lane) a thread: rows r, r+8 by
+                // units k, k+1, k+8, k+9 (afrag's order)
+                const uint4* hp4 = reinterpret_cast<const uint4*>(hc);
+                uint4* hn4 = reinterpret_cast<uint4*>(hbuf + (cur ^ 1) * S::HB);
+                for (int i = tid; i < S::HB / 8; i += TC_THREADS) {
+                    const int r = (i / (S::KS * 32)) * 16 + ((i & 31) >> 2);
+                    const int k = ((i >> 5) % S::KS) * 16 + 2 * (i & 3);
+                    const float k0 = 1.f - mb[r], k1 = 1.f - mb[r + 8];
+                    auto yw = [&](int rr, int kk) {
+                        return *reinterpret_cast<const uint32_t*>(
+                            yb + rr * S::YS + kk);
+                    };
+                    const uint4 h = hp4[i];
+                    hn4[i] = make_uint4(rebuild2(yw(r, k), h.x, k0),
+                                        rebuild2(yw(r + 8, k), h.y, k1),
+                                        rebuild2(yw(r, k + 8), h.z, k0),
+                                        rebuild2(yw(r + 8, k + 8), h.w, k1));
+                }
+            } else {
+                const float4* hp4 = reinterpret_cast<const float4*>(hc);
+                float4* hn4 =
+                    reinterpret_cast<float4*>(hbuf + (cur ^ 1) * S::HB);
+                for (int i = tid; i < S::HB / 4; i += TC_THREADS) {
+                    const int r = (i / (S::KS * 32)) * 16 + ((i & 31) >> 2);
+                    const int k = ((i >> 5) % S::KS) * 8 + (i & 3);
+                    const float k0 = 1.f - mb[r], k1 = 1.f - mb[r + 8];
+                    const float4 h = hp4[i];
+                    hn4[i] = make_float4(yb[r * S::YS + k] + k0 * h.x,
+                                         yb[(r + 8) * S::YS + k] + k1 * h.y,
+                                         yb[r * S::YS + k + 4] + k0 * h.z,
+                                         yb[(r + 8) * S::YS + k + 4]
+                                             + k1 * h.w);
+                }
             }
+            put_mask(cur ^ 1);
         }
         cp_async_wait_all();
         __syncthreads();
@@ -404,39 +549,53 @@ bilstm_bwd_tc_kernel(const float* __restrict__ xg_f,
     // K2's bytes, and no wait before the product); one cluster barrier a
     // step, and the owner sums the 8 partials.
     float4* recv = smem4;
-    float* atile = sm + S::RECV;
-    float2* pf = reinterpret_cast<float2*>(atile + S::ATILE);
-    float* pm = reinterpret_cast<float*>(pf + RP * 6 * NLT);
+    E* atile = reinterpret_cast<E*>(smc + S::O_AT);
+    P* pf = reinterpret_cast<P*>(smc + S::O_PF);
+    float* pm = reinterpret_cast<float*>(smc + S::O_PM);
 
-    // B fragments of W_hh[units of CTA `warp`, this CTA's columns]^T
+    // B fragments of W_hh[units of CTA `warp`, this CTA's columns]^T: its
+    // element (k, n) is W_hh[n][column k of this CTA]
 #pragma unroll
     for (int s = 0; s < S::KS2; ++s) {
 #pragma unroll
         for (int j = 0; j < S::NTU; ++j) {
-#pragma unroll
-            for (int b = 0; b < 2; ++b) {
-                const int k = 8 * s + tig + 4 * b;
-                wr[s][j][b] = W[(size_t)(warp * UC + j * 8 + g) * H4
-                                + (k / UC) * H + rank * UC + k % UC];
+            const E* wn = W + (size_t)(warp * UC + j * 8 + g) * H4;
+            auto wt = [&](int k) { return wn[(k / UC) * H + rank * UC
+                                             + k % UC]; };
+            if constexpr (BF) {
+                const int k = 16 * s + 2 * tig;
+                wr[s][j][0] = pack_bf16(wt(k), wt(k + 1));
+                wr[s][j][1] = pack_bf16(wt(k + 8), wt(k + 9));
+            } else {
+                wr[s][j][0] = wt(8 * s + tig);
+                wr[s][j][1] = wt(8 * s + tig + 4);
             }
         }
     }
     // step t's activated gates, c_{t-1}, gy_t and mask of this thread's
-    // elements (what it wrote in pass 1), zeros past B
+    // elements (what it wrote in pass 1), zeros past B; a bf16 mask goes
+    // to mreg
+    float mreg[RP];
+#pragma unroll
+    for (int rp = 0; rp < RP; ++rp) mreg[rp] = 0.f;
     auto fetch2 = [&](int t) {
 #pragma unroll
         for (int rp = 0; rp < RP; ++rp) {
             const size_t row = (size_t)t * B + b0 + rrow(rp);
             const bool v = valid[rp];
+            constexpr int NB = (int)sizeof(P);
 #pragma unroll
             for (int q = 0; q < 4; ++q)
-                cp_async<8>(pf + (rp * 6 + q) * NLT + tid,
-                            v ? dx + row * H4 + q * H + U0 : dx, v);
-            cp_async<8>(pf + (rp * 6 + 4) * NLT + tid,
-                        v ? cq + row * H + U0 : cq, v);
-            cp_async<8>(pf + (rp * 6 + 5) * NLT + tid,
-                        v ? gy + row * H + U0 : gy, v);
-            cp_async<4>(pm + rp * NLT + tid, v ? mk + row : mk, v);
+                cp_async<NB>(pf + (rp * 6 + q) * NLT + tid,
+                             v ? dx + row * H4 + q * H + U0 : dx, v);
+            cp_async<NB>(pf + (rp * 6 + 4) * NLT + tid,
+                         v ? cq + row * H + U0 : cq, v);
+            cp_async<NB>(pf + (rp * 6 + 5) * NLT + tid,
+                         v ? gy + row * H + U0 : gy, v);
+            if constexpr (BF)
+                mreg[rp] = v ? X::ld(mk + row) : 0.f;
+            else
+                cp_async<4>(pm + rp * NLT + tid, v ? mk + row : mk, v);
         }
         cp_async_commit();
     };
@@ -446,8 +605,8 @@ bilstm_bwd_tc_kernel(const float* __restrict__ xg_f,
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
             const size_t o = ((size_t)dir * B + b0 + rrow(rp)) * H + U0 + e;
-            dh[2 * rp + e] = valid[rp] ? ghT[o] : 0.f;
-            dc[2 * rp + e] = valid[rp] ? gcT[o] : 0.f;
+            dh[2 * rp + e] = valid[rp] ? X::ld(ghT + o) : 0.f;
+            dc[2 * rp + e] = valid[rp] ? X::ld(gcT + o) : 0.f;
         }
     }
     // every CTA is done with pass 1's buffers before any writes into them
@@ -473,12 +632,13 @@ bilstm_bwd_tc_kernel(const float* __restrict__ xg_f,
                         sum[S::PP - 2] += v.z;
                         sum[S::PP - 1] += v.w;
                     } else {
-                        sum[0] += half ? v.z : v.x;
-                        sum[1] += half ? v.w : v.y;
+                        sum[0] += hrow ? v.z : v.x;
+                        sum[1] += hrow ? v.w : v.y;
                     }
                 }
+                // bf16 rounds the dh carry at the end of each step
 #pragma unroll
-                for (int p = 0; p < S::PP; ++p) dh[p] += sum[p];
+                for (int p = 0; p < S::PP; ++p) dh[p] = X::rnd(dh[p] + sum[p]);
             }
         }
         // ---- the cell: dxg_t of this thread's elements ----
@@ -490,10 +650,10 @@ bilstm_bwd_tc_kernel(const float* __restrict__ xg_f,
                 float2 a[4];
 #pragma unroll
                 for (int q = 0; q < 4; ++q)
-                    a[q] = pf[(rp * 6 + q) * NLT + tid];
-                const float2 cp2 = pf[(rp * 6 + 4) * NLT + tid];
-                const float2 gy2 = pf[(rp * 6 + 5) * NLT + tid];
-                const float m = pm[rp * NLT + tid];
+                    a[q] = unpack2(pf[(rp * 6 + q) * NLT + tid]);
+                const float2 cp2 = unpack2(pf[(rp * 6 + 4) * NLT + tid]);
+                const float2 gy2 = unpack2(pf[(rp * 6 + 5) * NLT + tid]);
+                const float m = BF ? mreg[rp] : pm[rp * NLT + tid];
                 float da[4][2];
 #pragma unroll
                 for (int e = 0; e < 2; ++e) {
@@ -506,29 +666,38 @@ bilstm_bwd_tc_kernel(const float* __restrict__ xg_f,
                     const float tc = tanhf(fg * cp + ig * gg);
                     const float dh2 = ((e ? gy2.y : gy2.x) + dh[p]) * m;
                     const float dc2 = m * dc[p] + dh2 * og * (1.f - tc * tc);
-                    da[0][e] = dc2 * gg * ig * (1.f - ig);
-                    da[1][e] = dc2 * cp * fg * (1.f - fg);
-                    da[2][e] = dc2 * ig * (1.f - gg * gg);
-                    da[3][e] = dh2 * tc * og * (1.f - og);
-                    dc[p] = (1.f - m) * dc[p] + dc2 * fg;
+                    // dxg_t as it is stored (bf16: rounded, then the
+                    // product's operand)
+                    da[0][e] = X::rnd(dc2 * gg * ig * (1.f - ig));
+                    da[1][e] = X::rnd(dc2 * cp * fg * (1.f - fg));
+                    da[2][e] = X::rnd(dc2 * ig * (1.f - gg * gg));
+                    da[3][e] = X::rnd(dh2 * tc * og * (1.f - og));
+                    dc[p] = X::rnd((1.f - m) * dc[p] + dc2 * fg);
                     dh[p] = (1.f - m) * dh[p];
+                }
 #pragma unroll
-                    for (int q = 0; q < 4; ++q)
-                        atile[afrag<S::KS2>(r, q * UC + u0 + e)] = da[q][e];
+                for (int q = 0; q < 4; ++q) {
+                    const int k = q * UC + u0;
+                    if constexpr (BF) {
+                        st2(atile + afrag<E, S::KS2>(r, k), da[q][0],
+                            da[q][1]);
+                    } else {
+                        atile[afrag<E, S::KS2>(r, k)] = da[q][0];
+                        atile[afrag<E, S::KS2>(r, k + 1)] = da[q][1];
+                    }
                 }
                 if (valid[rp]) {
-                    float* d = dx + ((size_t)t * B + b0 + r) * H4 + U0;
+                    E* d = dx + ((size_t)t * B + b0 + r) * H4 + U0;
 #pragma unroll
                     for (int q = 0; q < 4; ++q)
-                        *reinterpret_cast<float2*>(d + q * H) =
-                            make_float2(da[q][0], da[q][1]);
+                        st2(d + q * H, da[q][0], da[q][1]);
                 }
             }
         }
         if (t == 0) break;            // h_{-1} = 0 is no input: no dh_{-1}
         __syncthreads();
 
-        // ---- dxg_t slice @ W_hh[units of CTA warp, cols]^T, 3xTF32 ----
+        // ---- dxg_t slice @ W_hh[units of CTA warp, cols]^T ----
         float acc[MT][S::NTU][4];
 #pragma unroll
         for (int m = 0; m < MT; ++m)
@@ -538,33 +707,46 @@ bilstm_bwd_tc_kernel(const float* __restrict__ xg_f,
                 for (int e = 0; e < 4; ++e) acc[m][j][e] = 0.f;
 #pragma unroll
         for (int s = 0; s < S::KS2; ++s) {
-            float4 ahi[MT], alo[MT];
+            if constexpr (BF) {
+                uint4 a[MT];
 #pragma unroll
-            for (int m = 0; m < MT; ++m)
-                split_rna(*reinterpret_cast<const float4*>(
-                              atile + ((m * S::KS2 + s) * 32 + lane) * 4),
-                          ahi[m], alo[m]);
-            float bh[S::NTU][2], bl[S::NTU][2];
+                for (int m = 0; m < MT; ++m)
+                    a[m] = *reinterpret_cast<const uint4*>(
+                        atile + ((m * S::KS2 + s) * 32 + lane) * 8);
 #pragma unroll
-            for (int j = 0; j < S::NTU; ++j) {
-                split_tf32(wr[s][j][0], bh[j][0], bl[j][0]);
-                split_tf32(wr[s][j][1], bh[j][1], bl[j][1]);
+                for (int j = 0; j < S::NTU; ++j)
+#pragma unroll
+                    for (int m = 0; m < MT; ++m)
+                        mma_bf16(acc[m][j], a[m], wr[s][j][0], wr[s][j][1]);
+            } else {
+                float4 ahi[MT], alo[MT];
+#pragma unroll
+                for (int m = 0; m < MT; ++m)
+                    split_rna(*reinterpret_cast<const float4*>(
+                                  atile + ((m * S::KS2 + s) * 32 + lane) * 4),
+                              ahi[m], alo[m]);
+                float bh[S::NTU][2], bl[S::NTU][2];
+#pragma unroll
+                for (int j = 0; j < S::NTU; ++j) {
+                    split_tf32(wr[s][j][0], bh[j][0], bl[j][0]);
+                    split_tf32(wr[s][j][1], bh[j][1], bl[j][1]);
+                }
+#pragma unroll
+                for (int j = 0; j < S::NTU; ++j)
+#pragma unroll
+                    for (int m = 0; m < MT; ++m)
+                        mma_tf32(acc[m][j], alo[m], bh[j][0], bh[j][1]);
+#pragma unroll
+                for (int j = 0; j < S::NTU; ++j)
+#pragma unroll
+                    for (int m = 0; m < MT; ++m)
+                        mma_tf32(acc[m][j], ahi[m], bl[j][0], bl[j][1]);
+#pragma unroll
+                for (int j = 0; j < S::NTU; ++j)
+#pragma unroll
+                    for (int m = 0; m < MT; ++m)
+                        mma_tf32(acc[m][j], ahi[m], bh[j][0], bh[j][1]);
             }
-#pragma unroll
-            for (int j = 0; j < S::NTU; ++j)
-#pragma unroll
-                for (int m = 0; m < MT; ++m)
-                    mma_tf32(acc[m][j], alo[m], bh[j][0], bh[j][1]);
-#pragma unroll
-            for (int j = 0; j < S::NTU; ++j)
-#pragma unroll
-                for (int m = 0; m < MT; ++m)
-                    mma_tf32(acc[m][j], ahi[m], bl[j][0], bl[j][1]);
-#pragma unroll
-            for (int j = 0; j < S::NTU; ++j)
-#pragma unroll
-                for (int m = 0; m < MT; ++m)
-                    mma_tf32(acc[m][j], ahi[m], bh[j][0], bh[j][1]);
         }
         // the partial of CTA `warp`'s units into its slot for this CTA
         float4* out = recv + ((t & 1) * CL + rank) * S::NSLOT + lane;
@@ -581,14 +763,21 @@ bilstm_bwd_tc_kernel(const float* __restrict__ xg_f,
     }
 }
 
-template <int H, int MT>
-int bwd_tc_launch(const float* const* in, float* dxg, float* hs, float* cs,
-                  int T, int B, cudaStream_t s, int* plan) {
-    using S = BwdShape<H, MT>;
-    const auto kernel = bilstm_bwd_tc_kernel<H, MT>;
-    const int rc = asr_allow_smem(kernel, S::SMEM);
+// The operands of one call of either kernel.
+template <typename E>
+struct BwdArgs {
+    const E* in[12];    // xg_f, xg_b, m_f, m_b, w_hh, w_t, ys_f, ys_b,
+                        // gy_f, gy_b, ghT, gcT
+    E *dxg, *hs, *cs;
+    int T, B;
+};
+
+template <typename E, int H, int MT>
+int bwd_tc_launch(const BwdArgs<E>& a, cudaStream_t s, int* plan) {
+    using S = BwdShape<E, H, MT>;
+    const int rc = asr_allow_smem(bilstm_bwd_tc_kernel<E, H, MT>, S::SMEM);
     if (rc) return rc;
-    const dim3 grid((B + S::R - 1) / S::R * CL, 2);
+    const dim3 grid((a.B + S::R - 1) / S::R * CL, 2);
     if (plan) {                 // rows per cluster, clusters, max resident
         cudaLaunchConfig_t cfg = {};
         cfg.gridDim = grid;
@@ -596,38 +785,37 @@ int bwd_tc_launch(const float* const* in, float* dxg, float* hs, float* cs,
         cfg.dynamicSmemBytes = S::SMEM;
         int n = 0;
         const cudaError_t e = cudaOccupancyMaxActiveClusters(
-            &n, (const void*)kernel, &cfg);
+            &n, (const void*)bilstm_bwd_tc_kernel<E, H, MT>, &cfg);
         if (e != cudaSuccess) return (int)e;
         plan[0] = S::R;
         plan[1] = (int)(grid.x / CL * grid.y);
         plan[2] = n;
         return 0;
     }
-    bilstm_bwd_tc_kernel<H, MT><<<grid, TC_THREADS, S::SMEM, s>>>(
+    const E* const* in = a.in;
+    bilstm_bwd_tc_kernel<E, H, MT><<<grid, TC_THREADS, S::SMEM, s>>>(
         in[0], in[1], in[2], in[3], in[4], in[6], in[7], in[8], in[9],
-        in[10], in[11], dxg, hs, cs, T, B);
+        in[10], in[11], a.dxg, a.hs, a.cs, a.T, a.B);
     return (int)cudaGetLastError();
 }
 
-template <int H>
-int bwd_tc_dispatch_mt(const float* const* in, float* dxg, float* hs,
-                       float* cs, int T, int B, cudaStream_t s, int* plan) {
-    if (tc_mtiles(B) == 1)
-        return bwd_tc_launch<H, 1>(in, dxg, hs, cs, T, B, s, plan);
-    return bwd_tc_launch<H, 2>(in, dxg, hs, cs, T, B, s, plan);
+template <typename E, int H>
+int bwd_tc_dispatch_mt(const BwdArgs<E>& a, cudaStream_t s, int* plan) {
+    if (tc_mtiles(a.B) == 1) return bwd_tc_launch<E, H, 1>(a, s, plan);
+    return bwd_tc_launch<E, H, 2>(a, s, plan);
 }
 
-int bwd_tc_dispatch(int H, const float* const* in, float* dxg, float* hs,
-                    float* cs, int T, int B, cudaStream_t s, int* plan) {
+template <typename E>
+int bwd_tc_dispatch(int H, const BwdArgs<E>& a, cudaStream_t s, int* plan) {
     switch (H) {
     case 64:
-        return bwd_tc_dispatch_mt<64>(in, dxg, hs, cs, T, B, s, plan);
+        return bwd_tc_dispatch_mt<E, 64>(a, s, plan);
     case 128:
-        return bwd_tc_dispatch_mt<128>(in, dxg, hs, cs, T, B, s, plan);
+        return bwd_tc_dispatch_mt<E, 128>(a, s, plan);
     case 192:
-        return bwd_tc_dispatch_mt<192>(in, dxg, hs, cs, T, B, s, plan);
+        return bwd_tc_dispatch_mt<E, 192>(a, s, plan);
     default:
-        return bwd_tc_dispatch_mt<256>(in, dxg, hs, cs, T, B, s, plan);
+        return bwd_tc_dispatch_mt<E, 256>(a, s, plan);
     }
 }
 
@@ -637,25 +825,27 @@ int bwd_tc_dispatch(int H, const float* const* in, float* dxg, float* hs,
 // A block holds R batch rows and KS >= R threads a hidden unit j: thread
 // (q, j) sums every KS-th k of the step's products for all R rows, and
 // finishes row q < R (its h, c in pass 1 and dh, dc in pass 2 stay in its
-// registers).
-template <int KS, int R>
+// registers).  Shared memory and sums are f32; a bf16 instance rounds
+// where the cluster kernel does.
+template <typename E, int KS, int R>
 __global__ void __launch_bounds__(1024)
-bilstm_bwd_kernel(const float* __restrict__ xg_f,
-                  const float* __restrict__ xg_b,
-                  const float* __restrict__ m_f,
-                  const float* __restrict__ m_b,
-                  const float* __restrict__ w_hh,
-                  const float* __restrict__ w_t,
-                  const float* __restrict__ ys_f,
-                  const float* __restrict__ ys_b,
-                  const float* __restrict__ gy_f,
-                  const float* __restrict__ gy_b,
-                  const float* __restrict__ ghT,
-                  const float* __restrict__ gcT,
-                  float* __restrict__ dxg,
-                  float* __restrict__ hs,
-                  float* __restrict__ cs,
+bilstm_bwd_kernel(const E* __restrict__ xg_f,
+                  const E* __restrict__ xg_b,
+                  const E* __restrict__ m_f,
+                  const E* __restrict__ m_b,
+                  const E* __restrict__ w_hh,
+                  const E* __restrict__ w_t,
+                  const E* __restrict__ ys_f,
+                  const E* __restrict__ ys_b,
+                  const E* __restrict__ gy_f,
+                  const E* __restrict__ gy_b,
+                  const E* __restrict__ ghT,
+                  const E* __restrict__ gcT,
+                  E* __restrict__ dxg,
+                  E* __restrict__ hs,
+                  E* __restrict__ cs,
                   int T, int B, int H) {
+    using X = Elt<E>;
     // tile: h_{t-1} rows [R][H] (pass 1) or dxg_t rows [R][4H] (pass 2);
     // part: the KS partial sums, [KS][R][4][H] (pass 1) or [KS][R][H]
     extern __shared__ float4 smem4[];
@@ -670,15 +860,15 @@ bilstm_bwd_kernel(const float* __restrict__ xg_f,
     const int nb = min(R, B - b0);
     const bool mine = active && q < nb;      // this thread's row is real
     const int H4 = 4 * H;
-    const float* xg = dir ? xg_b : xg_f;
-    const float* mk = dir ? m_b : m_f;
-    const float* ys = dir ? ys_b : ys_f;
-    const float* gy = dir ? gy_b : gy_f;
-    const float* W = w_hh + (size_t)dir * H * H4;
-    const float* WT = w_t + (size_t)dir * H4 * H;
-    float* dx = dxg + (size_t)dir * T * B * H4;
-    float* hq = hs + (size_t)dir * T * B * H;
-    float* cq = cs + (size_t)dir * T * B * H;
+    const E* xg = dir ? xg_b : xg_f;
+    const E* mk = dir ? m_b : m_f;
+    const E* ys = dir ? ys_b : ys_f;
+    const E* gy = dir ? gy_b : gy_f;
+    const E* W = w_hh + (size_t)dir * H * H4;
+    const E* WT = w_t + (size_t)dir * H4 * H;
+    E* dx = dxg + (size_t)dir * T * B * H4;
+    E* hq = hs + (size_t)dir * T * B * H;
+    E* cq = cs + (size_t)dir * T * B * H;
 
     // ---- pass 1: forward in time ---------------------------------------
     float h = 0.f, c = 0.f;
@@ -686,8 +876,8 @@ bilstm_bwd_kernel(const float* __restrict__ xg_f,
         const size_t row = (size_t)t * B + b0 + q;
         if (active) {
             if (mine) {
-                hq[row * H + j] = h;
-                cq[row * H + j] = c;
+                X::st(hq + row * H + j, h);
+                X::st(cq + row * H + j, c);
             }
             if (q < R) tile[q * H + j] = h;
         }
@@ -696,19 +886,19 @@ bilstm_bwd_kernel(const float* __restrict__ xg_f,
             float acc[R][4];
 #pragma unroll
             for (int b = 0; b < R; ++b) {
-                const float* x = xg + ((size_t)t * B + b0 + b) * H4 + j;
+                const E* x = xg + ((size_t)t * B + b0 + b) * H4 + j;
 #pragma unroll
                 for (int g = 0; g < 4; ++g)
-                    acc[b][g] = (q == 0 && b < nb) ? x[g * H] : 0.f;
+                    acc[b][g] = (q == 0 && b < nb) ? X::ld(x + g * H) : 0.f;
             }
-            const float* wj = W + j;
+            const E* wj = W + j;
 #pragma unroll 2
             for (int k = q; k < H; k += KS) {
-                const float* wr = wj + (size_t)k * H4;
-                const float w0 = __ldg(wr);
-                const float w1 = __ldg(wr + H);
-                const float w2 = __ldg(wr + 2 * H);
-                const float w3 = __ldg(wr + 3 * H);
+                const E* wr = wj + (size_t)k * H4;
+                const float w0 = X::ldg(wr);
+                const float w1 = X::ldg(wr + H);
+                const float w2 = X::ldg(wr + 2 * H);
+                const float w3 = X::ldg(wr + 3 * H);
 #pragma unroll
                 for (int b = 0; b < R; ++b) {
                     const float hv = tile[b * H + k];
@@ -738,14 +928,14 @@ bilstm_bwd_kernel(const float* __restrict__ xg_f,
             const float fg = sigmoid(a[1]);
             const float gg = tanhf(a[2]);
             const float og = sigmoid(a[3]);
-            const float m = mk[row];
-            c = m * (fg * c + ig * gg) + (1.f - m) * c;
-            h = ys[row * H + j] + (1.f - m) * h;
-            float* d = dx + row * H4 + j;
-            d[0] = ig;
-            d[H] = fg;
-            d[2 * H] = gg;
-            d[3 * H] = og;
+            const float m = X::ld(mk + row);
+            c = X::rnd(m * (fg * c + ig * gg) + (1.f - m) * c);
+            h = X::rnd(X::ld(ys + row * H + j) + (1.f - m) * h);
+            E* d = dx + row * H4 + j;
+            X::st(d, ig);
+            X::st(d + H, fg);
+            X::st(d + 2 * H, gg);
+            X::st(d + 3 * H, og);
         }
     }
 
@@ -753,8 +943,8 @@ bilstm_bwd_kernel(const float* __restrict__ xg_f,
     float dh = 0.f, dc = 0.f;
     if (mine) {
         const size_t o = ((size_t)dir * B + b0 + q) * H + j;
-        dh = ghT[o];
-        dc = gcT[o];
+        dh = X::ld(ghT + o);
+        dc = X::ld(gcT + o);
     }
     const float4* tile4 = smem4;
     for (int t = T - 1; t >= 0; --t) {
@@ -762,21 +952,21 @@ bilstm_bwd_kernel(const float* __restrict__ xg_f,
             float da[4] = {0.f, 0.f, 0.f, 0.f};
             if (mine) {
                 const size_t row = (size_t)t * B + b0 + q;
-                const float m = mk[row];
-                const float cp = cq[row * H + j];
-                float* d = dx + row * H4 + j;
-                const float ig = d[0], fg = d[H], gg = d[2 * H],
-                            og = d[3 * H];
+                const float m = X::ld(mk + row);
+                const float cp = X::ld(cq + row * H + j);
+                E* d = dx + row * H4 + j;
+                const float ig = X::ld(d), fg = X::ld(d + H),
+                            gg = X::ld(d + 2 * H), og = X::ld(d + 3 * H);
                 const float tc = tanhf(fg * cp + ig * gg);
-                const float dh2 = (gy[row * H + j] + dh) * m;
+                const float dh2 = (X::ld(gy + row * H + j) + dh) * m;
                 const float dc2 = m * dc + dh2 * og * (1.f - tc * tc);
-                da[0] = dc2 * gg * ig * (1.f - ig);
-                da[1] = dc2 * cp * fg * (1.f - fg);
-                da[2] = dc2 * ig * (1.f - gg * gg);
-                da[3] = dh2 * tc * og * (1.f - og);
+                da[0] = X::rnd(dc2 * gg * ig * (1.f - ig));
+                da[1] = X::rnd(dc2 * cp * fg * (1.f - fg));
+                da[2] = X::rnd(dc2 * ig * (1.f - gg * gg));
+                da[3] = X::rnd(dh2 * tc * og * (1.f - og));
 #pragma unroll
-                for (int g = 0; g < 4; ++g) d[g * H] = da[g];
-                dc = (1.f - m) * dc + dc2 * fg;
+                for (int g = 0; g < 4; ++g) X::st(d + g * H, da[g]);
+                dc = X::rnd((1.f - m) * dc + dc2 * fg);
                 dh = (1.f - m) * dh;
             }
             if (q < R) {
@@ -791,14 +981,14 @@ bilstm_bwd_kernel(const float* __restrict__ xg_f,
             float p[R];
 #pragma unroll
             for (int b = 0; b < R; ++b) p[b] = 0.f;
-            const float* wj = WT + j;
+            const E* wj = WT + j;
 #pragma unroll 1
             for (int k4 = q; k4 < H; k4 += KS) {
-                const float* wr = wj + (size_t)(4 * k4) * H;
-                const float w0 = __ldg(wr);
-                const float w1 = __ldg(wr + H);
-                const float w2 = __ldg(wr + 2 * H);
-                const float w3 = __ldg(wr + 3 * H);
+                const E* wr = wj + (size_t)(4 * k4) * H;
+                const float w0 = X::ldg(wr);
+                const float w1 = X::ldg(wr + H);
+                const float w2 = X::ldg(wr + 2 * H);
+                const float w3 = X::ldg(wr + 3 * H);
 #pragma unroll
                 for (int b = 0; b < R; ++b) {
                     const float4 s = tile4[b * H + k4];
@@ -816,23 +1006,50 @@ bilstm_bwd_kernel(const float* __restrict__ xg_f,
             float s = part[q * H + j];
 #pragma unroll
             for (int p = 1; p < KS; ++p) s += part[(p * R + q) * H + j];
-            dh += s;
+            dh = X::rnd(dh + s);
         }
     }
 }
 
-template <int KS, int R>
-int bwd_launch(const float* const* in, float* dxg, float* hs, float* cs,
-               int T, int B, int H, cudaStream_t s) {
+template <typename E, int KS, int R>
+int bwd_launch(const BwdArgs<E>& a, int H, cudaStream_t s) {
     const size_t smem = (size_t)(R * 4 * H + KS * R * 4 * H) * sizeof(float);
-    const int rc = asr_allow_smem(bilstm_bwd_kernel<KS, R>, smem);
+    const int rc = asr_allow_smem(bilstm_bwd_kernel<E, KS, R>, smem);
     if (rc) return rc;
     const int threads = KS * ((H + 31) / 32 * 32);
-    const dim3 grid((B + R - 1) / R, 2);
-    bilstm_bwd_kernel<KS, R><<<grid, threads, smem, s>>>(
+    const dim3 grid((a.B + R - 1) / R, 2);
+    const E* const* in = a.in;
+    bilstm_bwd_kernel<E, KS, R><<<grid, threads, smem, s>>>(
         in[0], in[1], in[2], in[3], in[4], in[5], in[6], in[7], in[8], in[9],
-        in[10], in[11], dxg, hs, cs, T, B, H);
+        in[10], in[11], a.dxg, a.hs, a.cs, a.T, a.B, H);
     return (int)cudaGetLastError();
+}
+
+template <typename E>
+int bwd_entry(const BwdArgs<E>& a, int H, void* stream) {
+    if (a.B <= 0 || a.T <= 0 || H <= 0) return 0;
+    if (H > 1024) return (int)cudaErrorInvalidValue;
+    const cudaStream_t s = (cudaStream_t)stream;
+    if (tc_fits(H)) return bwd_tc_dispatch<E>(H, a, s, nullptr);
+    const int Hp = (H + 31) / 32 * 32;
+    // KS threads a hidden unit, as many as 1024 threads a block allow (up
+    // to 4), and R = min(KS, 2) rows a block
+    if (Hp <= 256) return bwd_launch<E, 4, 2>(a, H, s);
+    if (Hp <= 512) return bwd_launch<E, 2, 2>(a, H, s);
+    return bwd_launch<E, 1, 1>(a, H, s);
+}
+
+template <typename E>
+int bwd_plan(int B, int H, int* plan) {
+    if (B <= 0 || H <= 0 || H > 1024) return (int)cudaErrorInvalidValue;
+    if (!tc_fits(H)) {
+        plan[0] = (H + 31) / 32 * 32 <= 512 ? 2 : 1;
+        plan[1] = plan[2] = 0;
+        return 0;
+    }
+    BwdArgs<E> a = {};
+    a.B = B;
+    return bwd_tc_dispatch<E>(H, a, nullptr, plan);
 }
 
 }  // namespace
@@ -854,33 +1071,35 @@ ASR_API int asr_bilstm_bwd(const float* xg_f, const float* xg_b,
                            const float* ghT, const float* gcT, float* dxg,
                            float* hs, float* cs, int T, int B, int H,
                            void* stream) {
-    if (B <= 0 || T <= 0 || H <= 0) return 0;
-    if (H > 1024) return (int)cudaErrorInvalidValue;
-    const float* in[12] = {xg_f, xg_b, m_f, m_b, w_hh, w_t,
-                           ys_f, ys_b, gy_f, gy_b, ghT, gcT};
-    const cudaStream_t s = (cudaStream_t)stream;
-    if (tc_fits(H))
-        return bwd_tc_dispatch(H, in, dxg, hs, cs, T, B, s, nullptr);
-    const int Hp = (H + 31) / 32 * 32;
-    // KS threads a hidden unit, as many as 1024 threads a block allow (up
-    // to 4), and R = min(KS, 2) rows a block
-    if (Hp <= 256) return bwd_launch<4, 2>(in, dxg, hs, cs, T, B, H, s);
-    if (Hp <= 512) return bwd_launch<2, 2>(in, dxg, hs, cs, T, B, H, s);
-    return bwd_launch<1, 1>(in, dxg, hs, cs, T, B, H, s);
+    const BwdArgs<float> a = {{xg_f, xg_b, m_f, m_b, w_hh, w_t, ys_f, ys_b,
+                               gy_f, gy_b, ghT, gcT}, dxg, hs, cs, T, B};
+    return bwd_entry<float>(a, H, stream);
 }
 
-// How asr_bilstm_bwd would launch at (B, H), without launching: plan[0]
-// batch rows per cluster, plan[1] clusters in the grid, plan[2] clusters
-// the card holds at once (cudaOccupancyMaxActiveClusters).  For the simple
-// kernel (no cluster) plan = {rows a block, 0, 0}.  Returns 0 or a
-// cudaError_t.
+// The same contract with every operand, output and scratch bf16 (K2-bwd-
+// bf16, the backward of asr_bilstm_bf16).
+ASR_API int asr_bilstm_bwd_bf16(const bf16* xg_f, const bf16* xg_b,
+                                const bf16* m_f, const bf16* m_b,
+                                const bf16* w_hh, const bf16* w_t,
+                                const bf16* ys_f, const bf16* ys_b,
+                                const bf16* gy_f, const bf16* gy_b,
+                                const bf16* ghT, const bf16* gcT, bf16* dxg,
+                                bf16* hs, bf16* cs, int T, int B, int H,
+                                void* stream) {
+    const BwdArgs<bf16> a = {{xg_f, xg_b, m_f, m_b, w_hh, w_t, ys_f, ys_b,
+                              gy_f, gy_b, ghT, gcT}, dxg, hs, cs, T, B};
+    return bwd_entry<bf16>(a, H, stream);
+}
+
+// How asr_bilstm_bwd (asr_bilstm_bwd_bf16) would launch at (B, H), without
+// launching: plan[0] batch rows per cluster, plan[1] clusters in the grid,
+// plan[2] clusters the card holds at once (cudaOccupancyMaxActiveClusters).
+// For the simple kernel (no cluster) plan = {rows a block, 0, 0}.  Returns
+// 0 or a cudaError_t.
 ASR_API int asr_bilstm_bwd_plan(int B, int H, int* plan) {
-    if (B <= 0 || H <= 0 || H > 1024) return (int)cudaErrorInvalidValue;
-    if (!tc_fits(H)) {
-        plan[0] = (H + 31) / 32 * 32 <= 512 ? 2 : 1;
-        plan[1] = plan[2] = 0;
-        return 0;
-    }
-    return bwd_tc_dispatch(H, nullptr, nullptr, nullptr, nullptr, 0, B,
-                           nullptr, plan);
+    return bwd_plan<float>(B, H, plan);
+}
+
+ASR_API int asr_bilstm_bwd_bf16_plan(int B, int H, int* plan) {
+    return bwd_plan<bf16>(B, H, plan);
 }

@@ -1,8 +1,10 @@
 // Device helpers shared by K2 (lstm.cu) and K2-bwd (lstm_bwd.cu): the
 // thread-block-cluster plan both use for H in {64, 128, 192, 256}, the
-// 3xTF32 tensor-core product, the split cluster barrier and cp.async.
+// 3xTF32 and bf16 tensor-core products, the operand-type traits of their
+// f32 and bf16 instances, the split cluster barrier and cp.async.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -79,6 +81,65 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const float4& a,
         : "r"(__float_as_uint(a.x)), "r"(__float_as_uint(a.y)),
           "r"(__float_as_uint(a.z)), "r"(__float_as_uint(a.w)),
           "r"(__float_as_uint(b0)), "r"(__float_as_uint(b1)));
+}
+
+using bf16 = __nv_bfloat16;
+
+// What the two operand types differ in.  Loads widen to f32; `rnd` rounds
+// an f32 value to the type's precision (where the carry is rounded).
+template <typename E>
+struct Elt;
+
+template <>
+struct Elt<float> {
+    static constexpr bool BF16 = false;
+    static constexpr int KSTEP = 8;     // k depth of one mma (tf32 m16n8k8)
+    using W = float;                    // a register of the W_hh fragments
+    static __device__ __forceinline__ float ld(const float* p) { return *p; }
+    static __device__ __forceinline__ float ldg(const float* p) {
+        return __ldg(p);
+    }
+    static __device__ __forceinline__ float rnd(float x) { return x; }
+    static __device__ __forceinline__ void st(float* p, float x) { *p = x; }
+};
+
+template <>
+struct Elt<bf16> {
+    static constexpr bool BF16 = true;
+    static constexpr int KSTEP = 16;    // bf16 m16n8k16
+    using W = uint32_t;                 // two bf16 of one B fragment
+    static __device__ __forceinline__ float ld(const bf16* p) {
+        return __bfloat162float(*p);
+    }
+    static __device__ __forceinline__ float ldg(const bf16* p) {
+        return __bfloat162float(*p);
+    }
+    static __device__ __forceinline__ float rnd(float x) {
+        return __bfloat162float(__float2bfloat16_rn(x));
+    }
+    static __device__ __forceinline__ void st(bf16* p, float x) {
+        *p = __float2bfloat16_rn(x);
+    }
+};
+
+// two bf16-exact floats -> one 32-bit word, a in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
+    return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(a))
+           | ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(b)) << 16);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(bf16 a, bf16 b) {
+    return (uint32_t)__bfloat16_as_ushort(a)
+           | ((uint32_t)__bfloat16_as_ushort(b) << 16);
+}
+
+// d += a * b on the tensor cores, bf16 inputs, f32 accumulators.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint4& a,
+                                         uint32_t b0, uint32_t b1) {
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
 }
 
 // N bytes (4, 8 or 16) global -> shared, zero-filled where !pred

@@ -25,11 +25,16 @@ K2-bwd (``csrc/lstm_bwd.cu``) is the recurrence's backward, the VJP
 that JAX takes of its ``lax.scan`` (``chinese_asr_tpu/ops/rnn.py``
 ``_bidir_core_bwd``), and ``bidir_lstm`` the ``torch.autograd.Function``
 around K2 that calls it: K2 forward, K2-bwd backward on the card, the two
-twins on the CPU.  Float32 only; the bf16 instance has no backward yet.
-As in K2, H alone picks K2-bwd's kernel: H in {64, 128, 192, 256} runs the
-cluster kernel on K2's plan (W_hh resident in registers, 3xTF32 products,
-dxg_t @ W_hh^T reduce-scattered across the cluster), any other H the
-simple per-block kernel; ``bwd_plan`` shows the launch.
+twins on the CPU.  As in K2, H alone picks K2-bwd's kernel: H in {64, 128,
+192, 256} runs the cluster kernel on K2's plan (W_hh resident in
+registers, dxg_t @ W_hh^T reduce-scattered across the cluster), any other
+H the simple per-block kernel; ``bwd_plan`` shows the launch.  float32
+runs the f32 instance (3xTF32 products); bfloat16 (bf16 training, the VJP
+of JAX's bf16 scan) runs K2-bwd-bf16: bf16 x bf16 products accumulated in
+f32, each step's arithmetic in f32, and bf16 where JAX's VJP carries bf16:
+the activated gates it keeps, dxg_t as it is stored, the dh and dc carries
+and the rolled-forward c at the end of each step; dW_hh is accumulated in
+f32 and rounded to bf16 once.
 """
 
 from __future__ import annotations
@@ -44,6 +49,7 @@ from . import build
 launches = 0          # f32 kernel launches (the twin never counts)
 bf16_launches = 0     # bf16 kernel (K2-bf16) launches
 bwd_launches = 0      # K2-bwd launches
+bwd_bf16_launches = 0  # K2-bwd-bf16 launches
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -85,8 +91,10 @@ def bidir_lstm_time_loop_plain(xg_f, xg_b, m_f, m_b, w_hh):
     return ys[0], ys[1], torch.stack(h).to(dt), torch.stack(c).to(dt)
 
 
-# the C entry point of each operand type
+# the C entry point of each operand type, forward and backward
 _ENTRY = {torch.float32: "asr_bilstm", torch.bfloat16: "asr_bilstm_bf16"}
+_BWD_ENTRY = {torch.float32: "asr_bilstm_bwd",
+              torch.bfloat16: "asr_bilstm_bwd_bf16"}
 
 
 def _plan(name: str, B: int, H: int) -> dict:
@@ -108,11 +116,11 @@ def plan(B: int, H: int, dtype=torch.float32) -> dict:
     return _plan(_ENTRY[dtype] + "_plan", B, H)
 
 
-def bwd_plan(B: int, H: int) -> dict:
-    """``plan`` for K2-bwd (float32): rows per cluster, clusters, clusters
-    the card holds at once and waves of the cluster kernel, or the simple
-    kernel's rows a block and no clusters."""
-    return _plan("asr_bilstm_bwd_plan", B, H)
+def bwd_plan(B: int, H: int, dtype=torch.float32) -> dict:
+    """``plan`` for K2-bwd with operands of ``dtype``: rows per cluster,
+    clusters, clusters the card holds at once and waves of the cluster
+    kernel, or the simple kernel's rows a block and no clusters."""
+    return _plan(_BWD_ENTRY[dtype] + "_plan", B, H)
 
 
 def bidir_lstm_time_loop(xg_f, xg_b, m_f, m_b, w_hh):
@@ -179,62 +187,81 @@ def bidir_lstm_time_loop_bwd_plain(xg_f, xg_b, m_f, m_b, w_hh, ys_f, ys_b,
        dc <- (1 - m) dc + dc2 * f;
     3. dW_hh = sum_t h_{t-1}^T dxg_t, one product.
 
-    Returns (dxg_f, dxg_b [T, B, 4H], dw_hh [2, H, 4H]), float32."""
+    Computed in float32 and rounded to the operands' type where K2-bwd
+    rounds (for float32 every rounding is a no-op): for bf16 the products
+    are of bf16 values (each exact in f32) summed in f32; c is rounded at
+    the end of each step of pass 1, as K2-bf16 rounds it; the activated
+    gates are kept rounded (the kernel keeps them in dxg's buffer); dxg_t
+    is rounded as it is stored and before its product; the dh and dc
+    carries are rounded at the end of each step of pass 2; dW_hh is summed
+    in f32 and rounded once.  Returns (dxg_f, dxg_b [T, B, 4H], dw_hh
+    [2, H, 4H]) in the operands' type."""
     T, B, H4 = xg_f.shape
+    dt, f32 = xg_f.dtype, torch.float32
+
+    def rnd(x):                        # to the operands' precision
+        return x.to(dt).to(f32)
+
     dxgs, dws = [], []
     for d, (xg, m, ys, gy) in enumerate(((xg_f, m_f, ys_f, gy_f),
                                          (xg_b, m_b, ys_b, gy_b))):
-        w = w_hh[d]
-        h = xg.new_zeros((B, H4 // 4))
-        c = xg.new_zeros((B, H4 // 4))
+        w = w_hh[d].to(f32)
+        h = xg.new_zeros((B, H4 // 4), dtype=f32)
+        c = xg.new_zeros((B, H4 // 4), dtype=f32)
         hs, cs, acts = [], [], []
         for t in range(T):
-            mt = m[t][:, None].to(xg.dtype)
-            i, f, g, o = torch.chunk(xg[t] + h @ w, 4, dim=-1)
+            mt = m[t][:, None].to(f32)
+            i, f, g, o = torch.chunk(xg[t].to(f32) + h @ w, 4, dim=-1)
             i, f, g, o = (torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g),
                           torch.sigmoid(o))
             hs.append(h)
             cs.append(c)
-            acts.append((i, f, g, o))
-            c = mt * (f * c + i * g) + (1.0 - mt) * c
-            h = ys[t] + (1.0 - mt) * h
-        dh, dc = ghT[d], gcT[d]
-        dxg = xg.new_empty((T, B, H4))
+            acts.append(tuple(rnd(a) for a in (i, f, g, o)))
+            c = rnd(mt * (f * c + i * g) + (1.0 - mt) * c)
+            h = rnd(ys[t].to(f32) + (1.0 - mt) * h)
+        dh, dc = ghT[d].to(f32), gcT[d].to(f32)
+        dxg = xg.new_empty((T, B, H4), dtype=f32)
         for t in range(T - 1, -1, -1):
-            mt = m[t][:, None].to(xg.dtype)
+            mt = m[t][:, None].to(f32)
             i, f, g, o = acts[t]
             cp = cs[t]
             tc = torch.tanh(f * cp + i * g)
-            dh2 = (gy[t] + dh) * mt
+            dh2 = (gy[t].to(f32) + dh) * mt
             dc2 = mt * dc + dh2 * o * (1.0 - tc * tc)
-            da = torch.cat([dc2 * g * i * (1.0 - i), dc2 * cp * f * (1.0 - f),
-                            dc2 * i * (1.0 - g * g), dh2 * tc * o * (1.0 - o)],
-                           dim=-1)
+            da = rnd(torch.cat([dc2 * g * i * (1.0 - i),
+                                dc2 * cp * f * (1.0 - f),
+                                dc2 * i * (1.0 - g * g),
+                                dh2 * tc * o * (1.0 - o)], dim=-1))
             dxg[t] = da
-            dc = (1.0 - mt) * dc + dc2 * f
-            dh = (1.0 - mt) * dh + da @ w.T
-        dxgs.append(dxg)
+            dc = rnd((1.0 - mt) * dc + dc2 * f)
+            dh = rnd((1.0 - mt) * dh + da @ w.T)
+        dxgs.append(dxg.to(dt))
         dws.append(torch.stack(hs).reshape(T * B, -1).T
                    @ dxg.reshape(T * B, H4))
-    return dxgs[0], dxgs[1], torch.stack(dws)
+    return dxgs[0], dxgs[1], torch.stack(dws).to(dt)
 
 
 def bidir_lstm_time_loop_bwd(xg_f, xg_b, m_f, m_b, w_hh, ys_f, ys_b, gy_f,
                              gy_b, ghT, gcT):
-    """A CPU tensor takes the plain twin; a CUDA tensor launches K2-bwd
-    (one launch runs both directions' two passes; H picks the cluster or
-    the simple kernel) and forms dW_hh as one batched product of the h
-    sequence it wrote with the gate cotangents.  Float32 only."""
+    """A CPU tensor takes the plain twin; a CUDA tensor launches K2-bwd of
+    its type, float32 or bfloat16 (one launch runs both directions' two
+    passes; H picks the cluster or the simple kernel) and forms dW_hh as
+    one batched product of the h sequence it wrote with the gate
+    cotangents, accumulated in f32.  Every operand but the masks (cast to
+    xg's type) must be of xg's type."""
     if xg_f.device.type == "cpu":
         return bidir_lstm_time_loop_bwd_plain(xg_f, xg_b, m_f, m_b, w_hh,
                                               ys_f, ys_b, gy_f, gy_b, ghT,
                                               gcT)
     T, B, H4 = xg_f.shape
     H = H4 // 4
-    f32 = torch.float32
+    dt = xg_f.dtype
     if H4 != 4 * H or H > 1024:
         raise ValueError(f"bidir_lstm_time_loop_bwd: hidden size {H4 / 4} "
                          f"unsupported (4H must divide, H <= 1024)")
+    if dt not in _BWD_ENTRY:
+        raise ValueError(f"bidir_lstm_time_loop_bwd: {dt} unsupported "
+                         f"(float32 or bfloat16)")
     ins = dict(xg_f=(xg_f, (T, B, H4)), xg_b=(xg_b, (T, B, H4)),
                m_f=(m_f, (T, B)), m_b=(m_b, (T, B)),
                w_hh=(w_hh, (2, H, H4)), ys_f=(ys_f, (T, B, H)),
@@ -243,44 +270,55 @@ def bidir_lstm_time_loop_bwd(xg_f, xg_b, m_f, m_b, w_hh, ys_f, ys_b, gy_f,
                gcT=(gcT, (2, B, H)))
     args = []
     for name, (t, shape) in ins.items():
-        if t.dtype != f32:
-            if name.startswith("m_"):
-                t = t.to(f32)
-            else:
+        mask = name.startswith("m_")
+        if t.dtype != dt:
+            if not mask:
                 raise ValueError(f"bidir_lstm_time_loop_bwd: {name} is "
-                                 f"{t.dtype}; only float32 has a backward")
+                                 f"{t.dtype}, xg {dt}")
+            t = t.to(dt)
         t = t.contiguous()
+        if dt == torch.bfloat16 and not mask and t.data_ptr() % 4:
+            raise ValueError(f"bidir_lstm_time_loop_bwd: bf16 {name} must "
+                             f"be 4-byte aligned (it is read two units a "
+                             f"word)")
         if t.data_ptr() % 16:          # the kernels copy 16-byte chunks
             t = t.clone()
-        build.require(name, t, f32, shape)
+        build.require(name, t, dt, shape)
         args.append(t)
     dev = xg_f.device
-    dxg = torch.empty((2, T, B, H4), dtype=f32, device=dev)
-    hs = torch.empty((2, T, B, H), dtype=f32, device=dev)
-    cs = torch.empty((2, T, B, H), dtype=f32, device=dev)
+    dxg = torch.empty((2, T, B, H4), dtype=dt, device=dev)
+    hs = torch.empty((2, T, B, H), dtype=dt, device=dev)
+    cs = torch.empty((2, T, B, H), dtype=dt, device=dev)
     if B == 0 or T == 0:
         return dxg[0], dxg[1], torch.zeros_like(w_hh)
     # W_hh^T [2, 4H, H], read by the simple kernel's pass 2 only (the
     # cluster kernel holds W_hh in registers and ignores the pointer)
     wt = args[4] if H in _CLUSTER_H else args[4].transpose(1, 2).contiguous()
-    fn = build.kernel("asr_bilstm_bwd", [_P] * 15 + [_I] * 3 + [_P])
+    name = _BWD_ENTRY[dt]
+    fn = build.kernel(name, [_P] * 15 + [_I] * 3 + [_P])
     rc = fn(*(a.data_ptr() for a in args[:5]), wt.data_ptr(),
             *(a.data_ptr() for a in args[5:]), dxg.data_ptr(),
             hs.data_ptr(), cs.data_ptr(), T, B, H,
             torch.cuda.current_stream(dev).cuda_stream)
-    build.check("asr_bilstm_bwd", rc)
-    global bwd_launches
-    bwd_launches += 1
-    dw = torch.bmm(hs.view(2, T * B, H).transpose(1, 2),
-                   dxg.view(2, T * B, H4))
+    build.check(name, rc)
+    global bwd_launches, bwd_bf16_launches
+    hs_t = hs.view(2, T * B, H).transpose(1, 2)
+    if dt == torch.bfloat16:
+        bwd_bf16_launches += 1
+        # bf16 products summed in f32, rounded once
+        dw = torch.bmm(hs_t, dxg.view(2, T * B, H4),
+                       out_dtype=torch.float32).to(dt)
+    else:
+        bwd_launches += 1
+        dw = torch.bmm(hs_t, dxg.view(2, T * B, H4))
     return dxg[0], dxg[1], dw
 
 
 class _BidirLSTM(torch.autograd.Function):
     """K2 with K2-bwd as its backward (the port of JAX's
-    ``_bidir_core_pallas`` custom_vjp).  The forward keeps xg, the masks,
-    W_hh and ys; the backward rebuilds the rest.  Not twice
-    differentiable."""
+    ``_bidir_core_pallas`` custom_vjp), in the operands' type, float32 or
+    bfloat16.  The forward keeps xg, the masks, W_hh and ys; the backward
+    rebuilds the rest.  Not twice differentiable."""
 
     @staticmethod
     def forward(ctx, xg_f, xg_b, m_f, m_b, w_hh):
@@ -291,6 +329,8 @@ class _BidirLSTM(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, gy_f, gy_b, ghT, gcT):
+        # an output the loss does not reach comes as zeros of its own type
+        # (autograd materializes them), so bf16 stays bf16
         xg_f, xg_b, m_f, m_b, w_hh, ys_f, ys_b = ctx.saved_tensors
         dxg_f, dxg_b, dw = bidir_lstm_time_loop_bwd(
             xg_f, xg_b, m_f, m_b, w_hh, ys_f, ys_b, gy_f, gy_b, ghT, gcT)
@@ -298,15 +338,12 @@ class _BidirLSTM(torch.autograd.Function):
 
 
 def bidir_lstm(xg_f, xg_b, m_f, m_b, w_hh):
-    """``bidir_lstm_time_loop`` with a gradient.  Under ``torch.no_grad``
-    (every inference path), or when no operand requires a gradient, it is
-    the plain call: one K2 launch on the card, nothing saved."""
+    """``bidir_lstm_time_loop`` with a gradient, float32 or bfloat16.
+    Under ``torch.no_grad`` (every inference path), or when no operand
+    requires a gradient, it is the plain call: one K2 launch on the card,
+    nothing saved."""
     if not (torch.is_grad_enabled()
             and (xg_f.requires_grad or xg_b.requires_grad
                  or w_hh.requires_grad)):
         return bidir_lstm_time_loop(xg_f, xg_b, m_f, m_b, w_hh)
-    if xg_f.dtype != torch.float32:
-        raise NotImplementedError(
-            "bf16 training is not ported yet: it needs a backward of K2's "
-            "bf16 instance (a later slice of the port)")
     return _BidirLSTM.apply(xg_f, xg_b, m_f, m_b, w_hh)

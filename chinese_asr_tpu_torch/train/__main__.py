@@ -5,15 +5,18 @@ main.py:107-120):
     python -m chinese_asr_tpu_torch.train \\
         --train-manifest train.tsv --eval-manifest dev.tsv \\
         --vocab dict.pkl --save-dir ./ckpt [--config cfg.json] \\
-        [--remat] [--resume] [--max-steps N] [--device cpu]
+        [--bf16] [--remat] [--resume] [--max-steps N] [--device cpu]
 
 Manifests are TSV lines of ``wav_path\\ttranscript``.  ``--vocab`` takes
 the reference's ``dict.pkl`` or a plain word list; without it a character
 vocab is built from the train manifest.  The features are made on the
 device (``data.dataset.batches_to_device``, K1 on the card).  The device
 defaults to ``cuda`` and the CLI raises without a GPU unless ``--device
-cpu`` is given.  ``--bf16`` and ``--mesh`` are the JAX CLI's flags for
-what later slices of the port bring; here they raise.
+cpu`` is given.  ``--bf16`` trains in mixed precision
+(``train.compute_dtype="bfloat16"``: the forward and backward in bf16, the
+master params, optimizer state and checkpoints float32).  ``--mesh`` is
+the JAX CLI's flag for multi-device training, which the port does not
+have yet; it raises.
 """
 
 from __future__ import annotations
@@ -69,7 +72,8 @@ def main(argv=None) -> int:
     ap.add_argument("--save-dir", default=None)
     ap.add_argument("--max-steps", type=int, default=None)
     ap.add_argument("--bf16", action="store_true",
-                    help="mixed precision (not ported yet: raises)")
+                    help="mixed precision: forward and backward in bf16, "
+                         "master params and optimizer state float32")
     ap.add_argument("--remat", action="store_true",
                     help="recompute each decoder step in the backward")
     ap.add_argument("--mesh", default=None, choices=[None, "auto"],
@@ -85,7 +89,6 @@ def main(argv=None) -> int:
     from ..data import dataset
     from ..models import las
     from ..utils.device import resolve_device
-    from .step import require_f32
     from .trainer import Trainer
 
     if args.mesh is not None:
@@ -93,7 +96,6 @@ def main(argv=None) -> int:
             "--mesh: multi-device training is not ported yet (the "
             "multi-device slice of the port)")
     cfg = build_config(args)
-    require_f32(cfg)
     device = resolve_device(None if args.device == "cuda" else args.device)
 
     if args.vocab:

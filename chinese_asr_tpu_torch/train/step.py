@@ -10,6 +10,12 @@ is a per-step Bernoulli draw.  JAX compiles the step into one program;
 the port runs it eagerly: the encoder's recurrences through K2 forward and
 K2-bwd backward (``ops/cuda/lstm.py`` ``bidir_lstm``), the decoder as a
 Python loop of S steps under autograd.
+
+Mixed precision (``train.compute_dtype="bfloat16"``), as in JAX: the
+forward and backward run in bf16 (K2-bf16 and K2-bwd-bf16 on the card),
+while the master params, the optimizer state, the CE and the gradient
+norm stay float32; the gradients come back float32 from the cast inside
+``loss_fn``.
 """
 
 from __future__ import annotations
@@ -25,14 +31,6 @@ from ..models import decoder as dec_ops
 from ..models import las
 from . import optim
 from .loss import label_smoothed_ce
-
-
-def require_f32(cfg: Config) -> None:
-    if cfg.train.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"train.compute_dtype={cfg.train.compute_dtype!r}: bf16 "
-            f"mixed-precision training is not ported yet; it needs the "
-            f"backward of K2's bf16 instance, a later slice of the port")
 
 
 def _step(body, remat: bool, *args):
@@ -136,8 +134,17 @@ def loss_fn(params, cfg: Config, batch: Batch,
     """(label-smoothed CE over the valid tokens, {"accuracy",
     "num_tokens"}); the CE is taken from float32 logits.  The LSTM
     encoder has no BatchNorm, so JAX's running-stat folding has nothing to
-    do here."""
-    require_f32(cfg)
+    do here.
+
+    Under ``train.compute_dtype="bfloat16"`` the float leaves of ``params``
+    and ``batch.feats`` are cast to bf16 here, inside the differentiated
+    function (JAX ``train/step.py:174-181``), so the forward and backward
+    run in bf16 and autograd hands back float32 gradients at the cast."""
+    cd = getattr(torch, cfg.train.compute_dtype)
+    if cd != torch.float32:
+        params = las.tree_map(
+            lambda t: t.to(cd) if t.is_floating_point() else t, params)
+        batch = batch._replace(feats=batch.feats.to(cd))
     logits = forward_logits(params, cfg, batch, gen, cfg.train.ss).float()
     S = batch.tokens_out.shape[1]
     mask = (torch.arange(S, device=logits.device)[None, :]

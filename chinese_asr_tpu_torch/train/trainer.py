@@ -31,9 +31,10 @@ class Trainer:
     def __init__(self, cfg: Config, params, vocab=None,
                  logger: Optional[MetricsLogger] = None, device=None):
         """``params``: a parameter tree (``las.init_params``), moved to
-        ``device`` in float32; ``device`` defaults to ``cuda`` and raises
-        without a GPU."""
-        step_mod.require_f32(cfg)
+        ``device`` in float32, the master copy whatever
+        ``train.compute_dtype`` (the optimizer state and the checkpoints
+        stay float32 too, and ``evaluate`` decodes in float32, as in JAX);
+        ``device`` defaults to ``cuda`` and raises without a GPU."""
         self.device = resolve_device(device)
         self.cfg = cfg
         self.vocab = vocab

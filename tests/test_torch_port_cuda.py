@@ -845,3 +845,170 @@ def test_golden_train_step_on_the_card_equals_cpu(dev):
                                                    rel=1e-4)
     for a, b in zip(las.tree_leaves(pg), las.tree_leaves(pc)):
         assert float((a.cpu() - b).abs().max()) <= 2e-5
+
+
+# K2-bwd-bf16 against its bf16 twin: both round the kept gates, the stored
+# dxg_t, the dh and dc carries and the rolled-forward c to bf16 from f32
+# sums taken in other orders, so a value within an f32 rounding of a bf16
+# boundary lands one bf16 ulp (2^-8 relative) apart and the reverse
+# recurrence carries it on; relative to max(1, |ref|) of each output,
+# chip_smoke.py's bound.  A layout bug errs by O(1).
+TOL_LSTM_BWD_BF16 = 3e-2
+
+
+def _bf16_case(args):
+    """A K2-bwd case in bf16: the operands rounded, ys from K2-bf16."""
+    bf = torch.bfloat16
+    xg_f, xg_b, m_f, m_b, w = (a.to(bf) for a in args[:5])
+    ys_f, ys_b, _, _ = tlstm.bidir_lstm_time_loop(xg_f, xg_b, m_f, m_b, w)
+    return (xg_f, xg_b, m_f, m_b, w, ys_f, ys_b) + tuple(a.to(bf)
+                                                         for a in args[7:])
+
+
+def _rel_err16(got, ref):
+    return _rel_err([a.float() for a in got], [b.float() for b in ref])
+
+
+@pytest.mark.parametrize("H", [16, 256])
+@pytest.mark.parametrize("B", [32, 128])
+def test_lstm_bwd_bf16_kernel_matches_twin(dev, B, H):
+    """K2-bwd-bf16: the cluster kernel (H=256; 16 rows a cluster at B=32,
+    32 at B=128) and the simple one (H=16), with ragged prefix masks (row
+    0 full, row 1 never stepped) and nonzero ghT, gcT; one bf16 launch,
+    the f32 counter unchanged."""
+    T = 40
+    args = _lstm_bwd_case(dev, T, B, H, seed=B + H)
+    g = torch.Generator(device=dev).manual_seed(B * H)
+    lens = torch.randint(0, T + 1, (B,), device=dev, generator=g)
+    lens[0], lens[1] = T, 0
+    m_f = (torch.arange(T, device=dev)[:, None] < lens[None]).float()
+    args = _bf16_case(args[:2] + (m_f, torch.flip(m_f, dims=(0,)))
+                      + args[4:])
+    before = (tlstm.bwd_launches, tlstm.bwd_bf16_launches)
+    got = tlstm.bidir_lstm_time_loop_bwd(*args)
+    assert (tlstm.bwd_launches, tlstm.bwd_bf16_launches) == (before[0],
+                                                             before[1] + 1)
+    ref = tlstm.bidir_lstm_time_loop_bwd_plain(*args)
+    assert all(a.dtype == torch.bfloat16 and a.shape == b.shape
+               for a, b in zip(got, ref))
+    assert all(bool(torch.isfinite(a.float()).all()) for a in got)
+    assert _rel_err16(got, ref) <= TOL_LSTM_BWD_BF16
+    # the row never stepped has no gate cotangent
+    assert float(got[0][:, 1].float().abs().max()) == 0.0
+    if H == 256:
+        assert tlstm.bwd_plan(B, H, torch.bfloat16)["rows"] == \
+            (16 if B <= 112 else 32)
+
+
+@pytest.mark.parametrize("T", [1, 33])
+@pytest.mark.parametrize("B", [1, 17, 113])
+@pytest.mark.parametrize("H", [64, 128, 192, 256])
+def test_lstm_bwd_bf16_cluster_kernel_matches_twin(dev, H, B, T):
+    """The bf16 cluster kernel at every H it takes: one and two row tiles,
+    a ragged tile, 32 rows a cluster from B = 113; random non-prefix
+    masks."""
+    args = _bf16_case(_lstm_bwd_case(dev, T, B, H, seed=5 * T + B + H))
+    got = tlstm.bidir_lstm_time_loop_bwd(*args)
+    ref = tlstm.bidir_lstm_time_loop_bwd_plain(*args)
+    assert _rel_err16(got, ref) <= TOL_LSTM_BWD_BF16
+
+
+def test_lstm_bwd_bf16_rejects_bad_operands(dev):
+    """An operand of another type than xg (the masks excepted) and a bf16
+    operand that is not 4-byte aligned (read two units a word) raise; one
+    at a 4-byte offset is copied and gives the aligned call's result."""
+    bf = torch.bfloat16
+    args = list(_bf16_case(_lstm_bwd_case(dev, 3, 2, 64, seed=5)))
+    mixed = args[:7] + [args[7].float()] + args[8:]
+    with pytest.raises(ValueError, match="float32"):
+        tlstm.bidir_lstm_time_loop_bwd(*mixed)
+    with pytest.raises(ValueError, match="unsupported"):
+        tlstm.bidir_lstm_time_loop_bwd(*(a.double() for a in args))
+
+    def at(a, offset):
+        buf = torch.empty(a.numel() + offset, device=dev, dtype=bf)
+        return buf[offset:].view(a.shape).copy_(a)
+
+    with pytest.raises(ValueError, match="aligned"):
+        tlstm.bidir_lstm_time_loop_bwd(*args[:7], at(args[7], 1), *args[8:])
+    moved = [at(a, 2) for a in args]
+    assert all(a.data_ptr() % 16 for a in moved)
+    for a, b in zip(tlstm.bidir_lstm_time_loop_bwd(*moved),
+                    tlstm.bidir_lstm_time_loop_bwd(*args)):
+        assert torch.equal(a, b)
+
+
+def test_k2_autograd_bf16_on_the_card_launches_k2_bf16_and_k2_bwd_bf16(dev):
+    """bf16 operands under autograd run K2-bf16 forward and K2-bwd-bf16
+    backward (no f32 launch), equal to the CPU twins'; an output the loss
+    does not reach gets bf16 zeros."""
+    args = _bf16_case(_lstm_bwd_case(dev, 20, 4, 64, seed=2))
+    prim = [a.detach().clone().requires_grad_(i in (0, 1, 4))
+            for i, a in enumerate(args[:5])]
+    counts = lambda: (tlstm.launches, tlstm.bf16_launches,   # noqa: E731
+                      tlstm.bwd_launches, tlstm.bwd_bf16_launches)
+    before = counts()
+    out = tlstm.bidir_lstm(*prim)
+    got = torch.autograd.grad(out, [prim[0], prim[1], prim[4]],
+                              list(args[7:]))
+    assert counts() == (before[0], before[1] + 1, before[2], before[3] + 1)
+    assert all(a.dtype == torch.bfloat16 for a in got)
+    cpu = [a.detach().cpu().requires_grad_(a.requires_grad) for a in prim]
+    out_c = tlstm.bidir_lstm(*cpu)
+    ref = torch.autograd.grad(out_c, [cpu[0], cpu[1], cpu[4]],
+                              [a.cpu() for a in args[7:]])
+    assert _rel_err16([a.cpu() for a in got], ref) <= TOL_LSTM_BWD_BF16
+    out = tlstm.bidir_lstm(*prim)
+    only = torch.autograd.grad(out[0], [prim[0], prim[4]], args[7])
+    assert all(a.dtype == torch.bfloat16 and bool(torch.isfinite(
+        a.float()).all()) for a in only)
+
+
+def test_golden_bf16_train_step_on_the_card_equals_cpu(dev):
+    """One bf16 train_step of the golden model from the same params and
+    batch: the card (K2-bf16, K2-bwd-bf16, cuBLAS bf16) against the CPU
+    port (the bf16 twins).  Both round to bf16 from sums in other orders:
+    loss 1e-2 relative, grad norm 2e-2 relative; params 2.5e-3 absolute,
+    one ADAM step's flip (a step of lr 1e-3 moves each element by about
+    lr times the sign of its gradient, and a gradient near zero may take
+    the other sign), with at most 1 % of the elements farther apart than
+    1e-4; one K2-bwd-bf16 launch a layer and no f32 K2-bwd."""
+    from chinese_asr_tpu_torch.data.dataset import Batch
+    from chinese_asr_tpu_torch.models import las
+    from chinese_asr_tpu_torch.train import optim, step
+    from chinese_asr_tpu_torch.utils.checkpoint import load_checkpoint
+
+    cfg = golden_cfg(tcfg).with_("train", clip=1.0,
+                                 compute_dtype="bfloat16")
+    pn = load_checkpoint(os.path.join(GOLD, "model.ckpt"))["params"]
+    rng = np.random.RandomState(0)
+    B, T, S = 6, 40, 5
+    feats = rng.randn(B, T, cfg.audio.feat_dim).astype(np.float32)
+    lens = np.array([40, 31, 40, 25, 12, 40], np.int32)
+    feats[np.arange(T)[None, :] >= lens[:, None]] = 0
+    text = rng.randint(4, cfg.vocab.vocab_size, (B, S))
+    ti = np.concatenate([np.full((B, 1), 1), text[:, :-1]], 1)
+    to = np.concatenate([text[:, :-1], np.full((B, 1), 2)], 1)
+    tl = np.full(B, S, np.int32)
+    out = {}
+    for d in ("cpu", dev):
+        params = las.params_from_numpy(pn, d)
+        tx = optim.make_optimizer(cfg.train)
+        batch = Batch(*(torch.tensor(a).to(d) for a in (feats, lens, ti, to,
+                                                        tl)))
+        before = (tlstm.bwd_launches, tlstm.bwd_bf16_launches)
+        p, o, m = step.train_step(params, tx.init(params), cfg, tx, batch)
+        out[str(d)] = (p, o, m, tlstm.bwd_launches - before[0],
+                       tlstm.bwd_bf16_launches - before[1])
+    (pc, _, mc, *nc), (pg, og, mg, *ng) = out["cpu"], out[str(dev)]
+    assert nc == [0, 0] and ng == [0, cfg.encoder.num_layers]
+    assert float(mg["loss"]) == pytest.approx(float(mc["loss"]), rel=1e-2)
+    assert float(mg["grad_norm"]) == pytest.approx(float(mc["grad_norm"]),
+                                                   rel=2e-2)
+    diff = torch.cat([(a.cpu() - b).abs().ravel() for a, b in
+                      zip(las.tree_leaves(pg), las.tree_leaves(pc))])
+    assert float(diff.max()) <= 2.5e-3
+    assert float((diff > 1e-4).float().mean()) <= 1e-2
+    assert all(t.dtype == torch.float32 for t in las.tree_leaves(pg))
+    assert all(v.dtype == torch.float32 for v in og.values()
+               if v.is_floating_point())

@@ -237,10 +237,18 @@ def test_train_step_overfits_tiny_batch():
 
 
 def test_bf16_training_waits_for_a_later_slice():
+    """``train.compute_dtype="bfloat16"``: the bf16 ``loss_fn`` against
+    JAX's on the same params and batch, within 2e-2 (both round to bf16,
+    at other points; tests/test_torch_port_train_bf16.py has the step,
+    its gradients and the recurrence's VJP), the loss in float32."""
+    cfg_j = small(jcfg, compute_dtype="bfloat16")
     cfg = small(tcfg, compute_dtype="bfloat16")
-    _, pt = both_params(small(jcfg))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tstep.loss_fn(pt, cfg, tbatch(make_batch(cfg)))
+    pj, pt = both_params(small(jcfg))
+    nb = make_batch(cfg)
+    want, _ = jax.jit(lambda p, b: jstep.loss_fn(p, cfg_j, b))(pj, jbatch(nb))
+    got, aux = tstep.loss_fn(pt, cfg, tbatch(nb))
+    assert got.dtype == torch.float32 and int(aux["num_tokens"]) > 0
+    assert abs(float(got) - float(want)) <= 2e-2
 
 
 # --------------------------------------------------------------------------
@@ -328,6 +336,19 @@ def test_k2_function_is_the_plain_call_without_grad():
     with pytest.raises(RuntimeError):
         g = torch.autograd.grad(out[0].sum(), ins[4], create_graph=True)[0]
         torch.autograd.grad(g.sum(), ins[0])
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tlstm.bidir_lstm(*(t.detach().to(torch.bfloat16).requires_grad_(
-            t.requires_grad) for t in ins))
+    # bf16: the gradients are the bf16 twin's, in bf16, and the outputs
+    # the loss does not reach give it bf16 zeros as their cotangents
+    ins16 = [t.detach().to(torch.bfloat16).requires_grad_(t.requires_grad)
+             for t in ins]
+    out16 = tlstm.bidir_lstm(*ins16)
+    assert all(o.dtype == torch.bfloat16 for o in out16)
+    gy = torch.linspace(-1, 1, out16[0].numel()).view_as(out16[0]).to(
+        torch.bfloat16)
+    got = torch.autograd.grad(out16[0], [ins16[0], ins16[1], ins16[4]], gy)
+    zs = torch.zeros_like(out16[2])
+    want = tlstm.bidir_lstm_time_loop_bwd_plain(
+        *(t.detach() for t in ins16), out16[0].detach(), out16[1].detach(),
+        gy, torch.zeros_like(gy), zs, zs)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.bfloat16 and torch.equal(a, b)
+    assert float(got[0].float().abs().max()) > 0
