@@ -32,6 +32,7 @@ from ..lm import device_ngram as dev_lm
 from ..models import decoder as dec_ops
 from ..models import las
 from ..ops.cuda import topk as topk_k
+from ..ops.rnn import map_state
 from .greedy import EvalOutput, with_cer
 
 
@@ -100,10 +101,9 @@ def beam_decode(params, cfg: Config, bw: int, feats, feat_lens,
     # tile only true per-beam state: row r = b*k + beam
     cell = eb.init_cell_state
     if cell is None:
-        z = feats.new_zeros((B * k, dcfg.hidden_size))
-        cell = [(z, z)] * dcfg.num_layers
+        cell = dec_ops.zero_cell_state(dcfg, feats, B * k)
     else:
-        cell = [tuple(e.repeat_interleave(k, dim=0) for e in s) for s in cell]
+        cell = map_state(lambda e: e.repeat_interleave(k, dim=0), cell)
 
     hist = torch.full((B * k, max_len + 1), cfg.vocab.pad, dtype=torch.int64,
                       device=dev)
@@ -197,7 +197,7 @@ def beam_decode(params, cfg: Config, bw: int, feats, feat_lens,
         def reorder(t):
             return _rows(t.reshape(B, k, -1), k_beams).reshape(B * k, -1)
 
-        cell = [tuple(reorder(e) for e in st) for st in out.cell_state]
+        cell = map_state(reorder, out.cell_state)
         attn_hidden = reorder(out.attn_hidden_state)
         if lm_track is not None:
             # advance the passive chain along the survivors (never eos:

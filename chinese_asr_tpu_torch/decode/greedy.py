@@ -43,8 +43,7 @@ def greedy_decode(params, cfg: Config, feats, feat_lens) -> GreedyResult:
 
     cell = eb.init_cell_state
     if cell is None:
-        z = feats.new_zeros((B, dcfg.hidden_size))
-        cell = [(z, z)] * dcfg.num_layers
+        cell = dec_ops.zero_cell_state(dcfg, feats, B)
     tokens = torch.full((B,), cfg.vocab.sos, dtype=torch.int64, device=dev)
     attn_hidden = feats.new_zeros((B, ctx))
     finished = torch.zeros(B, dtype=torch.bool, device=dev)
@@ -68,7 +67,9 @@ def greedy_decode(params, cfg: Config, feats, feat_lens) -> GreedyResult:
         final_lens = final_lens + (~finished).to(torch.int32)
         accum = accum + torch.where(~finished, lp, torch.zeros_like(lp))
         out[:, l] = tok.to(torch.int32)
-        align[:, l, :] = step.alignment
+        # several heads: the first head's alignment, as in JAX
+        align[:, l, :] = (step.alignment if acfg.heads == 1
+                          else step.alignment[..., 0])
         tokens, cell, attn_hidden = tok, step.cell_state, step.attn_hidden_state
         if bool(finished.all()):            # one host sync per step
             break

@@ -30,6 +30,7 @@ from ..config import Config
 from ..models import decoder as dec_ops
 from ..models import las
 from ..ops.cuda import topk as topk_k
+from ..ops.rnn import map_state
 
 
 def _step(params, cfg: Config, eb, tokens, sel, cell_state, attn_hidden,
@@ -37,7 +38,7 @@ def _step(params, cfg: Config, eb, tokens, sel, cell_state, attn_hidden,
     """The survivor reorder, one decoder step and the top-``topn``
     proposal (K3) of ``logit / temperature`` -> (top tokens [B*k, topn]
     int32, cell state, attention hidden)."""
-    cell_state = [tuple(e[sel] for e in s) for s in cell_state]
+    cell_state = map_state(lambda e: e[sel], cell_state)
     out = dec_ops.decoder_step_beam(
         params["decoder"], params["attention"], cfg.decoder, cfg.attention,
         eb.mask, eb.keys, eb.values, tokens, cell_state, attn_hidden[sel])
@@ -90,10 +91,9 @@ def lm_first_pass_decode(params, cfg: Config, bw: int, feats, feat_lens,
     eb = las.encode(params, cfg, feats, feat_lens)
     cell = eb.init_cell_state
     if cell is None:
-        z = feats.new_zeros((B * k, cfg.decoder.hidden_size))
-        cell = [(z, z)] * cfg.decoder.num_layers
+        cell = dec_ops.zero_cell_state(cfg.decoder, feats, B * k)
     else:
-        cell = [tuple(e.repeat_interleave(k, dim=0) for e in s) for s in cell]
+        cell = map_state(lambda e: e.repeat_interleave(k, dim=0), cell)
     attn_hidden = feats.new_zeros(
         (B * k, dec_ops.attn_hidden_width(cfg.attention,
                                           eb.values.shape[-1])))

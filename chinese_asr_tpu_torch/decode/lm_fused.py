@@ -36,6 +36,7 @@ from ..lm import device_ngram
 from ..models import decoder as dec_ops
 from ..models import las
 from ..ops.cuda import topk as topk_k
+from ..ops.rnn import map_state
 from .beam import BeamResult, BestResult, _rows, _stable_top, select_merge
 
 
@@ -60,10 +61,9 @@ def lm_fused_decode(params, cfg: Config, bw: int, feats, feat_lens,
     eb = las.encode(params, cfg, feats, feat_lens)
     cell = eb.init_cell_state
     if cell is None:
-        z = feats.new_zeros((B * k, dcfg.hidden_size))
-        cell = [(z, z)] * dcfg.num_layers
+        cell = dec_ops.zero_cell_state(dcfg, feats, B * k)
     else:
-        cell = [tuple(e.repeat_interleave(k, dim=0) for e in s) for s in cell]
+        cell = map_state(lambda e: e.repeat_interleave(k, dim=0), cell)
     attn_hidden = feats.new_zeros(
         (B * k, dec_ops.attn_hidden_width(acfg, eb.values.shape[-1])))
 
@@ -131,7 +131,7 @@ def lm_fused_decode(params, cfg: Config, bw: int, feats, feat_lens,
         hist[:, l + 1] = k_toks.reshape(-1)
         chosen = tok2lm[k_toks.reshape(-1)]
         lm_ctx = device_ngram.advance_context(reorder(lm_ctx), chosen)
-        cell = [tuple(reorder(e) for e in st) for st in out.cell_state]
+        cell = map_state(reorder, out.cell_state)
         attn_hidden = reorder(out.attn_hidden_state)
         # the host loop's stop: every sample has a finished hypothesis
         # (this step's survivors are kept, as in JAX's while_loop body)

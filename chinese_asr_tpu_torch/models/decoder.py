@@ -1,6 +1,10 @@
 """Attention decoder step (port of ``chinese_asr_tpu/models/decoder.py``,
-reference decoder.py:10-137): embed -> input-feed concat -> LSTM cell
-stack -> Bahdanau attention -> logits."""
+reference decoder.py:10-137): embed -> input-feed concat -> LSTM / GRU /
+RNN cell stack -> attention -> attentional hidden state -> logits.
+
+Bahdanau wiring (``attn_type="B"``) feeds the context back and projects
+[h, context]; Luong wiring (``"L"``, decoder.py:39-51, 126-127) feeds back
+``tanh([h, context] @ attn_hidden_w)`` and projects that alone."""
 
 from __future__ import annotations
 
@@ -19,8 +23,8 @@ Params = Dict
 class DecoderOut(NamedTuple):
     logit: torch.Tensor                # [B, V]
     attn_hidden_state: torch.Tensor    # [B, ctx]
-    alignment: torch.Tensor            # [B, L]
-    cell_state: List                   # per-layer (h, c)
+    alignment: torch.Tensor            # [B, L] ([B, L, heads] in decoder_step)
+    cell_state: List                   # per-layer (h, c) for LSTM, else h
 
 
 def init_decoder(gen: torch.Generator, dcfg: DecoderConfig,
@@ -28,52 +32,97 @@ def init_decoder(gen: torch.Generator, dcfg: DecoderConfig,
                  enc_size: int) -> Params:
     """Reference decoder.py:75-92: embedding N(0, .1) with the pad row
     zeroed, init_rnn'd cells, xavier proj weight, torch-default uniform
-    proj bias."""
-    attn_ops._require_bahdanau(acfg)
+    proj bias; for Luong wiring a xavier ``attn_hidden_w``."""
     V = vcfg.vocab_size
-    input_size = dcfg.embed_dim + enc_size
-    proj_in = dcfg.hidden_size + enc_size
+    ctx = attn_ops.context_size(acfg, enc_size)
+    if acfg.attn_type == "L":
+        input_size = dcfg.embed_dim + (acfg.attn_hidden_size
+                                       if dcfg.input_feeding else 0)
+        proj_in = acfg.attn_hidden_size
+    else:
+        input_size = dcfg.embed_dim + ctx
+        proj_in = dcfg.hidden_size + ctx
+
+    def xavier(shape):
+        return math.sqrt(2.0 / (shape[0] + shape[1])) * torch.randn(
+            shape, generator=gen)
+
     emb = 0.1 * torch.randn(V, dcfg.embed_dim, generator=gen)
     emb[vcfg.pad] = 0.0
     bound = 1.0 / math.sqrt(proj_in)
     p: Params = {
         "embedding": emb,
-        "cells": rnn_ops.init_cell_stack(gen, input_size, dcfg.hidden_size,
-                                         dcfg.num_layers),
-        "proj_w": math.sqrt(2.0 / (proj_in + V)) * torch.randn(
-            proj_in, V, generator=gen),
+        "cells": rnn_ops.init_cell_stack(gen, dcfg.decoder_type, input_size,
+                                         dcfg.hidden_size, dcfg.num_layers),
+        "proj_w": xavier((proj_in, V)),
         "proj_b": (torch.rand(V, generator=gen) * 2.0 - 1.0) * bound,
     }
+    if acfg.attn_type == "L":
+        p["attn_hidden_w"] = xavier((dcfg.hidden_size + ctx,
+                                     acfg.attn_hidden_size))
     if dcfg.init_cell_state_as_param:
+        num_state = 2 if dcfg.decoder_type == "LSTM" else 1
         p["init_state"] = [torch.zeros(dcfg.hidden_size)
-                           for _ in range(dcfg.num_layers * 2)]
+                           for _ in range(dcfg.num_layers * num_state)]
     return p
 
 
 def attn_hidden_width(acfg: AttentionConfig, values_dim: int) -> int:
     """Width of the attentional hidden state fed back at the next step:
-    the raw context for Bahdanau attention."""
+    the raw context for "B", the tanh-projected size for "L"."""
     return acfg.attn_hidden_size if acfg.attn_type == "L" else values_dim
+
+
+def zero_cell_state(dcfg: DecoderConfig, like, rows: int) -> List:
+    """The all-zero per-layer state of ``rows`` rows: (z, z) for LSTM,
+    z otherwise (JAX ``cell0``)."""
+    z = like.new_zeros((rows, dcfg.hidden_size))
+    return [(z, z) if dcfg.decoder_type == "LSTM" else z] * dcfg.num_layers
+
+
+def last_hidden(dcfg: DecoderConfig, cell_state: List):
+    """The top layer's h."""
+    last = cell_state[-1]
+    return last[0] if dcfg.decoder_type == "LSTM" else last
 
 
 def get_initial_state(p: Params, dcfg: DecoderConfig, bsz: int, enc_state
                       ) -> Optional[List]:
-    """Reference decoder.py:56-73: the encoder's last (h, c) replicated per
+    """Reference decoder.py:56-73: the encoder's last state replicated per
     layer when it fits the decoder cell, else the learned init, else None
-    (zeros in the cell stack)."""
-    if (enc_state is not None and isinstance(enc_state, tuple)
-            and len(enc_state) == 2
-            and enc_state[0].shape[-1] == dcfg.hidden_size):
-        return [enc_state] * dcfg.num_layers
+    (zeros in the cell stack).  A state that does not fit (a GRU encoder's
+    plain h next to an LSTM decoder's (h, c), or another width) falls
+    through."""
+    if enc_state is not None:
+        if dcfg.decoder_type == "LSTM":
+            fits = (isinstance(enc_state, tuple) and len(enc_state) == 2
+                    and enc_state[0].shape[-1] == dcfg.hidden_size)
+        else:
+            fits = (not isinstance(enc_state, tuple)
+                    and enc_state.shape[-1] == dcfg.hidden_size)
+        if fits:
+            return [enc_state] * dcfg.num_layers
     if "init_state" in p:
         init = p["init_state"]
+        if dcfg.decoder_type != "LSTM":
+            return [e.expand(bsz, -1) for e in init]
         return [(init[2 * i].expand(bsz, -1), init[2 * i + 1].expand(bsz, -1))
                 for i in range(dcfg.num_layers)]
     return None
 
 
-def _logit(p: Params, last_h, ahs):
-    return torch.cat([last_h, ahs], dim=-1) @ p["proj_w"] + p["proj_b"]
+def _attn_hidden(p: Params, acfg: AttentionConfig, last_h, context):
+    if acfg.attn_type == "L":
+        return torch.tanh(torch.cat([last_h, context], dim=1)
+                          @ p["attn_hidden_w"])
+    return context
+
+
+def project(p: Params, acfg: AttentionConfig, last_h, ahs):
+    """Logits from the step's top h and attentional hidden state."""
+    if acfg.attn_type == "B":
+        return torch.cat([last_h, ahs], dim=-1) @ p["proj_w"] + p["proj_b"]
+    return ahs @ p["proj_w"] + p["proj_b"]
 
 
 def decoder_step(p: Params, attn_p, dcfg: DecoderConfig, acfg: AttentionConfig,
@@ -88,14 +137,17 @@ def decoder_step(p: Params, attn_p, dcfg: DecoderConfig, acfg: AttentionConfig,
     ``gate_partial`` [B, 4H]: layer 0's gate contribution of the embedding
     with both biases (``emb @ W_ih[:E] + b_ih + b_hh``), computed outside
     the step loop; layer 0 then multiplies only the fed-back attentional
-    state and W_hh.  ``compute_logit=False`` leaves ``logit`` None (the
-    trainer projects all steps at once).  Input feeding only, as in JAX."""
+    state and W_hh (LSTM with input feeding only, as in JAX).
+    ``compute_logit=False`` leaves ``logit`` None (the trainer projects all
+    steps at once)."""
+    ctx_size = attn_hidden_width(acfg, values.shape[-1])
     if gate_partial is not None:
-        if not dcfg.input_feeding:
-            raise ValueError("gate_partial needs input feeding")
+        if dcfg.decoder_type != "LSTM" or not dcfg.input_feeding:
+            raise ValueError("gate_partial needs an LSTM decoder with input "
+                             "feeding")
         B = gate_partial.shape[0]
         if attn_hidden_state is None:
-            attn_hidden_state = gate_partial.new_zeros((B, values.shape[-1]))
+            attn_hidden_state = gate_partial.new_zeros((B, ctx_size))
         if cell_state is None:
             cell_state = [(gate_partial.new_zeros((B, l["w_hh"].shape[0])),) * 2
                           for l in p["cells"]]
@@ -112,16 +164,16 @@ def decoder_step(p: Params, attn_p, dcfg: DecoderConfig, acfg: AttentionConfig,
         x = token_emb if token_emb is not None else p["embedding"][token]
         if dcfg.input_feeding:
             if attn_hidden_state is None:
-                attn_hidden_state = x.new_zeros((x.shape[0],
-                                                 values.shape[-1]))
+                attn_hidden_state = x.new_zeros((x.shape[0], ctx_size))
             x = torch.cat([x, attn_hidden_state], dim=1)
         cell_state = rnn_ops.cell_stack_step(dcfg.decoder_type, p["cells"],
                                              x, cell_state)
-    last_h = cell_state[-1][0]
+    last_h = last_hidden(dcfg, cell_state)
     context, alignment = attn_ops.attend(attn_p, acfg, mask, last_h, keys,
                                          values)
-    logit = _logit(p, last_h, context) if compute_logit else None
-    return DecoderOut(logit, context, alignment, cell_state)
+    ahs = _attn_hidden(p, acfg, last_h, context)
+    logit = project(p, acfg, last_h, ahs) if compute_logit else None
+    return DecoderOut(logit, ahs, alignment, cell_state)
 
 
 def decoder_step_beam(p: Params, attn_p, dcfg: DecoderConfig,
@@ -139,9 +191,9 @@ def decoder_step_beam(p: Params, attn_p, dcfg: DecoderConfig,
         x = torch.cat([x, attn_hidden_state], dim=1)
     cell_state = rnn_ops.cell_stack_step(dcfg.decoder_type, p["cells"], x,
                                          cell_state)
-    last_h = cell_state[-1][0]
+    last_h = last_hidden(dcfg, cell_state)
     context, alignment = attn_ops.attend_beam(
         attn_p, acfg, mask, last_h.reshape(B, k, -1), keys, values)
-    context = context.reshape(B * k, -1)
-    return DecoderOut(_logit(p, last_h, context), context,
+    ahs = _attn_hidden(p, acfg, last_h, context.reshape(B * k, -1))
+    return DecoderOut(project(p, acfg, last_h, ahs), ahs,
                       alignment.reshape(B * k, -1), cell_state)

@@ -108,13 +108,14 @@ class EncodedBatch(NamedTuple):
 
 
 def encode(params: Params, cfg: Config, feats, feat_lens,
-           train: bool = False) -> EncodedBatch:
+           train: bool = False, bn_updates=None) -> EncodedBatch:
     """Shared decode prologue (reference model.py:523-534): encoder forward,
     softmax mask, decoder initial state, attention key/value precompute.
-    ``train`` is JAX's switch to BatchNorm batch statistics; the LSTM
-    encoder has no BatchNorm, so it changes nothing here (the BatchNorm
-    families raise in ``models/encoder.py``)."""
-    enc = enc_ops.apply_encoder(params["encoder"], cfg, feats, feat_lens)
+    ``train`` switches the BatchNorm encoders to batch statistics and, with
+    a ``bn_updates`` list, records the running-stat updates for the train
+    step (torch BatchNorm semantics)."""
+    enc = enc_ops.apply_encoder(params["encoder"], cfg, feats, feat_lens,
+                                train=train, bn_updates=bn_updates)
     mask = softmax_mask(enc.out_lens, enc.out.shape[1], enc.out.dtype)
     cell_state = dec_ops.get_initial_state(params["decoder"], cfg.decoder,
                                            feats.shape[0], enc.state)
@@ -131,35 +132,42 @@ def encode(params: Params, cfg: Config, feats, feat_lens,
 def params_from_torch_state(enc_sd: Dict[str, np.ndarray],
                             dec_sd: Dict[str, np.ndarray],
                             cfg: Config, device=None) -> Params:
-    """Params tree from reference state_dict arrays (numpy): the LSTM
-    encoder and the Bahdanau decoder, transposed to right-matmul layout."""
+    """Params tree from reference state_dict arrays (numpy), transposed to
+    right-matmul layout.  Expected names (default LSTM config):
+
+      encoder: rnn.rnn.{i}.weight_ih_l0[_reverse], weight_hh_l0, bias_ih_l0,
+               bias_hh_l0 (every RNN mode); the other families as
+               ``encoders_extra.encoder_from_torch_state`` reads them
+      decoder: embedding.weight, cell.cell.{i}.weight_ih/hh, bias_ih/hh,
+               proj_linear.weight/bias, [attn_hidden_weight],
+               attn_mechanism.W_enc/b_attn/W_hidden/v[/map_enc.weight
+               /linear_map]"""
     ecfg, dcfg = cfg.encoder, cfg.decoder
-    enc_ops._require_lstm(cfg)
 
     def T(name, sd):
         return np.asarray(sd[name]).T
 
-    layers = []
-    for i in range(ecfg.num_layers):
-        base = f"rnn.rnn.{i}."
-        layer = {}
-        for dname, suffix in (("fwd", ""), ("bwd", "_reverse")):
-            if dname == "bwd" and not ecfg.bidirectional:
-                continue
-            layer[dname] = {
-                "w_ih": T(base + "weight_ih_l0" + suffix, enc_sd),
-                "w_hh": T(base + "weight_hh_l0" + suffix, enc_sd),
-                "b_ih": np.asarray(enc_sd[base + "bias_ih_l0" + suffix]),
-                "b_hh": np.asarray(enc_sd[base + "bias_hh_l0" + suffix]),
-            }
-        layers.append(layer)
+    if ecfg.encoder_type in enc_ops._RNN_FAMILY:
+        from .encoders_extra import rnn_stack_from_sd
+        encoder = {"layers": rnn_stack_from_sd(enc_sd, "rnn.rnn.",
+                                               ecfg.num_layers,
+                                               ecfg.bidirectional)}
+    else:
+        from . import encoders_extra
+        encoder = encoders_extra.encoder_from_torch_state(enc_sd, cfg)
 
+    # the attention lives in the decoder's state dict (the reference's
+    # decoder holds attn_mechanism; its tensors are in math orientation)
     attention = {
         "w_enc": dec_sd["attn_mechanism.W_enc"],
         "b_attn": dec_sd["attn_mechanism.b_attn"],
         "w_hidden": dec_sd["attn_mechanism.W_hidden"],
         "v": dec_sd["attn_mechanism.v"],
     }
+    if "attn_mechanism.map_enc.weight" in dec_sd:
+        attention["map_enc"] = T("attn_mechanism.map_enc.weight", dec_sd)
+    if "attn_mechanism.linear_map" in dec_sd:
+        attention["linear_map"] = dec_sd["attn_mechanism.linear_map"]
     cells = []
     for i in range(dcfg.num_layers):
         base = f"cell.cell.{i}."
@@ -175,6 +183,8 @@ def params_from_torch_state(enc_sd: Dict[str, np.ndarray],
         "proj_w": T("proj_linear.weight", dec_sd),
         "proj_b": dec_sd["proj_linear.bias"],
     }
+    if "attn_hidden_weight" in dec_sd:
+        decoder["attn_hidden_w"] = dec_sd["attn_hidden_weight"]
     # learned decoder init: the reference's "dec_init_cell_state.{i}"
     # (decoder.py:36-40), or "init_state.{i}" from older exports
     for name in ("dec_init_cell_state", "init_state"):
@@ -184,8 +194,7 @@ def params_from_torch_state(enc_sd: Dict[str, np.ndarray],
                 init.append(dec_sd[f"{name}.{len(init)}"])
             decoder["init_state"] = init
             break
-    tree = {"encoder": {"layers": layers}, "attention": attention,
-            "decoder": decoder}
+    tree = {"encoder": encoder, "attention": attention, "decoder": decoder}
     return params_from_numpy(tree, device)
 
 
@@ -201,9 +210,15 @@ def load_torch_checkpoint(path: str, cfg: Config, device=None) -> Params:
 def params_to_torch_state(params: Params, cfg: Config):
     """Inverse of ``params_from_torch_state``: (enc_sd, dec_sd) numpy dicts
     in the reference's tensor names and orientation, so that a model
-    trained here loads in the reference code (or re-imports).  The LSTM
-    encoder and the learned decoder init state, as the importer takes."""
-    enc_ops._require_lstm(cfg)
+    trained here loads in the reference code (or re-imports).  It covers
+    what JAX exports: the RNN encoder family, the attention with its
+    map_enc / linear_map, the Luong projection and the learned decoder
+    init state; the other encoder families raise, as in JAX."""
+    unexported = set(params["encoder"]) - {"layers"}
+    if unexported:
+        raise ValueError(
+            f"torch export supports the RNN encoder family only; params "
+            f"contain unsupported encoder entries {sorted(unexported)}")
     p = params_to_numpy(params)
     enc_sd: Dict[str, np.ndarray] = {}
     for i, layer in enumerate(p["encoder"]["layers"]):
@@ -226,12 +241,18 @@ def params_to_torch_state(params: Params, cfg: Config):
         "attn_mechanism.W_hidden": ap["w_hidden"],
         "attn_mechanism.v": ap["v"],
     }
+    if "map_enc" in ap:
+        dec_sd["attn_mechanism.map_enc.weight"] = ap["map_enc"].T
+    if "linear_map" in ap:
+        dec_sd["attn_mechanism.linear_map"] = ap["linear_map"]
     for i, cell in enumerate(dp["cells"]):
         base = f"cell.cell.{i}."
         dec_sd[base + "weight_ih"] = cell["w_ih"].T
         dec_sd[base + "weight_hh"] = cell["w_hh"].T
         dec_sd[base + "bias_ih"] = cell["b_ih"]
         dec_sd[base + "bias_hh"] = cell["b_hh"]
+    if "attn_hidden_w" in dp:
+        dec_sd["attn_hidden_weight"] = dp["attn_hidden_w"]
     # reference naming (decoder.py:36-40), so that its load_state_dict
     # takes a learned-init checkpoint exported from here
     for i, e in enumerate(dp.get("init_state", [])):

@@ -29,6 +29,7 @@ from ..config import Config
 from ..data.dataset import Batch
 from ..models import decoder as dec_ops
 from ..models import las
+from ..ops import conv as conv_ops
 from . import optim
 from .loss import label_smoothed_ce
 
@@ -44,6 +45,7 @@ def _step(body, remat: bool, *args):
 
 def forward_logits(params, cfg: Config, batch: Batch,
                    gen: Optional[torch.Generator] = None, ss: float = 0.0,
+                   bn_updates=None,
                    gate_hoist: Optional[bool] = None) -> torch.Tensor:
     """Teacher-forced logits [B, S, V] for the whole target matrix.
 
@@ -57,17 +59,19 @@ def forward_logits(params, cfg: Config, batch: Batch,
     embedding and the logit products leave the step loop: one [B*S, .]
     product each way, the loop carrying only the [S, B, H+ctx] trajectory.
     ``gate_hoist`` also hoists layer 0's embedding part of the gate product
-    with both biases (JAX: on by default from B >= 64).
+    with both biases (JAX: on by default from B >= 64; LSTM decoder with
+    input feeding only).  The encoder runs in train mode: its BatchNorms
+    normalize with batch statistics and record them into ``bn_updates``.
     """
     B, S = batch.tokens_in.shape
     dcfg, acfg = cfg.decoder, cfg.attention
     remat = cfg.train.remat
-    eb = las.encode(params, cfg, batch.feats, batch.feat_lens, train=True)
+    eb = las.encode(params, cfg, batch.feats, batch.feat_lens, train=True,
+                    bn_updates=bn_updates)
     ctx = dec_ops.attn_hidden_width(acfg, eb.values.shape[-1])
     cell0 = eb.init_cell_state
     if cell0 is None:
-        z = batch.feats.new_zeros((B, dcfg.hidden_size))
-        cell0 = [(z, z)] * dcfg.num_layers
+        cell0 = dec_ops.zero_cell_state(dcfg, batch.feats, B)
     attn0 = batch.feats.new_zeros((B, ctx))
     dp, ap = params["decoder"], params["attention"]
     emb = dp["embedding"]
@@ -121,10 +125,10 @@ def forward_logits(params, cfg: Config, batch: Batch,
     h_seq, a_seq = [], []
     for t in range(S):
         cell, attn = _step(body, remat, cell, attn, xs[:, t])
-        h_seq.append(cell[-1][0])
+        h_seq.append(dec_ops.last_hidden(dcfg, cell))
         a_seq.append(attn)
-    proj_in = torch.cat([torch.stack(h_seq), torch.stack(a_seq)], dim=-1)
-    logits = proj_in @ dp["proj_w"] + dp["proj_b"]             # [S, B, V]
+    logits = dec_ops.project(dp, acfg, torch.stack(h_seq),
+                             torch.stack(a_seq))               # [S, B, V]
     return logits.transpose(0, 1)
 
 
@@ -132,9 +136,10 @@ def loss_fn(params, cfg: Config, batch: Batch,
             gen: Optional[torch.Generator] = None
             ) -> Tuple[torch.Tensor, Dict]:
     """(label-smoothed CE over the valid tokens, {"accuracy",
-    "num_tokens"}); the CE is taken from float32 logits.  The LSTM
-    encoder has no BatchNorm, so JAX's running-stat folding has nothing to
-    do here.
+    "num_tokens", "bn_stats"}); the CE is taken from float32 logits.
+    ``bn_stats`` is the encoder's BatchNorm batch statistics as a tree
+    mirroring ``params`` (``ops/conv.py`` bn_stats_tree, detached: running
+    stats are a moving average, not learned), None without BatchNorm.
 
     Under ``train.compute_dtype="bfloat16"`` the float leaves of ``params``
     and ``batch.feats`` are cast to bf16 here, inside the differentiated
@@ -145,7 +150,9 @@ def loss_fn(params, cfg: Config, batch: Batch,
         params = las.tree_map(
             lambda t: t.to(cd) if t.is_floating_point() else t, params)
         batch = batch._replace(feats=batch.feats.to(cd))
-    logits = forward_logits(params, cfg, batch, gen, cfg.train.ss).float()
+    bn_updates = []
+    logits = forward_logits(params, cfg, batch, gen, cfg.train.ss,
+                            bn_updates).float()
     S = batch.tokens_out.shape[1]
     mask = (torch.arange(S, device=logits.device)[None, :]
             < batch.text_lens[:, None])
@@ -155,7 +162,11 @@ def loss_fn(params, cfg: Config, batch: Batch,
     n = mask.sum()
     acc = ((torch.argmax(logits, -1) == tokens_out) & mask).sum() \
         / torch.clamp(n, min=1)
-    return loss, {"accuracy": acc, "num_tokens": n}
+    # the recordings key on the sub-dicts of the tree the forward ran on
+    # (the bf16 cast's under mixed precision), so the tree is built here
+    bn_tree = las.tree_map(lambda t: None if t is None else t.detach(),
+                           conv_ops.bn_stats_tree(params, bn_updates))
+    return loss, {"accuracy": acc, "num_tokens": n, "bn_stats": bn_tree}
 
 
 def train_step(params, opt_state, cfg: Config, tx: optim.Optimizer,
@@ -164,7 +175,11 @@ def train_step(params, opt_state, cfg: Config, tx: optim.Optimizer,
     tensors on the device (no host sync here).
 
     A non-finite loss skips the update: params and optimizer state come
-    back unchanged, the reference's NaN/Inf guard (model.py:473-475)."""
+    back unchanged, the reference's NaN/Inf guard (model.py:473-475).
+    BatchNorm running stats are buffers: the optimizer leaves them alone,
+    and the batch statistics of the forward fold into them after the
+    update (torch's momentum-0.1 moving average, JAX
+    ``conv.merge_bn_stats``)."""
     flat = optim.flatten(params)
     leaves = {n: t.detach().requires_grad_(True) for n, t in flat.items()}
     loss, aux = loss_fn(optim.unflatten(params, leaves), cfg, batch, gen)
@@ -179,7 +194,11 @@ def train_step(params, opt_state, cfg: Config, tx: optim.Optimizer,
         grads = {n: torch.where(finite, g, torch.zeros_like(g))
                  for n, g in grads.items()}
         updates, new_state = tx.update(grads, opt_state, flat)
-        new_flat = {n: torch.where(finite, p + updates[n], p)
+        merged = optim.flatten(conv_ops.merge_bn_stats(
+            optim.unflatten(params, {n: p + updates[n]
+                                     for n, p in flat.items()}),
+            aux.pop("bn_stats")))
+        new_flat = {n: torch.where(finite, merged[n], p)
                     for n, p in flat.items()}
         new_state = {k: torch.where(finite, v, opt_state[k])
                      for k, v in new_state.items()}

@@ -84,6 +84,16 @@ every phase passed):
    ``transcribe_bytes`` against ``transcribe_files``, and
    ``evaluate_manifest`` on the golden shard in all five modes (card
    against CPU); report ``evaluate_manifest`` at flagship width;
+3f. run every other config the port takes at full width: each
+   ``encoder_type`` but LSTM, and on the LSTM encoder the unidirectional
+   stack, the GRU decoder, Luong wiring and 4 heads with ``map_enc`` and
+   ``linear_map`` (``FAMILY_RUNS``), each ``ASR(bw=16)`` on the B=32
+   batch: the launches (K1 1, K3 40, K2 4 only on the bidirectional LSTM
+   encoder), two runs equal, the card's encoder and greedy tokens against
+   the CPU port's on CPU features of 2 wavs of 2 s; the median of 3 warm
+   walls and one device-only profile (launches, busy share) each; then
+   ``Trainer.fit`` of CNN1D_RNN (a BatchNorm front, a GRU stack) for 4
+   steps of B=32 and its train step on the card against the CPU port;
 4. train at the flagship ``Config()`` (ADAM, seeded random weights), in
    f32 and then in bf16 mixed precision (``compute_dtype="bfloat16"``):
    ``Trainer.fit`` for 6 steps of B=32 over 32 synthetic 9-10 s wavs with
@@ -336,37 +346,21 @@ def _profile_main_path(torch, asr, wavs, label: str, wall_ms: float) -> None:
     prints device time by kernel and the kernels' busy time as a share of
     ``wall_ms``, the median wall of the path's timed warm runs.
     Informational: its launches are not the main path's counts."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     asr.transcribe_wavs(wavs)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        asr.transcribe_wavs(wavs)
-        torch.cuda.synchronize()
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0))
-
-    # device-side kernel events only (the aten ops that launched them
-    # carry the same time again)
-    rows = sorted((e for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA and dev_us(e) > 0),
-                  key=lambda e: -dev_us(e))
+    busy_ms, n_launch, rows = _device_profile(
+        torch, lambda: asr.transcribe_wavs(wavs))
     if not rows:
         print(f"profile {label}: no device time in the trace (not measured)")
         return
-    busy_ms = sum(dev_us(e) for e in rows) / 1e3
     print(f"profile {label}: kernels busy {busy_ms:.1f} ms in the profiled "
           f"run = {100 * busy_ms / wall_ms:.1f}% of the median warm wall "
-          f"{wall_ms:.1f} ms, {sum(e.count for e in rows)} kernel launches")
+          f"{wall_ms:.1f} ms, {n_launch} kernel launches")
     # the twelve largest, then the port's own kernels further down
-    ours = [e for e in rows[12:] if any(
-        n in e.key for n in ("topk_kernel", "bilstm", "logmel", "adpcm"))]
-    for e in rows[:12] + ours:
-        print(f"  {dev_us(e) / 1e3:9.3f} ms  x{e.count:<5d} "
-              f"{e.key[:90]}")
+    ours = [r for r in rows[12:] if any(
+        n in r[2] for n in ("topk_kernel", "bilstm", "logmel", "adpcm"))]
+    for us, count, key in rows[:12] + ours:
+        print(f"  {us / 1e3:9.3f} ms  x{count:<5d} {key[:90]}")
 
 
 def _fused_flips(torch, asr, wavs, beam_mod) -> dict:
@@ -1085,9 +1079,6 @@ def _fit_run(np, torch, fails, dev, gpu, counters, cfg, manifest, vocab,
     optimizer state float32; ms per step (median of the warm steps), one
     more step split by CUDA events, one profiled, peak device memory.
     Returns (the run's report, the trainer)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from chinese_asr_tpu_torch.data import dataset
     from chinese_asr_tpu_torch.models import las
     from chinese_asr_tpu_torch.train import optim, step as step_mod
@@ -1164,7 +1155,10 @@ def _fit_run(np, torch, fails, dev, gpu, counters, cfg, manifest, vocab,
     loss, _ = step_mod.loss_fn(optim.unflatten(tr.params, leaves), cfg,
                                batch, tr._gen)
     ev[1].record()
-    grads = torch.autograd.grad(loss, list(leaves.values()))
+    # BatchNorm's running stats take no gradient (train_step's zeros)
+    grads = [torch.zeros_like(t) if g is None else g for t, g in zip(
+        leaves.values(), torch.autograd.grad(loss, list(leaves.values()),
+                                             allow_unused=True))]
     ev[2].record()
     with torch.no_grad():
         upd, _ = tr.tx.update(dict(zip(leaves, grads)), tr.opt_state, flat)
@@ -1177,24 +1171,18 @@ def _fit_run(np, torch, fails, dev, gpu, counters, cfg, manifest, vocab,
                  backward_ms=ev[1].elapsed_time(ev[2]),
                  optimizer_ms=ev[2].elapsed_time(ev[3]))
     del leaves, grads, upd, loss
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    prof_ms = []
+
+    def profiled_step():
         t = time.perf_counter()
-        p2, o2, _ = step_mod.train_step(tr.params, tr.opt_state, cfg, tr.tx,
-                                        batch, tr._gen)
+        step_mod.train_step(tr.params, tr.opt_state, cfg, tr.tx, batch,
+                            tr._gen)
         torch.cuda.synchronize()
-        prof_ms = (time.perf_counter() - t) * 1e3
-    del p2, o2
+        prof_ms.append((time.perf_counter() - t) * 1e3)
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0))
-
-    rows = sorted((e for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA and dev_us(e) > 0),
-                  key=lambda e: -dev_us(e))
-    busy_ms = sum(dev_us(e) for e in rows) / 1e3
-    n_launch = sum(e.count for e in rows)
+    busy_ms, n_launch, rows = _device_profile(torch, profiled_step,
+                                              host_ops=False)
+    prof_ms = prof_ms[0]
     # the busy share against the median warm step, as the decode paths
     # take theirs (the profiler slows the profiled step's host side)
     print(f"{label} step split by CUDA events: {json.dumps(split)}; one "
@@ -1202,8 +1190,8 @@ def _fit_run(np, torch, fails, dev, gpu, counters, cfg, manifest, vocab,
           f"busy {busy_ms:.1f} ms = {100 * busy_ms / step_ms:.1f}% of the "
           f"median warm step {step_ms:.1f} ms, {n_launch} kernel launches",
           flush=True)
-    for e in rows[:12]:
-        print(f"  {dev_us(e) / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
+    for us, count, key in rows[:12]:
+        print(f"  {us / 1e3:9.3f} ms  x{count:<5d} {key[:90]}")
     report = dict(steps=steps, batch=32, compute_dtype=cfg.train.compute_dtype,
                   step_ms=step_ms, step_walls_ms=[w * 1e3 for w in walls],
                   fit_s=fit_s, losses=losses, split=split,
@@ -1362,6 +1350,220 @@ def _phase_training(np, torch, fails, dev, gpu, counters, build_dir):
             if f.endswith((".ckpt", ".wav", ".npy")):
                 os.remove(os.path.join(d, f))
     return dict(f32, bf16=bf16)
+
+
+# phase 3f: each encoder family, and each decoder / attention variant on
+# the LSTM encoder, at the flagship Config() with one field changed
+FAMILY_RUNS = (
+    [(et.lower(), dict(encoder=dict(encoder_type=et)))
+     for et in ("CNN1D", "CNN2D", "GRU", "RNN_TANH", "RNN_RELU",
+                "SELF_ATTENTION", "SELF_LOCAL_ATTENTION", "CNN1D_RNN",
+                "CNN1D_SELF_ATTENTION", "CRNN", "DCNN")]
+    + [("lstm_unidirectional", dict(encoder=dict(bidirectional=False))),
+       ("decoder_gru", dict(decoder=dict(decoder_type="GRU"))),
+       ("attn_luong", dict(attention=dict(attn_type="L"))),
+       ("attn_heads4_map_linear", dict(attention=dict(
+           heads=4, map_enc=True, linear_map=True)))])
+FAMILY_WARM_RUNS = 3            # warm walls behind each family's median
+TOL_FAMILY_ENC = 1e-4           # card vs CPU encoder, of max(1, max |ref|)
+
+
+def _device_profile(torch, fn, host_ops: bool = True):
+    """One call of ``fn`` under torch.profiler -> (kernel busy ms, kernel
+    launches, the device kernel rows by time); rows is empty when the
+    trace has no device time.  ``host_ops=False`` traces the device
+    alone, which a run of tens of thousands of launches summarizes much
+    faster."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host_ops
+                                      else [])
+    with profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+
+    rows = sorted(((dev_us(e), e.count, e.key) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and dev_us(e) > 0),
+                  reverse=True)
+    return (sum(r[0] for r in rows) / 1e3, sum(r[1] for r in rows), rows)
+
+
+def _family_step(np, torch, fails, dev, cfg):
+    """One train_step of ``cfg`` (CNN1D_RNN at full width: a BatchNorm
+    front and a GRU stack) on the card against the CPU port, from the same
+    params and a small batch (B=4, 60 frames, 6 tokens), at PERF.md
+    section 2's f32 bounds: loss 1e-5 relative, grad norm 1e-4, params
+    2e-5, BN running stats 1e-5.  SGD: the conv bias before each
+    BatchNorm has a zero gradient up to rounding, which Adam would turn
+    into a full-lr step of either sign on each device."""
+    from chinese_asr_tpu_torch.data.dataset import Batch
+    from chinese_asr_tpu_torch.models import las
+    from chinese_asr_tpu_torch.train import optim, step as step_mod
+
+    cfg = cfg.with_("train", optimizer="SGD", clip=1.0)
+    r = np.random.RandomState(3)
+    B, T, S = 4, 60, 6
+    feats = r.randn(B, T, cfg.audio.feat_dim).astype(np.float32)
+    lens = np.array([60, 47, 60, 33], np.int32)
+    feats[np.arange(T)[None, :] >= lens[:, None]] = 0
+    text = r.randint(4, cfg.vocab.vocab_size, (B, S))
+    host = (feats, lens,
+            np.concatenate([np.ones((B, 1), int), text[:, :-1]], 1),
+            np.concatenate([text[:, :-1], np.full((B, 1), 2)], 1),
+            np.full(B, S, np.int32))
+    res = []
+    for d in ("cpu", dev):
+        params = las.init_params(cfg, 0, d)
+        tx = optim.make_optimizer(cfg.train)
+        b = Batch(*(torch.tensor(a).to(d) for a in host))
+        res.append(step_mod.train_step(params, tx.init(params), cfg, tx, b))
+    (pc, _, mc), (pg, _, mg) = res
+    dloss = abs(float(mg["loss"]) / float(mc["loss"]) - 1)
+    dnorm = abs(float(mg["grad_norm"]) / float(mc["grad_norm"]) - 1)
+    pairs = list(zip(las.tree_paths(pg), las.tree_paths(pc)))
+    dpar = max(float((a.cpu() - b).abs().max()) for (_, a), (_, b) in pairs)
+    dbn = max(float((a.cpu() - b).abs().max()) for (p, a), (_, b) in pairs
+              if p[-1] in ("bn_mean", "bn_var"))
+    fails.check(dloss <= 1e-5 and dnorm <= 1e-4 and dpar <= 2e-5
+                and dbn <= 1e-5,
+                f"3f: CNN1D_RNN train_step card vs CPU port: loss rel "
+                f"{dloss:.3g} <= 1e-05, grad norm rel {dnorm:.3g} <= 1e-04, "
+                f"params {dpar:.3g} <= 2e-05, BN running stats {dbn:.3g} "
+                f"<= 1e-05")
+    return dict(loss_rel=dloss, grad_norm_rel=dnorm, params=dpar,
+                bn_stats=dbn)
+
+
+def _phase_families(np, torch, fails, ASR, base_cfg, wavs, rng, dev,
+                    counters, gpu, build_dir):
+    """Phase 3f: each encoder family and decoder / attention variant at
+    full width.  For each run of ``FAMILY_RUNS``: ``ASR(bw=16)`` on the
+    B=32 batch, its launches (K1 1, K3 40, K2 4 only on a bidirectional
+    LSTM encoder), two runs' transcripts equal, the median of
+    ``FAMILY_WARM_RUNS`` warm walls and one profiled run's kernel
+    launches and busy share; on 2 wavs of 2 s (features from the CPU
+    port) the card's encoder output against the CPU port's and their
+    greedy tokens.  Then ``Trainer.fit`` of CNN1D_RNN for 4 steps of B=32,
+    and its train step card vs CPU.  Returns the report."""
+    from chinese_asr_tpu_torch.decode import greedy
+    from chinese_asr_tpu_torch.models import las
+    from chinese_asr_tpu_torch.vocab import Vocab
+
+    cpu_asr = ASR(bw=None, cfg=base_cfg, seed=0, device="cpu")
+    small = _synthetic_wavs(np, rng, 2, 2.0, 2.0)
+    feats, flens = cpu_asr._featurize(cpu_asr._upload(cpu_asr._prep(small,
+                                                                    None)))
+    del cpu_asr
+    report = {}
+    for name, over in FAMILY_RUNS:
+        cfg = base_cfg
+        for sec, kw in over.items():
+            cfg = cfg.with_(sec, **kw)
+        t_run = time.time()
+        asr = ASR(bw=16, cfg=cfg, seed=0, device=dev)
+        runs = []
+        for _ in range(2):
+            for mod, attr in counters.values():
+                setattr(mod, attr, 0)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            texts = asr.transcribe_wavs(wavs)
+            torch.cuda.synchronize()
+            runs.append((texts, time.perf_counter() - t,
+                         {n: getattr(m, a) for n, (m, a)
+                          in counters.items()}))
+        (t1, w1, c1), (t2, w2, _) = runs
+        bilstm = (cfg.encoder.encoder_type == "LSTM"
+                  and cfg.encoder.bidirectional)
+        want = dict.fromkeys(counters, 0)
+        want.update(logmel=1, topk=40, lstm=4 if bilstm else 0)
+        fails.check(c1 == want, f"3f {name}: kernels launched {c1}, wanted "
+                                f"{want}")
+        fails.check(t1 == t2 and len(t1) == len(wavs)
+                    and all(isinstance(x, str) for x in t1),
+                    f"3f {name}: two runs give identical transcripts")
+        walls = [w2]
+        for _ in range(FAMILY_WARM_RUNS - 1):
+            t = time.perf_counter()
+            asr.transcribe_wavs(wavs)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+        wall_ms = float(np.median(walls)) * 1e3
+        t_prof = time.time()
+        busy_ms, n_launch, rows = _device_profile(
+            torch, lambda: asr.transcribe_wavs(wavs), host_ops=False)
+        t_prof = time.time() - t_prof
+        # the small input: the same CPU features through both devices
+        p_cpu = las.tree_map(lambda t: t.cpu(), asr.params)
+        ref = las.encode(p_cpu, cfg, feats, flens).enc_out
+        got = las.encode(asr.params, cfg, feats.to(asr.device),
+                         flens.to(asr.device)).enc_out.cpu()
+        err = float((got - ref).abs().max()) / max(1.0,
+                                                   float(ref.abs().max()))
+        g_cpu = greedy.greedy_decode(p_cpu, cfg, feats, flens)
+        g_card = greedy.greedy_decode(asr.params, cfg, feats.to(asr.device),
+                                      flens.to(asr.device))
+        same = (torch.equal(g_card.tokens.cpu(), g_cpu.tokens)
+                and torch.equal(g_card.final_lens.cpu(), g_cpu.final_lens))
+        fails.check(err <= TOL_FAMILY_ENC and same,
+                    f"3f {name}: card vs CPU port on 2 wavs of 2 s: encoder "
+                    f"{err:.3g} <= {TOL_FAMILY_ENC} of max(1, max|ref|), "
+                    f"greedy tokens equal {same}")
+        report[name] = dict(wall_ms=wall_ms, walls_ms=[w * 1e3 for w in walls],
+                            wall_ms_first=w1 * 1e3, launches=n_launch,
+                            busy_ms=busy_ms, busy_share=busy_ms / wall_ms,
+                            kernel_launches=c1, enc_rel_err=err,
+                            top=[(round(us / 1e3, 3), n, k[:60])
+                                 for us, n, k in rows[:5]])
+        print(f"3f {name}: enc {tuple(got.shape)}; wall median "
+              f"{wall_ms:.1f} ms of {len(walls)} warm runs "
+              f"{[round(w * 1e3, 1) for w in walls]} (first "
+              f"{w1 * 1e3:.0f} ms) on {gpu}; {n_launch} kernel launches a "
+              f"batch, busy {busy_ms:.1f} ms = "
+              f"{100 * busy_ms / wall_ms:.1f}%; counters {c1}; the run took "
+              f"{time.time() - t_run:.1f} s, its profile {t_prof:.1f} s",
+              flush=True)
+        del asr, p_cpu
+        torch.cuda.empty_cache()
+    slow = max(report, key=lambda n: report[n]["wall_ms"])
+    print(f"3f slowest: {slow}, {report[slow]['wall_ms']:.1f} ms, busy "
+          f"{100 * report[slow]['busy_share']:.1f}% of its wall; its "
+          f"largest kernels {report[slow]['top']}", flush=True)
+
+    # training: CNN1D_RNN under autograd (BatchNorm front + GRU stack)
+    t_train = time.time()
+    cfg = base_cfg.with_("encoder", encoder_type="CNN1D_RNN")
+    report["train_step_card_vs_cpu"] = _family_step(np, torch, fails, dev,
+                                                    cfg)
+    root = os.path.join(build_dir, "family_corpus")
+    chars = "".join(chr(0x4E00 + i) for i in range(5000))
+    vocab = Vocab.build([chars], max_num_words=5000)
+    manifest, _ = _train_corpus(np, np.random.default_rng(9), root, 32, chars)
+    steps = 4
+    cfg = cfg.with_("train", batch_size=32, eval_batch_size=32, epochs=steps,
+                    num_eval_steps=1000, seed=0,
+                    save_dir=os.path.join(build_dir, "family_ckpt"))
+    fit, tr = _fit_run(np, torch, fails, dev, gpu, counters, cfg, manifest,
+                       vocab, dict(logmel=steps + 1), "3f training CNN1D_RNN")
+    init = las.init_params(cfg, 0)
+    moved = [float((tr.params["encoder"]["front"]["convs"][i][k].cpu()
+                    - init["encoder"]["front"]["convs"][i][k]).abs().max())
+             for i in range(2) for k in ("bn_mean", "bn_var")]
+    fails.check(min(moved) > 0, f"3f training CNN1D_RNN: the BN running "
+                                f"stats moved {[round(m, 4) for m in moved]}")
+    fit.pop("ckpt")
+    report["training_cnn1d_rnn"] = dict(fit, bn_moved=moved)
+    print(f"3f training took {time.time() - t_train:.1f} s", flush=True)
+    del tr
+    for d in (root, cfg.train.save_dir):
+        for f in os.listdir(d):
+            if f.endswith((".ckpt", ".wav", ".npy")):
+                os.remove(os.path.join(d, f))
+    return report
 
 
 class Failures:
@@ -2449,6 +2651,17 @@ def main() -> int:
                                      wavs128, rng, counters, gpu, golden,
                                      build.BUILD_DIR))
     print(f"phase 3e: {time.time() - t3e:.1f} s", flush=True)
+
+    # ---- phase 3f: the encoder families and variants at full width ----------
+    t3f = time.time()
+    paths["families"] = _phase_families(np, torch, fails, ASR, cfg, wavs,
+                                        rng, dev, counters, gpu,
+                                        build.BUILD_DIR)
+    for n in ("logmel", "topk", "lstm"):
+        kernels[n]["launches_families"] = {
+            run: paths["families"][run]["kernel_launches"][n]
+            for run, _ in FAMILY_RUNS}
+    print(f"phase 3f: {time.time() - t3f:.1f} s", flush=True)
 
     # ---- phase 4: training at full width ------------------------------------
     t4 = time.time()

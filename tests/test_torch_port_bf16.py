@@ -274,8 +274,8 @@ def test_bf16_lm_first_decodes_jax_encoder_output_as_jax(expected,
         torch.bfloat16) for s in enc.state)
     real = tenc.apply_encoder
 
-    def jax_encoder(p, cfg, x, lens):
-        got = real(p, cfg, x, lens)
+    def jax_encoder(p, cfg, x, lens, train=False, bn_updates=None):
+        got = real(p, cfg, x, lens, train, bn_updates)
         assert got.out.shape == out.shape
         return got._replace(out=out, state=state)
     port = _golden_asr("port", **kw)

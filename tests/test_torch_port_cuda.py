@@ -1012,3 +1012,89 @@ def test_golden_bf16_train_step_on_the_card_equals_cpu(dev):
     assert all(t.dtype == torch.float32 for t in las.tree_leaves(pg))
     assert all(v.dtype == torch.float32 for v in og.values()
                if v.is_floating_point())
+
+
+# --------------------------------------------------------------------------
+# the encoder families and variants (plain torch ops on the card: cuDNN
+# convs, cuBLAS products with TF32 off, Python time loops) against the CPU
+# port, on the same features: 1e-4 of max(1, max |ref|), chip_smoke.py's
+# TOL_FAMILY_ENC; greedy tokens equal
+# --------------------------------------------------------------------------
+FAMILIES = ["LSTM", "GRU", "RNN_TANH", "RNN_RELU", "CNN1D", "CNN2D",
+            "CNN1D_RNN", "CNN1D_SELF_ATTENTION", "SELF_ATTENTION",
+            "SELF_LOCAL_ATTENTION", "CRNN", "DCNN"]
+
+
+def _family_cfg(et, **over):
+    cfg = (tcfg.Config()
+           .with_("encoder", encoder_type=et, hidden_size=64, num_layers=2,
+                  conv_channels=8, dcnn_middle=1, ffn_size=96)
+           .with_("decoder", hidden_size=64, embed_dim=16)
+           .with_("attention", attn_size=32)
+           .with_("vocab", max_num_words=50)
+           .with_("decode", max_len=12))
+    for sec, kw in over.items():
+        cfg = cfg.with_(sec, **kw)
+    return cfg
+
+
+@pytest.mark.parametrize("et", FAMILIES)
+@pytest.mark.parametrize("train", [False, True])
+def test_family_encoder_on_the_card_equals_cpu(dev, et, train):
+    from chinese_asr_tpu_torch.decode import greedy
+    from chinese_asr_tpu_torch.models import encoder as tenc
+    from chinese_asr_tpu_torch.models import las
+    cfg = _family_cfg(et)
+    rng = np.random.RandomState(7)
+    B, T = 3, 57
+    feats = rng.randn(B, T, cfg.audio.feat_dim).astype(np.float32)
+    lens = np.array([57, 40, 9], np.int32)
+    feats[np.arange(T)[None, :] >= lens[:, None]] = 0
+    out = {}
+    for d in ("cpu", dev):
+        p = las.init_params(cfg, 3, d)
+        x, n = torch.tensor(feats).to(d), torch.tensor(lens).to(d)
+        up = []
+        enc = tenc.apply_encoder(p["encoder"], cfg, x, n, train=train,
+                                 bn_updates=up)
+        g = None if train else greedy.greedy_decode(p, cfg, x, n)
+        out[str(d)] = (enc, up, g)
+    (ec, uc, gc), (eg, ug, gg) = out["cpu"], out[str(dev)]
+    ref = ec.out
+    err = float((eg.out.cpu() - ref).abs().max())
+    assert err <= 1e-4 * max(1.0, float(ref.abs().max())), (et, err)
+    assert torch.equal(eg.out_lens.cpu(), ec.out_lens)
+    assert len(ug) == len(uc)
+    for (_, mg, vg, _), (_, mc, vc, _) in zip(ug, uc):
+        assert float((mg.cpu() - mc).abs().max()) <= 1e-5
+        assert float((vg.cpu() - vc).abs().max()) <= 1e-5 * max(
+            1.0, float(vc.abs().max()))
+    if not train:
+        assert torch.equal(gg.tokens.cpu(), gc.tokens)
+
+
+@pytest.mark.parametrize("over", [
+    dict(encoder=dict(bidirectional=False)),
+    dict(decoder=dict(decoder_type="GRU")),
+    dict(attention=dict(attn_type="L")),
+    dict(attention=dict(heads=4, map_enc=True, linear_map=True))],
+    ids=["unidirectional", "gru_decoder", "luong", "heads4"])
+def test_variant_beam_on_the_card_equals_cpu(dev, over):
+    from chinese_asr_tpu_torch.decode import beam
+    from chinese_asr_tpu_torch.models import las
+    cfg = _family_cfg("LSTM", **over)
+    rng = np.random.RandomState(8)
+    feats = rng.randn(2, 31, cfg.audio.feat_dim).astype(np.float32)
+    lens = np.array([31, 17], np.int32)
+    feats[1, 17:] = 0
+    res = {}
+    for d in ("cpu", dev):
+        p = las.init_params(cfg, 4, d)
+        res[str(d)] = beam.select_best(
+            beam.beam_decode(p, cfg, 4, torch.tensor(feats).to(d),
+                             torch.tensor(lens).to(d)),
+            cfg.decode.length_weight)
+    c, g = res["cpu"], res[str(dev)]
+    assert torch.equal(g.tokens.cpu(), c.tokens)
+    assert torch.equal(g.lens.cpu(), c.lens)
+    assert float((g.scores.cpu() - c.scores).abs().max()) <= 1e-4
