@@ -26,6 +26,12 @@ bytes, ``transcribe_long`` cuts long audio at silences, and the CLI's
 
 Runs on ``cuda`` unless the caller passes ``device="cpu"``; without a GPU
 and without an explicit device the constructor raises.
+
+Over a (data x model) mesh (``mesh=``, ``parallel/sharding.py``) every
+rank is one process that is called with the same wavs: it prepares and
+uploads only its data shard of each chunk, in the chunk's globally padded
+layout, decodes it with its V/mp slice of the embedding and the
+projection, and returns the whole call's transcripts.
 """
 
 from __future__ import annotations
@@ -47,11 +53,11 @@ from .decode import rescore as rescore_mod
 from .lm import ngram
 from .lm.device_ngram import DeviceNgramLM
 from .models import las
+from .parallel import sharding
 from .utils.checkpoint import load_checkpoint
 from .utils.device import resolve_device
 from .vocab import SPECIALS, Vocab
 
-_LATER = "comes with a later slice of the PyTorch port"
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _WIRES = ("flat", "mulaw", "adpcm", "padded")
 
@@ -68,11 +74,14 @@ class _Upload(NamedTuple):
     """A prepared batch on its way to the device: the (wire buffer, lens,
     scales) tensors and the padded length N; on the card also the event
     recorded after their copies and the pinned host buffers they are
-    copied from, kept alive until that event has completed."""
+    copied from, kept alive until that event has completed.  ``offset``:
+    the sample of the flat buffer at which the first row starts (a mesh
+    rank's rows of a whole chunk's ADPCM wire; else 0)."""
     tensors: tuple
     N: int
     done: Optional[torch.cuda.Event]
     pinned: Optional[list]
+    offset: int = 0
 
 
 class ASR:
@@ -109,20 +118,28 @@ class ASR:
         runs in float32; the decode's scores stay float32).  The LM
         (ARPA text or ``.klm``) loads only for beam widths > 1
         (main.py:78-84); ``lm_topn`` is the number of proposals per beam
-        of ``lm_mode="first"``."""
+        of ``lm_mode="first"``.
+
+        ``mesh``: a ``DeviceMesh`` from ``sharding.make_mesh``, or "auto"
+        (the whole world, ``cfg.mesh``'s layout): the parameters take this
+        rank's shard, the LM tables load on every rank, each call pads to
+        a multiple of the data axis with one-sample wavs whose transcripts
+        are dropped, and ``max_batch`` is clamped to a multiple of it (JAX
+        ``api.py``).  A rank ships its rows of each chunk over the wire the
+        whole chunk takes on one device, so its transcripts are one
+        device's."""
         if lm_mode not in ("second", "second_host", "first"):
             raise ValueError(f"lm_mode={lm_mode!r}: one of second, "
                              f"second_host, first")
         use_lm = bool(lm_path and bw and bw > 1)
-        if mesh is not None:
-            raise NotImplementedError(f"multi-device decoding {_LATER}")
         if compute_dtype not in _DTYPES:
             raise ValueError(f"compute_dtype={compute_dtype!r}: one of "
                              f"{', '.join(_DTYPES)}")
         if wire not in _WIRES:
             raise ValueError(f"wire={wire!r}: one of {', '.join(_WIRES)}")
-        self.device = resolve_device(device)
         self.cfg = cfg or Config()
+        self.mesh = mesh = sharding.resolve_mesh(mesh, self.cfg, device)
+        self.device = resolve_device(device)
         self.bw = bw
         self.lm_mode = lm_mode
         self.lm_topn = lm_topn
@@ -172,6 +189,8 @@ class ASR:
             self.params = las.tree_map(
                 lambda t: t.to(self.compute_dtype)
                 if t.is_floating_point() else t, self.params)
+        if mesh is not None:
+            self.params = sharding.shard_params(self.params, self.cfg, mesh)
 
     @staticmethod
     def _is_torch_ckpt(path: str) -> bool:
@@ -198,8 +217,32 @@ class ASR:
             b *= 2
         return b
 
-    def _prep(self, wavs: List[np.ndarray], scales):
-        """(wire buffer, lens [B] int32, scales [B] f32, padded length N).
+    def _prep_rows(self, wavs: List[np.ndarray], scales, rows: slice):
+        """A mesh rank's ``rows`` of a chunk, prepared as one device
+        prepares the whole chunk -> (``_prep``'s tuple, offset): the
+        chunk's padded length N and its wire (a float wav anywhere in the
+        chunk puts every rank on the float32 flat wire).  ADPCM blocks
+        span rows, so over that wire each rank codes the whole chunk's
+        buffer, as one device does, and ``offset`` is the sample at which
+        its first row starts; over the others it ships its own rows."""
+        N = audio_io.round_up(max(1, max(len(w) for w in wavs)),
+                              self.wav_bucket)
+        i16 = all(np.issubdtype(np.asarray(w).dtype, np.integer)
+                  for w in wavs)
+        if i16 and self.wire == "adpcm":
+            buf, lens, sc, N = self._prep(wavs, scales)
+            return (buf, lens[rows], sc[rows], N), int(lens[:rows.start].sum())
+        mine = [self._as_wav(w) for w in wavs[rows]]
+        if not i16:
+            mine = [w if w.dtype == np.float32
+                    else w.astype(np.float32) / 32768.0 for w in mine]
+        return self._prep(mine, None if scales is None else scales[rows],
+                          N), 0
+
+    def _prep(self, wavs: List[np.ndarray], scales, N: Optional[int] = None):
+        """(wire buffer, lens [B] int32, scales [B] f32, padded length N;
+        ``N`` given: a mesh rank's rows of a chunk padded to the chunk's
+        N, ``_prep_rows``).
         The flat wires concatenate the wavs with no padding bytes (as raw
         PCM, mu-law codes, or the ADPCM wire of the buffer rounded up to
         whole blocks); the padded wire is the zero-padded [B, N] matrix.
@@ -208,7 +251,8 @@ class ASR:
         host)."""
         wavs = [self._as_wav(w) for w in wavs]
         lens = np.array([len(w) for w in wavs], np.int32)
-        N = audio_io.round_up(max(1, int(lens.max())), self.wav_bucket)
+        if N is None:
+            N = audio_io.round_up(max(1, int(lens.max())), self.wav_bucket)
         all_i16 = all(w.dtype == np.int16 for w in wavs)
         dt = np.int16 if all_i16 else np.float32
         wavs = [w if w.dtype == dt else w.astype(np.float32) / 32768.0
@@ -237,7 +281,7 @@ class ASR:
               else np.asarray(scales, np.float32))
         return buf, lens, sc, N
 
-    def _upload(self, prep) -> _Upload:
+    def _upload(self, prep, offset: int = 0) -> _Upload:
         """Issue the host->device copy of a ``_prep``-ed batch.  On the card
         the arrays go through pinned buffers on a side stream, so the copy
         can run beside the compute stream's work, and an event marks its
@@ -247,7 +291,7 @@ class ASR:
         host = [torch.from_numpy(a) for a in (buf, lens, sc)]
         if self.device.type != "cuda":
             return _Upload(tuple(t.to(self.device) for t in host), N,
-                           None, None)
+                           None, None, offset)
         if self._copy_stream is None:
             self._copy_stream = torch.cuda.Stream(self.device)
         pinned = [t.pin_memory() for t in host]
@@ -256,7 +300,7 @@ class ASR:
                             for t in pinned)
             done = torch.cuda.Event()
             done.record(self._copy_stream)
-        return _Upload(tensors, N, done, pinned)
+        return _Upload(tensors, N, done, pinned, offset)
 
     def _featurize(self, up: _Upload):
         buf_d, lens_d, sc_d = up.tensors
@@ -275,11 +319,13 @@ class ASR:
             feats, feat_lens = features.featurize_batch(
                 buf_d, lens_d, acfg, norm_eps=1e-6, scale=sc_d)
         else:
-            adpcm = self.wire == "adpcm" and buf_d.dtype == torch.uint8
-            featurize = (features.featurize_adpcm if adpcm
-                         else features.featurize_flat)
-            feats, feat_lens = featurize(buf_d, lens_d, up.N, acfg,
-                                         norm_eps=1e-6, scale=sc_d)
+            if self.wire == "adpcm" and buf_d.dtype == torch.uint8:
+                feats, feat_lens = features.featurize_adpcm(
+                    buf_d, lens_d, up.N, acfg, norm_eps=1e-6, scale=sc_d,
+                    offset=up.offset)
+            else:
+                feats, feat_lens = features.featurize_flat(
+                    buf_d, lens_d, up.N, acfg, norm_eps=1e-6, scale=sc_d)
         # the front end runs in float32; the model in compute_dtype
         feats = feats.to(self.compute_dtype)
         # degenerate (shorter than one frame) utterances attend to one zero
@@ -288,24 +334,29 @@ class ASR:
 
     # ---- transcription ------------------------------------------------------
     def _decode(self, feats, feat_lens) -> List[str]:
+        """Transcripts of the batch; on a mesh ``feats`` is this rank's
+        shard and the transcripts are the whole batch's."""
+        mesh = self.mesh
         if not self.bw or self.bw <= 1:
-            res = greedy_mod.greedy_decode(self.params, self.cfg, feats,
-                                           feat_lens)
+            res = sharding.gather_rows(greedy_mod.greedy_decode(
+                self.params, self.cfg, feats, feat_lens, mesh), mesh)
             return greedy_mod.finalize_greedy(res, self.vocab).pred_text
         dcfg = self.cfg.decode
         if self.dlm is not None and self.lm_mode == "first":
             best = lm_fused_mod.lm_fused_decode_best(
                 self.params, self.cfg, self.bw, feats, feat_lens, self.dlm,
-                self.tok2lm, self.lm_topn)
+                self.tok2lm, self.lm_topn, mesh)
         elif self.dlm is not None:
             best = rescore_mod.beam_rescored_best(
                 self.params, self.cfg, self.bw, feats, feat_lens, self.dlm,
                 self.tok2lm, dcfg.lm_weight, dcfg.length_weight,
-                self._lm_bos, self._lm_eos)
+                self._lm_bos, self._lm_eos, mesh)
         elif self.lm is not None:
-            # only the finite n-best slots cross to the host rescorer
-            res = beam_mod.beam_decode(self.params, self.cfg, self.bw,
-                                       feats, feat_lens)
+            # only the finite n-best slots cross to the host rescorer (on
+            # a mesh, after the n-best lists are gathered)
+            res = sharding.gather_rows(beam_mod.beam_decode(
+                self.params, self.cfg, self.bw, feats, feat_lens,
+                mesh=mesh), mesh)
             return beam_mod.finalize_beam(
                 beam_mod.compact_nbest(res), self.cfg, self.vocab,
                 lm_model=self.lm, second_pass=True,
@@ -313,7 +364,7 @@ class ASR:
                 length_weight=dcfg.length_weight).pred_text
         else:
             best = beam_mod.beam_decode_best(self.params, self.cfg, self.bw,
-                                             feats, feat_lens)
+                                             feats, feat_lens, mesh)
         return beam_mod.finalize_best(best, self.vocab).pred_text
 
     def transcribe_wavs(self, wavs: Sequence[np.ndarray],
@@ -323,19 +374,38 @@ class ASR:
         only to its own longest wav; chunk c+1 is prepared on the host and
         its copy issued while chunk c is featurized and decoded.
         ``scales`` (one float per wav) is a per-utterance gain applied on
-        the device."""
+        the device.
+
+        On a mesh every rank is called with the same wavs; ``max_batch``
+        is clamped to a multiple of the data axis and the call padded to
+        one with one-sample wavs, whose transcripts are dropped."""
         if not wavs:
             return []
         wavs = list(wavs)
+        n_real = len(wavs)
+        dp = sharding.data_size(self.mesh)
+        if dp > 1:
+            max_batch = max(dp, max_batch - max_batch % dp)
+            pad = (-n_real) % dp
+            if pad:
+                dt = np.int16 if all(np.issubdtype(np.asarray(w).dtype,
+                                                   np.integer)
+                                     for w in wavs) else np.float32
+                wavs += [np.zeros(1, dt)] * pad
+                if scales is not None:
+                    scales = list(scales) + [1.0] * pad
         order = sorted(range(len(wavs)), key=lambda i: len(wavs[i])) \
             if len(wavs) > max_batch else list(range(len(wavs)))
         chunks = [order[s:s + max_batch]
                   for s in range(0, len(order), max_batch)]
 
         def upload(idx):        # one chunk at a time: host memory O(chunk)
-            return self._upload(self._prep(
-                [wavs[i] for i in idx],
-                None if scales is None else [scales[i] for i in idx]))
+            chunk = [wavs[i] for i in idx]
+            sc = None if scales is None else [scales[i] for i in idx]
+            if self.mesh is None:
+                return self._upload(self._prep(chunk, sc))
+            return self._upload(*self._prep_rows(
+                chunk, sc, sharding.row_slice(len(idx), self.mesh)))
 
         out: List[str] = [""] * len(wavs)
         up = upload(chunks[0])
@@ -347,7 +417,7 @@ class ASR:
                 out[i] = text
             if cur.done is not None:
                 cur.done.synchronize()  # long done: the decode read its data
-        return out
+        return out[:n_real]
 
     def transcribe_files(self, paths: Sequence[str],
                          transcode: bool = False) -> List[str]:

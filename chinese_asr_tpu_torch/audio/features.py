@@ -399,10 +399,10 @@ def adpcm_decode_flat(buf, nb: int):
 
 
 def featurize_adpcm(buf, lens, N: int, cfg: AudioConfig,
-                    norm_eps: float = 1e-7, scale=None):
+                    norm_eps: float = 1e-7, scale=None, offset: int = 0):
     """featurize_batch over the ADPCM wire (decode, then the flat row
-    unpack)."""
+    unpack); the rows start at sample ``offset`` of the decoded buffer."""
     nb = buf.shape[0] // (3 + ADPCM_K // 2)
-    flat = adpcm_decode_flat(buf, nb)
+    flat = adpcm_decode_flat(buf, nb)[offset:]
     return featurize_batch(unpack_flat(flat, lens, N), lens, cfg,
                            norm_eps=norm_eps, scale=scale)

@@ -16,7 +16,10 @@ Beam reorders are exact integer gathers (the JAX package used one-hot
 einsums at HIGHEST precision for the same effect).  enc/keys/values/mask
 are never tiled nor reordered: the beam dim lives on the attention query.
 The loop is eager Python; reading the stop flag costs one device->host
-sync per step.
+sync per step.  On a mesh (``mesh``, ``parallel/sharding.py``) each rank
+decodes its data shard's rows over full logit rows (the model ranks'
+slices all-gathered before stage 1), the stop flag is the AND over the
+whole mesh, and the ``*_best`` functions all-gather the winners.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from ..models import decoder as dec_ops
 from ..models import las
 from ..ops.cuda import topk as topk_k
 from ..ops.rnn import map_state
+from ..parallel import sharding
 from .greedy import EvalOutput, with_cer
 
 
@@ -70,8 +74,13 @@ def use_fused_logp() -> bool:
 
 @torch.no_grad()
 def beam_decode(params, cfg: Config, bw: int, feats, feat_lens,
-                fused_logp: Optional[bool] = None, lm_track=None):
+                fused_logp: Optional[bool] = None, lm_track=None,
+                mesh=None):
     """``fused_logp``: None reads ``use_fused_logp()``.
+
+    On a mesh (``mesh``; ``params`` from ``sharding.shard_params``) the
+    feats are this rank's data shard and the result holds its rows
+    (``l_final`` is the whole mesh's).
 
     ``lm_track`` (optional): ``(dlm, tok2lm, bos_id, eos_id)`` -- a
     ``DeviceNgramLM`` and the token -> LM word map.  The loop then
@@ -133,7 +142,7 @@ def beam_decode(params, cfg: Config, bw: int, feats, feat_lens,
     for l in range(max_len):
         out = dec_ops.decoder_step_beam(
             params["decoder"], params["attention"], dcfg, acfg, eb.mask,
-            eb.keys, eb.values, hist[:, l], cell, attn_hidden)
+            eb.keys, eb.values, hist[:, l], cell, attn_hidden, mesh=mesh)
 
         # stage 1: per-beam top-(k+1) over V
         if fused_logp:
@@ -179,7 +188,7 @@ def beam_decode(params, cfg: Config, bw: int, feats, feat_lens,
         # early stop (model.py:897-901): on the stopping step the
         # survivors are not applied
         top_beam_finished |= top_tokens[:, 0] == eos
-        if bool(top_beam_finished.all()):          # one host sync per step
+        if sharding.all_finished(top_beam_finished, mesh):  # a host sync
             l_final = l
             break
 
@@ -267,11 +276,12 @@ def select_best(res: BeamResult, length_weight: float) -> BestResult:
 
 
 def beam_decode_best(params, cfg: Config, bw: int, feats,
-                     feat_lens) -> BestResult:
+                     feat_lens, mesh=None) -> BestResult:
     """Decode + on-device best-hypothesis selection (transcription without
-    a second pass)."""
-    return select_best(beam_decode(params, cfg, bw, feats, feat_lens),
-                       cfg.decode.length_weight)
+    a second pass).  On a mesh, every rank returns the whole batch's."""
+    return sharding.gather_rows(select_best(
+        beam_decode(params, cfg, bw, feats, feat_lens, mesh=mesh),
+        cfg.decode.length_weight), mesh)
 
 
 def finalize_best(best: BestResult, vocab, text=None) -> EvalOutput:

@@ -3,7 +3,9 @@ model.py:503-602).
 
 The token loop is an eager Python loop with the batch-wide early exit of
 the reference (``if finished.all(): break``, model.py:578-579).  Reading
-that flag costs one device->host sync per step.
+that flag costs one device->host sync per step; on a mesh it is the AND
+over the whole mesh (``sharding.all_finished``), as JAX's loop reads the
+global batch.
 
 Scoring bookkeeping replicates model.py:567-576 exactly: the eos step's
 logp enters via the first conditional add; subsequent steps of a finished
@@ -21,6 +23,7 @@ from ..config import Config
 from ..models import decoder as dec_ops
 from ..models import las
 from ..ops.metrics import cer
+from ..parallel import sharding
 
 
 class GreedyResult(NamedTuple):
@@ -32,7 +35,11 @@ class GreedyResult(NamedTuple):
 
 
 @torch.no_grad()
-def greedy_decode(params, cfg: Config, feats, feat_lens) -> GreedyResult:
+def greedy_decode(params, cfg: Config, feats, feat_lens,
+                  mesh=None) -> GreedyResult:
+    """On a mesh (``mesh``; ``params`` from ``sharding.shard_params``) the
+    feats are this rank's data shard and the result holds its rows;
+    ``sharding.gather_rows`` makes the whole batch's."""
     B = feats.shape[0]
     dev = feats.device
     max_len = cfg.decode.max_len
@@ -56,7 +63,7 @@ def greedy_decode(params, cfg: Config, feats, feat_lens) -> GreedyResult:
     for l in range(max_len):
         step = dec_ops.decoder_step(
             params["decoder"], params["attention"], dcfg, acfg, eb.mask,
-            eb.keys, eb.values, tokens, cell, attn_hidden)
+            eb.keys, eb.values, tokens, cell, attn_hidden, mesh=mesh)
         logit = step.logit.to(torch.float32)
         logp = logit - torch.logsumexp(logit, dim=1, keepdim=True)
         lp, tok = torch.max(logp, dim=1)    # first max, like jnp.argmax
@@ -71,7 +78,7 @@ def greedy_decode(params, cfg: Config, feats, feat_lens) -> GreedyResult:
         align[:, l, :] = (step.alignment if acfg.heads == 1
                           else step.alignment[..., 0])
         tokens, cell, attn_hidden = tok, step.cell_state, step.attn_hidden_state
-        if bool(finished.all()):            # one host sync per step
+        if sharding.all_finished(finished, mesh):   # one host sync a step
             break
     return GreedyResult(out, final_lens, accum, finished, align)
 

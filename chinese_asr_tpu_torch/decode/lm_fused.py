@@ -23,7 +23,8 @@ fewer than ``bw`` live candidates.
 The JAX package's ``legacy_select`` (its first-cut step body, an A/B
 switch with the same output) is not ported.  Beam reorders are exact
 integer gathers.  The loop is eager Python; reading the stop flag costs
-one device->host sync per step.
+one device->host sync per step.  On a mesh (``mesh``) it runs as
+``decode/beam.py`` does there, the LM tables replicated on every rank.
 """
 
 from __future__ import annotations
@@ -37,15 +38,17 @@ from ..models import decoder as dec_ops
 from ..models import las
 from ..ops.cuda import topk as topk_k
 from ..ops.rnn import map_state
+from ..parallel import sharding
 from .beam import BeamResult, BestResult, _rows, _stable_top, select_merge
 
 
 @torch.no_grad()
 def lm_fused_decode(params, cfg: Config, bw: int, feats, feat_lens,
                     dlm: device_ngram.DeviceNgramLM, tok2lm,
-                    topn: int = 20) -> BeamResult:
+                    topn: int = 20, mesh=None) -> BeamResult:
     """tok2lm: [V] int64 tensor on the device mapping token id -> LM word
-    id (``dlm.token_id_table(vocab)``), the table the host loop uses."""
+    id (``dlm.token_id_table(vocab)``), the table the host loop uses.  On
+    a mesh the result holds this rank's rows, as ``beam.beam_decode``."""
     B = feats.shape[0]
     dev = feats.device
     k = bw
@@ -86,7 +89,7 @@ def lm_fused_decode(params, cfg: Config, bw: int, feats, feat_lens,
     for l in range(max_len):
         out = dec_ops.decoder_step_beam(
             params["decoder"], params["attention"], dcfg, acfg, eb.mask,
-            eb.keys, eb.values, hist[:, l], cell, attn_hidden)
+            eb.keys, eb.values, hist[:, l], cell, attn_hidden, mesh=mesh)
         # acoustic PROPOSALS only: K3's top-topn per beam row.  Only the
         # indices are used, and their set does not change under the
         # positive 1/temperature scale, so the divide is skipped.  Sorted
@@ -135,7 +138,7 @@ def lm_fused_decode(params, cfg: Config, bw: int, feats, feat_lens,
         attn_hidden = reorder(out.attn_hidden_state)
         # the host loop's stop: every sample has a finished hypothesis
         # (this step's survivors are kept, as in JAX's while_loop body)
-        if bool(has_finished.all()):               # one host sync per step
+        if sharding.all_finished(has_finished, mesh):   # a host sync
             l_final = l
             break
 
@@ -168,11 +171,13 @@ def select_best_first_pass(res: BeamResult) -> BestResult:
 
 
 def lm_fused_decode_best(params, cfg: Config, bw: int, feats, feat_lens,
-                         dlm, tok2lm, topn: int = 20) -> BestResult:
+                         dlm, tok2lm, topn: int = 20,
+                         mesh=None) -> BestResult:
     """The LM-driven decode and the winner picked on the device:
-    ``ASR(lm_mode="first")``'s transcription path."""
-    return select_best_first_pass(lm_fused_decode(
-        params, cfg, bw, feats, feat_lens, dlm, tok2lm, topn))
+    ``ASR(lm_mode="first")``'s transcription path.  On a mesh, every rank
+    returns the whole batch's."""
+    return sharding.gather_rows(select_best_first_pass(lm_fused_decode(
+        params, cfg, bw, feats, feat_lens, dlm, tok2lm, topn, mesh)), mesh)
 
 
 def nbest_lists(res: BeamResult):

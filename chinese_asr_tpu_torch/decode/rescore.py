@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from ..lm import device_ngram
+from ..parallel import sharding
 from . import beam as beam_mod
 from .beam import BeamResult, BestResult
 
@@ -84,12 +85,14 @@ def rescore_select(res: BeamResult, dlm: device_ngram.DeviceNgramLM,
 
 def beam_rescored_best(params, cfg, bw: int, feats, feat_lens, dlm,
                        tok2lm, lm_weight: float, length_weight: float,
-                       bos_id: int, eos_id: int) -> BestResult:
+                       bos_id: int, eos_id: int, mesh=None) -> BestResult:
     """Second-pass-rescored transcription (``ASR(lm_mode="second")``): the
     beam decode tracks the LM chains passively, harvests full-sentence LM
     totals, and the winner is selected on the device, with no n-best
-    transfer between decode and rescore."""
+    transfer between decode and rescore.  On a mesh (the LM tables
+    replicated), every rank returns the whole batch's winners."""
     res, fin_lm = beam_mod.beam_decode(
         params, cfg, bw, feats, feat_lens,
-        lm_track=(dlm, tok2lm, bos_id, eos_id))
-    return select_rescored(res, fin_lm, lm_weight, length_weight)
+        lm_track=(dlm, tok2lm, bos_id, eos_id), mesh=mesh)
+    return sharding.gather_rows(
+        select_rescored(res, fin_lm, lm_weight, length_weight), mesh)

@@ -24,6 +24,7 @@ from .decode import rescore as rescore_mod
 from .lm import ngram
 from .lm.device_ngram import DeviceNgramLM
 from .ops.metrics import batch_cer
+from .parallel import sharding
 from .vocab import Vocab
 
 
@@ -42,7 +43,7 @@ def _device_lm(lm, device) -> DeviceNgramLM:
 def evaluate_manifest(params, cfg: Config, vocab: Vocab, manifest_path: str,
                       bw: Optional[int] = None, lm=None,
                       lm_mode: str = "second", topn: int = 20,
-                      verbose: bool = True) -> Dict:
+                      verbose: bool = True, mesh=None) -> Dict:
     """Returns {"cer", "n", "pred", "ref", "seconds", "utts_per_sec"}.
 
     Decodes on the device of ``params``.  ``lm_mode``: "second" (default)
@@ -54,7 +55,11 @@ def evaluate_manifest(params, cfg: Config, vocab: Vocab, manifest_path: str,
     ARPA/.klm path, a DeviceNgramLM or an NgramLM.  The features are made
     in float32 and cast to the dtype of the params' floating leaves, as
     ``ASR(compute_dtype=...)`` casts them, so the params of a bf16 ASR
-    decode in bf16."""
+    decode in bf16.
+
+    On a mesh (``mesh``; ``params`` this rank's shard, as an
+    ``ASR(mesh=)``'s) every rank reads the whole manifest, decodes its rows
+    of each batch and returns the whole CER."""
     dev = params["decoder"]["embedding"].device
     dtype = params["decoder"]["embedding"].dtype
     dlm = tok2lm = None
@@ -74,21 +79,31 @@ def evaluate_manifest(params, cfg: Config, vocab: Vocab, manifest_path: str,
         to_np = b.tokens_out.cpu().numpy()
         tl_np = b.text_lens.cpu().numpy()
         text = [to_np[i, : tl_np[i] - 1].tolist() for i in range(len(tl_np))]
+        B = feats.shape[0]
+        feats, feat_lens = sharding.pad_shard_rows(mesh, feats, feat_lens)
+
+        def whole(res):             # the whole batch's rows, on every rank
+            return sharding.trim_rows(sharding.gather_rows(res, mesh), B)
+
         if not bw or bw <= 1:
-            res = greedy_mod.greedy_decode(params, cfg, feats, feat_lens)
+            res = whole(greedy_mod.greedy_decode(params, cfg, feats,
+                                                 feat_lens, mesh))
             out = greedy_mod.finalize_greedy(res, vocab, text=text)
         elif dlm is not None and lm_mode == "first":
-            best = lm_fused.lm_fused_decode_best(
-                params, cfg, bw, feats, feat_lens, dlm, tok2lm, topn)
+            best = sharding.trim_rows(lm_fused.lm_fused_decode_best(
+                params, cfg, bw, feats, feat_lens, dlm, tok2lm, topn, mesh),
+                B)
             out = beam_mod.finalize_best(best, vocab, text=text)
         elif dlm is not None:
-            res = beam_mod.beam_decode(params, cfg, bw, feats, feat_lens)
+            res = whole(beam_mod.beam_decode(params, cfg, bw, feats,
+                                             feat_lens, mesh=mesh))
             best = rescore_mod.rescore_select(
                 beam_mod.compact_nbest(res), dlm, tok2lm, dcfg.lm_weight,
                 dcfg.length_weight, lm_bos, lm_eos)
             out = beam_mod.finalize_best(best, vocab, text=text)
         else:
-            res = beam_mod.beam_decode(params, cfg, bw, feats, feat_lens)
+            res = whole(beam_mod.beam_decode(params, cfg, bw, feats,
+                                             feat_lens, mesh=mesh))
             out = beam_mod.finalize_beam(
                 res, cfg, vocab, text=text, lm_model=lm,
                 second_pass=lm is not None, lm_weight=dcfg.lm_weight,

@@ -4,7 +4,12 @@ RNN cell stack -> attention -> attentional hidden state -> logits.
 
 Bahdanau wiring (``attn_type="B"``) feeds the context back and projects
 [h, context]; Luong wiring (``"L"``, decoder.py:39-51, 126-127) feeds back
-``tanh([h, context] @ attn_hidden_w)`` and projects that alone."""
+``tanh([h, context] @ attn_hidden_w)`` and projects that alone.
+
+On a mesh (``mesh``, ``parallel/sharding.py``) the embedding and the
+output projection hold this model rank's V/mp rows and columns: the lookup
+sums the model ranks' rows and the logits come back as full [.., V] rows
+(``sharding.embed``, ``sharding.vocab_logits``)."""
 
 from __future__ import annotations
 
@@ -15,6 +20,7 @@ import torch
 
 from ..config import AttentionConfig, DecoderConfig, VocabConfig
 from ..ops import rnn as rnn_ops
+from ..parallel import sharding
 from . import attention as attn_ops
 
 Params = Dict
@@ -118,17 +124,21 @@ def _attn_hidden(p: Params, acfg: AttentionConfig, last_h, context):
     return context
 
 
-def project(p: Params, acfg: AttentionConfig, last_h, ahs):
+def embed(p: Params, token, mesh=None):
+    """The embedding rows of ``token`` (any shape)."""
+    return sharding.embed(p["embedding"], token, mesh)
+
+
+def project(p: Params, acfg: AttentionConfig, last_h, ahs, mesh=None):
     """Logits from the step's top h and attentional hidden state."""
-    if acfg.attn_type == "B":
-        return torch.cat([last_h, ahs], dim=-1) @ p["proj_w"] + p["proj_b"]
-    return ahs @ p["proj_w"] + p["proj_b"]
+    x = torch.cat([last_h, ahs], dim=-1) if acfg.attn_type == "B" else ahs
+    return sharding.vocab_logits(x, p["proj_w"], p["proj_b"], mesh)
 
 
 def decoder_step(p: Params, attn_p, dcfg: DecoderConfig, acfg: AttentionConfig,
                  mask, keys, values, token, cell_state, attn_hidden_state,
                  compute_logit: bool = True, token_emb=None,
-                 gate_partial=None) -> DecoderOut:
+                 gate_partial=None, mesh=None) -> DecoderOut:
     """Reference decoder.py:94-137.  token [B] int; attn_hidden_state
     [B, ctx] or None (zeros).
 
@@ -161,7 +171,7 @@ def decoder_step(p: Params, attn_p, dcfg: DecoderConfig, acfg: AttentionConfig,
             dcfg.decoder_type, p["cells"][1:], h, cell_state[1:])
             if len(p["cells"]) > 1 else [])
     else:
-        x = token_emb if token_emb is not None else p["embedding"][token]
+        x = token_emb if token_emb is not None else embed(p, token, mesh)
         if dcfg.input_feeding:
             if attn_hidden_state is None:
                 attn_hidden_state = x.new_zeros((x.shape[0], ctx_size))
@@ -172,13 +182,13 @@ def decoder_step(p: Params, attn_p, dcfg: DecoderConfig, acfg: AttentionConfig,
     context, alignment = attn_ops.attend(attn_p, acfg, mask, last_h, keys,
                                          values)
     ahs = _attn_hidden(p, acfg, last_h, context)
-    logit = project(p, acfg, last_h, ahs) if compute_logit else None
+    logit = project(p, acfg, last_h, ahs, mesh) if compute_logit else None
     return DecoderOut(logit, ahs, alignment, cell_state)
 
 
 def decoder_step_beam(p: Params, attn_p, dcfg: DecoderConfig,
                       acfg: AttentionConfig, mask, keys, values, token,
-                      cell_state, attn_hidden_state) -> DecoderOut:
+                      cell_state, attn_hidden_state, mesh=None) -> DecoderOut:
     """Beam variant: cells run on flat [B*k] rows, attention on the untiled
     per-sample keys/values through ``attend_beam``.
 
@@ -186,7 +196,7 @@ def decoder_step_beam(p: Params, attn_p, dcfg: DecoderConfig,
     attn_hidden_state [B*k, ctx]; cell_state per-layer over [B*k] rows."""
     B = mask.shape[0]
     k = token.shape[0] // B
-    x = p["embedding"][token]
+    x = embed(p, token, mesh)
     if dcfg.input_feeding:
         x = torch.cat([x, attn_hidden_state], dim=1)
     cell_state = rnn_ops.cell_stack_step(dcfg.decoder_type, p["cells"], x,
@@ -195,5 +205,5 @@ def decoder_step_beam(p: Params, attn_p, dcfg: DecoderConfig,
     context, alignment = attn_ops.attend_beam(
         attn_p, acfg, mask, last_h.reshape(B, k, -1), keys, values)
     ahs = _attn_hidden(p, acfg, last_h, context.reshape(B * k, -1))
-    return DecoderOut(project(p, acfg, last_h, ahs), ahs,
+    return DecoderOut(project(p, acfg, last_h, ahs, mesh), ahs,
                       alignment.reshape(B * k, -1), cell_state)

@@ -46,24 +46,48 @@ def norm_params(out_c: int, norm: str) -> Params:
     return p
 
 
+class ShardStats(list):
+    """The ``updates`` list of a train step on a data-parallel mesh: BN sums
+    each channel's statistics over the ``shards`` data ranks' rows with
+    ``sum_batch`` (a sum over the data axis through autograd,
+    ``sharding.sum_shares_over_data``), as JAX's SPMD mean runs over the
+    whole sharded batch axis."""
+
+    def __init__(self, sum_batch, shards: int):
+        super().__init__()
+        self.sum_batch = sum_batch
+        self.shards = shards
+
+
 def apply_norm(p: Params, y, norm: str, train: bool, eps: float = 1e-5,
                spatial_axes: Tuple[int, ...] = (1,), updates=None):
     """y [..., C]: BN per channel over batch + spatial (padding included),
     LN over channels, IN per sample over spatial.  BN with ``train``
     normalizes with the biased batch statistics and, when ``updates`` (a
     list) is given, records ``(param_dict, batch_mean, batch_var, n)``
-    for ``bn_stats_tree``; without ``train`` it uses the running stats."""
+    for ``bn_stats_tree``; without ``train`` it uses the running stats.
+    When ``updates`` is a ``ShardStats`` (training on a data-parallel
+    mesh), y is one shard of the batch and the statistics are the global
+    batch's."""
     if norm == "NONE":
         return y
     if norm == "BN":
         if train:
             axes = (0,) + tuple(spatial_axes)
-            mean = y.mean(dim=axes)
-            var = y.var(dim=axes, unbiased=False)
+            n = 1
+            for a in axes:
+                n *= y.shape[a]
+            sum_batch = getattr(updates, "sum_batch", None)
+            if sum_batch is None:
+                mean = y.mean(dim=axes)
+                var = y.var(dim=axes, unbiased=False)
+            else:
+                # y is one data shard of the batch: the statistics are the
+                # global batch's, the shards' sums summed (two passes)
+                n *= updates.shards
+                mean = sum_batch(y.sum(dim=axes)) / n
+                var = sum_batch(torch.square(y - mean).sum(dim=axes)) / n
             if updates is not None:
-                n = 1
-                for a in axes:
-                    n *= y.shape[a]
                 updates.append((p, mean, var, n))
         else:
             mean, var = p["bn_mean"], p["bn_var"]

@@ -104,10 +104,16 @@ class MicroBatcher:
     fails at once with :class:`Overloaded` (429 at the HTTP layer)
     rather than joining a queue whose wait already exceeds any useful
     deadline.  The default (None -> 4x ``max_batch``) bounds the queueing
-    delay to ~4 full decode batches; pass 0 for an unbounded queue."""
+    delay to ~4 full decode batches; pass 0 for an unbounded queue.
+
+    An ``ASR`` over a mesh is refused: every rank would have to decode the
+    batch this process forms from its own queue (ROADMAP)."""
 
     def __init__(self, asr, max_batch: int = 128, window_ms: float = 15.0,
                  pad_batches: bool = True, max_queue: Optional[int] = None):
+        if getattr(asr, "mesh", None) is not None:
+            raise ValueError("serving over a mesh is not supported: serve "
+                             "an ASR without mesh=")
         self.asr = asr
         self.max_batch = max_batch
         self.max_queue = 4 * max_batch if max_queue is None else max_queue

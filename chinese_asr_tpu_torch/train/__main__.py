@@ -7,6 +7,8 @@ main.py:107-120):
         --vocab dict.pkl --save-dir ./ckpt [--config cfg.json] \\
         [--bf16] [--remat] [--resume] [--max-steps N] [--device cpu]
 
+    torchrun --nproc_per_node N -m chinese_asr_tpu_torch.train ... --mesh auto
+
 Manifests are TSV lines of ``wav_path\\ttranscript``.  ``--vocab`` takes
 the reference's ``dict.pkl`` or a plain word list; without it a character
 vocab is built from the train manifest.  The features are made on the
@@ -14,9 +16,12 @@ device (``data.dataset.batches_to_device``, K1 on the card).  The device
 defaults to ``cuda`` and the CLI raises without a GPU unless ``--device
 cpu`` is given.  ``--bf16`` trains in mixed precision
 (``train.compute_dtype="bfloat16"``: the forward and backward in bf16, the
-master params, optimizer state and checkpoints float32).  ``--mesh`` is
-the JAX CLI's flag for multi-device training, which the port does not
-have yet; it raises.
+master params, optimizer state and checkpoints float32).  ``--mesh
+auto`` trains over a (data x model) mesh of every rank torchrun (or
+``python -m torch.distributed.run``) starts, laid out by the config's
+``mesh`` (``parallel/sharding.py``: NCCL with a card a rank, gloo when
+ranks share a card or run on the CPU); the train loader then drops the
+last, short batch, so every batch splits over the data axis.
 """
 
 from __future__ import annotations
@@ -77,7 +82,8 @@ def main(argv=None) -> int:
     ap.add_argument("--remat", action="store_true",
                     help="recompute each decoder step in the backward")
     ap.add_argument("--mesh", default=None, choices=[None, "auto"],
-                    help="multi-device training (not ported yet: raises)")
+                    help="train over a (data x model) mesh of the ranks "
+                         "torchrun starts")
     ap.add_argument("--resume", action="store_true",
                     help="resume from the newest checkpoint in save-dir")
     ap.add_argument("--device", default="cuda",
@@ -91,10 +97,6 @@ def main(argv=None) -> int:
     from ..utils.device import resolve_device
     from .trainer import Trainer
 
-    if args.mesh is not None:
-        raise NotImplementedError(
-            "--mesh: multi-device training is not ported yet (the "
-            "multi-device slice of the port)")
     cfg = build_config(args)
     device = resolve_device(None if args.device == "cuda" else args.device)
 
@@ -108,24 +110,33 @@ def main(argv=None) -> int:
         cfg = cfg.with_("vocab", max_num_words=len(vocab) - 4)
 
     params = las.init_params(cfg, cfg.train.seed)
-    tr = Trainer(cfg, params, vocab, device=device)
+    tr = Trainer(cfg, params, vocab, device=device, mesh=args.mesh)
+    mesh = tr.mesh
     if args.resume:
         tr.resume()
 
     def train_loader_fn():
         loader = dataset.make_train_loader(args.train_manifest, cfg, vocab,
-                                           seed=cfg.train.seed)
-        return dataset.batches_to_device(loader, cfg, device)
+                                           seed=cfg.train.seed,
+                                           drop_last=mesh is not None)
+        return dataset.batches_to_device(loader, cfg, tr.device)
 
     eval_loader_fn = None
     if args.eval_manifest:
         def eval_loader_fn():
             loader = dataset.make_eval_loader(args.eval_manifest, cfg, vocab)
-            return dataset.batches_to_device(loader, cfg, device)
+            return dataset.batches_to_device(loader, cfg, tr.device)
 
-    tv = tr.fit(train_loader_fn, eval_loader_fn, max_steps=args.max_steps)
-    print(f"done: step {tv.step} loss {tv.loss:.4f} "
-          f"best_wer {tv.best_wer:.5f}", file=sys.stderr)
+    try:
+        tv = tr.fit(train_loader_fn, eval_loader_fn,
+                    max_steps=args.max_steps)
+    finally:
+        if mesh is not None:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+    if tr.rank == 0:
+        print(f"done: step {tv.step} loss {tv.loss:.4f} "
+              f"best_wer {tv.best_wer:.5f}", file=sys.stderr)
     return 0
 
 

@@ -11,11 +11,15 @@ from __future__ import annotations
 import torch
 
 
-def label_smoothed_ce(logits, targets, mask=None, label_smooth: float = 0.1):
+def label_smoothed_ce(logits, targets, mask=None, label_smooth: float = 0.1,
+                      n_valid=None):
     """Per-token smoothed CE, averaged over valid tokens.
 
     logits [..., V]; targets [...] int; mask [...] (1 valid / 0 pad).
-    With label_smooth == 0 this is exact cross entropy."""
+    With label_smooth == 0 this is exact cross entropy.  ``n_valid``: the
+    count to divide the masked sum by, in place of ``mask.sum()`` (on a
+    mesh the global batch's, so each data rank's loss is its share of the
+    global mean; never the mean of the ranks' means)."""
     lse = torch.logsumexp(logits, dim=-1)
     tgt = torch.gather(logits, -1, targets[..., None].long())[..., 0]
     if label_smooth == 0.0:
@@ -27,4 +31,5 @@ def label_smoothed_ce(logits, targets, mask=None, label_smooth: float = 0.1):
     if mask is None:
         return per_tok.mean()
     mask = mask.to(per_tok.dtype)
-    return (per_tok * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    n = mask.sum() if n_valid is None else n_valid.to(per_tok.dtype)
+    return (per_tok * mask).sum() / torch.clamp(n, min=1.0)

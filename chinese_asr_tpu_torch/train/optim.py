@@ -32,6 +32,7 @@ import torch
 
 from ..config import TrainConfig
 from ..models import las
+from ..parallel import sharding
 
 Flat = Dict[str, torch.Tensor]
 
@@ -104,15 +105,18 @@ class Optimizer:
         return state
 
     @torch.no_grad()
-    def update(self, grads: Flat, state: Flat, params: Flat
+    def update(self, grads: Flat, state: Flat, params: Flat, mesh=None
                ) -> Tuple[Flat, Flat]:
+        """On a mesh (``mesh``) the dicts hold this rank's shards; the
+        clip's global norm sums the vocab-sharded leaves over the model
+        axis (``sharding.sq_norm``), so it is the whole model's."""
         tc = self.tcfg
         names = self._names(params)
         lr = state["learning_rate"]
         g = {n: grads[n] for n in names}
         if tc.clip > 0:
             # optax.clip_by_global_norm: t if norm < max, else t / norm * max
-            norm = torch.sqrt(sum(torch.sum(x * x) for x in g.values()))
+            norm = torch.sqrt(sharding.sq_norm(g, mesh))
             keep = norm < tc.clip
             g = {n: torch.where(keep, x, x / norm * tc.clip)
                  for n, x in g.items()}

@@ -16,6 +16,13 @@ forward and backward run in bf16 (K2-bf16 and K2-bwd-bf16 on the card),
 while the master params, the optimizer state, the CE and the gradient
 norm stay float32; the gradients come back float32 from the cast inside
 ``loss_fn``.
+
+On a (data x model) mesh (``mesh``, ``parallel/sharding.py``) the step
+equals the single device's: the batch is this rank's rows of the global
+batch, the CE divides by the global token count, BatchNorm takes the
+global batch's statistics, scheduled sampling draws the global coins and
+keeps this rank's, the gradients are summed over the data axis and the
+clip's and the reported norm are the whole model's.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ from ..data.dataset import Batch
 from ..models import decoder as dec_ops
 from ..models import las
 from ..ops import conv as conv_ops
+from ..parallel import sharding
 from . import optim
 from .loss import label_smoothed_ce
 
@@ -46,7 +54,8 @@ def _step(body, remat: bool, *args):
 def forward_logits(params, cfg: Config, batch: Batch,
                    gen: Optional[torch.Generator] = None, ss: float = 0.0,
                    bn_updates=None,
-                   gate_hoist: Optional[bool] = None) -> torch.Tensor:
+                   gate_hoist: Optional[bool] = None,
+                   mesh=None) -> torch.Tensor:
     """Teacher-forced logits [B, S, V] for the whole target matrix.
 
     ``ss`` > 0 with a generator ``gen`` turns on scheduled sampling: with
@@ -62,6 +71,9 @@ def forward_logits(params, cfg: Config, batch: Batch,
     with both biases (JAX: on by default from B >= 64; LSTM decoder with
     input feeding only).  The encoder runs in train mode: its BatchNorms
     normalize with batch statistics and record them into ``bn_updates``.
+    On a mesh, ``batch`` is this data rank's rows, the coins are drawn for
+    the global batch (so every rank consumes ``gen`` alike) and this rank
+    keeps its columns, and the logits are full [B, S, V] rows.
     """
     B, S = batch.tokens_in.shape
     dcfg, acfg = cfg.decoder, cfg.attention
@@ -74,18 +86,20 @@ def forward_logits(params, cfg: Config, batch: Batch,
         cell0 = dec_ops.zero_cell_state(dcfg, batch.feats, B)
     attn0 = batch.feats.new_zeros((B, ctx))
     dp, ap = params["decoder"], params["attention"]
-    emb = dp["embedding"]
 
     if ss > 0.0 and gen is not None:
         # each step's logits are needed inside the loop (the argmax feeds
         # step t+1), so nothing hoists
-        coins = (torch.rand((S, B), generator=gen, device=gen.device) < ss
+        Bg = B * sharding.data_size(mesh)
+        coins = torch.rand((S, Bg), generator=gen, device=gen.device)
+        coins = (coins[:, sharding.row_slice(Bg, mesh)] < ss
                  ).to(batch.tokens_in.device)
 
         def body(cell, attn, tok):
             out = dec_ops.decoder_step(dp, ap, dcfg, acfg, eb.mask, eb.keys,
                                        eb.values, None, cell, attn,
-                                       token_emb=emb[tok])
+                                       token_emb=dec_ops.embed(dp, tok, mesh),
+                                       mesh=mesh)
             return out.cell_state, out.attn_hidden_state, out.logit
 
         cell, attn = cell0, attn0
@@ -100,14 +114,14 @@ def forward_logits(params, cfg: Config, batch: Batch,
             logits.append(logit)
         return torch.stack(logits, dim=1)                      # [B, S, V]
 
-    emb_seq = emb[batch.tokens_in]                             # [B, S, E]
-    if gate_hoist is None:
-        gate_hoist = B >= 64
+    emb_seq = dec_ops.embed(dp, batch.tokens_in, mesh)         # [B, S, E]
+    if gate_hoist is None:      # by the global batch, as JAX traces it
+        gate_hoist = B * sharding.data_size(mesh) >= 64
     gate_hoist = (gate_hoist and dcfg.decoder_type == "LSTM"
                   and dcfg.input_feeding)
     if gate_hoist:
         p0 = dp["cells"][0]
-        E = emb.shape[1]
+        E = emb_seq.shape[-1]
         xs = (emb_seq.reshape(B * S, E) @ p0["w_ih"][:E]
               + p0["b_ih"] + p0["b_hh"]).reshape(B, S, -1)     # [B, S, 4H]
     else:
@@ -128,12 +142,12 @@ def forward_logits(params, cfg: Config, batch: Batch,
         h_seq.append(dec_ops.last_hidden(dcfg, cell))
         a_seq.append(attn)
     logits = dec_ops.project(dp, acfg, torch.stack(h_seq),
-                             torch.stack(a_seq))               # [S, B, V]
+                             torch.stack(a_seq), mesh)         # [S, B, V]
     return logits.transpose(0, 1)
 
 
 def loss_fn(params, cfg: Config, batch: Batch,
-            gen: Optional[torch.Generator] = None
+            gen: Optional[torch.Generator] = None, mesh=None
             ) -> Tuple[torch.Tensor, Dict]:
     """(label-smoothed CE over the valid tokens, {"accuracy",
     "num_tokens", "bn_stats"}); the CE is taken from float32 logits.
@@ -144,24 +158,31 @@ def loss_fn(params, cfg: Config, batch: Batch,
     Under ``train.compute_dtype="bfloat16"`` the float leaves of ``params``
     and ``batch.feats`` are cast to bf16 here, inside the differentiated
     function (JAX ``train/step.py:174-181``), so the forward and backward
-    run in bf16 and autograd hands back float32 gradients at the cast."""
+    run in bf16 and autograd hands back float32 gradients at the cast.
+
+    On a mesh the CE is this data rank's share of the global batch's (its
+    masked sum over the global token count: the shares sum to the global
+    CE), and the accuracy and ``num_tokens`` are the global batch's."""
     cd = getattr(torch, cfg.train.compute_dtype)
     if cd != torch.float32:
         params = las.tree_map(
             lambda t: t.to(cd) if t.is_floating_point() else t, params)
         batch = batch._replace(feats=batch.feats.to(cd))
-    bn_updates = []
+    bn_updates = [] if sharding.data_size(mesh) == 1 else \
+        conv_ops.ShardStats(lambda t: sharding.sum_shares_over_data(t, mesh),
+                            sharding.data_size(mesh))
     logits = forward_logits(params, cfg, batch, gen, cfg.train.ss,
-                            bn_updates).float()
+                            bn_updates, mesh=mesh).float()
     S = batch.tokens_out.shape[1]
     mask = (torch.arange(S, device=logits.device)[None, :]
             < batch.text_lens[:, None])
     tokens_out = batch.tokens_out.long()
+    n = sharding.sum_over_data(mask.sum(), mesh)
     loss = label_smoothed_ce(logits, tokens_out, mask,
-                             cfg.train.label_smooth)
-    n = mask.sum()
-    acc = ((torch.argmax(logits, -1) == tokens_out) & mask).sum() \
-        / torch.clamp(n, min=1)
+                             cfg.train.label_smooth,
+                             n_valid=None if mesh is None else n)
+    hits = ((torch.argmax(logits, -1) == tokens_out) & mask).sum()
+    acc = sharding.sum_over_data(hits, mesh) / torch.clamp(n, min=1)
     # the recordings key on the sub-dicts of the tree the forward ran on
     # (the bf16 cast's under mixed precision), so the tree is built here
     bn_tree = las.tree_map(lambda t: None if t is None else t.detach(),
@@ -170,9 +191,13 @@ def loss_fn(params, cfg: Config, batch: Batch,
 
 
 def train_step(params, opt_state, cfg: Config, tx: optim.Optimizer,
-               batch: Batch, gen: Optional[torch.Generator] = None):
+               batch: Batch, gen: Optional[torch.Generator] = None,
+               mesh=None):
     """One update.  Returns (params, opt_state, metrics); the metrics are
-    tensors on the device (no host sync here).
+    tensors on the device (no host sync here).  On a mesh, ``params`` and
+    ``opt_state`` are this rank's shards (``sharding.shard_params``),
+    ``batch`` its rows (``sharding.shard_batch``), and the metrics the
+    global batch's.
 
     A non-finite loss skips the update: params and optimizer state come
     back unchanged, the reference's NaN/Inf guard (model.py:473-475).
@@ -182,18 +207,21 @@ def train_step(params, opt_state, cfg: Config, tx: optim.Optimizer,
     ``conv.merge_bn_stats``)."""
     flat = optim.flatten(params)
     leaves = {n: t.detach().requires_grad_(True) for n, t in flat.items()}
-    loss, aux = loss_fn(optim.unflatten(params, leaves), cfg, batch, gen)
+    loss, aux = loss_fn(optim.unflatten(params, leaves), cfg, batch, gen,
+                        mesh)
     grads = torch.autograd.grad(loss, list(leaves.values()),
                                 allow_unused=True)
     with torch.no_grad():
-        grads = {n: torch.zeros_like(flat[n]) if g is None else g
-                 for n, g in zip(leaves, grads)}
-        gnorm = torch.sqrt(sum(torch.sum(g.float() ** 2)
-                               for g in grads.values()))
-        finite = torch.isfinite(loss)
+        grads = sharding.sum_grads_over_data(
+            {n: torch.zeros_like(flat[n]) if g is None else g
+             for n, g in zip(leaves, grads)}, mesh)
+        gnorm = torch.sqrt(sharding.sq_norm(
+            {n: g.float() for n, g in grads.items()}, mesh))
+        loss = sharding.sum_over_data(loss.detach(), mesh)
+        finite = torch.isfinite(loss)       # the same on every rank
         grads = {n: torch.where(finite, g, torch.zeros_like(g))
                  for n, g in grads.items()}
-        updates, new_state = tx.update(grads, opt_state, flat)
+        updates, new_state = tx.update(grads, opt_state, flat, mesh)
         merged = optim.flatten(conv_ops.merge_bn_stats(
             optim.unflatten(params, {n: p + updates[n]
                                      for n, p in flat.items()}),
@@ -202,6 +230,5 @@ def train_step(params, opt_state, cfg: Config, tx: optim.Optimizer,
                     for n, p in flat.items()}
         new_state = {k: torch.where(finite, v, opt_state[k])
                      for k, v in new_state.items()}
-        loss = loss.detach()
     metrics = {"loss": loss, "grad_norm": gnorm, "skipped": ~finite, **aux}
     return optim.unflatten(params, new_flat), new_state, metrics

@@ -1,7 +1,15 @@
 """Training loop (port of ``chinese_asr_tpu/train/trainer.py``; reference
 Model.train, model.py:84-345): epoch loop, LR ramp-up, EMA-smoothed
 console line, periodic greedy eval with CER, reduce-on-plateau LR, a
-checkpoint per eval named ``step-X_wer-Y.ckpt``.  One device, no mesh.
+checkpoint per eval named ``step-X_wer-Y.ckpt``.
+
+Over a (data x model) mesh (``mesh=``, ``parallel/sharding.py``) every
+rank runs this loop on the same global batches: it keeps its shard of the
+params (and of their optimizer state) and its rows of each batch, and the
+step equals the single device's (``train/step.py``).  Evaluation decodes on
+the mesh; its CER is the global batch's.  Rank 0 writes the checkpoints
+from the gathered params, in the single-device format, and the other ranks
+log under ``save_dir/rank<r>``.
 
 Checkpoints are ``chinese_asr_tpu.v1`` (``utils/checkpoint.py``): the JAX
 package loads the params of one written here, and a checkpoint of the JAX
@@ -10,6 +18,7 @@ trainer resumes here (its optax optimizer state does not carry over).
 
 from __future__ import annotations
 
+import os
 import sys
 from typing import Callable, Iterable, Optional
 
@@ -19,6 +28,7 @@ import torch
 from ..config import Config
 from ..decode.greedy import finalize_greedy, greedy_decode
 from ..models import las
+from ..parallel import sharding
 from ..utils.checkpoint import CheckpointManager, TrainVar, load_checkpoint
 from ..utils.device import resolve_device
 from ..utils.observe import (EMA, Duration, MetricsLogger,
@@ -29,25 +39,34 @@ from .step import Batch
 
 class Trainer:
     def __init__(self, cfg: Config, params, vocab=None,
-                 logger: Optional[MetricsLogger] = None, device=None):
+                 logger: Optional[MetricsLogger] = None, device=None,
+                 mesh=None):
         """``params``: a parameter tree (``las.init_params``), moved to
         ``device`` in float32, the master copy whatever
         ``train.compute_dtype`` (the optimizer state and the checkpoints
         stay float32 too, and ``evaluate`` decodes in float32, as in JAX);
-        ``device`` defaults to ``cuda`` and raises without a GPU."""
+        ``device`` defaults to ``cuda`` and raises without a GPU.
+        ``mesh``: a ``DeviceMesh`` from ``sharding.make_mesh``, or "auto";
+        ``params`` is the whole tree, the same on every rank."""
+        self.mesh = mesh = sharding.resolve_mesh(mesh, cfg, device)
+        self.rank = 0 if mesh is None else torch.distributed.get_rank()
         self.device = resolve_device(device)
         self.cfg = cfg
         self.vocab = vocab
         self.params = las.tree_map(
             lambda t: t.detach().to(self.device, torch.float32), params)
+        if mesh is not None:
+            self.params = sharding.shard_params(self.params, cfg, mesh)
         self.tx = optim.make_optimizer(cfg.train)
         self.opt_state = self.tx.init(self.params)
         self._step_fn = lambda p, o, batch, gen: step_mod.train_step(
-            p, o, cfg, self.tx, batch, gen)
+            p, o, cfg, self.tx, batch, gen, mesh)
         self.tv = TrainVar(lr=cfg.train.base_lr)
         self.plateau = optim.PlateauLR(cfg.train)
         self.ckpt = CheckpointManager(cfg.train.save_dir)
-        self.logger = logger or MetricsLogger(cfg.train.save_dir)
+        self.logger = logger or MetricsLogger(
+            cfg.train.save_dir if self.rank == 0
+            else os.path.join(cfg.train.save_dir, f"rank{self.rank}"))
         self.ema = EMA(0.99)
         self.duration = Duration()
         # scheduled sampling's coins, drawn on the CPU
@@ -66,14 +85,18 @@ class Trainer:
             return False
         payload = load_checkpoint(path)
         self.params = las.params_from_numpy(payload["params"], self.device)
+        if self.mesh is not None:       # a checkpoint holds the whole model
+            self.params = sharding.shard_params(self.params, self.cfg,
+                                                self.mesh)
         self.opt_state = self.tx.init(self.params)
         saved = payload.get("opt_state")
         if (payload.get("extra", {}).get("optimizer") == self.tx.kind
                 and isinstance(saved, dict)
                 and set(saved) == set(self.opt_state)):
-            self.opt_state = {k: torch.as_tensor(np.asarray(v)).to(
-                self.device, self.opt_state[k].dtype)
-                for k, v in saved.items()}
+            self.opt_state = sharding.shard_flat(
+                {k: torch.as_tensor(np.asarray(v)).to(
+                    self.device, self.opt_state[k].dtype)
+                 for k, v in saved.items()}, self.mesh)
         elif saved is not None:
             print(f"resume: {path} holds no {self.tx.kind} state of this "
                   f"port (a JAX trainer's optax state, or another "
@@ -93,7 +116,7 @@ class Trainer:
         cers, weights = [], []
         first = True
         for b in eval_loader:
-            res = greedy_decode(self.params, self.cfg, b.feats, b.feat_lens)
+            res = self._greedy(b.feats, b.feat_lens)
             to_np = b.tokens_out.cpu().numpy()
             tl_np = b.text_lens.cpu().numpy()
             text = [to_np[i, : tl_np[i] - 1].tolist()
@@ -118,6 +141,16 @@ class Trainer:
             return float("inf")
         return float(np.average(cers, weights=weights))
 
+    def _greedy(self, feats, feat_lens):
+        """Greedy decode of an eval batch; on a mesh, the whole batch's
+        result from this rank's rows (``sharding.pad_shard_rows``)."""
+        mesh = self.mesh
+        res = greedy_decode(self.params, self.cfg,
+                            *sharding.pad_shard_rows(mesh, feats, feat_lens),
+                            mesh)
+        return sharding.trim_rows(sharding.gather_rows(res, mesh),
+                                  feats.shape[0])
+
     # ---- main loop (reference model.py:160-345) ----------------------------
     def fit(self, train_loader_fn: Callable[[], Iterable[Batch]],
             eval_loader_fn: Optional[Callable[[], Iterable[Batch]]] = None,
@@ -133,6 +166,8 @@ class Trainer:
                         self.opt_state,
                         optim.ramp_up_lr(self.plateau.lr, self.tv.step,
                                          cfg.ramp_up_iters))
+                if self.mesh is not None:
+                    batch = sharding.shard_batch(batch, self.cfg, self.mesh)
                 self.params, self.opt_state, metrics = self._step_fn(
                     self.params, self.opt_state, batch, self._gen)
                 loss = float(metrics["loss"])
@@ -172,8 +207,19 @@ class Trainer:
         self.tv.lr = self.plateau.lr
         self.tv.num_no_imprv = self.plateau.num_no_imprv
         self.tv.duration = self.duration.seconds
-        # checkpoint per eval (model.py:294)
-        return self.ckpt.save(
-            self.tv.step, wer, las.params_to_numpy(self.params),
-            {k: v.cpu().numpy() for k, v in self.opt_state.items()},
-            self.tv, self.cfg.to_json(), extra={"optimizer": self.tx.kind})
+        # checkpoint per eval (model.py:294); on a mesh the whole model,
+        # gathered on every rank, written by rank 0
+        params, opt_state = self.params, self.opt_state
+        if self.mesh is not None:
+            params = sharding.unshard_params(params, self.cfg, self.mesh)
+            opt_state = sharding.unshard_flat(opt_state, self.mesh)
+        path = self.ckpt.path_for(self.tv.step, wer)
+        if self.rank == 0:
+            path = self.ckpt.save(
+                self.tv.step, wer, las.params_to_numpy(params),
+                {k: v.cpu().numpy() for k, v in opt_state.items()},
+                self.tv, self.cfg.to_json(),
+                extra={"optimizer": self.tx.kind})
+        if self.mesh is not None:
+            torch.distributed.barrier()     # the file exists for every rank
+        return path

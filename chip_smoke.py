@@ -15,7 +15,8 @@ every phase passed):
    main path's shapes (K1 log-mel on [32, 160000] wavs, K2 BiLSTM loop on
    [332, 128, 1024] gates with ragged masks, also timed at B=32 and with
    its cluster plan (waves); K3 top-k at k=17 on [2048, 5004] and
-   [512, 5004] (the stage-1 rows at B=128 and B=32) with planted ties,
+   [512, 5004] (the stage-1 rows at B=128 and B=32) and [256, 5004] (a
+   data rank's rows on phase 4b's mesh) with planted ties,
    NaN, +-inf and all -inf rows, beam-like rows, and adversarial rows that
    put every winner in one lane (which must take the kernel's flat
    fallback), and on [64, 70000]; K3 at k=20 (the LM first pass's
@@ -108,7 +109,26 @@ every phase passed):
    and ``--bf16``; report for each ms per step (median of the warm steps),
    the forward / backward / optimizer split by CUDA events, the profiler's
    busy share and launches of one step, and peak device memory;
-5. print one ``{"kernels": [...]}`` line and, last, the ok line.
+4b. the mesh (``parallel/sharding.py``): (a) a one-rank NCCL group, mesh
+   1 x 1: ``ASR(bw=16, mesh=make_mesh(cfg))`` on phase 3's batch equals
+   ``ASR(bw=16)`` exactly, with K1 1, K2 4 and K3 40 launches; (b) four
+   ranks spawned from this script share the card over gloo as a 2 x 2
+   mesh at the flagship ``Config()`` (V = 5004, 2502 a model rank; the
+   library phase 1 built serves every rank): each runs beam bw 16 and
+   greedy on the B=32 batch (16 rows a data rank) against phase 3's
+   transcripts, the LM second and first passes over phase 3's order-3
+   ARPA (tables built on every rank), the golden shard in all five modes
+   against ``expected.json``, and three ``Trainer.fit`` steps at B=32 in
+   f32 and bf16 against the single device's (f32 loss 1e-5 relative,
+   params 2e-4 / 2e-5; bf16 loss 1e-2; masters float32); every rank's
+   launches are checked (K1, K2, K3; K2-bwd in f32 training, K2-bf16 and
+   K2-bwd-bf16 in bf16); the walls (median of 3 warm runs), the
+   collectives and their bytes a batch or step are printed beside the
+   card's line, as gloo-through-the-host figures on one shared card, and
+   rows that differ from one device (random weights) with their score
+   gaps to the runner-up;
+5. print one ``{"kernels": [...]}`` line (with each kernel's launches on
+   the mesh's rank 0) and, last, the ok line.
 
 It imports nothing of JAX nor of the JAX package.
 """
@@ -1566,6 +1586,441 @@ def _phase_families(np, torch, fails, ASR, base_cfg, wavs, rng, dev,
     return report
 
 
+# ---- phase 4b: the mesh ------------------------------------------------------
+MESH_SHAPE = (2, 2)             # data x model, ranks sharing the one card
+MESH_WARM_RUNS = 3              # warm walls behind each mesh run's median
+MESH_TRAIN_STEPS = 3
+# at random weights a 2x2 mesh may flip a near-tie (cuBLAS may take another
+# GEMM at N = 2502 than at 5004): a few rows of 32, each won by at most
+# 1/128, the yardstick of f32 reassociation at the flagship width
+MESH_MAX_DIFFER = 3
+MESH_NEAR_TIE = 1 / 128
+
+
+def _kernel_counters():
+    """Each kernel's launch counter (module, attribute), by kernel name."""
+    from chinese_asr_tpu_torch.ops.cuda import adpcm as adpcm_k
+    from chinese_asr_tpu_torch.ops.cuda import logmel as logmel_k
+    from chinese_asr_tpu_torch.ops.cuda import lstm as lstm_k
+    from chinese_asr_tpu_torch.ops.cuda import topk as topk_k
+    return {"logmel": (logmel_k, "launches"),
+            "lstm": (lstm_k, "launches"),
+            "lstm_bf16": (lstm_k, "bf16_launches"),
+            "topk": (topk_k, "launches"),
+            "topk_fused": (topk_k, "fused_launches"),
+            "adpcm": (adpcm_k, "launches"),
+            "lstm_bwd": (lstm_k, "bwd_launches"),
+            "lstm_bwd_bf16": (lstm_k, "bwd_bf16_launches")}
+
+
+def _mesh_decode(torch, np, asr, wavs, counters):
+    """One counted ``transcribe_wavs`` (its launches and collectives), then
+    MESH_WARM_RUNS timed ones."""
+    from chinese_asr_tpu_torch.parallel import sharding
+
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    sharding.reset_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    texts = asr.transcribe_wavs(wavs)
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t
+    launches = {n: getattr(mod, attr) for n, (mod, attr) in counters.items()}
+    coll = dict(sharding.counts)
+    walls = []
+    for _ in range(MESH_WARM_RUNS):
+        t = time.perf_counter()
+        again = asr.transcribe_wavs(wavs)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+    return dict(texts=texts, stable=again == texts, launches=launches,
+                collectives=coll, wall_s_first=first,
+                wall_s=float(np.median(walls)), walls_s=walls)
+
+
+def _mesh_gaps(torch, asr, wavs, rows):
+    """For the differing rows ``rows``: the margin by which the winner beat
+    its runner-up on the ASR's mesh.  A beam: the winner's selection score
+    against the next slot's (raw logp; with the LM second pass the
+    rescored sum; the first pass's LM-fused score), or the live beams'
+    where no slot finished.  Greedy: the smallest top-2 logp margin along
+    the row's path, the step where a near-tie can flip."""
+    from typing import NamedTuple
+
+    from chinese_asr_tpu_torch.decode import beam as beam_mod
+    from chinese_asr_tpu_torch.decode import greedy as greedy_mod
+    from chinese_asr_tpu_torch.decode import lm_fused as lm_fused_mod
+    from chinese_asr_tpu_torch.parallel import sharding
+
+    class _Rows(NamedTuple):
+        x: torch.Tensor
+        n: torch.Tensor
+
+    mesh, cfg = asr.mesh, asr.cfg
+    feats = asr._featurize(asr._upload(*asr._prep_rows(
+        list(wavs), None, sharding.row_slice(len(wavs), mesh))))
+    lw = cfg.decode.length_weight
+    if not asr.bw or asr.bw <= 1:
+        margins, step = [], greedy_mod.dec_ops.decoder_step
+
+        def record(*a, **k):
+            out = step(*a, **k)
+            top = torch.log_softmax(out.logit.float(), 1).topk(2, 1).values
+            margins.append(top[:, 0] - top[:, 1])
+            return out
+
+        greedy_mod.dec_ops.decoder_step = record
+        try:
+            res = greedy_mod.greedy_decode(asr.params, cfg, *feats, mesh)
+        finally:
+            greedy_mod.dec_ops.decoder_step = step
+        g = sharding.gather_rows(_Rows(torch.stack(margins, 1),
+                                       res.final_lens), mesh)
+        return {r: float(g.x[r, :int(g.n[r]) + 1].min()) for r in rows}
+    if asr.dlm is not None and asr.lm_mode == "first":
+        res = lm_fused_mod.lm_fused_decode(
+            asr.params, cfg, asr.bw, *feats, asr.dlm, asr.tok2lm,
+            asr.lm_topn, mesh)
+        sel = res.fin_scores
+    elif asr.dlm is not None:
+        res, fin_lm = beam_mod.beam_decode(
+            asr.params, cfg, asr.bw, *feats, mesh=mesh,
+            lm_track=(asr.dlm, asr.tok2lm, asr._lm_bos, asr._lm_eos))
+        sel = (res.fin_scores + cfg.decode.lm_weight * fin_lm
+               + lw * res.fin_lens.float())
+    else:
+        res = beam_mod.beam_decode(asr.params, cfg, asr.bw, *feats,
+                                   mesh=mesh)
+        sel = res.fin_scores
+    sel = torch.where(torch.isfinite(res.fin_scores), sel, float("-inf"))
+    live = res.live_scores + lw * (res.l_final + 1)
+    g = sharding.gather_rows(_Rows(sel, live), mesh)
+    gaps = {}
+    for r in rows:
+        sc = g.x[r][torch.isfinite(g.x[r])]
+        if not sc.numel():
+            sc = g.n[r]
+        top = torch.topk(sc.float(), min(2, sc.numel())).values.tolist()
+        gaps[r] = top[0] - top[1] if len(top) > 1 else float("inf")
+    return gaps
+
+
+def _mesh_fit(torch, np, dev, mesh, spec, counters, compute_dtype):
+    """``Trainer.fit`` for MESH_TRAIN_STEPS steps of the B=32 batch at the
+    flagship ``Config()`` (ADAM, seed 0), featurized on the card each step
+    (K1) as ``batches_to_device`` does; on ``mesh`` or one device.  Per
+    step the loss, the wall and the collectives; the launches; the whole
+    params after the last step (rank 0 / one device)."""
+    from chinese_asr_tpu_torch.audio import features
+    from chinese_asr_tpu_torch.config import Config
+    from chinese_asr_tpu_torch.data.dataset import Batch
+    from chinese_asr_tpu_torch.models import las
+    from chinese_asr_tpu_torch.parallel import sharding
+    from chinese_asr_tpu_torch.train import optim
+    from chinese_asr_tpu_torch.train.trainer import Trainer
+
+    tag = "mesh" if mesh is not None else "one"
+    cfg = Config().with_("train", batch_size=32, seed=0,
+                         compute_dtype=compute_dtype,
+                         save_dir=os.path.join(spec["build_dir"],
+                                               f"mesh_ckpt_{tag}"))
+    if mesh is not None:
+        cfg = cfg.with_("mesh", data_parallel=MESH_SHAPE[0],
+                        model_parallel=MESH_SHAPE[1])
+    tr = Trainer(cfg, las.init_params(cfg, 0), None, device=dev, mesh=mesh)
+    wav_mat, wav_lens, tok_in, tok_out, text_lens = spec["train_batch"]
+
+    def loader():
+        for _ in range(MESH_TRAIN_STEPS):
+            feats, flens = features.featurize_batch(
+                torch.from_numpy(wav_mat).to(dev),
+                torch.from_numpy(wav_lens).to(dev), cfg.audio)
+            yield Batch(feats, flens, *(torch.from_numpy(a).to(dev)
+                                        for a in (tok_in, tok_out,
+                                                  text_lens)))
+
+    losses, walls, colls = [], [], []
+    orig = tr._step_fn
+
+    def timed(*a):
+        sharding.reset_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = orig(*a)
+        losses.append(float(out[2]["loss"]))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        colls.append(dict(sharding.counts))
+        return out
+
+    tr._step_fn = timed
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    tr.fit(loader, None, max_steps=MESH_TRAIN_STEPS)
+    launches = {n: getattr(mod, attr) for n, (mod, attr) in counters.items()}
+    dtypes = sorted({str(t.dtype) for t in las.tree_leaves(tr.params)}
+                    | {str(v.dtype) for v in tr.opt_state.values()
+                       if v.is_floating_point()})
+    params = tr.params if mesh is None else sharding.unshard_params(
+        tr.params, cfg, mesh)
+    keep = mesh is None or torch.distributed.get_rank() == 0
+    flat = ({n: t.detach().cpu().numpy()
+             for n, t in optim.flatten(params).items()} if keep else None)
+    for f in os.listdir(cfg.train.save_dir):
+        if keep and f.endswith(".ckpt"):
+            os.remove(os.path.join(cfg.train.save_dir, f))
+    return dict(losses=losses, walls_s=walls, collectives=colls,
+                launches=launches, dtypes=dtypes, params=flat,
+                step_s=float(np.median(walls[1:])))
+
+
+def _mesh_rank(spec: dict) -> dict:
+    """Phase 4b on one rank of the 2 x 2 mesh (gloo, every rank on the one
+    card): the beam and greedy on the B=32 batch (16 rows a data rank),
+    the LM second and first passes over the order-3 ARPA (the tables
+    built on every rank), the golden shard in all five modes, and
+    ``Trainer.fit`` in f32 and bf16.  Builds nothing: phase 1's library
+    serves every rank."""
+    import numpy as np
+    import torch
+
+    from chinese_asr_tpu_torch.api import ASR
+    from chinese_asr_tpu_torch.config import Config
+    from chinese_asr_tpu_torch.parallel import sharding
+    from chinese_asr_tpu_torch.utils.device import resolve_device
+    from chinese_asr_tpu_torch.vocab import Vocab
+
+    counters = _kernel_counters()
+    cfg = Config().with_("mesh", data_parallel=MESH_SHAPE[0],
+                         model_parallel=MESH_SHAPE[1])
+    mesh = sharding.make_mesh(cfg, "cuda")
+    dev = resolve_device(None)
+    rank = torch.distributed.get_rank()
+    wavs = spec["wavs"]
+    out = dict(rank=rank, device=str(dev),
+               backend=torch.distributed.get_backend())
+    for label, kw in (("beam_bw16", dict(bw=16)), ("greedy", dict(bw=None)),
+                      ("beam_bw16_lm2", dict(bw=16, lm_mode="second")),
+                      ("beam_bw16_lm1", dict(bw=16, lm_mode="first"))):
+        t = time.perf_counter()
+        asr = ASR(cfg=cfg, seed=0, mesh=mesh, **kw,
+                  lm_path=spec["arpa3"] if "lm_mode" in kw else None)
+        build_s = time.perf_counter() - t
+        out[label] = _mesh_decode(torch, np, asr, wavs, counters)
+        differ = [i for i, (a, b) in enumerate(zip(out[label]["texts"],
+                                                   spec["texts"][label]))
+                  if a != b]
+        out[label]["differ"] = differ
+        # every rank takes part: ``differ`` is the whole batch's on each
+        out[label]["gaps"] = (_mesh_gaps(torch, asr, wavs, differ)
+                              if differ else {})
+        if asr.dlm is not None:
+            out[label].update(
+                lm_build_s=build_s,
+                lm_table_mib=sum(t.numel() * t.element_size()
+                                 for t in (*asr.dlm.tbls, asr.dlm.uni))
+                / 2**20)
+        del asr
+    gold = spec["golden"]
+    gcfg = Config.from_json(gold["cfg"])
+    gvocab = Vocab.build([gold["chars"]], max_num_words=8)
+    out["golden"] = {}
+    for mode, kw in (("greedy", dict(bw=None)), ("beam_bw4", dict(bw=4)),
+                     ("lm_second", dict(bw=4, lm_mode="second")),
+                     ("lm_second_host", dict(bw=4, lm_mode="second_host")),
+                     ("lm_first", dict(bw=4, lm_mode="first", lm_topn=8))):
+        asr = ASR(ckpt_path=gold["ckpt"], cfg=gcfg, vocab=gvocab,
+                  lm_path=gold["lm"] if "lm_mode" in kw else None,
+                  mesh=mesh, **kw)
+        out["golden"][mode] = asr.transcribe_files(gold["paths"])
+    torch.cuda.empty_cache()
+    for dtype in ("float32", "bfloat16"):
+        out["train_" + dtype] = _mesh_fit(torch, np, dev, mesh, spec,
+                                          counters, dtype)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return out
+
+
+def _phase_mesh(np, torch, fails, gpu, dev, cfg, wavs, texts_of, arpa3,
+                build_dir, golden):
+    """Phase 4b: (a) ``ASR(bw=16, mesh=make_mesh(cfg))`` over a one-rank
+    NCCL group (1 x 1) equal to ``ASR(bw=16)`` exactly; (b) a 2 x 2 mesh of
+    four ranks sharing the card over gloo at the flagship width (V = 5004,
+    2502 a model rank): decoding against phase 3's transcripts, the golden
+    shard, and three train steps in f32 and bf16 against the single
+    device's.  Returns the path's report."""
+    import torch.distributed as dist
+
+    from chinese_asr_tpu_torch.api import ASR
+    from chinese_asr_tpu_torch.parallel import launch, sharding
+
+    counters = _kernel_counters()
+    report = {}
+    print("phase 4b: the walls below are gloo-through-the-host figures on "
+          "one shared card (the ranks time-slice it; every collective "
+          "crosses host memory), not NCCL across cards", flush=True)
+
+    # (a) a one-rank NCCL group
+    t = time.time()
+    mesh = sharding.make_mesh(cfg, "cuda")
+    fails.check(dist.get_backend() == "nccl" and tuple(mesh.shape) == (1, 1),
+                f"mesh 1x1: backend {dist.get_backend()}, shape "
+                f"{tuple(mesh.shape)}")
+    run = _mesh_decode(torch, np, ASR(bw=16, cfg=cfg, seed=0, mesh=mesh),
+                       wavs, counters)
+    # a 1x1 mesh skips every collective (it decodes as one device); the
+    # port's all-reduce and all-gather are driven over NCCL here instead
+    x = torch.arange(1.0, 5.0, device=dev)
+    sharding.reset_counts()
+    nccl_ok = (torch.equal(sharding._all_reduce(x, dist.group.WORLD), x)
+               and torch.equal(sharding._all_gather(x, dist.group.WORLD, 0),
+                               x)
+               and sharding.counts["calls"] == 2)
+    dist.destroy_process_group()
+    fails.check(nccl_ok and run["collectives"]["calls"] == 0,
+                f"mesh 1x1 (NCCL): the port's all-reduce and all-gather on "
+                f"the card; the decode issued {run['collectives']['calls']} "
+                f"collectives (none: a 1x1 mesh decodes as one device)")
+    want = dict.fromkeys(counters, 0)
+    want.update(logmel=1, lstm=4, topk=40)
+    fails.check(run["launches"] == want,
+                f"mesh 1x1 (NCCL) beam_bw16: launches {run['launches']}")
+    fails.check(run["texts"] == texts_of["beam_bw16"] and run["stable"],
+                "mesh 1x1 (NCCL) beam_bw16: transcripts equal ASR(bw=16)'s "
+                "exactly")
+    print(f"mesh 1x1 (NCCL, 1 rank): beam_bw16 wall {run['wall_s_first']:.3f}"
+          f" s (first), median {run['wall_s']:.4f} s of {MESH_WARM_RUNS} "
+          f"warm runs; collectives a batch {run['collectives']} on {gpu}",
+          flush=True)
+    run.pop("texts")
+    report["nccl_1x1"] = dict(run, setup_s=time.time() - t)
+
+    # (b) the 2 x 2 mesh over gloo, four ranks on the one card
+    t = time.time()
+    rng = np.random.default_rng(12)
+    B, S = len(wavs), 32
+    N = max(len(w) for w in wavs)
+    wav_mat = np.zeros((B, N), np.float32)
+    for i, w in enumerate(wavs):
+        wav_mat[i, :len(w)] = w
+    text_lens = rng.integers(16, 31, B).astype(np.int32)     # 15-30 chars + eos
+    tok_in = np.full((B, S), cfg.vocab.pad, np.int32)
+    tok_out = np.full((B, S), cfg.vocab.pad, np.int32)
+    for i, n in enumerate(text_lens):
+        text = rng.integers(4, cfg.vocab.vocab_size, n - 1)
+        tok_in[i, 0], tok_in[i, 1:n] = cfg.vocab.sos, text
+        tok_out[i, :n - 1], tok_out[i, n - 1] = text, cfg.vocab.eos
+    spec = dict(wavs=wavs, arpa3=arpa3, build_dir=build_dir, golden=golden,
+                texts={k: texts_of[k] for k in ("beam_bw16", "greedy",
+                                                "beam_bw16_lm2",
+                                                "beam_bw16_lm1")},
+                train_batch=(wav_mat, np.array([len(w) for w in wavs],
+                                               np.int32),
+                             tok_in, tok_out, text_lens))
+    single = {d: _mesh_fit(torch, np, dev, None, spec, counters, d)
+              for d in ("float32", "bfloat16")}
+    torch.cuda.empty_cache()
+    t_spawn = time.time()
+    outs = launch.run_ranks(_mesh_rank, MESH_SHAPE[0] * MESH_SHAPE[1],
+                            args=(spec,), device_type="cuda", timeout_s=600)
+    ranks_s = time.time() - t_spawn
+    decode_want = {"beam_bw16": dict(logmel=1, lstm=4, topk=40),
+                   "greedy": dict(logmel=1, lstm=4),
+                   "beam_bw16_lm2": dict(logmel=1, lstm=4, topk=None),
+                   "beam_bw16_lm1": dict(logmel=1, lstm=4, topk=None)}
+    steps = MESH_TRAIN_STEPS
+    train_want = {"float32": dict(logmel=steps, lstm=4 * steps,
+                                  lstm_bwd=4 * steps),
+                  "bfloat16": dict(logmel=steps, lstm_bf16=4 * steps,
+                                   lstm_bwd_bf16=4 * steps)}
+    for o in outs:
+        r = o["rank"]
+        fails.check(o["backend"] == "gloo" and o["device"] == "cuda:0",
+                    f"mesh 2x2 rank {r}: gloo, on {o['device']}")
+        for label, need in decode_want.items():
+            got = o[label]["launches"]
+            fails.check(all(got[n] > 0 if v is None else got[n] == v
+                            for n, v in need.items())
+                        and all(got[n] == 0 for n in got if n not in need)
+                        and o[label]["stable"],
+                        f"mesh 2x2 rank {r} {label}: launches {got}, two "
+                        f"runs equal")
+            fails.check(o[label]["texts"] == outs[0][label]["texts"],
+                        f"mesh 2x2 rank {r} {label}: the whole batch's "
+                        f"transcripts, as rank 0's")
+        fails.check(o["golden"] == {m: golden["expected"][m]
+                                    for m in o["golden"]},
+                    f"mesh 2x2 rank {r}: the golden shard in all five modes "
+                    f"equals expected.json")
+        for dtype, need in train_want.items():
+            run = o["train_" + dtype]
+            full = dict.fromkeys(counters, 0)
+            full.update(need)
+            ref = single[dtype]["losses"]
+            tol = 1e-5 if dtype == "float32" else 1e-2
+            fails.check(run["launches"] == full,
+                        f"mesh 2x2 rank {r} train {dtype}: launches "
+                        f"{run['launches']}")
+            fails.check(all(np.isfinite(run["losses"]))
+                        and run["dtypes"] == ["torch.float32"]
+                        and np.allclose(run["losses"], ref, rtol=tol,
+                                        atol=0),
+                        f"mesh 2x2 rank {r} train {dtype}: {steps} steps, "
+                        f"losses {run['losses']} against one device's {ref} "
+                        f"(rtol {tol}); masters and optimizer state "
+                        f"{run['dtypes']}")
+    o = outs[0]
+    for dtype in ("float32", "bfloat16"):
+        got, ref = o["train_" + dtype]["params"], single[dtype]["params"]
+        err = {n: float(np.max(np.abs(got[n] - ref[n])
+                               - 2e-4 * np.abs(ref[n]))) for n in ref}
+        leaf = max(err, key=err.get)
+        worst = float(np.max(np.abs(got[leaf] - ref[leaf])))
+        if dtype == "float32":
+            fails.check(err[leaf] <= 2e-5,
+                        f"mesh 2x2 train f32: params after {steps} steps "
+                        f"equal one device's (rtol 2e-4, atol 2e-5; "
+                        f"farthest leaf {leaf}, |diff| {worst:.3g})")
+        else:
+            print(f"mesh 2x2 train bf16: params after {steps} steps, "
+                  f"farthest leaf {leaf}, |diff| {worst:.3g} from one "
+                  f"device's (report)", flush=True)
+        o["train_" + dtype].pop("params")
+        single[dtype].pop("params")
+    for label in decode_want:
+        run = o[label]
+        fails.check(len(run["differ"]) <= MESH_MAX_DIFFER
+                    and all(g <= MESH_NEAR_TIE for g in run["gaps"].values()),
+                    f"mesh 2x2 {label}: {len(run['differ'])} of {len(wavs)} "
+                    f"transcripts differ from one device's (at most "
+                    f"{MESH_MAX_DIFFER}, random weights), each a near-tie: "
+                    f"margins to the runner-up {run['gaps']} (at most "
+                    f"{MESH_NEAR_TIE})")
+        print(f"mesh 2x2 {label}: wall {run['wall_s_first']:.3f} s (first), "
+              f"median {run['wall_s']:.4f} s of {MESH_WARM_RUNS} warm runs "
+              f"{[round(w, 4) for w in run['walls_s']]}; collectives a batch "
+              f"a rank {run['collectives']}"
+              + (f"; LM tables built in {run['lm_build_s']:.2f} s, "
+                 f"{run['lm_table_mib']:.1f} MiB a rank"
+                 if "lm_build_s" in run else "") + f" on {gpu}", flush=True)
+        run.pop("texts")
+    for dtype in ("float32", "bfloat16"):
+        run = o["train_" + dtype]
+        print(f"mesh 2x2 train {dtype}: step walls "
+              f"{[round(w * 1e3, 1) for w in run['walls_s']]} ms, median of "
+              f"the warm {run['step_s'] * 1e3:.1f} ms against one device's "
+              f"{single[dtype]['step_s'] * 1e3:.1f} ms in this run; "
+              f"collectives a step a rank {run['collectives'][-1]}; losses "
+              f"{run['losses']} on {gpu}", flush=True)
+    report["gloo_2x2"] = dict(
+        {k: v for k, v in o.items() if k != "golden"},
+        single_train={d: single[d] for d in single},
+        ranks_s=ranks_s, total_s=time.time() - t,
+        peak_gib_ranks=[x["peak_gib"] for x in outs])
+    return report
+
+
 class Failures:
     def __init__(self):
         self.items = []
@@ -1914,7 +2369,8 @@ def main() -> int:
         W = topk_k.plan(rows, V, k)["warps_per_row"]
         return [4 * (j * 32 * W) + i for j in range(5) for i in range(4)][:k]
 
-    plans = {rows: topk_k.plan(rows, V, k) for rows in (R, R32)}
+    R_RANK = 256                    # one data rank's rows on phase 4b's mesh
+    plans = {rows: topk_k.plan(rows, V, k) for rows in (R, R32, R_RANK)}
     for rows, p in plans.items():
         print(f"  K3/K4 plan at [{rows}, {V}] k={k}: {p}", flush=True)
     fails.check(plans[R]["warps_per_row"] == 1
@@ -1949,9 +2405,10 @@ def main() -> int:
                 "K3 top-k [64,1000] k=17 exact")
     # the same planted rows at B=32's R, and rows past what a block's
     # shared memory could hold (V = 70000)
-    fails.check(same_topk(topk_k.top_k(x[:R32].contiguous(), k),
-                          topk_k.top_k_plain(x[:R32], k)),
-                f"K3 top-k [{R32},{V}] k={k} exact (planted rows)")
+    for rows in (R32, R_RANK):
+        fails.check(same_topk(topk_k.top_k(x[:rows].contiguous(), k),
+                              topk_k.top_k_plain(x[:rows], k)),
+                    f"K3 top-k [{rows},{V}] k={k} exact (planted rows)")
     wide = torch.randn(64, 70000, device=dev, generator=g).round()
     wide[0, 35000] = float("nan")
     wide[1] = float("-inf")
@@ -1959,7 +2416,7 @@ def main() -> int:
                           topk_k.top_k_plain(wide, k)),
                 f"K3 top-k [64,70000] k={k} exact")
     del wide
-    for rows in (R, R32):
+    for rows in (R, R32, R_RANK):
         for kind, xs in (("beam-like", beam_rows(rows)),
                          ("randn", torch.randn(rows, V, device=dev,
                                                generator=g))):
@@ -2214,14 +2671,7 @@ def main() -> int:
     # bench.py's headline shape (B=128), timed beside the 32-wav main path
     wavs128 = wavs + _synthetic_wavs(np, rng, 96, 9.0, 10.0)
     # each kernel's launch counter (module, attribute)
-    counters = {"logmel": (logmel_k, "launches"),
-                "lstm": (lstm_k, "launches"),
-                "lstm_bf16": (lstm_k, "bf16_launches"),
-                "topk": (topk_k, "launches"),
-                "topk_fused": (topk_k, "fused_launches"),
-                "adpcm": (adpcm_k, "launches"),
-                "lstm_bwd": (lstm_k, "bwd_launches"),
-                "lstm_bwd_bf16": (lstm_k, "bwd_bf16_launches")}
+    counters = _kernel_counters()
 
     # ---- phase 2e: K5 ADPCM wire decode ---------------------------------------
     t2e = time.time()
@@ -2328,7 +2778,9 @@ def main() -> int:
             print(f"  order 3 through the pure-Python parse (tuple layout): "
                   f"{lm_build[3]['python_parse_build_s']:.2f} s", flush=True)
             torch.cuda.empty_cache()
-        os.remove(arpa)
+            arpa3 = arpa                # phase 4b's ranks read it again
+        else:
+            os.remove(arpa)
         lm_asrs[lm_order] = a
 
     # mode, ASR, batch, fused stage 1, the kernels that must run: each with
@@ -2539,6 +2991,10 @@ def main() -> int:
             .with_("decode", max_len=8))
     gvocab = Vocab.build(["的一是不了人我在" * 3], max_num_words=8)
     gpaths = [os.path.join(gold, f"utt{i}.wav") for i in range(6)]
+    golden_spec = dict(cfg=gcfg.to_json(), chars="的一是不了人我在" * 3,
+                       ckpt=os.path.join(gold, "model.ckpt"),
+                       lm=os.path.join(gold, "lm.arpa"), paths=gpaths,
+                       expected=expected)
     for mode, bw in (("greedy", None), ("beam_bw4", 4)):
         asr = ASR(ckpt_path=os.path.join(gold, "model.ckpt"), cfg=gcfg,
                   vocab=gvocab, bw=bw)
@@ -2672,6 +3128,20 @@ def main() -> int:
         kernels[n]["launches"] = run["kernel_launches"][n]
         kernels[n]["launches_per_step"] = kernels[n]["launches"] // run["steps"]
     print(f"phase 4: {time.time() - t4:.1f} s", flush=True)
+
+    # ---- phase 4b: the mesh -------------------------------------------------
+    t4b = time.time()
+    paths["mesh"] = _phase_mesh(np, torch, fails, gpu, dev, cfg, wavs,
+                                texts_of, arpa3, build.BUILD_DIR,
+                                golden_spec)
+    os.remove(arpa3)
+    mesh_runs = paths["mesh"]["gloo_2x2"]
+    for n in kernels:
+        kernels[n]["launches_mesh_2x2_rank0"] = {
+            "beam_bw16": mesh_runs["beam_bw16"]["launches"][n],
+            "train_f32": mesh_runs["train_float32"]["launches"][n],
+            "train_bf16": mesh_runs["train_bfloat16"]["launches"][n]}
+    print(f"phase 4b: {time.time() - t4b:.1f} s", flush=True)
 
     # ---- phase 5: report -----------------------------------------------------
     print("main path: " + json.dumps(paths), flush=True)

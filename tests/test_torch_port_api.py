@@ -4,8 +4,10 @@
   and beam_bw4 transcripts exactly, over both wires, with chunking.
 * The package imports neither ``jax`` nor the JAX package.
 * No silent fallback: without CUDA and without an explicit device the
-  entry points raise, and multi-device decoding (``mesh=``), still to be
-  ported, raises NotImplementedError (the LM modes, ``lm_mode="first"``
+  entry points raise.  Multi-device decoding (``mesh=``) no longer raises
+  NotImplementedError: ``mesh="auto"`` in one process is a 1x1 gloo mesh
+  (the meshes of several ranks are tests/test_torch_port_mesh.py's; the
+  LM modes, ``lm_mode="first"``
   included, are in tests/test_torch_port_rescore.py and
   tests/test_torch_port_lm_first.py; bf16 and the lossy wires in
   tests/test_torch_port_bf16.py and tests/test_torch_port_wire.py).
@@ -104,8 +106,24 @@ def test_no_silent_cpu_fallback(monkeypatch):
 
 @pytest.mark.parametrize("kw", [dict(mesh="auto")])
 def test_later_slice_modes_raise(kw):
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tapi.ASR(cfg=golden_cfg(tcfg), device="cpu", **kw)
+    """The mode that raised NotImplementedError until the mesh was ported
+    runs: a world of one is a 1x1 mesh, equal to the single device."""
+    import torch.distributed as dist
+
+    from chinese_asr_tpu_torch.data import audio_io
+
+    wavs = [audio_io.read_wav(p, 16000, dtype="int16")[0]
+            for p in golden_wav_paths()[:3]]
+    try:
+        asr = tapi.ASR(cfg=golden_cfg(tcfg), device="cpu", bw=2, **kw)
+        assert asr.mesh is not None and dist.get_world_size() == 1
+        assert asr.transcribe_wavs(wavs) == tapi.ASR(
+            cfg=golden_cfg(tcfg), device="cpu", bw=2).transcribe_wavs(wavs)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    with pytest.raises(ValueError, match="DeviceMesh or 'auto'"):
+        tapi.ASR(cfg=golden_cfg(tcfg), device="cpu", mesh="2x2")
 
 
 def test_vocab_size_check_and_cli(capsys):

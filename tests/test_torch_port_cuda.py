@@ -1098,3 +1098,14 @@ def test_variant_beam_on_the_card_equals_cpu(dev, over):
     assert torch.equal(g.tokens.cpu(), c.tokens)
     assert torch.equal(g.lens.cpu(), c.lens)
     assert float((g.scores.cpu() - c.scores).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("ranks,shape", [(1, "1x1"), (4, "2x2")])
+def test_dryrun_multichip_on_the_card(dev, ranks, shape):
+    """The mesh on the card (``parallel/dryrun.py``): one rank over NCCL,
+    and four ranks sharing the card over gloo; the beam, the LM first
+    pass, the device rescore and the f32 and bf16 train steps sharded
+    equal one device's."""
+    from chinese_asr_tpu_torch.parallel.dryrun import dryrun_multichip
+    line = dryrun_multichip(ranks, "cuda", timeout_s=300)
+    assert line.startswith(f"dryrun_multichip ok: mesh=({shape})")

@@ -211,7 +211,7 @@ def test_train_cli_end_to_end_and_resume(tmp_path, capsys):
     assert main(args + ["--resume"]) == 0
     assert "done: step 3" in capsys.readouterr().err
     # --bf16 trains on the CPU and writes a float32 checkpoint that ASR
-    # loads; --mesh still raises
+    # loads; --mesh auto (a 1x1 mesh in one process) trains
     bf_save = str(tmp_path / "ckpt_bf16")
     args[args.index("--save-dir") + 1] = bf_save
     assert main(args + ["--bf16"]) == 0
@@ -228,8 +228,8 @@ def test_train_cli_end_to_end_and_resume(tmp_path, capsys):
     texts = asr.transcribe_wavs([audio_io.read_wav(
         os.path.join(tmp_path, "c0.wav"))[0]])
     assert len(texts) == 1 and isinstance(texts[0], str)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        main(args + ["--mesh=auto"])
+    assert main(args + ["--mesh=auto"]) == 0
+    assert "done: step" in capsys.readouterr().err
 
 
 def test_train_cli_needs_a_gpu_unless_told(tmp_path, monkeypatch):
