@@ -335,33 +335,57 @@ class ASR:
     # ---- transcription ------------------------------------------------------
     def _decode(self, feats, feat_lens) -> List[str]:
         """Transcripts of the batch; on a mesh ``feats`` is this rank's
-        shard and the transcripts are the whole batch's."""
+        shard and the transcripts are the whole batch's.  One device
+        decodes through the ``*_jit`` forms, as JAX's ``api.py`` does
+        (CUDA graphs on the card, the guarded loop on the CPU); a mesh
+        through the eager functions."""
         mesh = self.mesh
-        if not self.bw or self.bw <= 1:
-            res = sharding.gather_rows(greedy_mod.greedy_decode(
-                self.params, self.cfg, feats, feat_lens, mesh), mesh)
-            return greedy_mod.finalize_greedy(res, self.vocab).pred_text
         dcfg = self.cfg.decode
+        if not self.bw or self.bw <= 1:
+            if mesh is None:
+                res = greedy_mod.greedy_decode_jit(self.params, self.cfg,
+                                                   feats, feat_lens)
+            else:
+                res = sharding.gather_rows(greedy_mod.greedy_decode(
+                    self.params, self.cfg, feats, feat_lens, mesh), mesh)
+            return greedy_mod.finalize_greedy(res, self.vocab).pred_text
         if self.dlm is not None and self.lm_mode == "first":
-            best = lm_fused_mod.lm_fused_decode_best(
-                self.params, self.cfg, self.bw, feats, feat_lens, self.dlm,
-                self.tok2lm, self.lm_topn, mesh)
+            if mesh is None:
+                best = lm_fused_mod.lm_fused_decode_best_jit(
+                    self.params, self.cfg, self.bw, feats, feat_lens,
+                    self.dlm, self.tok2lm, self.lm_topn)
+            else:
+                best = lm_fused_mod.lm_fused_decode_best(
+                    self.params, self.cfg, self.bw, feats, feat_lens,
+                    self.dlm, self.tok2lm, self.lm_topn, mesh)
         elif self.dlm is not None:
-            best = rescore_mod.beam_rescored_best(
-                self.params, self.cfg, self.bw, feats, feat_lens, self.dlm,
-                self.tok2lm, dcfg.lm_weight, dcfg.length_weight,
-                self._lm_bos, self._lm_eos, mesh)
+            lm = (self.dlm, self.tok2lm, dcfg.lm_weight, dcfg.length_weight,
+                  self._lm_bos, self._lm_eos)
+            if mesh is None:
+                best = rescore_mod.beam_rescored_best_jit(
+                    self.params, self.cfg, self.bw, feats, feat_lens, *lm)
+            else:
+                best = rescore_mod.beam_rescored_best(
+                    self.params, self.cfg, self.bw, feats, feat_lens, *lm,
+                    mesh)
         elif self.lm is not None:
             # only the finite n-best slots cross to the host rescorer (on
             # a mesh, after the n-best lists are gathered)
-            res = sharding.gather_rows(beam_mod.beam_decode(
-                self.params, self.cfg, self.bw, feats, feat_lens,
-                mesh=mesh), mesh)
+            if mesh is None:
+                res = beam_mod.beam_decode_jit(self.params, self.cfg,
+                                               self.bw, feats, feat_lens)
+            else:
+                res = sharding.gather_rows(beam_mod.beam_decode(
+                    self.params, self.cfg, self.bw, feats, feat_lens,
+                    mesh=mesh), mesh)
             return beam_mod.finalize_beam(
                 beam_mod.compact_nbest(res), self.cfg, self.vocab,
                 lm_model=self.lm, second_pass=True,
                 lm_weight=dcfg.lm_weight,
                 length_weight=dcfg.length_weight).pred_text
+        elif mesh is None:
+            best = beam_mod.beam_decode_best_jit(self.params, self.cfg,
+                                                 self.bw, feats, feat_lens)
         else:
             best = beam_mod.beam_decode_best(self.params, self.cfg, self.bw,
                                              feats, feat_lens, mesh)

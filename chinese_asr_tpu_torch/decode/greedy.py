@@ -1,11 +1,14 @@
 """Greedy decoding (port of ``chinese_asr_tpu/decode/greedy.py``, reference
 model.py:503-602).
 
-The token loop is an eager Python loop with the batch-wide early exit of
-the reference (``if finished.all(): break``, model.py:578-579).  Reading
-that flag costs one device->host sync per step; on a mesh it is the AND
-over the whole mesh (``sharding.all_finished``), as JAX's loop reads the
-global batch.
+The token loop (``GreedyLoop``) has the batch-wide early exit of the
+reference (``if finished.all(): break``, model.py:578-579) as a stop flag
+on the device: each step is guarded, an identity once every sample is
+finished.  ``greedy_decode`` runs it eagerly and reads the flag on the
+host once every ``unroll`` steps; ``greedy_decode_jit`` runs it as CUDA
+graphs on the card (``utils/graphs.py``).  On a mesh (eager only) the flag
+is the AND over the whole mesh (``sharding.all_true``), as JAX's loop
+reads the global batch.
 
 Scoring bookkeeping replicates model.py:567-576 exactly: the eos step's
 logp enters via the first conditional add; subsequent steps of a finished
@@ -24,6 +27,7 @@ from ..models import decoder as dec_ops
 from ..models import las
 from ..ops.metrics import cer
 from ..parallel import sharding
+from ..utils import graphs
 
 
 class GreedyResult(NamedTuple):
@@ -34,53 +38,98 @@ class GreedyResult(NamedTuple):
     alignments: torch.Tensor   # [B, max_len, L]
 
 
-@torch.no_grad()
-def greedy_decode(params, cfg: Config, feats, feat_lens,
-                  mesh=None) -> GreedyResult:
-    """On a mesh (``mesh``; ``params`` from ``sharding.shard_params``) the
-    feats are this rank's data shard and the result holds its rows;
-    ``sharding.gather_rows`` makes the whole batch's."""
-    B = feats.shape[0]
-    dev = feats.device
-    max_len = cfg.decode.max_len
-    eb = las.encode(params, cfg, feats, feat_lens)
-    L = eb.enc_out.shape[1]
-    dcfg, acfg = cfg.decoder, cfg.attention
-    ctx = dec_ops.attn_hidden_width(acfg, eb.values.shape[-1])
+class GreedyLoop:
+    """``greedy_decode`` as a loop of guarded steps (``utils/graphs.py``):
+    JAX's ``while_loop`` body, which stops once every sample is finished,
+    so a guarded step taken after that (``done``) writes no ``out[:, l]``
+    nor ``align[:, l]`` and moves no state.  An unguarded step (one no
+    later step can follow, ``utils/graphs.py``) has no guard at all."""
 
-    cell = eb.init_cell_state
-    if cell is None:
-        cell = dec_ops.zero_cell_state(dcfg, feats, B)
-    tokens = torch.full((B,), cfg.vocab.sos, dtype=torch.int64, device=dev)
-    attn_hidden = feats.new_zeros((B, ctx))
-    finished = torch.zeros(B, dtype=torch.bool, device=dev)
-    final_lens = torch.zeros(B, dtype=torch.int32, device=dev)
-    accum = torch.zeros(B, dtype=torch.float32, device=dev)
-    out = torch.full((B, max_len), cfg.vocab.pad, dtype=torch.int32,
-                     device=dev)
-    align = feats.new_zeros((B, max_len, L))
+    def __init__(self, params, cfg: Config, mesh=None):
+        self.params, self.cfg, self.mesh = params, cfg, mesh
+        self.max_len = cfg.decode.max_len
 
-    for l in range(max_len):
+    def init(self, feats, feat_lens) -> dict:
+        cfg = self.cfg
+        B = feats.shape[0]
+        dev = feats.device
+        eb = las.encode(self.params, cfg, feats, feat_lens)
+        L = eb.enc_out.shape[1]
+        ctx = dec_ops.attn_hidden_width(cfg.attention, eb.values.shape[-1])
+        cell = eb.init_cell_state
+        if cell is None:
+            cell = dec_ops.zero_cell_state(cfg.decoder, feats, B)
+        return dict(
+            eb=eb, done=torch.zeros((), dtype=torch.bool, device=dev),
+            tokens=torch.full((B,), cfg.vocab.sos, dtype=torch.int64,
+                              device=dev),
+            cell=cell, attn_hidden=feats.new_zeros((B, ctx)),
+            finished=torch.zeros(B, dtype=torch.bool, device=dev),
+            final_lens=torch.zeros(B, dtype=torch.int32, device=dev),
+            accum=torch.zeros(B, dtype=torch.float32, device=dev),
+            out=torch.full((B, self.max_len), cfg.vocab.pad,
+                           dtype=torch.int32, device=dev),
+            align=feats.new_zeros((B, self.max_len, L)))
+
+    def step(self, s: dict, l: int, guard: bool = True) -> dict:
+        cfg, eb, done = self.cfg, s["eb"], s["done"]
+        frozen = done if guard else None        # None: no guard needed
         step = dec_ops.decoder_step(
-            params["decoder"], params["attention"], dcfg, acfg, eb.mask,
-            eb.keys, eb.values, tokens, cell, attn_hidden, mesh=mesh)
+            self.params["decoder"], self.params["attention"], cfg.decoder,
+            cfg.attention, eb.mask, eb.keys, eb.values, s["tokens"],
+            s["cell"], s["attn_hidden"], mesh=self.mesh)
         logit = step.logit.to(torch.float32)
         logp = logit - torch.logsumexp(logit, dim=1, keepdim=True)
         lp, tok = torch.max(logp, dim=1)    # first max, like jnp.argmax
         cur_fin = tok == cfg.vocab.eos
-        accum = accum + torch.where(~finished & cur_fin, lp,
-                                    torch.zeros_like(lp))
+        finished = s["finished"]
+        accum = s["accum"] + torch.where(~finished & cur_fin, lp,
+                                         torch.zeros_like(lp))
         finished = finished | cur_fin
-        final_lens = final_lens + (~finished).to(torch.int32)
+        final_lens = s["final_lens"] + (~finished).to(torch.int32)
         accum = accum + torch.where(~finished, lp, torch.zeros_like(lp))
-        out[:, l] = tok.to(torch.int32)
+        out, align = s["out"], s["align"]
+        out[:, l] = graphs.where_tree(frozen, out[:, l], tok.to(torch.int32))
         # several heads: the first head's alignment, as in JAX
-        align[:, l, :] = (step.alignment if acfg.heads == 1
-                          else step.alignment[..., 0])
-        tokens, cell, attn_hidden = tok, step.cell_state, step.attn_hidden_state
-        if sharding.all_finished(finished, mesh):   # one host sync a step
-            break
-    return GreedyResult(out, final_lens, accum, finished, align)
+        align[:, l, :] = graphs.where_tree(
+            frozen, align[:, l, :],
+            step.alignment if cfg.attention.heads == 1
+            else step.alignment[..., 0])
+        names = ("tokens", "cell", "attn_hidden", "finished", "final_lens",
+                 "accum")
+        kept = graphs.where_tree(
+            frozen, {n: s[n] for n in names},
+            dict(tokens=tok, cell=step.cell_state,
+                 attn_hidden=step.attn_hidden_state, finished=finished,
+                 final_lens=final_lens, accum=accum))
+        stops = sharding.all_true(kept["finished"], self.mesh)
+        return {**s, **kept, "done": done | stops if guard else stops}
+
+    def result(self, s: dict) -> GreedyResult:
+        return GreedyResult(s["out"], s["final_lens"], s["accum"],
+                            s["finished"], s["align"])
+
+
+@torch.no_grad()
+def greedy_decode(params, cfg: Config, feats, feat_lens,
+                  mesh=None, unroll: int = 1) -> GreedyResult:
+    """On a mesh (``mesh``; ``params`` from ``sharding.shard_params``) the
+    feats are this rank's data shard and the result holds its rows;
+    ``sharding.gather_rows`` makes the whole batch's.  ``unroll``: the
+    guarded steps run between two host reads of the stop flag; any value
+    gives the same result."""
+    return graphs.run_loop(GreedyLoop(params, cfg, mesh), (feats, feat_lens),
+                           unroll)
+
+
+@torch.no_grad()
+def greedy_decode_jit(params, cfg: Config, feats, feat_lens,
+                      unroll: int = graphs.UNROLL) -> GreedyResult:
+    """``greedy_decode`` as one compiled program: on the card its graphs'
+    replay (``utils/graphs.py``; the outputs are copied out of the
+    graphs), on the CPU the guarded loop."""
+    return graphs.run(("greedy", cfg, graphs.tensor_ids(params)),
+                      GreedyLoop(params, cfg), (feats, feat_lens), unroll)
 
 
 class EvalOutput(NamedTuple):

@@ -11,7 +11,8 @@ harvests each finished hypothesis's full-sentence LM total as it decodes
 after the decode in one ``score_candidates`` call, and the winner is
 picked on the device; only the winning [B, max_len] rows reach the host.
 The host rescorer (``beam.finalize_beam(second_pass=True)``) is the
-oracle and ``lm_mode="second_host"``.
+oracle and ``lm_mode="second_host"``.  The ``*_jit`` forms run as CUDA
+graphs on the card (``utils/graphs.py``).
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import torch
 
 from ..lm import device_ngram
 from ..parallel import sharding
+from ..utils import graphs
 from . import beam as beam_mod
 from .beam import BeamResult, BestResult
 
@@ -83,9 +85,38 @@ def rescore_select(res: BeamResult, dlm: device_ngram.DeviceNgramLM,
     return select_rescored(res, lm_sc, lm_weight, length_weight)
 
 
+@torch.no_grad()
+def rescore_select_jit(res: BeamResult, dlm, tok2lm, lm_weight: float,
+                       length_weight: float, bos_id: int,
+                       eos_id: int) -> BestResult:
+    """``rescore_select`` as one compiled program: on the card a graph
+    replayed on a copy of ``res`` (``utils/graphs.py``; the outputs are
+    copied out of the graph), on the CPU the plain call."""
+    return graphs.run(
+        ("rescore_select", lm_weight, length_weight, bos_id, eos_id,
+         graphs.tensor_ids(tok2lm), graphs.lm_key(dlm)),
+        _Select(dlm, tok2lm, lm_weight, length_weight, bos_id, eos_id),
+        tuple(res), 1)
+
+
+class _Select:
+    """``rescore_select`` as a loop of no steps, for ``graphs.run``."""
+    max_len = 0
+
+    def __init__(self, *args):
+        self.args = args
+
+    def init(self, *fields):
+        return rescore_select(BeamResult(*fields), *self.args)
+
+    def result(self, best):
+        return best
+
+
 def beam_rescored_best(params, cfg, bw: int, feats, feat_lens, dlm,
                        tok2lm, lm_weight: float, length_weight: float,
-                       bos_id: int, eos_id: int, mesh=None) -> BestResult:
+                       bos_id: int, eos_id: int, mesh=None,
+                       unroll: int = 1) -> BestResult:
     """Second-pass-rescored transcription (``ASR(lm_mode="second")``): the
     beam decode tracks the LM chains passively, harvests full-sentence LM
     totals, and the winner is selected on the device, with no n-best
@@ -93,6 +124,25 @@ def beam_rescored_best(params, cfg, bw: int, feats, feat_lens, dlm,
     replicated), every rank returns the whole batch's winners."""
     res, fin_lm = beam_mod.beam_decode(
         params, cfg, bw, feats, feat_lens,
-        lm_track=(dlm, tok2lm, bos_id, eos_id), mesh=mesh)
+        lm_track=(dlm, tok2lm, bos_id, eos_id), mesh=mesh, unroll=unroll)
     return sharding.gather_rows(
         select_rescored(res, fin_lm, lm_weight, length_weight), mesh)
+
+
+@torch.no_grad()
+def beam_rescored_best_jit(params, cfg, bw: int, feats, feat_lens, dlm,
+                           tok2lm, lm_weight: float, length_weight: float,
+                           bos_id: int, eos_id: int,
+                           unroll: int = graphs.UNROLL) -> BestResult:
+    """``beam_rescored_best`` as one compiled program: the tracked beam
+    and ``select_rescored`` in one set of graphs on the card
+    (``utils/graphs.py``), the guarded loop on the CPU."""
+    fused = beam_mod.use_fused_logp()
+    return graphs.run(
+        beam_mod.beam_key("beam_rescored", params, cfg, bw, fused,
+                          lm_weight, length_weight, bos_id, eos_id,
+                          graphs.tensor_ids(tok2lm), graphs.lm_key(dlm)),
+        beam_mod.BeamLoop(params, cfg, bw, fused,
+                          lm_track=(dlm, tok2lm, bos_id, eos_id)),
+        (feats, feat_lens), unroll,
+        lambda out: select_rescored(*out, lm_weight, length_weight))

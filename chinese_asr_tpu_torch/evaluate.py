@@ -57,9 +57,11 @@ def evaluate_manifest(params, cfg: Config, vocab: Vocab, manifest_path: str,
     ``ASR(compute_dtype=...)`` casts them, so the params of a bf16 ASR
     decode in bf16.
 
-    On a mesh (``mesh``; ``params`` this rank's shard, as an
-    ``ASR(mesh=)``'s) every rank reads the whole manifest, decodes its rows
-    of each batch and returns the whole CER."""
+    One device decodes through the ``*_jit`` forms (CUDA graphs on the
+    card, ``utils/graphs.py``).  On a mesh (``mesh``; ``params`` this
+    rank's shard, as an ``ASR(mesh=)``'s) every rank reads the whole
+    manifest, decodes its rows of each batch through the eager functions
+    and returns the whole CER."""
     dev = params["decoder"]["embedding"].device
     dtype = params["decoder"]["embedding"].dtype
     dlm = tok2lm = None
@@ -85,29 +87,37 @@ def evaluate_manifest(params, cfg: Config, vocab: Vocab, manifest_path: str,
         def whole(res):             # the whole batch's rows, on every rank
             return sharding.trim_rows(sharding.gather_rows(res, mesh), B)
 
+        # one device: the *_jit forms, as JAX's evaluate.py; a mesh: the
+        # eager functions
         if not bw or bw <= 1:
-            res = whole(greedy_mod.greedy_decode(params, cfg, feats,
-                                                 feat_lens, mesh))
+            res = (greedy_mod.greedy_decode_jit(params, cfg, feats, feat_lens)
+                   if mesh is None else whole(greedy_mod.greedy_decode(
+                       params, cfg, feats, feat_lens, mesh)))
             out = greedy_mod.finalize_greedy(res, vocab, text=text)
         elif dlm is not None and lm_mode == "first":
-            best = sharding.trim_rows(lm_fused.lm_fused_decode_best(
-                params, cfg, bw, feats, feat_lens, dlm, tok2lm, topn, mesh),
-                B)
-            out = beam_mod.finalize_best(best, vocab, text=text)
-        elif dlm is not None:
-            res = whole(beam_mod.beam_decode(params, cfg, bw, feats,
-                                             feat_lens, mesh=mesh))
-            best = rescore_mod.rescore_select(
-                beam_mod.compact_nbest(res), dlm, tok2lm, dcfg.lm_weight,
-                dcfg.length_weight, lm_bos, lm_eos)
+            best = (lm_fused.lm_fused_decode_best_jit(
+                params, cfg, bw, feats, feat_lens, dlm, tok2lm, topn)
+                if mesh is None else sharding.trim_rows(
+                    lm_fused.lm_fused_decode_best(
+                        params, cfg, bw, feats, feat_lens, dlm, tok2lm, topn,
+                        mesh), B))
             out = beam_mod.finalize_best(best, vocab, text=text)
         else:
-            res = whole(beam_mod.beam_decode(params, cfg, bw, feats,
-                                             feat_lens, mesh=mesh))
-            out = beam_mod.finalize_beam(
-                res, cfg, vocab, text=text, lm_model=lm,
-                second_pass=lm is not None, lm_weight=dcfg.lm_weight,
-                length_weight=dcfg.length_weight)
+            res = (beam_mod.beam_decode_jit(params, cfg, bw, feats, feat_lens)
+                   if mesh is None else whole(beam_mod.beam_decode(
+                       params, cfg, bw, feats, feat_lens, mesh=mesh)))
+            if dlm is not None:
+                select = (rescore_mod.rescore_select_jit if mesh is None
+                          else rescore_mod.rescore_select)
+                best = select(beam_mod.compact_nbest(res), dlm, tok2lm,
+                              dcfg.lm_weight, dcfg.length_weight, lm_bos,
+                              lm_eos)
+                out = beam_mod.finalize_best(best, vocab, text=text)
+            else:
+                out = beam_mod.finalize_beam(
+                    res, cfg, vocab, text=text, lm_model=lm,
+                    second_pass=lm is not None, lm_weight=dcfg.lm_weight,
+                    length_weight=dcfg.length_weight)
         preds.extend(out.pred_text)
         refs.extend(out.text)
         if verbose:

@@ -16,6 +16,6 @@ def softmax_mask(lens, max_len: int, dtype=torch.float32):
     """Additive mask: 0 for valid, -inf for padding; shape [B, L]."""
     pos = torch.arange(max_len, device=lens.device)[None, :]
     invalid = pos >= lens[:, None]
-    return torch.where(invalid, torch.tensor(float("-inf"), dtype=dtype,
-                                             device=lens.device),
-                       torch.tensor(0.0, dtype=dtype, device=lens.device))
+    return torch.where(invalid, torch.full((), float("-inf"), dtype=dtype,
+                                           device=lens.device),
+                       torch.zeros((), dtype=dtype, device=lens.device))

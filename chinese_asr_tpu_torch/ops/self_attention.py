@@ -14,6 +14,7 @@ windowed gather is the fixed-shape [B, L, ws, d].
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Optional
 
@@ -30,10 +31,13 @@ def _xavier(gen: torch.Generator, shape):
                                                                 generator=gen)
 
 
+@functools.lru_cache(maxsize=None)
 def sin_pos_embedding(length: int, dim: int, dtype=torch.float32,
                       device=None):
     """Sinusoidal positions (reference get_sin_pos_embedding,
-    util.py:749-765), computed in float64 on the host as JAX does."""
+    util.py:749-765), computed in float64 on the host as JAX does.
+    Cached (do not write into the result): a CUDA graph's capture cannot
+    copy from the host, and the graph keeps reading this tensor."""
     pos = np.arange(length)[:, None].astype(np.float64)
     i = np.arange(dim)[None, :]
     angle = pos / np.power(10000.0, (2 * (i // 2)) / dim)
@@ -91,7 +95,7 @@ def self_local_attention(q, k, v, lens, ws: int, heads: int, proj_w=None):
 
     kw, vw = gather(k), gather(v)
     invalid = idx >= lens_arr[:, None, None]                         # [B,L,ws]
-    neg = torch.tensor(float("-inf"), dtype=q.dtype, device=q.device)
+    neg = torch.full((), float("-inf"), dtype=q.dtype, device=q.device)
     if heads > 1:
         qh = q.reshape(B, L, heads, -1)
         kh = kw.reshape(B, L, ws, heads, -1)

@@ -27,7 +27,7 @@ Where XLA inserts a collective at a sharded operand, the port calls one:
   rows in its column order ("ties to the lower column" holds), and K4's
   logsumexp runs over the whole row;
 * each decode loop's early stop is one AND over the whole mesh a step
-  (``all_finished``), as JAX's ``while_loop`` reads the global batch: a
+  (``all_true``), as JAX's ``while_loop`` reads the global batch: a
   beam row whose top beam finished harvests until every row stops, and a
   rank that stopped alone would leave its model-axis peers waiting;
 * the winners are all-gathered over the data axis (``gather_rows``);
@@ -369,25 +369,27 @@ def sq_norm(tensors: dict, mesh=None):
                           mesh.get_group(1)))
 
 
-def all_finished(flag, mesh=None) -> bool:
-    """``bool(flag.all())`` over the whole mesh: one all-reduce (MIN) over
-    every rank.  Off a mesh or on a 1x1 one, one host read of the flag."""
+def all_true(flag, mesh=None):
+    """``flag.all()`` over the whole mesh as a 0-d bool tensor on the
+    flag's device: one all-reduce (MIN) over every rank; off a mesh or on
+    a 1x1 one, no collective and no host read."""
     if mesh is None or mesh.size() == 1:
-        return bool(flag.all())
+        return flag.all()
     x = flag.all().to(torch.int32).reshape(1)
-    return bool(_all_reduce(x, dist.group.WORLD, dist.ReduceOp.MIN))
+    return _all_reduce(x, dist.group.WORLD, dist.ReduceOp.MIN)[0].to(
+        torch.bool)
 
 
 def gather_rows(result, mesh=None):
     """A NamedTuple of per-row tensors (a decode's result on this rank's
     rows) -> the whole batch's on every rank: each tensor field all-gathered
-    over the data axis, in rank order; other fields (``l_final``) are the
-    same on every rank."""
+    over the data axis, in rank order; other fields (``l_final``, a 0-d
+    tensor) are the same on every rank."""
     if data_size(mesh) == 1:
         return result
     group = mesh.get_group(0)
     return type(result)(*(_all_gather(f.contiguous(), group, 0)
-                          if isinstance(f, torch.Tensor) else f
+                          if isinstance(f, torch.Tensor) and f.dim() else f
                           for f in result))
 
 
@@ -501,8 +503,8 @@ def pad_shard_rows(mesh, *tensors):
 def trim_rows(result, B: int):
     """A gathered result (NamedTuple) cut back to the batch's first B
     rows."""
-    return type(result)(*(f[:B] if isinstance(f, torch.Tensor) else f
-                          for f in result))
+    return type(result)(*(f[:B] if isinstance(f, torch.Tensor) and f.dim()
+                          else f for f in result))
 
 
 def shard_batch(batch, cfg, mesh):

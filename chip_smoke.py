@@ -46,7 +46,9 @@ every phase passed):
    and time it beside the C++ host encoder;
 3. drive the main path: ``ASR(bw=16).transcribe_wavs`` at the flagship
    ``Config()`` with seeded random weights on 32 synthetic 9-10 s int16
-   wavs over the flat wire, then greedy on the same batch, then the LM
+   wavs over the flat wire (one device: the decode through the ``*_jit``
+   forms, CUDA graphs captured at the first call, which is timed apart;
+   the counted runs replay them), then greedy on the same batch, then the LM
    second pass (``lm_path=``, ``lm_mode="second"``) over a synthetic
    order-3 ARPA written from seed 0, once through K3 and once with the
    fused stage 1 (K4, ``CHINESE_ASR_PALLAS_FUSED=1``), and over a
@@ -66,11 +68,22 @@ every phase passed):
    ``.klm`` fixture gives its ARPA's transcripts through both device LM
    modes, and that bf16, mu-law and ADPCM give the CPU port's golden
    transcripts (greedy and beam; bf16 also with cuBLAS's reduced-precision
-   bf16 reductions off, report only); each wall time is the median of warm runs, and one more warm
-   run of each beam path goes under torch.profiler for the device-time
-   split; the B=128 batch is also decoded with the fused and the unfused
+   bf16 reductions off, report only); each wall time is the median of
+   warm runs (phase 3g profiles each run); the B=128 batch is also
+   decoded with the fused and the unfused
    stage 1, and the first pass's batch by its host-loop oracle, counting
    what differs (report only);
+3g. every phase-3 run and the golden shard's five modes (f32 and bf16)
+   through the graph path (``ASR``'s) and through the eager functions
+   called by name: identical transcripts (and expected.json in f32), the
+   walls in turns graph / eager (7 each, median [min, max]), launch
+   calls, graph launches, kernels, busy share and host syncs a batch
+   (profiler; the eager LM runs traced on the card alone) with the graph
+   path's largest kernels, the eager loop with one stop-flag read beside
+   it for
+   ``beam_bw16`` and ``greedy``; each captured program's capture ms and
+   reserved MB, and a B=1 request's first call against its steady
+   p50/p99;
 3d. serve the flagship ``ASR(bw=16)`` over HTTP (``serve_http`` on a
    thread, clients in this process): ``warm`` runs the batch ladder,
    ``/healthz`` reports cuda, 32 concurrent requests under a 5000 ms
@@ -361,28 +374,6 @@ def _synthetic_arpa(np, path: str, words, counts, seed: int = 0):
     return [nw] + [len(g) for g in levels], levels[-1]
 
 
-def _profile_main_path(torch, asr, wavs, label: str, wall_ms: float) -> None:
-    """Where the time goes: one extra (warm) run under torch.profiler;
-    prints device time by kernel and the kernels' busy time as a share of
-    ``wall_ms``, the median wall of the path's timed warm runs.
-    Informational: its launches are not the main path's counts."""
-    asr.transcribe_wavs(wavs)
-    torch.cuda.synchronize()
-    busy_ms, n_launch, rows = _device_profile(
-        torch, lambda: asr.transcribe_wavs(wavs))
-    if not rows:
-        print(f"profile {label}: no device time in the trace (not measured)")
-        return
-    print(f"profile {label}: kernels busy {busy_ms:.1f} ms in the profiled "
-          f"run = {100 * busy_ms / wall_ms:.1f}% of the median warm wall "
-          f"{wall_ms:.1f} ms, {n_launch} kernel launches")
-    # the twelve largest, then the port's own kernels further down
-    ours = [r for r in rows[12:] if any(
-        n in r[2] for n in ("topk_kernel", "bilstm", "logmel", "adpcm"))]
-    for us, count, key in rows[:12] + ours:
-        print(f"  {us / 1e3:9.3f} ms  x{count:<5d} {key[:90]}")
-
-
 def _fused_flips(torch, asr, wavs, beam_mod) -> dict:
     """How often K4 changes the beam: the same batch decoded with the
     fused and the unfused stage 1, counting the n-best entries (the B x bw
@@ -399,7 +390,7 @@ def _fused_flips(torch, asr, wavs, beam_mod) -> dict:
     fin = (fin_a != fin_b) | (fin_a & (a.fin_tokens != b.fin_tokens).any(-1))
     same_live = ~live
     return dict(
-        batch=len(wavs), steps=(a.l_final + 1, b.l_final + 1),
+        batch=len(wavs), steps=(int(a.l_final) + 1, int(b.l_final) + 1),
         live_entries=int(live.numel()), live_differ=int(live.sum()),
         finished_entries=int((fin_a | fin_b).sum()),
         finished_differ=int(fin.sum()),
@@ -431,7 +422,7 @@ def _first_pass_vs_host(torch, asr, wavs, fused_texts) -> dict:
     same = [b for b in range(len(host))
             if [i for i, _ in host[b]] == [i for i, _ in fused[b]]]
     diff = [abs(a[1] - b[1]) for s in same for a, b in zip(host[s], fused[s])]
-    return dict(batch=len(wavs), fused_steps=res.l_final + 1,
+    return dict(batch=len(wavs), fused_steps=int(res.l_final) + 1,
                 transcripts_differ=sum(a != b for a, b in
                                        zip(texts, fused_texts)),
                 nbest_lists_differ=len(host) - len(same),
@@ -525,6 +516,440 @@ def _copy_overlap(trace_path: str, min_bytes: int = 1 << 20):
         out.append(dict(mbytes=c["args"]["bytes"] / 2**20, copy_us=c["dur"],
                         stream=stream, overlap_us=ov))
     return out
+
+
+# ---- phase 3g: the compiled decode entry points against the eager loop -----
+GRAPH_AB_RUNS = 7               # walls a path in the graph/eager A/B
+SERVE_STEADY_RUNS = 20          # single requests behind the steady p50/p99
+# the host API calls the profiler records for one launch each, and the
+# calls that wait for the card (each host read of a device value is one)
+_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                 "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
+                 "cudaMemsetAsync")
+_SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+               "cudaEventSynchronize")
+
+
+def _eager_transcribe(asr, wavs, scales=None, unroll: int = 1):
+    """``asr.transcribe_wavs`` of one chunk with the decode through the
+    eager functions, called by name (the ``*_jit`` forms' plain versions),
+    reading the stop flag every ``unroll`` steps."""
+    from chinese_asr_tpu_torch.decode import beam, greedy, lm_fused, rescore
+    up = asr._upload(asr._prep(wavs, scales))
+    feats, lens = asr._featurize(up)
+    p, cfg, dc, bw = asr.params, asr.cfg, asr.cfg.decode, asr.bw
+    if not bw or bw <= 1:
+        return greedy.finalize_greedy(greedy.greedy_decode(
+            p, cfg, feats, lens, unroll=unroll), asr.vocab).pred_text
+    if asr.dlm is not None and asr.lm_mode == "first":
+        best = lm_fused.lm_fused_decode_best(
+            p, cfg, bw, feats, lens, asr.dlm, asr.tok2lm, asr.lm_topn,
+            unroll=unroll)
+    elif asr.dlm is not None:
+        best = rescore.beam_rescored_best(
+            p, cfg, bw, feats, lens, asr.dlm, asr.tok2lm, dc.lm_weight,
+            dc.length_weight, asr._lm_bos, asr._lm_eos, unroll=unroll)
+    elif asr.lm is not None:
+        return beam.finalize_beam(
+            beam.compact_nbest(beam.beam_decode(p, cfg, bw, feats, lens,
+                                                unroll=unroll)),
+            cfg, asr.vocab, lm_model=asr.lm, second_pass=True,
+            lm_weight=dc.lm_weight, length_weight=dc.length_weight).pred_text
+    else:
+        best = beam.beam_decode_best(p, cfg, bw, feats, lens, unroll=unroll)
+    return beam.finalize_best(best, asr.vocab).pred_text
+
+
+def _launch_profile(torch, fn) -> dict:
+    """One call of ``fn`` under torch.profiler (host and card): the
+    kernels' busy ms and count on the card, the host's launch calls
+    (kernels, graphs, copies, memsets; ``_LAUNCH_CALLS``), of which graph
+    launches, the host's waits for the card (``_SYNC_CALLS``, less the
+    profile's own final synchronize), and the card's (us, count, name)
+    rows."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = dict(busy_ms=0.0, kernels=0, launch_calls=0, graph_launches=0,
+               host_syncs=-1, rows=[])
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0))
+            if us > 0:
+                out["busy_ms"] += us / 1e3
+                out["kernels"] += e.count
+                out["rows"].append((us, e.count, e.key))
+        elif e.key in _LAUNCH_CALLS:
+            out["launch_calls"] += e.count
+            if e.key == "cudaGraphLaunch":
+                out["graph_launches"] += e.count
+        elif e.key in _SYNC_CALLS:
+            out["host_syncs"] += e.count
+    return out
+
+
+def _graph_vs_eager(np, torch, asr, wavs, scales=None,
+                    one_sync: bool = False, host_trace: bool = True) -> dict:
+    """The graph path (``asr.transcribe_wavs``, the ``*_jit`` forms) and
+    the eager one (``_eager_transcribe``) on the same batch: their
+    transcripts, walls in turns graph / eager (GRAPH_AB_RUNS each, host
+    clock to a synchronize), and one profile of each.  ``one_sync`` adds
+    the eager loop reading the stop flag once (``unroll=max_len``): what
+    the eager loop's host syncs cost; ``graph_counted`` is the launch
+    counters' increase over the graph path's profiled call, for its
+    trace's rows (``graph_rows``).  Without ``host_trace`` the eager
+    paths are traced on the card alone (an LM run's 10-32 thousand eager
+    launches take the host trace seconds to summarise): their kernels
+    stand for their launch calls, which the host-traced runs show equal
+    to within a few copies."""
+    paths = {"graph": lambda: asr.transcribe_wavs(wavs, scales=scales),
+             "eager": lambda: _eager_transcribe(asr, wavs, scales)}
+    if one_sync:
+        paths["eager_1sync"] = lambda: _eager_transcribe(
+            asr, wavs, scales, unroll=asr.cfg.decode.max_len)
+    texts = {k: fn() for k, fn in paths.items()}
+    walls = {k: [] for k in paths}
+    for _ in range(GRAPH_AB_RUNS):
+        for k, fn in paths.items():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls[k].append((time.perf_counter() - t) * 1e3)
+    out = dict(texts=texts)
+    counters = _kernel_counters()
+    for k, fn in paths.items():
+        med = float(np.median(walls[k]))
+        if k == "graph" or host_trace:
+            before = {n: getattr(m, a) for n, (m, a) in counters.items()}
+            prof = _launch_profile(torch, fn)
+            rows = sorted(prof.pop("rows"), reverse=True)
+            if k == "graph":
+                out["graph_rows"] = rows
+                out["graph_counted"] = {
+                    n: getattr(m, a) - before[n]
+                    for n, (m, a) in counters.items()}
+        else:
+            busy, n, _ = _device_profile(torch, fn, host_ops=False)
+            prof = dict(busy_ms=busy, kernels=n, launch_calls=None,
+                        graph_launches=0, host_syncs=None)
+        out[k] = dict(wall_ms=med, wall_ms_min=min(walls[k]),
+                      wall_ms_max=max(walls[k]), **prof,
+                      busy_share=prof["busy_ms"] / med)
+    return out
+
+
+# each kernel of ours by its name in the card's trace, and the launch
+# counters (``_kernel_counters``) that count it
+_TRACE_KERNELS = (("K1", ("logmel_tc_kernel",), ("logmel",)),
+                  ("K2", ("bilstm_tc_kernel<", "bilstm_kernel<"),
+                   ("lstm", "lstm_bf16")),
+                  ("K3/K4", ("topk_kernel<",), ("topk", "topk_fused")),
+                  ("K5", ("adpcm_decode_kernel",), ("adpcm",)))
+
+
+def _ab_line(label: str, r: dict, gpu: str) -> str:
+    def one(k):
+        x = r[k]
+        host = ("(traced on the card alone)" if x["launch_calls"] is None
+                else f"launch calls {x['launch_calls']} (graphs "
+                     f"{x['graph_launches']}), host syncs {x['host_syncs']}")
+        return (f"{k} {x['wall_ms']:.1f} ms [{x['wall_ms_min']:.1f}, "
+                f"{x['wall_ms_max']:.1f}], kernels {x['kernels']}, busy "
+                f"{x['busy_ms']:.1f} ms = {100 * x['busy_share']:.1f}%, "
+                f"{host}")
+    return f"3g {label} on {gpu}: " + "; ".join(
+        one(k) for k in ("graph", "eager", "eager_1sync") if k in r)
+
+
+def _phase_graphs(np, torch, fails, ASR, gpu, runs_spec, texts_of, golden,
+                  cfg, wavs):
+    """Phase 3g: every phase-3 run and the golden shard's five modes (f32
+    and bf16) through the graph path and the eager functions: identical
+    transcripts (and the golden shard's expected.json), the A/B walls,
+    launches, busy share and host syncs a batch, each program's capture
+    ms and reserved MB, and serving's first request against its steady
+    p50/p99."""
+    from chinese_asr_tpu_torch.data import audio_io
+    from chinese_asr_tpu_torch.utils import graphs
+
+    def replays():
+        return graphs.replays
+
+    report = {}
+    for mode, asr, batch, fused, _ in runs_spec:
+        t_run = time.time()
+        os.environ["CHINESE_ASR_PALLAS_FUSED"] = "1" if fused else "0"
+        before = replays()
+        r = _graph_vs_eager(np, torch, asr, batch,
+                            one_sync=mode in ("beam_bw16", "greedy"),
+                            host_trace=asr.dlm is None)
+        texts = r.pop("texts")
+        fails.check(all(t == texts_of[mode] for t in texts.values())
+                    and replays() > before,
+                    f"3g {mode}: the graph replay's transcripts equal the "
+                    f"eager loop's and phase 3's")
+        rows = r.pop("graph_rows")
+        counted = r.pop("graph_counted")
+        traced = {name: (sum(c for _, c, key in rows
+                             if any(k in key for k in keys)),
+                         sum(counted[n] for n in ctrs))
+                  for name, keys, ctrs in _TRACE_KERNELS}
+        # K5 runs eagerly before the graphs and counts at its launch; the
+        # trace of this call has missed its one short launch, so K5 is
+        # reported beside the others and held to nothing here
+        fails.check(all(t == c for k, (t, c) in traced.items() if k != "K5")
+                    and traced["K2"][0] > 0 and traced["K1"][0] > 0,
+                    f"3g {mode}: the card's trace of one graph-path call "
+                    f"launched what the counters count, K1-K4 (traced, "
+                    f"counted) {traced}")
+        r["traced_vs_counted"] = traced
+        report[mode] = r
+        print(_ab_line(mode, r, gpu) + f" ({time.time() - t_run:.1f} s)",
+              flush=True)
+        # where the graph path's device time goes: the twelve largest
+        # kernels, then the port's own further down
+        ours = [x for x in rows[12:] if any(
+            n in x[2] for n in ("topk_kernel", "bilstm", "logmel", "adpcm"))]
+        for us, count, key in rows[:12] + ours:
+            print(f"  {us / 1e3:9.3f} ms  x{count:<5d} {key[:90]}")
+    os.environ["CHINESE_ASR_PALLAS_FUSED"] = "0"
+
+    gold, gcfg, gvocab, gpaths, expected = golden
+    gw = [audio_io.read_wav(p, 16000, dtype="int16")[0] for p in gpaths]
+    gsc = [audio_io.peak_scale(w) for w in gw]
+    modes = (("greedy", dict(bw=None)), ("beam_bw4", dict(bw=4)),
+             ("lm_second", dict(bw=4, lm_mode="second")),
+             ("lm_second_host", dict(bw=4, lm_mode="second_host")),
+             ("lm_first", dict(bw=4, lm_mode="first", lm_topn=8)))
+    for dtype in ("float32", "bfloat16"):
+        for mode, kw in modes:
+            if "lm_mode" in kw:
+                kw = dict(kw, lm_path=os.path.join(gold, "lm.arpa"))
+            asr = ASR(ckpt_path=os.path.join(gold, "model.ckpt"), cfg=gcfg,
+                      vocab=gvocab, compute_dtype=dtype, **kw)
+            before = replays()
+            graph = asr.transcribe_files(gpaths)
+            eager = _eager_transcribe(asr, gw, gsc)
+            ok = graph == eager and replays() > before
+            if dtype == "float32":
+                ok = ok and graph == expected[mode]
+            fails.check(ok, f"3g golden {mode} {dtype}: the graph replay "
+                            f"equals the eager loop"
+                        + (" and expected.json" if dtype == "float32"
+                           else f" (expected.json: {graph == expected[mode]})"))
+            report[f"golden_{mode}_{dtype}"] = dict(
+                equals_eager=graph == eager,
+                equals_expected=graph == expected[mode])
+    print(f"3g golden shard, five modes in f32 and bf16: "
+          f"{json.dumps({k: v for k, v in report.items() if 'golden' in k})}",
+          flush=True)
+
+    report["programs"] = _program_lines(graphs,
+                                        "phase-3 runs and golden modes")
+    graphs.clear()
+
+    # serving's first request (an eager warm-up and a capture) against its
+    # steady single requests, on a fresh model
+    sasr = ASR(bw=16, cfg=cfg, seed=1)
+    one = [wavs[0]]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    sasr.transcribe_wavs(one)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t) * 1e3
+    steady = []
+    for _ in range(SERVE_STEADY_RUNS):
+        t = time.perf_counter()
+        sasr.transcribe_wavs(one)
+        torch.cuda.synchronize()
+        steady.append((time.perf_counter() - t) * 1e3)
+    report["serve_b1"] = dict(first_ms=first_ms,
+                              steady_p50_ms=float(np.percentile(steady, 50)),
+                              steady_p99_ms=float(np.percentile(steady, 99)))
+    print(f"3g one request at B=1 (bw 16, 9-10 s) on {gpu}: first "
+          f"{first_ms:.1f} ms (eager warm-up and capture), then "
+          f"p50 {report['serve_b1']['steady_p50_ms']:.1f} ms, p99 "
+          f"{report['serve_b1']['steady_p99_ms']:.1f} ms of "
+          f"{SERVE_STEADY_RUNS}", flush=True)
+    report["serving_mix"] = _serving_mix(np, torch, fails, sasr, gpu)
+    del sasr
+    graphs.clear()
+    return report
+
+
+# the serving mix: batches on the ladder of a ``max_batch=32`` server,
+# requests of 1-20 s, graph path against the eager functions
+MIX_BATCHES = 40                # batches a pass
+MIX_LADDER = (1, 2, 4, 8, 16, 32)
+MIX_POOL = 96                   # distinct request wavs, 1-20 s
+MIX_OLD_MAXSIZE = 32            # the count bound the cache had before
+MIX_STREAM = 2000               # batches of the long stream, keys only
+
+
+def _mix_pass(np, seed: int, pool, n_batches: int = MIX_BATCHES) -> list:
+    """``n_batches`` batches as a ``MicroBatcher(max_batch=32)`` forms
+    them: a ladder size, that many requests from ``pool`` or a few fewer,
+    the rest one-sample dummies (as its worker pads)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n_batches):
+        size = int(rng.choice(MIX_LADDER))
+        n = 1 if size == 1 else int(rng.integers(size // 2 + 1, size + 1))
+        out.append([pool[i] for i in rng.integers(0, len(pool), n)]
+                   + [np.zeros(1, np.int16)] * (size - n))
+    return out
+
+
+def _lru_hits(keys, size: float, cost=None) -> int:
+    """Hits of an LRU cache over ``keys`` that holds ``size`` entries, or
+    with ``cost`` (key -> bytes) entries of at most ``size`` bytes in all
+    (the newest always stays, as ``graphs.evict``)."""
+    from collections import OrderedDict
+    cache, hits = OrderedDict(), 0
+    for k in keys:
+        if k in cache:
+            hits += 1
+            cache.move_to_end(k)
+            continue
+        cache[k] = 1 if cost is None else cost(k)
+        while len(cache) > 1 and sum(cache.values()) > size:
+            cache.popitem(last=False)
+    return hits
+
+
+def _serving_mix(np, torch, fails, asr, gpu) -> dict:
+    """A seeded mix of 1-20 s requests in batches on the serving ladder,
+    two passes (cold: every new key captures; warm: a second seeded
+    stream over the programs the first left), through ``ASR`` (the graph
+    path) and through the eager functions (``_eager_transcribe``) in
+    turns batch by batch: each batch's wall (host clock to a
+    synchronize; its latency as served), the cache's hits, captures,
+    evictions and reserved memory, and the hit rate the old count bound
+    (MIX_OLD_MAXSIZE) would have had on the same keys.  The graph path's
+    transcripts must equal the eager loop's."""
+    from chinese_asr_tpu_torch.data import audio_io
+    from chinese_asr_tpu_torch.utils import graphs
+    pool = _synthetic_wavs(np, np.random.default_rng(20), MIX_POOL, 1.0,
+                           20.0)
+    graphs.clear()
+    out, keys, same, key_mb = {}, [], True, {}
+
+    def key_of(wavs):
+        return (len(wavs), audio_io.round_up(max(len(w) for w in wavs),
+                                             asr.wav_bucket))
+
+    for name, seed in (("cold", 1), ("warm", 2)):
+        batches = _mix_pass(np, seed, pool)
+        c0, e0, r0 = graphs.captures, graphs.evictions, graphs.replays
+        walls = {"graph": [], "eager": []}
+        for wavs in batches:
+            keys.append(key_of(wavs))
+            texts = {}
+            for path in ("graph", "eager"):
+                n_cap = graphs.captures
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                texts[path] = (asr.transcribe_wavs(wavs, max_batch=32)
+                               if path == "graph"
+                               else _eager_transcribe(asr, wavs))
+                torch.cuda.synchronize()
+                walls[path].append((time.perf_counter() - t) * 1e3)
+                if graphs.captures > n_cap:     # the newest program
+                    key_mb[keys[-1]] = (graphs.programs()[-1][1]
+                                        .reserved_bytes / 2**20)
+            same = same and texts["graph"] == texts["eager"]
+        calls = graphs.replays - r0
+        held = sum(p.reserved_bytes for _, p in graphs.programs())
+        out[name] = dict(
+            batches=len(batches), calls=calls,
+            captures=graphs.captures - c0,
+            evictions=graphs.evictions - e0,
+            hit_rate=1 - (graphs.captures - c0) / calls,
+            programs=len(graphs.programs()),
+            programs_reserved_mb=held / 2**20,
+            card_reserved_mb=torch.cuda.memory_reserved() / 2**20,
+            **{f"{p}_{q}_ms": float(np.percentile(walls[p], q))
+               for p in walls for q in (50, 99)},
+            **{f"{p}_max_ms": max(walls[p]) for p in walls})
+        x = out[name]
+        print(f"3g serving mix, {name} pass ({gpu}): {len(batches)} batches "
+              f"on the ladder {MIX_LADDER}, requests 1-20 s; graph p50 "
+              f"{x['graph_50_ms']:.1f} ms, p99 {x['graph_99_ms']:.1f} ms; "
+              f"eager p50 {x['eager_50_ms']:.1f} ms, p99 "
+              f"{x['eager_99_ms']:.1f} ms; hits {calls - x['captures']} of "
+              f"{calls} ({100 * x['hit_rate']:.1f}%), captures "
+              f"{x['captures']}, evictions {x['evictions']}; {x['programs']} "
+              f"programs hold {x['programs_reserved_mb']:.0f} MB (the card "
+              f"reserves {x['card_reserved_mb']:.0f} MB)", flush=True)
+    sizes = sorted(((p.reserved_bytes / 2**20, p.shapes[0][:2])
+                    for _, p in graphs.programs()), reverse=True)
+    budget_mb = graphs.budget_bytes(torch.device("cuda", 0)) / 2**20
+    # a program's pool against its batch's samples (B x padded length),
+    # fitted on the programs captured above, for the keys of a long
+    # stream of the same mix that this run did not capture
+    kk = sorted(key_mb)
+    slope, icpt = np.polyfit([b * n for b, n in kk],
+                             [key_mb[k] for k in kk], 1)
+
+    def est_mb(k):
+        return key_mb.get(k, max(icpt + slope * k[0] * k[1], 1.0))
+
+    stream = [key_of(w) for w in _mix_pass(np, 3, pool, MIX_STREAM)]
+    ns = len(stream)
+    out.update(
+        keys=len(set(keys)), budget_mb=budget_mb,
+        largest_mb=sizes[0][0] if sizes else 0.0,
+        mb_fit=dict(mb_per_msample=slope * 1e6, intercept_mb=icpt),
+        old_bound_hit_rate=_lru_hits(keys, MIX_OLD_MAXSIZE) / len(keys),
+        unbounded_hit_rate=_lru_hits(keys, len(keys)) / len(keys),
+        stream=dict(
+            batches=ns, keys=len(set(stream)),
+            keys_mb=sum(est_mb(k) for k in set(stream)),
+            old_bound_hit_rate=_lru_hits(stream, MIX_OLD_MAXSIZE) / ns,
+            budget_hit_rate=_lru_hits(stream, budget_mb, est_mb) / ns,
+            unbounded_hit_rate=_lru_hits(stream, ns) / ns),
+        equals_eager=same)
+    st = out["stream"]
+    print(f"3g serving mix: {out['keys']} keys in {len(keys)} batches; "
+          f"hit rate over both passes with no bound "
+          f"{100 * out['unbounded_hit_rate']:.1f}%, with the old bound of "
+          f"{MIX_OLD_MAXSIZE} programs {100 * out['old_bound_hit_rate']:.1f}%"
+          f"; the budget {budget_mb:.0f} MB ({graphs.BUDGET_FRACTION} of the "
+          f"card); largest programs (MB, feats [B, T]) "
+          f"{[(round(m, 1), s) for m, s in sizes[:6]]}; a program's MB = "
+          f"{icpt:.1f} + {slope * 1e6:.2f} a million batch samples (fit on "
+          f"{len(kk)}); a stream of {ns} batches of the mix (keys only): "
+          f"{st['keys']} keys holding ~{st['keys_mb']:.0f} MB in all, hit "
+          f"rate {100 * st['unbounded_hit_rate']:.1f}% with no bound, "
+          f"{100 * st['budget_hit_rate']:.1f}% within the budget, "
+          f"{100 * st['old_bound_hit_rate']:.1f}% with the old bound of "
+          f"{MIX_OLD_MAXSIZE}", flush=True)
+    fails.check(same, "3g serving mix: every batch's transcripts through "
+                      "the graph path equal the eager loop's")
+    out["programs"] = _program_lines(graphs, "serving mix")
+    return out
+
+
+def _program_lines(graphs, what: str) -> list:
+    """What each cached program cost to capture and holds on the card,
+    printed and returned."""
+    progs = [dict(name=p.name, shapes=p.shapes, chunks=len(p._chunks),
+                  capture_ms=p.capture_ms,
+                  reserved_mb=p.reserved_bytes / 2**20, replays=p.replays,
+                  done_reads=p.done_reads) for _, p in graphs.programs()]
+    for x in progs:
+        print(f"3g program {x['name']} {x['shapes']}: capture "
+              f"{x['capture_ms']:.0f} ms, reserved {x['reserved_mb']:.1f} MB,"
+              f" {x['replays']} replays, {x['done_reads']} host reads of "
+              f"done", flush=True)
+    print(f"3g: {len(progs)} programs of the {what} hold "
+          f"{sum(x['reserved_mb'] for x in progs):.0f} MB", flush=True)
+    return progs
 
 
 def _phase_serving(np, torch, fails, ASR, cfg, wavs, counters, gpu, golden):
@@ -1165,6 +1590,21 @@ def _fit_run(np, torch, fails, dev, gpu, counters, cfg, manifest, vocab,
           f"device memory {peak_gib:.2f} GiB, of it {held_gib:.2f} GiB held "
           f"before the phase", flush=True)
 
+    # Trainer.evaluate, the eager greedy loop (it stays eager: the params
+    # are rebound by every step), over the eval loader
+    eval_walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        tr.evaluate(eval_loader())
+        torch.cuda.synchronize()
+        eval_walls.append((time.perf_counter() - t) * 1e3)
+    eval_ms = float(np.median(eval_walls))
+    print(f"{label}: Trainer.evaluate (eager greedy, "
+          f"{sum(1 for _ in eval_loader())} batch(es) of the corpus) "
+          f"{eval_ms:.1f} ms, median of {[round(w, 1) for w in eval_walls]}"
+          f" on {gpu}", flush=True)
+
     # one more step on the last batch, split by CUDA events, then profiled
     batch = next(iter(train_loader()))
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
@@ -1214,7 +1654,7 @@ def _fit_run(np, torch, fails, dev, gpu, counters, cfg, manifest, vocab,
         print(f"  {us / 1e3:9.3f} ms  x{count:<5d} {key[:90]}")
     report = dict(steps=steps, batch=32, compute_dtype=cfg.train.compute_dtype,
                   step_ms=step_ms, step_walls_ms=[w * 1e3 for w in walls],
-                  fit_s=fit_s, losses=losses, split=split,
+                  fit_s=fit_s, eval_ms=eval_ms, losses=losses, split=split,
                   profiled_step_ms=prof_ms, busy_ms=busy_ms,
                   busy_share=busy_ms / step_ms, launches_per_step=n_launch,
                   kernel_launches=launched, peak_gib=peak_gib,
@@ -1496,13 +1936,15 @@ def _phase_families(np, torch, fails, ASR, base_cfg, wavs, rng, dev,
             runs.append((texts, time.perf_counter() - t,
                          {n: getattr(m, a) for n, (m, a)
                           in counters.items()}))
-        (t1, w1, c1), (t2, w2, _) = runs
+        # the first call captures the decode's graphs (its eager warm-up
+        # launches count too); the second replays them
+        (t1, w1, _), (t2, w2, c1) = runs
         bilstm = (cfg.encoder.encoder_type == "LSTM"
                   and cfg.encoder.bidirectional)
         want = dict.fromkeys(counters, 0)
         want.update(logmel=1, topk=40, lstm=4 if bilstm else 0)
-        fails.check(c1 == want, f"3f {name}: kernels launched {c1}, wanted "
-                                f"{want}")
+        fails.check(c1 == want, f"3f {name}: kernels launched {c1} by a "
+                                f"replay, wanted {want}")
         fails.check(t1 == t2 and len(t1) == len(wavs)
                     and all(isinstance(x, str) for x in t1),
                     f"3f {name}: two runs give identical transcripts")
@@ -2822,6 +3264,13 @@ def main() -> int:
         t_run = time.time()
         os.environ["CHINESE_ASR_PALLAS_FUSED"] = "1" if fused else "0"
         audio_s = sum(len(w) for w in batch) / cfg.audio.sample_rate
+        # the first call captures the decode's graphs (an eager warm-up,
+        # then the capture); the counted runs replay them
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        asr.transcribe_wavs(batch)
+        torch.cuda.synchronize()
+        w_capture = time.perf_counter() - t
         runs = []
         for rep in range(2):
             for mod, attr in counters.values():
@@ -2852,12 +3301,15 @@ def main() -> int:
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t)
         wall = float(np.median(walls))
-        paths[mode] = dict(batch=len(batch), wall_s_first=w1, wall_s=wall,
+        paths[mode] = dict(batch=len(batch), wall_s_capture=w_capture,
+                           wall_s_first=w1, wall_s=wall,
                            wall_s_min=min(walls), wall_s_max=max(walls),
                            runs=len(walls), launches=c1, audio_s=audio_s,
                            audio_s_per_s=audio_s / wall)
         print(f"{mode}: {len(batch)} wavs, {audio_s:.1f} s audio, wall "
-              f"{w1:.3f} s (first), median {wall:.4f} s of {len(walls)} warm "
+              f"{w_capture:.3f} s (first call: warm-up and capture), "
+              f"{w1:.3f} s (first replay), median {wall:.4f} s of "
+              f"{len(walls)} warm "
               f"runs [{min(walls):.4f}, {max(walls):.4f}] -> "
               f"{audio_s / wall:.1f} audio-s/s on {gpu}; launches {c1}; "
               f"first transcript {t1[0][:60]!r}", flush=True)
@@ -2901,13 +3353,6 @@ def main() -> int:
           f"{json.dumps(paths['fused_flips_b128'])}", flush=True)
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
           f" GiB", flush=True)
-    for mode, asr, batch, fused, _ in runs_spec:
-        if mode == "greedy":
-            continue
-        os.environ["CHINESE_ASR_PALLAS_FUSED"] = "1" if fused else "0"
-        _profile_main_path(torch, asr, batch, mode,
-                           paths[mode]["wall_s"] * 1e3)
-    os.environ["CHINESE_ASR_PALLAS_FUSED"] = "0"
 
     # LM probes on the card against the same tables on the CPU: the gathers
     # and the backoff sums run in the same order, so they must be equal
@@ -2952,7 +3397,6 @@ def main() -> int:
                     f"the C++ reader's keys of all {len(top)} "
                     f"{lm_order}-grams")
         del cpu_lm
-    del lm_asrs, runs_spec
 
     # ---- phase 3b: card vs plain CPU path on a small input -------------------
     small_wavs = _synthetic_wavs(np, rng, 4, 1.0, 2.0)
@@ -3094,9 +3538,17 @@ def main() -> int:
           f"{time.time() - t3c:.1f} s", flush=True)
 
 
+    golden = (gold, gcfg, gvocab, gpaths, expected)
+
+    # ---- phase 3g: the compiled decode entry points against the eager loop --
+    t3g = time.time()
+    paths["graphs"] = _phase_graphs(np, torch, fails, ASR, gpu, runs_spec,
+                                    texts_of, golden, cfg, wavs)
+    del lm_asrs, runs_spec
+    print(f"phase 3g: {time.time() - t3g:.1f} s", flush=True)
+
     # ---- phase 3d: the HTTP server at full width ----------------------------
     t3d = time.time()
-    golden = (gold, gcfg, gvocab, gpaths, expected)
     paths["serving"] = _phase_serving(np, torch, fails, ASR, cfg, wavs,
                                       counters, gpu, golden)
     print(f"phase 3d: {time.time() - t3d:.1f} s", flush=True)
@@ -3118,6 +3570,8 @@ def main() -> int:
             run: paths["families"][run]["kernel_launches"][n]
             for run, _ in FAMILY_RUNS}
     print(f"phase 3f: {time.time() - t3f:.1f} s", flush=True)
+    from chinese_asr_tpu_torch.utils import graphs
+    graphs.clear()          # the decode programs of the phases above
 
     # ---- phase 4: training at full width ------------------------------------
     t4 = time.time()

@@ -1109,3 +1109,203 @@ def test_dryrun_multichip_on_the_card(dev, ranks, shape):
     from chinese_asr_tpu_torch.parallel.dryrun import dryrun_multichip
     line = dryrun_multichip(ranks, "cuda", timeout_s=300)
     assert line.startswith(f"dryrun_multichip ok: mesh=({shape})")
+
+
+# --------------------------------------------------------------------------
+# the compiled decode entry points (``*_jit``): CUDA-graph replays
+# --------------------------------------------------------------------------
+JIT_MODES = ("greedy", "beam", "beam_best", "lm_second", "lm_second_select",
+             "lm_first", "lm_first_best")
+
+
+def _jit_setup(dev, dtype=torch.float32):
+    """The golden model, its features, LM tables and token map on the
+    card, in ``dtype``."""
+    from chinese_asr_tpu_torch.lm.device_ngram import DeviceNgramLM
+    asr = _golden_asr(device=dev, compute_dtype=(
+        "bfloat16" if dtype == torch.bfloat16 else "float32"))
+    wavs = [asr._as_wav(w) for w in _golden_wavs()]
+    feats, lens = asr._featurize(asr._upload(asr._prep(wavs, None)))
+    dlm = DeviceNgramLM.from_path(os.path.join(GOLD, "lm.arpa"), dev)
+    tok2lm = torch.from_numpy(dlm.token_id_table(asr.vocab)).to(dev).long()
+    return asr, feats, lens, dlm, tok2lm
+
+
+def _jit_call(mode, asr, feats, lens, dlm, tok2lm, jit: bool):
+    """One mode's ``*_jit`` form (``jit``) or its eager function, with the
+    same arguments."""
+    from chinese_asr_tpu_torch.decode import beam, greedy, lm_fused, rescore
+    p, cfg, dc = asr.params, asr.cfg, asr.cfg.decode
+    bos, eos = (int(x) for x in dlm.word_ids(["<s>", "</s>"]))
+    lm = (dlm, tok2lm, dc.lm_weight, dc.length_weight, bos, eos)
+    if mode == "greedy":
+        out = (greedy.greedy_decode_jit if jit else greedy.greedy_decode)(
+            p, cfg, feats, lens)
+    elif mode == "beam":
+        out = (beam.beam_decode_jit if jit else beam.beam_decode)(
+            p, cfg, 4, feats, lens)
+    elif mode == "beam_best":
+        out = (beam.beam_decode_best_jit if jit else beam.beam_decode_best)(
+            p, cfg, 4, feats, lens)
+    elif mode == "lm_second":
+        out = (rescore.beam_rescored_best_jit if jit
+               else rescore.beam_rescored_best)(p, cfg, 4, feats, lens, *lm)
+    elif mode == "lm_second_select":
+        res = beam.compact_nbest(beam.beam_decode(p, cfg, 4, feats, lens))
+        out = (rescore.rescore_select_jit if jit
+               else rescore.rescore_select)(res, *lm)
+    elif mode == "lm_first":
+        out = (lm_fused.lm_fused_decode_jit if jit
+               else lm_fused.lm_fused_decode)(p, cfg, 4, feats, lens, dlm,
+                                              tok2lm, 8)
+    else:
+        out = (lm_fused.lm_fused_decode_best_jit if jit
+               else lm_fused.lm_fused_decode_best)(p, cfg, 4, feats, lens,
+                                                   dlm, tok2lm, 8)
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("mode", JIT_MODES)
+def test_jit_graph_equals_eager_on_the_card(dev, mode, dtype):
+    """Each ``*_jit`` form's graph replay equals its eager function
+    exactly, field by field, at its first call (the capture) and at a
+    replay; the program is cached once."""
+    from chinese_asr_tpu_torch.utils import graphs
+    graphs.clear()
+    args = _jit_setup(dev, dtype)
+    want = _jit_call(mode, *args, jit=False)
+    for _ in range(2):
+        got = _jit_call(mode, *args, jit=True)
+        for name, w in want._asdict().items():
+            assert torch.equal(getattr(got, name), w), name
+    assert len(graphs.programs()) == 1
+    assert graphs.programs()[0][1].replays == 2
+
+
+def test_jit_replays_count_launches_on_the_card(dev):
+    """The launch counters under replay: a replay adds what its graphs
+    launch (K3 once a replayed step, K2 once a layer) and a capture adds
+    nothing of its own (the first call counts its eager warm-up and its
+    replay)."""
+    from chinese_asr_tpu_torch.decode import beam
+    from chinese_asr_tpu_torch.utils import graphs
+    graphs.clear()
+    asr, feats, lens, _, _ = _jit_setup(dev)
+    eager = []
+    for run in range(3):
+        before = (tlstm.launches, ttopk.launches)
+        if run == 0:
+            res = beam.beam_decode(asr.params, asr.cfg, 4, feats, lens,
+                                   unroll=graphs.UNROLL)
+        else:
+            res = beam.beam_decode_jit(asr.params, asr.cfg, 4, feats, lens)
+        eager.append((tlstm.launches - before[0], ttopk.launches - before[1]))
+    steps = (int(res.l_final) // graphs.UNROLL + 1) * graphs.UNROLL
+    assert int(res.l_final) < asr.cfg.decode.max_len - 1    # stops early
+    layers = asr.cfg.encoder.num_layers
+    assert eager[0] == (layers, steps)
+    assert eager[1] == (2 * layers, 2 * steps)   # warm-up + first replay
+    assert eager[2] == (layers, steps)
+    (_, prog), = graphs.programs()
+    assert prog.done_reads == 2 and prog.capture_ms > 0
+    assert prog.reserved_bytes > 0
+
+
+def test_jit_rekeys_on_rebound_params_and_fused_flag(dev, monkeypatch):
+    """A graph never replays on tensors it did not capture: rebinding a
+    parameter leaf to a new tensor captures a new program, whose result
+    is the eager loop's on the new params; flipping
+    ``CHINESE_ASR_PALLAS_FUSED`` captures another, which launches K4."""
+    from chinese_asr_tpu_torch.decode import beam
+    from chinese_asr_tpu_torch.utils import graphs
+    graphs.clear()
+    asr, feats, lens, _, _ = _jit_setup(dev)
+    monkeypatch.setenv("CHINESE_ASR_PALLAS_FUSED", "0")
+    p, cfg = asr.params, asr.cfg
+    beam.beam_decode_best_jit(p, cfg, 4, feats, lens)
+    p["decoder"]["proj_b"] = p["decoder"]["proj_b"] + 0.5     # a new tensor
+    got = beam.beam_decode_best_jit(p, cfg, 4, feats, lens)
+    want = beam.beam_decode_best(p, cfg, 4, feats, lens)
+    for name, w in want._asdict().items():
+        assert torch.equal(getattr(got, name), w), name
+    assert len(graphs.programs()) == 2
+    monkeypatch.setenv("CHINESE_ASR_PALLAS_FUSED", "1")
+    counts = (ttopk.launches, ttopk.fused_launches)
+    beam.beam_decode_best_jit(p, cfg, 4, feats, lens)
+    assert len(graphs.programs()) == 3
+    counts2 = (ttopk.launches, ttopk.fused_launches)
+    beam.beam_decode_best_jit(p, cfg, 4, feats, lens)       # a replay
+    assert ttopk.launches == counts2[0] == counts[0]
+    assert ttopk.fused_launches > counts2[1] > counts[1]
+
+
+def test_jit_eviction_frees_memory_on_the_card(dev, monkeypatch):
+    """The cache holds at most ``BUDGET_FRACTION`` of the card in its
+    programs' pools, least recently used out (the newest stays); evicting
+    a program releases its private pool."""
+    from chinese_asr_tpu_torch.decode import beam
+    from chinese_asr_tpu_torch.utils import graphs
+    graphs.clear()
+    asr, feats, lens, _, _ = _jit_setup(dev)
+    beam.beam_decode_best_jit(asr.params, asr.cfg, 4, feats, lens)
+    (key_a, prog), = graphs.programs()
+    pool_bytes = prog.reserved_bytes
+    assert 0 < pool_bytes <= graphs.budget_bytes(dev)
+    del prog
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_reserved(dev)
+    gone = graphs.evictions
+    # a budget below one program's pool: the new program evicts the old
+    monkeypatch.setattr(graphs, "BUDGET_FRACTION",
+                        pool_bytes / 2 / torch.cuda.get_device_properties(
+                            dev).total_memory)
+    beam.beam_decode_best_jit(asr.params, asr.cfg, 4, feats[:3], lens[:3])
+    (key_b, _), = graphs.programs()
+    assert key_b != key_a and graphs.evictions == gone + 1
+    graphs.clear()
+    assert graphs.programs() == []
+    assert torch.cuda.memory_reserved(dev) <= held - pool_bytes
+
+
+def test_jit_two_threads_at_one_key_get_their_own_results(dev):
+    """Two threads decode different batches of one shape (one program)
+    through ``beam_decode_best_jit`` and ``beam_decode_jit``: every call
+    returns its own batch's result, equal to the eager function's, since
+    a call copies its outputs out of the graphs before another can
+    replay them."""
+    import threading
+    from chinese_asr_tpu_torch.decode import beam
+    from chinese_asr_tpu_torch.utils import graphs
+    graphs.clear()
+    asr, feats, lens, _, _ = _jit_setup(dev)
+    p, cfg = asr.params, asr.cfg
+    batches = [(feats, lens), (feats.flip(0), lens.flip(0))]
+    fns = {"best": (beam.beam_decode_best_jit, beam.beam_decode_best),
+           "beam": (beam.beam_decode_jit, beam.beam_decode)}
+    want = {(name, i): eager(p, cfg, 4, *b)
+            for name, (_, eager) in fns.items()
+            for i, b in enumerate(batches)}
+    assert not torch.equal(want["best", 0].tokens, want["best", 1].tokens)
+    wrong, errors = [], []
+
+    def worker(i):
+        try:
+            for _ in range(8):
+                for name, (jit, _) in fns.items():
+                    got = jit(p, cfg, 4, *batches[i])
+                    torch.cuda.synchronize()
+                    if not all(torch.equal(g, w) for g, w in
+                               zip(got, want[name, i])):
+                        wrong.append((name, i))
+        except Exception as e:      # noqa: BLE001 -- reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    assert not errors and not wrong
+    assert len(graphs.programs()) == 2

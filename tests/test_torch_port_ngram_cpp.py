@@ -342,7 +342,8 @@ def test_finalize_beam_id_path_equals_string_path_and_jax():
     and the reference-text branch reports JAX's CER."""
     arrays = _nbest()
     L = arrays[0].shape[2]
-    tr = tbeam.BeamResult(*(T(a) for a in arrays), L - 1)
+    tr = tbeam.BeamResult(*(T(a) for a in arrays),
+                          torch.tensor(L - 1, dtype=torch.int32))
     jr = jbeam.BeamResult(*(jnp.asarray(a) for a in arrays), jnp.int32(L - 1))
     ct, cj = golden_cfg(tcfg), golden_cfg(jcfg)
     vocab = Vocab.build([CHARS * 3], max_num_words=8)

@@ -180,7 +180,8 @@ def test_crafted_nbest_len0_and_live_fallback(lms):
     live_scores = np.array([[-2.0, -1.0], [-3.0, -0.25]], np.float32)
     count = np.array([3, 0], np.int32)
     tr = tbeam.BeamResult(T(fin_tokens), T(fin_lens), T(fin_scores),
-                          T(count), T(live_tokens), T(live_scores), L - 2)
+                          T(count), T(live_tokens), T(live_scores),
+                          torch.tensor(L - 2, dtype=torch.int32))
     jr = jbeam.BeamResult(*(jnp.asarray(a) for a in (
         fin_tokens, fin_lens, fin_scores, count, live_tokens, live_scores)),
         jnp.int32(L - 2))
