@@ -87,14 +87,15 @@
 // mbarrier in place of the cluster barrier), and 16-CTA clusters so that
 // one tile spreads over twice the SMs.
 //
-// bf16 (`asr_bilstm_bwd_bf16`, K2-bwd-bf16, for bf16 training): both
-// kernels are templated on the operand type E, with K2-bf16's traits
-// (tc.cuh `Elt`).  JAX's bf16 backward is the VJP of its bf16 scan
-// (chinese_asr_tpu/ops/rnn.py:297 of :248), every op rounded to bf16.
-// Here xg, the masks, W_hh, ys, the cotangents, dxg and the scratch hs and
-// cs are bf16; the products are bf16 x bf16 with f32 accumulation
-// (`mma.m16n8k16`, one a k16 step where f32 takes three 3xTF32 m16n8k8);
-// each step's arithmetic is f32; and the rounding points are
+// The f32 tensor-core kernel below is float only (its template parameter
+// E is float).
+//
+// K2-bwd-bf16 (bf16 training; JAX's bf16 backward is the VJP of its bf16
+// scan, chinese_asr_tpu/ops/rnn.py:297 of :248, every op rounded to bf16).
+// xg, the masks, W_hh, ys, the cotangents, dxg and the scratch hs and cs
+// are bf16; the products are bf16 x bf16 with f32 accumulation
+// (`mma.m16n8k16`); each step's arithmetic is f32; and the rounding points
+// are
 //   pass 1: c rounded at the end of each step, where K2-bf16 rounds it
 //     (the rolled-forward c is the forward's, or an ulp from it where sums
 //     run in another order); the activated gates rounded as they are kept
@@ -103,26 +104,36 @@
 //   pass 2: dxg_t rounded as it is stored, that rounded value the A
 //     operand of dxg_t @ W_hh^T; the dh and dc carries rounded at the end
 //     of each step (JAX's carry type).
-// The W_hh slice is held as packed bf16 pairs (64 registers a thread at
-// H=256; pass 2 reloads W_hh^T's block in k16 B-fragment order), h and the
-// dxg slice sit in shared memory in m16n8k16 A-fragment order (`afrag`),
-// and a bf16 mask (2 bytes, under cp.async's 4) is loaded into a register
-// a step ahead.  dW_hh = hs^T dxg is accumulated in f32 and rounded once
-// (the wrapper's product), where JAX's reverse scan carries it as a bf16
-// running sum over the T steps: at [332, 32, 256] the port's dW_hh is
-// 4.2e-3 of its magnitude from a float64 VJP of the same bf16 inputs,
-// JAX's 5.0e-2 (tests/torch_port_bf16_gap.py).  Bound at [332, 32, 256]
-// with 75 % of the steps valid: the bf16 bytes, 0.033 ms; the three
-// products at the dense bf16 rate, 0.025 ms.
+// At H in {64, 128, 192, 256} pass 1 leaves the serial loop, since nothing
+// in it but c's roll is serial: (a) `bilstm_bf16_rebuild_kernel` rebuilds
+// hs; (b) the wrapper forms pre = hs @ W_hh for all T as one f32-result
+// cuBLAS bmm (ops/cuda/lstm.py), as JAX leaves that product to XLA;
+// (c) `bilstm_bf16_activate_kernel` activates the gates and rolls c.
+// Pass 2 is `bilstm_bf16_bwd2_kernel` on K2-bf16's cluster plan.  The
+// bytes of the f32 pre-activations (written by (b), read by (c): 2 x 87
+// MB at [332, 32, 256]) are what a GEMM with (c)'s activation in its
+// epilogue would save; c's roll needs the f32 activations of every step
+// in order, so such an epilogue would still hand them to a serial pass.
+// Other H run the simple kernel's bf16 instance.  dW_hh = hs^T dxg is
+// accumulated in f32 and rounded once (the wrapper's product), where
+// JAX's reverse scan carries it as a bf16 running sum over the T steps:
+// at [332, 32, 256] the port's dW_hh is 4.2e-3 of its magnitude from a
+// float64 VJP of the same bf16 inputs, JAX's 5.0e-2
+// (tests/torch_port_bf16_gap.py).  Bound at [332, 32, 256] with 75 % of
+// the steps valid: the bf16 bytes, 0.033 ms; the three products at the
+// dense bf16 rate, 0.025 ms.
 #include "common.cuh"
+#include "stamp.cuh"
 #include "tc.cuh"
 
 #include <cooperative_groups.h>
 #include <math.h>
 #include <stdint.h>
-#include <type_traits>
 
 namespace cg = cooperative_groups;
+
+// phase sums of the measurement build (stamp.cuh; empty in the product)
+STAMP_EXPORT(asr_stamp_bwd, asr_stamp_read_bwd, asr_stamp_ctas_bwd)
 
 namespace {
 
@@ -153,7 +164,6 @@ constexpr int NG = 4;              // quarters (K2's product)
 // multiple of 64, at most 256) and MT m16 tiles of batch rows per cluster.
 template <typename E, int H, int MT>
 struct BwdShape {
-    static constexpr bool BF = Elt<E>::BF16;
     static constexpr int KSTEP = Elt<E>::KSTEP;  // k depth of one mma
     static constexpr int UC = H / CL;       // hidden units of one CTA
     static constexpr int COLS = 4 * UC;     // its gate columns (q*UC + u)
@@ -176,13 +186,13 @@ struct BwdShape {
     static constexpr int HB = R * H;        // elements of one h buffer
     // ys tile row stride in elements (16-byte rows, no bank conflicts in
     // the rebuild)
-    static constexpr int YS = H + (BF ? 8 : 4);
-    using P = std::conditional_t<BF, uint32_t, float2>;   // a unit pair
-    // shared memory, byte offsets.  Pass 1: h [2][HB] (E, A-fragment
-    // order), part [KG][R][PS] (f32), ys [2][R][YS] (E), masks [2][R]
-    // (f32), gates [2][RP*4][NLT] (P).  Pass 2, over the same bytes: recv
-    // [2][CL][NSLOT] (float4 partials), the CTA's dxg slice [R][COLS] (E,
-    // A-fragment order), prefetch [RP*6][NLT] (P), masks [RP][NLT] (f32).
+    static constexpr int YS = H + 4;
+    using P = float2;                       // a unit pair
+    // shared memory, byte offsets.  Pass 1: h [2][HB] (A-fragment order),
+    // part [KG][R][PS], ys [2][R][YS], masks [2][R], gates [2][RP*4][NLT]
+    // (P).  Pass 2, over the same bytes: recv [2][CL][NSLOT] (float4
+    // partials), the CTA's dxg slice [R][COLS] (A-fragment order),
+    // prefetch [RP*6][NLT] (P), masks [RP][NLT].
     static constexpr size_t O_PART = (size_t)2 * HB * sizeof(E);
     static constexpr size_t O_YS = O_PART + (size_t)KG * R * PS * 4;
     static constexpr size_t O_MK = O_YS + (size_t)2 * R * YS * sizeof(E);
@@ -195,18 +205,18 @@ struct BwdShape {
     static constexpr size_t SMEM = P1 > P2 ? P1 : P2;
     static_assert(H % 64 == 0 && KS % KG == 0 && NPW >= 1
                   && KPW == KS2 && NPW == NTU && NLT <= TC_THREADS
-                  && O_XG % 16 == 0 && O_PF % 16 == 0 && SMEM <= 232448,
-                  "shape");
+                  && O_XG % 16 == 0 && O_PF % 16 == 0 && SMEM <= 232448
+                  && !Elt<E>::BF16, "shape");
 };
 
 // Index of element (row r, column k) of an [R, KSTEP*ks] operand kept in
 // A-fragment order, so that a warp's A operand of one (m-tile, k-step) is
 // one conflict-free 16-byte load a lane.  f32 (m16n8k8 tf32): for m-tile
 // m, k8-step s and lane l = 4g + c the float4 (r g, k 8s+c), (g+8, 8s+c),
-// (g, 8s+c+4), (g+8, 8s+c+4).  bf16 (m16n8k16): for k16-step s the eight
-// (g, 16s+2c), (g, 16s+2c+1), (g+8, 16s+2c), (g+8, 16s+2c+1), then the
-// same at columns 16s+2c+8 and +9 (K2-bf16's layout); units 2c and 2c+1
-// of a row are one word.
+// (g, 8s+c+4), (g+8, 8s+c+4).  bf16 (m16n8k16, pass 2's dxg slice): for
+// k16-step s the eight (g, 16s+2c), (g, 16s+2c+1), (g+8, 16s+2c),
+// (g+8, 16s+2c+1), then the same at columns 16s+2c+8 and +9; units 2c and
+// 2c+1 of a row are one word.
 template <typename E, int KSTEPS>
 __device__ __forceinline__ int afrag(int r, int k) {
     if constexpr (Elt<E>::BF16)
@@ -245,9 +255,9 @@ bilstm_bwd_tc_kernel(const E* __restrict__ xg_f,
     using S = BwdShape<E, H, MT>;
     using X = Elt<E>;
     using P = typename S::P;
-    constexpr bool BF = S::BF;
     constexpr int H4 = 4 * H;
     constexpr int R = S::R, UC = S::UC, NLT = S::NLT, RP = S::RP;
+    STAMP_BEGIN;
     extern __shared__ float4 smem4[];
     char* smc = reinterpret_cast<char*>(smem4);
     cg::cluster_group cluster = cg::this_cluster();
@@ -291,8 +301,7 @@ bilstm_bwd_tc_kernel(const E* __restrict__ xg_f,
     P* xgb = reinterpret_cast<P*>(smc + S::O_XG);     // [2][RP*4][NLT]
 
     // This warp's B fragments of the W_hh slice, in registers for the whole
-    // pass (f32, split into TF32 hi/lo at each use; or bf16 pairs: rows k,
-    // k+1 of one column in a word); pass 2 reloads them.
+    // pass (split into TF32 hi/lo at each use); pass 2 reloads them.
     typename X::W wr[S::KPW][S::NPW][2];
     {
         const int kg = warp / NG, ng = warp % NG;
@@ -302,18 +311,10 @@ bilstm_bwd_tc_kernel(const E* __restrict__ xg_f,
             for (int j = 0; j < S::NPW; ++j) {
                 const int col = (ng * S::NPW + j) * 8 + g;
                 const int c0 = (col / UC) * H + rank * UC + col % UC;
-                if constexpr (BF) {
-                    const int k = (kg * S::KPW + ks) * 16 + 2 * tig;
-                    const E* w = W + (size_t)k * H4 + c0;
-                    wr[ks][j][0] = pack_bf16(w[0], w[H4]);
-                    wr[ks][j][1] = pack_bf16(w[(size_t)8 * H4],
-                                             w[(size_t)9 * H4]);
-                } else {
-                    const int k = (kg * S::KPW + ks) * 8 + tig;
-                    const E* w = W + (size_t)k * H4 + c0;
-                    wr[ks][j][0] = w[0];
-                    wr[ks][j][1] = w[(size_t)4 * H4];
-                }
+                const int k = (kg * S::KPW + ks) * 8 + tig;
+                const E* w = W + (size_t)k * H4 + c0;
+                wr[ks][j][0] = w[0];
+                wr[ks][j][1] = w[(size_t)4 * H4];
             }
         }
     }
@@ -324,9 +325,7 @@ bilstm_bwd_tc_kernel(const E* __restrict__ xg_f,
     }
 
     // step t's ys rows and masks (the rebuild's) and this thread's gates,
-    // into buffer b; rows past B read as zeros.  A bf16 mask (2 bytes, no
-    // cp.async) is loaded into mnext and stored by put_mask.
-    float mnext = 0.f;
+    // into buffer b; rows past B read as zeros
     auto fetch1 = [&](int t, int b) {
         constexpr int CE = 16 / (int)sizeof(E);    // elements of 16 bytes
         constexpr int C16 = H / CE;
@@ -338,11 +337,8 @@ bilstm_bwd_tc_kernel(const E* __restrict__ xg_f,
         }
         if (tid < R) {
             const bool v = b0 + tid < B;
-            if constexpr (BF)
-                mnext = v ? X::ld(mk + (size_t)t * B + b0 + tid) : 0.f;
-            else
-                cp_async<4>(mkb + b * R + tid,
-                            v ? mk + (size_t)t * B + b0 + tid : mk, v);
+            cp_async<4>(mkb + b * R + tid,
+                        v ? mk + (size_t)t * B + b0 + tid : mk, v);
         }
         if (nl) {
 #pragma unroll
@@ -357,18 +353,14 @@ bilstm_bwd_tc_kernel(const E* __restrict__ xg_f,
         }
         cp_async_commit();
     };
-    auto put_mask = [&](int b) {
-        if constexpr (BF)
-            if (tid < R) mkb[b * R + tid] = mnext;
-    };
 
     float c[S::PP];
 #pragma unroll
     for (int p = 0; p < S::PP; ++p) c[p] = 0.f;
     fetch1(0, 0);
-    put_mask(0);
     cp_async_wait_all();
     __syncthreads();
+    STAMP(9);                                        // prologue
     for (int t = 0; t < T; ++t) {
         const int cur = t & 1;
         if (t + 1 < T) fetch1(t + 1, cur ^ 1);
@@ -386,50 +378,36 @@ bilstm_bwd_tc_kernel(const E* __restrict__ xg_f,
 #pragma unroll
             for (int ks = 0; ks < S::KPW; ++ks) {
                 const int s = kg * S::KPW + ks;
-                if constexpr (BF) {
-                    // bf16 x bf16, f32 accumulation: one mma a k16 step
-                    uint4 a[MT];
+                // 3xTF32: f32 accuracy from three TF32 products
+                float4 ahi[MT], alo[MT];
 #pragma unroll
-                    for (int m = 0; m < MT; ++m)
-                        a[m] = *reinterpret_cast<const uint4*>(
-                            hc + ((m * S::KS + s) * 32 + lane) * 8);
+                for (int m = 0; m < MT; ++m)
+                    split_rna(*reinterpret_cast<const float4*>(
+                                  hc + ((m * S::KS + s) * 32 + lane) * 4),
+                              ahi[m], alo[m]);
+                float bh[S::NPW][2], bl[S::NPW][2];
 #pragma unroll
-                    for (int j = 0; j < S::NPW; ++j)
-#pragma unroll
-                        for (int m = 0; m < MT; ++m)
-                            mma_bf16(acc[m][j], a[m], wr[ks][j][0],
-                                     wr[ks][j][1]);
-                } else {
-                    // 3xTF32: f32 accuracy from three TF32 products
-                    float4 ahi[MT], alo[MT];
-#pragma unroll
-                    for (int m = 0; m < MT; ++m)
-                        split_rna(*reinterpret_cast<const float4*>(
-                                      hc + ((m * S::KS + s) * 32 + lane) * 4),
-                                  ahi[m], alo[m]);
-                    float bh[S::NPW][2], bl[S::NPW][2];
-#pragma unroll
-                    for (int j = 0; j < S::NPW; ++j) {
-                        split_tf32(wr[ks][j][0], bh[j][0], bl[j][0]);
-                        split_tf32(wr[ks][j][1], bh[j][1], bl[j][1]);
-                    }
-#pragma unroll
-                    for (int j = 0; j < S::NPW; ++j)
-#pragma unroll
-                        for (int m = 0; m < MT; ++m)
-                            mma_tf32(acc[m][j], alo[m], bh[j][0], bh[j][1]);
-#pragma unroll
-                    for (int j = 0; j < S::NPW; ++j)
-#pragma unroll
-                        for (int m = 0; m < MT; ++m)
-                            mma_tf32(acc[m][j], ahi[m], bl[j][0], bl[j][1]);
-#pragma unroll
-                    for (int j = 0; j < S::NPW; ++j)
-#pragma unroll
-                        for (int m = 0; m < MT; ++m)
-                            mma_tf32(acc[m][j], ahi[m], bh[j][0], bh[j][1]);
+                for (int j = 0; j < S::NPW; ++j) {
+                    split_tf32(wr[ks][j][0], bh[j][0], bl[j][0]);
+                    split_tf32(wr[ks][j][1], bh[j][1], bl[j][1]);
                 }
+#pragma unroll
+                for (int j = 0; j < S::NPW; ++j)
+#pragma unroll
+                    for (int m = 0; m < MT; ++m)
+                        mma_tf32(acc[m][j], alo[m], bh[j][0], bh[j][1]);
+#pragma unroll
+                for (int j = 0; j < S::NPW; ++j)
+#pragma unroll
+                    for (int m = 0; m < MT; ++m)
+                        mma_tf32(acc[m][j], ahi[m], bl[j][0], bl[j][1]);
+#pragma unroll
+                for (int j = 0; j < S::NPW; ++j)
+#pragma unroll
+                    for (int m = 0; m < MT; ++m)
+                        mma_tf32(acc[m][j], ahi[m], bh[j][0], bh[j][1]);
             }
+            STAMP(0);                                // pass 1: products
 #pragma unroll
             for (int m = 0; m < MT; ++m) {
 #pragma unroll
@@ -444,6 +422,7 @@ bilstm_bwd_tc_kernel(const E* __restrict__ xg_f,
             }
         }
         __syncthreads();
+        STAMP(1);                            // pass 1: partials, barrier
 
         // ---- the cell: activated gates, h_{t-1}, c_{t-1} to scratch ----
         if (nl) {
@@ -473,72 +452,46 @@ bilstm_bwd_tc_kernel(const E* __restrict__ xg_f,
                     a[2][e] = tanhf(a[2][e]);
                     a[3][e] = sigmoid(a[3][e]);
                     cp[e] = c[p];
-                    // bf16 rounds c where K2-bf16 does
                     c[p] = X::rnd(m * (a[1][e] * c[p] + a[0][e] * a[2][e])
                                   + (1.f - m) * c[p]);
                 }
                 if (valid[rp]) {
                     const size_t row = (size_t)t * B + b0 + r;
                     E* d = dx + row * H4 + U0;
-                    // the activated gates, rounded to E for pass 2
+                    // the activated gates, for pass 2
 #pragma unroll
                     for (int q = 0; q < 4; ++q)
                         st2(d + q * H, a[q][0], a[q][1]);
-                    if constexpr (BF) {
-                        *reinterpret_cast<uint32_t*>(hq + row * H + U0) =
-                            *reinterpret_cast<const uint32_t*>(
-                                hc + afrag<E, S::KS>(r, U0));
-                    } else {
-                        st2(hq + row * H + U0, hc[afrag<E, S::KS>(r, U0)],
-                            hc[afrag<E, S::KS>(r, U0 + 1)]);
-                    }
+                    st2(hq + row * H + U0, hc[afrag<E, S::KS>(r, U0)],
+                        hc[afrag<E, S::KS>(r, U0 + 1)]);
                     st2(cq + row * H + U0, cp[0], cp[1]);
                 }
             }
         }
+        STAMP(2);                            // pass 1: cell, scratch stores
         // ---- the rebuild: h_t = y_t + (1 - m_t) h_{t-1}, all units ----
         if (t + 1 < T) {
             const E* yb = ysb + cur * R * S::YS;
             const float* mb = mkb + cur * R;
-            if constexpr (BF) {
-                // one 16-byte chunk (m, s, lane) a thread: rows r, r+8 by
-                // units k, k+1, k+8, k+9 (afrag's order)
-                const uint4* hp4 = reinterpret_cast<const uint4*>(hc);
-                uint4* hn4 = reinterpret_cast<uint4*>(hbuf + (cur ^ 1) * S::HB);
-                for (int i = tid; i < S::HB / 8; i += TC_THREADS) {
-                    const int r = (i / (S::KS * 32)) * 16 + ((i & 31) >> 2);
-                    const int k = ((i >> 5) % S::KS) * 16 + 2 * (i & 3);
-                    const float k0 = 1.f - mb[r], k1 = 1.f - mb[r + 8];
-                    auto yw = [&](int rr, int kk) {
-                        return *reinterpret_cast<const uint32_t*>(
-                            yb + rr * S::YS + kk);
-                    };
-                    const uint4 h = hp4[i];
-                    hn4[i] = make_uint4(rebuild2(yw(r, k), h.x, k0),
-                                        rebuild2(yw(r + 8, k), h.y, k1),
-                                        rebuild2(yw(r, k + 8), h.z, k0),
-                                        rebuild2(yw(r + 8, k + 8), h.w, k1));
-                }
-            } else {
-                const float4* hp4 = reinterpret_cast<const float4*>(hc);
-                float4* hn4 =
-                    reinterpret_cast<float4*>(hbuf + (cur ^ 1) * S::HB);
-                for (int i = tid; i < S::HB / 4; i += TC_THREADS) {
-                    const int r = (i / (S::KS * 32)) * 16 + ((i & 31) >> 2);
-                    const int k = ((i >> 5) % S::KS) * 8 + (i & 3);
-                    const float k0 = 1.f - mb[r], k1 = 1.f - mb[r + 8];
-                    const float4 h = hp4[i];
-                    hn4[i] = make_float4(yb[r * S::YS + k] + k0 * h.x,
-                                         yb[(r + 8) * S::YS + k] + k1 * h.y,
-                                         yb[r * S::YS + k + 4] + k0 * h.z,
-                                         yb[(r + 8) * S::YS + k + 4]
-                                             + k1 * h.w);
-                }
+            const float4* hp4 = reinterpret_cast<const float4*>(hc);
+            float4* hn4 =
+                reinterpret_cast<float4*>(hbuf + (cur ^ 1) * S::HB);
+            for (int i = tid; i < S::HB / 4; i += TC_THREADS) {
+                const int r = (i / (S::KS * 32)) * 16 + ((i & 31) >> 2);
+                const int k = ((i >> 5) % S::KS) * 8 + (i & 3);
+                const float k0 = 1.f - mb[r], k1 = 1.f - mb[r + 8];
+                const float4 h = hp4[i];
+                hn4[i] = make_float4(yb[r * S::YS + k] + k0 * h.x,
+                                     yb[(r + 8) * S::YS + k] + k1 * h.y,
+                                     yb[r * S::YS + k + 4] + k0 * h.z,
+                                     yb[(r + 8) * S::YS + k + 4]
+                                         + k1 * h.w);
             }
-            put_mask(cur ^ 1);
         }
+        STAMP(3);                                    // pass 1: rebuild
         cp_async_wait_all();
         __syncthreads();
+        STAMP(4);                    // pass 1: next step's fetch, barrier
     }
 
     // ---- pass 2: backward in time -------------------------------------
@@ -562,22 +515,12 @@ bilstm_bwd_tc_kernel(const E* __restrict__ xg_f,
             const E* wn = W + (size_t)(warp * UC + j * 8 + g) * H4;
             auto wt = [&](int k) { return wn[(k / UC) * H + rank * UC
                                              + k % UC]; };
-            if constexpr (BF) {
-                const int k = 16 * s + 2 * tig;
-                wr[s][j][0] = pack_bf16(wt(k), wt(k + 1));
-                wr[s][j][1] = pack_bf16(wt(k + 8), wt(k + 9));
-            } else {
-                wr[s][j][0] = wt(8 * s + tig);
-                wr[s][j][1] = wt(8 * s + tig + 4);
-            }
+            wr[s][j][0] = wt(8 * s + tig);
+            wr[s][j][1] = wt(8 * s + tig + 4);
         }
     }
     // step t's activated gates, c_{t-1}, gy_t and mask of this thread's
-    // elements (what it wrote in pass 1), zeros past B; a bf16 mask goes
-    // to mreg
-    float mreg[RP];
-#pragma unroll
-    for (int rp = 0; rp < RP; ++rp) mreg[rp] = 0.f;
+    // elements (what it wrote in pass 1), zeros past B
     auto fetch2 = [&](int t) {
 #pragma unroll
         for (int rp = 0; rp < RP; ++rp) {
@@ -592,10 +535,7 @@ bilstm_bwd_tc_kernel(const E* __restrict__ xg_f,
                          v ? cq + row * H + U0 : cq, v);
             cp_async<NB>(pf + (rp * 6 + 5) * NLT + tid,
                          v ? gy + row * H + U0 : gy, v);
-            if constexpr (BF)
-                mreg[rp] = v ? X::ld(mk + row) : 0.f;
-            else
-                cp_async<4>(pm + rp * NLT + tid, v ? mk + row : mk, v);
+            cp_async<4>(pm + rp * NLT + tid, v ? mk + row : mk, v);
         }
         cp_async_commit();
     };
@@ -612,6 +552,7 @@ bilstm_bwd_tc_kernel(const E* __restrict__ xg_f,
     // every CTA is done with pass 1's buffers before any writes into them
     cluster.sync();
     if (nl) fetch2(T - 1);
+    STAMP(10);                                       // between the passes
 
     for (int t = T - 1; t >= 0; --t) {
         if (t < T - 1) {
@@ -640,10 +581,12 @@ bilstm_bwd_tc_kernel(const E* __restrict__ xg_f,
 #pragma unroll
                 for (int p = 0; p < S::PP; ++p) dh[p] = X::rnd(dh[p] + sum[p]);
             }
+            STAMP(5);                        // pass 2: cluster barrier, sum
         }
         // ---- the cell: dxg_t of this thread's elements ----
         if (nl) {
             cp_async_wait_all();
+            STAMP(11);                       // pass 2: the operands' arrival
 #pragma unroll
             for (int rp = 0; rp < RP; ++rp) {
                 const int r = rrow(rp);
@@ -653,7 +596,7 @@ bilstm_bwd_tc_kernel(const E* __restrict__ xg_f,
                     a[q] = unpack2(pf[(rp * 6 + q) * NLT + tid]);
                 const float2 cp2 = unpack2(pf[(rp * 6 + 4) * NLT + tid]);
                 const float2 gy2 = unpack2(pf[(rp * 6 + 5) * NLT + tid]);
-                const float m = BF ? mreg[rp] : pm[rp * NLT + tid];
+                const float m = pm[rp * NLT + tid];
                 float da[4][2];
 #pragma unroll
                 for (int e = 0; e < 2; ++e) {
@@ -666,8 +609,6 @@ bilstm_bwd_tc_kernel(const E* __restrict__ xg_f,
                     const float tc = tanhf(fg * cp + ig * gg);
                     const float dh2 = ((e ? gy2.y : gy2.x) + dh[p]) * m;
                     const float dc2 = m * dc[p] + dh2 * og * (1.f - tc * tc);
-                    // dxg_t as it is stored (bf16: rounded, then the
-                    // product's operand)
                     da[0][e] = X::rnd(dc2 * gg * ig * (1.f - ig));
                     da[1][e] = X::rnd(dc2 * cp * fg * (1.f - fg));
                     da[2][e] = X::rnd(dc2 * ig * (1.f - gg * gg));
@@ -678,13 +619,8 @@ bilstm_bwd_tc_kernel(const E* __restrict__ xg_f,
 #pragma unroll
                 for (int q = 0; q < 4; ++q) {
                     const int k = q * UC + u0;
-                    if constexpr (BF) {
-                        st2(atile + afrag<E, S::KS2>(r, k), da[q][0],
-                            da[q][1]);
-                    } else {
-                        atile[afrag<E, S::KS2>(r, k)] = da[q][0];
-                        atile[afrag<E, S::KS2>(r, k + 1)] = da[q][1];
-                    }
+                    atile[afrag<E, S::KS2>(r, k)] = da[q][0];
+                    atile[afrag<E, S::KS2>(r, k + 1)] = da[q][1];
                 }
                 if (valid[rp]) {
                     E* d = dx + ((size_t)t * B + b0 + r) * H4 + U0;
@@ -694,8 +630,10 @@ bilstm_bwd_tc_kernel(const E* __restrict__ xg_f,
                 }
             }
         }
+        STAMP(6);                                    // pass 2: cell
         if (t == 0) break;            // h_{-1} = 0 is no input: no dh_{-1}
         __syncthreads();
+        STAMP(7);                                    // pass 2: barrier
 
         // ---- dxg_t slice @ W_hh[units of CTA warp, cols]^T ----
         float acc[MT][S::NTU][4];
@@ -707,47 +645,35 @@ bilstm_bwd_tc_kernel(const E* __restrict__ xg_f,
                 for (int e = 0; e < 4; ++e) acc[m][j][e] = 0.f;
 #pragma unroll
         for (int s = 0; s < S::KS2; ++s) {
-            if constexpr (BF) {
-                uint4 a[MT];
+            float4 ahi[MT], alo[MT];
 #pragma unroll
-                for (int m = 0; m < MT; ++m)
-                    a[m] = *reinterpret_cast<const uint4*>(
-                        atile + ((m * S::KS2 + s) * 32 + lane) * 8);
+            for (int m = 0; m < MT; ++m)
+                split_rna(*reinterpret_cast<const float4*>(
+                              atile + ((m * S::KS2 + s) * 32 + lane) * 4),
+                          ahi[m], alo[m]);
+            float bh[S::NTU][2], bl[S::NTU][2];
 #pragma unroll
-                for (int j = 0; j < S::NTU; ++j)
-#pragma unroll
-                    for (int m = 0; m < MT; ++m)
-                        mma_bf16(acc[m][j], a[m], wr[s][j][0], wr[s][j][1]);
-            } else {
-                float4 ahi[MT], alo[MT];
-#pragma unroll
-                for (int m = 0; m < MT; ++m)
-                    split_rna(*reinterpret_cast<const float4*>(
-                                  atile + ((m * S::KS2 + s) * 32 + lane) * 4),
-                              ahi[m], alo[m]);
-                float bh[S::NTU][2], bl[S::NTU][2];
-#pragma unroll
-                for (int j = 0; j < S::NTU; ++j) {
-                    split_tf32(wr[s][j][0], bh[j][0], bl[j][0]);
-                    split_tf32(wr[s][j][1], bh[j][1], bl[j][1]);
-                }
-#pragma unroll
-                for (int j = 0; j < S::NTU; ++j)
-#pragma unroll
-                    for (int m = 0; m < MT; ++m)
-                        mma_tf32(acc[m][j], alo[m], bh[j][0], bh[j][1]);
-#pragma unroll
-                for (int j = 0; j < S::NTU; ++j)
-#pragma unroll
-                    for (int m = 0; m < MT; ++m)
-                        mma_tf32(acc[m][j], ahi[m], bl[j][0], bl[j][1]);
-#pragma unroll
-                for (int j = 0; j < S::NTU; ++j)
-#pragma unroll
-                    for (int m = 0; m < MT; ++m)
-                        mma_tf32(acc[m][j], ahi[m], bh[j][0], bh[j][1]);
+            for (int j = 0; j < S::NTU; ++j) {
+                split_tf32(wr[s][j][0], bh[j][0], bl[j][0]);
+                split_tf32(wr[s][j][1], bh[j][1], bl[j][1]);
             }
+#pragma unroll
+            for (int j = 0; j < S::NTU; ++j)
+#pragma unroll
+                for (int m = 0; m < MT; ++m)
+                    mma_tf32(acc[m][j], alo[m], bh[j][0], bh[j][1]);
+#pragma unroll
+            for (int j = 0; j < S::NTU; ++j)
+#pragma unroll
+                for (int m = 0; m < MT; ++m)
+                    mma_tf32(acc[m][j], ahi[m], bl[j][0], bl[j][1]);
+#pragma unroll
+            for (int j = 0; j < S::NTU; ++j)
+#pragma unroll
+                for (int m = 0; m < MT; ++m)
+                    mma_tf32(acc[m][j], ahi[m], bh[j][0], bh[j][1]);
         }
+        STAMP(8);                                    // pass 2: product
         // the partial of CTA `warp`'s units into its slot for this CTA
         float4* out = recv + ((t & 1) * CL + rank) * S::NSLOT + lane;
 #pragma unroll
@@ -757,10 +683,14 @@ bilstm_bwd_tc_kernel(const E* __restrict__ xg_f,
                 *cluster.map_shared_rank(out + (m * S::NTU + j) * 32, warp) =
                     make_float4(acc[m][j][0], acc[m][j][1], acc[m][j][2],
                                 acc[m][j][3]);
+        STAMP(12);                                   // pass 2: remote stores
         cluster_arrive_release();
         // while the barrier completes: fetch step t-1's operands
         if (nl) fetch2(t - 1);
+        STAMP(13);                           // pass 2: arrive, next fetch
     }
+    STAMP(14);                                       // epilogue
+    STAMP_END(asr_stamp_bwd);
 }
 
 // The operands of one call of either kernel.
@@ -790,6 +720,7 @@ int bwd_tc_launch(const BwdArgs<E>& a, cudaStream_t s, int* plan) {
         plan[0] = S::R;
         plan[1] = (int)(grid.x / CL * grid.y);
         plan[2] = n;
+        plan[3] = CL;
         return 0;
     }
     const E* const* in = a.in;
@@ -816,6 +747,442 @@ int bwd_tc_dispatch(int H, const BwdArgs<E>& a, cudaStream_t s, int* plan) {
         return bwd_tc_dispatch_mt<E, 192>(a, s, plan);
     default:
         return bwd_tc_dispatch_mt<E, 256>(a, s, plan);
+    }
+}
+
+// ---------------------------------------------------------------------------
+// K2-bwd-bf16: pass 1 as three stages, pass 2 on the bf16 cluster plan
+// ---------------------------------------------------------------------------
+// The stage kernels' block: one (direction, row) and AU unit pairs, one
+// thread a pair and step of a chunk of AS steps.  A chunk's loads (and,
+// in stage (c), its activations) run at once; then one thread a pair
+// walks the chunk's serial part, h's or c's carry, from shared memory.
+constexpr int AS = 8;       // steps of a chunk
+constexpr int AU = 32;      // unit pairs of a block
+
+// Stage (a): hs[d, t] = h_{t-1} of direction d, rebuilt from ys and the
+// masks (h_t = y_t + (1 - m_t) h_{t-1}, rounded to bf16: exact for 0/1
+// masks, and the masks need not be prefix masks).
+__global__ void __launch_bounds__(AS * AU)
+bilstm_bf16_rebuild_kernel(const bf16* __restrict__ ys_f,
+                           const bf16* __restrict__ ys_b,
+                           const bf16* __restrict__ m_f,
+                           const bf16* __restrict__ m_b,
+                           bf16* __restrict__ hs, int T, int B, int H) {
+    __shared__ uint32_t yc[AS][AU];
+    __shared__ float msk[AS];
+    const int groups = H / 2 / AU;
+    const int kp = threadIdx.x % AU, s = threadIdx.x / AU;
+    const int grp = blockIdx.x % groups;
+    const int b = blockIdx.x / groups % B, dir = blockIdx.x / groups / B;
+    const int k = (grp * AU + kp) * 2;
+    const bf16* ys = (dir ? ys_b : ys_f) + (size_t)b * H + k;
+    const bf16* mk = (dir ? m_b : m_f) + b;
+    uint32_t* hq = reinterpret_cast<uint32_t*>(
+        hs + ((size_t)dir * T * B + b) * H + k);
+    const size_t step = (size_t)B * H / 2;           // words a step
+    uint32_t h = 0u;                                 // (s == 0) h of the pair
+    for (int t0 = 0; t0 < T; t0 += AS) {
+        const int t = t0 + s;
+        if (t < T) {
+            yc[s][kp] = __ldg(reinterpret_cast<const unsigned int*>(
+                ys + (size_t)t * B * H));
+            if (kp == 0) msk[s] = __bfloat162float(mk[(size_t)t * B]);
+        }
+        __syncthreads();
+        if (s == 0) {
+            for (int j = 0; j < AS && t0 + j < T; ++j) {
+                hq[(size_t)(t0 + j) * step] = h;
+                h = rebuild2(yc[j][kp], h, 1.f - msk[j]);
+            }
+        }
+        __syncthreads();
+    }
+}
+
+// Stage (c), after (b) pre = hs @ W_hh (the wrapper's f32 batched
+// product): the gates xg_t + pre_t activated (exact expf / tanhf), stored
+// rounded to bf16 in dxg's buffer for pass 2, and c rolled forward under
+// the mask with the f32 activations, rounded at the end of each step,
+// c_{t-1} into cs.  Both stages are bound by their bytes: (a) reads ys
+// and writes hs, (c) reads xg and the f32 pre-activations and writes the
+// gates and cs (2 x 87 MB of pre at [332, 32, 256]).
+__global__ void __launch_bounds__(AS * AU)
+bilstm_bf16_activate_kernel(const bf16* __restrict__ xg_f,
+                            const bf16* __restrict__ xg_b,
+                            const bf16* __restrict__ m_f,
+                            const bf16* __restrict__ m_b,
+                            const float* __restrict__ pre,
+                            bf16* __restrict__ dxg, bf16* __restrict__ cs,
+                            int T, int B, int H) {
+    using X = Elt<bf16>;
+    __shared__ float2 gi[AS][AU], gf[AS][AU], gg[AS][AU];
+    __shared__ float msk[AS];
+    const int H4 = 4 * H, groups = H / 2 / AU;
+    const int kp = threadIdx.x % AU, s = threadIdx.x / AU;
+    const int grp = blockIdx.x % groups;
+    const int b = blockIdx.x / groups % B, dir = blockIdx.x / groups / B;
+    const int k = (grp * AU + kp) * 2;
+    const size_t row0 = (size_t)dir * T * B + b;     // row of step 0
+    const bf16* xg = (dir ? xg_b : xg_f) + (size_t)b * H4 + k;
+    const bf16* mk = (dir ? m_b : m_f) + b;
+    const float* pr = pre + row0 * H4 + k;
+    bf16* dx = dxg + row0 * H4 + k;
+    bf16* cq = cs + row0 * H + k;
+    float c0 = 0.f, c1 = 0.f;                        // (s == 0) c of the pair
+    for (int t0 = 0; t0 < T; t0 += AS) {
+        const int t = t0 + s;
+        if (t < T) {
+            const size_t o = (size_t)t * B * H4;
+            float a[4][2];
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+                const float2 xv = unpack2(__ldg(
+                    reinterpret_cast<const unsigned int*>(xg + o + q * H)));
+                const float2 pv = __ldg(
+                    reinterpret_cast<const float2*>(pr + o + q * H));
+                a[q][0] = xv.x + pv.x;
+                a[q][1] = xv.y + pv.y;
+            }
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+                a[0][e] = sigmoid(a[0][e]);
+                a[1][e] = sigmoid(a[1][e]);
+                a[2][e] = tanhf(a[2][e]);
+                a[3][e] = sigmoid(a[3][e]);
+            }
+            // the activated gates, rounded to bf16 for pass 2
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+                st2(dx + o + q * H, a[q][0], a[q][1]);
+            gi[s][kp] = make_float2(a[0][0], a[0][1]);
+            gf[s][kp] = make_float2(a[1][0], a[1][1]);
+            gg[s][kp] = make_float2(a[2][0], a[2][1]);
+            if (kp == 0) msk[s] = __bfloat162float(mk[(size_t)t * B]);
+        }
+        __syncthreads();
+        if (s == 0) {
+            // c rolled forward where K2-bf16 rounds it
+            for (int j = 0; j < AS && t0 + j < T; ++j) {
+                st2(cq + (size_t)(t0 + j) * B * H, c0, c1);
+                const float mm = msk[j];
+                const float2 i2 = gi[j][kp], f2 = gf[j][kp], g2 = gg[j][kp];
+                c0 = X::rnd(mm * (f2.x * c0 + i2.x * g2.x) + (1.f - mm) * c0);
+                c1 = X::rnd(mm * (f2.y * c1 + i2.y * g2.y) + (1.f - mm) * c1);
+            }
+        }
+        __syncthreads();
+    }
+}
+
+// Pass 2, backward in time (the f32 kernel's pass 2 in bf16, on K2-bf16's
+// plan): CLB CTAs (tc.cuh `bf16_ctas`) share one direction and 16 rows;
+// each step a CTA forms its units' slice of dxg_t from dh, dc (in the cell
+// threads' registers), gy_t and stage (c)'s scratch; warps w = WPD d ..
+// WPD d + WPD - 1 multiply it by W_hh[units of CTA d, this CTA's
+// columns]^T (NTW n-tiles each) and send the partial dh to CTA d with
+// st.async, signalling d's mbarrier of the step's receive buffer
+// (reduce-scatter); a CTA waits for its own barrier and sums the CLB
+// partials.  The dxg slice is double-buffered by the step's parity, so
+// that a CTA may begin a step's cell while a warp of it still multiplies
+// the last one.  Timed against this design on an H100 80GB HBM3 at 700 W
+// (tools/lstm_stamp.py, PERF.md) and then deleted: plain remote stores
+// and one cluster barrier a step (the f32 kernel's exchange), K2-bwd-bf16
+// 1.015 ms at [332, 32, 256] and 1.757 ms at B=128 against this one's
+// 0.905 and 1.660 ms in the same call; a step's operands fetched in
+// 16-byte chunks spread over all threads behind one more block barrier,
+// with two accumulators a tile, pass 2 0.710 ms at B=32 against this
+// one's 0.638 (another call).
+template <int H, int CLB>
+struct Bwd2Shape {
+    static constexpr int UC = H / CLB;      // hidden units of one CTA
+    static constexpr int COLS = 4 * UC;     // its gate columns (q*UC + u)
+    static constexpr int R = 16;            // batch rows of one cluster
+    static constexpr int KS2 = COLS / 16;   // k16 steps over the columns
+    static constexpr int NTU = UC / 8;      // n8 tiles of one CTA's units
+    // 256 threads a CTA, or 512 where a CTA of 4 has the n-tiles for them
+    // (H = 128, 256), so that a thread's cell and n-tiles stay those of 8
+    static constexpr int THREADS = CLB == 4 && NTU % 4 == 0 ? 512 : 256;
+    static constexpr int WPD = THREADS / 32 / CLB;  // warps a destination
+    static constexpr int NTW = NTU / WPD;   // n-tiles of one warp
+    // the cell role: slot (j, lane) of the partials holds rows g, g+8 by
+    // units 8j + 2c, 8j + 2c + 1; a thread takes one row of a slot (PP = 2)
+    // or both (PP = 4)
+    static constexpr int NSLOT = NTU * 32;
+    static constexpr int PP = 2 * NSLOT <= THREADS ? 2 : 4;
+    static constexpr int RP = PP / 2;       // rows of one cell thread
+    static constexpr int NLT = NSLOT * 4 / PP;  // threads of the cell role
+    // shared memory, bytes: recv [2][CLB][NSLOT] float4 partials, the dxg
+    // slice [2][R][COLS] (A-fragment order), prefetch [RP*6][NLT] words,
+    // the two receive buffers' mbarriers
+    static constexpr size_t O_AT = (size_t)2 * CLB * NSLOT * 16;
+    static constexpr size_t AT = (size_t)R * COLS;     // elements a slice
+    static constexpr size_t O_PF = O_AT + 2 * AT * 2;
+    static constexpr size_t O_BAR = O_PF + (size_t)RP * 6 * NLT * 4;
+    static constexpr size_t SMEM = O_BAR + 16;
+    static_assert(H % 64 == 0 && NTU % WPD == 0 && NTW >= 1
+                  && NLT <= THREADS && O_PF % 16 == 0 && O_BAR % 8 == 0,
+                  "shape");
+};
+
+template <int H, int CLB>
+__global__ void __launch_bounds__(Bwd2Shape<H, CLB>::THREADS, 1)
+bilstm_bf16_bwd2_kernel(const bf16* __restrict__ m_f,
+                        const bf16* __restrict__ m_b,
+                        const bf16* __restrict__ w_hh,
+                        const bf16* __restrict__ gy_f,
+                        const bf16* __restrict__ gy_b,
+                        const bf16* __restrict__ ghT,
+                        const bf16* __restrict__ gcT,
+                        bf16* __restrict__ dxg,
+                        const bf16* __restrict__ cs,
+                        int T, int B) {
+    using S = Bwd2Shape<H, CLB>;
+    using X = Elt<bf16>;
+    constexpr int H4 = 4 * H;
+    constexpr int R = S::R, UC = S::UC, NLT = S::NLT, RP = S::RP;
+    constexpr int NSLOT = S::NSLOT;
+    STAMP_BEGIN;
+    extern __shared__ float4 smem4[];
+    char* smc = reinterpret_cast<char*>(smem4);
+    float4* recv = smem4;                            // [2][CLB][NSLOT]
+    bf16* atile = reinterpret_cast<bf16*>(smc + S::O_AT);     // [2][AT]
+    uint32_t* pf = reinterpret_cast<uint32_t*>(smc + S::O_PF);
+    uint64_t* bar = reinterpret_cast<uint64_t*>(smc + S::O_BAR);
+    cg::cluster_group cluster = cg::this_cluster();
+    const int rank = (int)cluster.block_rank();
+    const int dir = blockIdx.y;
+    const int b0 = (blockIdx.x / CLB) * R;
+    const int tid = threadIdx.x;
+    const int warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, tig = lane & 3;
+    const bf16* mk = dir ? m_b : m_f;
+    const bf16* gy = dir ? gy_b : gy_f;
+    const bf16* W = w_hh + (size_t)dir * H * H4;
+    bf16* dx = dxg + (size_t)dir * T * B * H4;
+    const bf16* cq = cs + (size_t)dir * T * B * H;
+
+    // the cell role: rows rrow(rp) (cluster-relative), units u0, u0 + 1 of
+    // this CTA (U0 = its global unit)
+    const bool nl = tid < NLT;
+    const int slot = tid % NSLOT;
+    const int hrow = S::PP == 2 ? tid / NSLOT : 0;   // the row half
+    const int u0 = (slot >> 5) * 8 + 2 * tig;
+    const int U0 = rank * UC + u0;
+    auto rrow = [&](int rp) { return g + 8 * (hrow + rp); };
+    bool valid[RP];
+#pragma unroll
+    for (int rp = 0; rp < RP; ++rp) valid[rp] = nl && b0 + rrow(rp) < B;
+
+    // B fragments of W_hh[units of CTA dd, this CTA's columns]^T, n-tiles
+    // j0 .. j0 + NTW - 1 of CTA dd's: element (k, n) is W_hh[n][column k]
+    const int dd = warp / S::WPD, j0 = (warp % S::WPD) * S::NTW;
+    uint32_t wr[S::KS2][S::NTW][2];
+#pragma unroll
+    for (int s = 0; s < S::KS2; ++s) {
+#pragma unroll
+        for (int j = 0; j < S::NTW; ++j) {
+            const bf16* wn = W + (size_t)(dd * UC + (j0 + j) * 8 + g) * H4;
+            auto wt = [&](int k) { return wn[(k / UC) * H + rank * UC
+                                             + k % UC]; };
+            const int k = 16 * s + 2 * tig;
+            wr[s][j][0] = pack_bf16(wt(k), wt(k + 1));
+            wr[s][j][1] = pack_bf16(wt(k + 8), wt(k + 9));
+        }
+    }
+    // step t's activated gates, c_{t-1}, gy_t (one word of two units each)
+    // and mask of this thread's elements, zeros past B
+    float mreg[RP];
+#pragma unroll
+    for (int rp = 0; rp < RP; ++rp) mreg[rp] = 0.f;
+    auto fetch2 = [&](int t) {
+#pragma unroll
+        for (int rp = 0; rp < RP; ++rp) {
+            const size_t row = (size_t)t * B + b0 + rrow(rp);
+            const bool v = valid[rp];
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+                cp_async<4>(pf + (rp * 6 + q) * NLT + tid,
+                            v ? dx + row * H4 + q * H + U0 : dx, v);
+            cp_async<4>(pf + (rp * 6 + 4) * NLT + tid,
+                        v ? cq + row * H + U0 : cq, v);
+            cp_async<4>(pf + (rp * 6 + 5) * NLT + tid,
+                        v ? gy + row * H + U0 : gy, v);
+            mreg[rp] = v ? X::ld(mk + row) : 0.f;
+        }
+        cp_async_commit();
+    };
+    float dh[S::PP], dc[S::PP];
+#pragma unroll
+    for (int rp = 0; rp < RP; ++rp) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+            const size_t o = ((size_t)dir * B + b0 + rrow(rp)) * H + U0 + e;
+            dh[2 * rp + e] = valid[rp] ? X::ld(ghT + o) : 0.f;
+            dc[2 * rp + e] = valid[rp] ? X::ld(gcT + o) : 0.f;
+        }
+    }
+    if (tid == 0) {
+        mbar_init(&bar[0]);
+        mbar_init(&bar[1]);
+        mbar_init_fence();
+    }
+    // every CTA's barriers are ready before any CTA sends
+    cluster.sync();
+    if (nl) fetch2(T - 1);
+    STAMP(10);                                       // prologue
+    uint32_t phase = 0u;          // each receive buffer's phase bit
+
+    for (int t = T - 1; t >= 0; --t) {
+        // the partials of step t arrive in buffer t & 1
+        if (tid == 0 && t > 0)
+            mbar_expect(&bar[t & 1], (uint32_t)(CLB * NSLOT * 16));
+        if (t < T - 1) {
+            // the partial sums of dxg_{t+1} @ W_hh^T for this CTA's units
+            const int rb = (t + 1) & 1;
+            mbar_wait(&bar[rb], (phase >> rb) & 1u);
+            phase ^= 1u << rb;
+            if (nl) {
+                const float4* in = recv + slot + rb * CLB * NSLOT;
+                float sum[S::PP];
+#pragma unroll
+                for (int p = 0; p < S::PP; ++p) sum[p] = 0.f;
+#pragma unroll
+                for (int src = 0; src < CLB; ++src) {
+                    // rows g (.x, .y) and g+8 (.z, .w) of the slot
+                    const float4 v = in[src * NSLOT];
+                    if constexpr (S::PP == 4) {
+                        sum[0] += v.x;
+                        sum[1] += v.y;
+                        sum[2] += v.z;
+                        sum[3] += v.w;
+                    } else {
+                        sum[0] += hrow ? v.z : v.x;
+                        sum[1] += hrow ? v.w : v.y;
+                    }
+                }
+                // the dh carry rounded at the end of each step
+#pragma unroll
+                for (int p = 0; p < S::PP; ++p) dh[p] = X::rnd(dh[p] + sum[p]);
+            }
+            STAMP(5);                        // pass 2: the wait, the sum
+        }
+        // ---- the cell: dxg_t of this thread's elements ----
+        bf16* at = atile + (t & 1) * S::AT;
+        if (nl) {
+            cp_async_wait_all();
+            STAMP(11);                       // pass 2: the operands' arrival
+#pragma unroll
+            for (int rp = 0; rp < RP; ++rp) {
+                const int r = rrow(rp);
+                float2 a[4];
+#pragma unroll
+                for (int q = 0; q < 4; ++q)
+                    a[q] = unpack2(pf[(rp * 6 + q) * NLT + tid]);
+                const float2 cp2 = unpack2(pf[(rp * 6 + 4) * NLT + tid]);
+                const float2 gy2 = unpack2(pf[(rp * 6 + 5) * NLT + tid]);
+                const float m = mreg[rp];
+                float da[4][2];
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                    const int p = 2 * rp + e;
+                    const float ig = e ? a[0].y : a[0].x;
+                    const float fg = e ? a[1].y : a[1].x;
+                    const float gg = e ? a[2].y : a[2].x;
+                    const float og = e ? a[3].y : a[3].x;
+                    const float cp = e ? cp2.y : cp2.x;
+                    const float tc = tanhf(fg * cp + ig * gg);
+                    const float dh2 = ((e ? gy2.y : gy2.x) + dh[p]) * m;
+                    const float dc2 = m * dc[p] + dh2 * og * (1.f - tc * tc);
+                    // dxg_t rounded as it is stored, then the product's
+                    // operand
+                    da[0][e] = X::rnd(dc2 * gg * ig * (1.f - ig));
+                    da[1][e] = X::rnd(dc2 * cp * fg * (1.f - fg));
+                    da[2][e] = X::rnd(dc2 * ig * (1.f - gg * gg));
+                    da[3][e] = X::rnd(dh2 * tc * og * (1.f - og));
+                    dc[p] = X::rnd((1.f - m) * dc[p] + dc2 * fg);
+                    dh[p] = (1.f - m) * dh[p];
+                }
+#pragma unroll
+                for (int q = 0; q < 4; ++q)
+                    st2(at + afrag<bf16, S::KS2>(r, q * UC + u0), da[q][0],
+                        da[q][1]);
+                if (valid[rp]) {
+                    bf16* d = dx + ((size_t)t * B + b0 + r) * H4 + U0;
+#pragma unroll
+                    for (int q = 0; q < 4; ++q)
+                        st2(d + q * H, da[q][0], da[q][1]);
+                }
+            }
+        }
+        STAMP(6);                                    // pass 2: cell
+        if (t == 0) break;            // h_{-1} = 0 is no input: no dh_{-1}
+        __syncthreads();
+        STAMP(7);                                    // pass 2: barrier
+
+        // ---- dxg_t slice @ W_hh[units of CTA dd, cols]^T ----
+        float acc[S::NTW][4];
+#pragma unroll
+        for (int j = 0; j < S::NTW; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+#pragma unroll
+        for (int s = 0; s < S::KS2; ++s) {
+            const uint4 a = *reinterpret_cast<const uint4*>(
+                at + (s * 32 + lane) * 8);
+#pragma unroll
+            for (int j = 0; j < S::NTW; ++j)
+                mma_bf16(acc[j], a, wr[s][j][0], wr[s][j][1]);
+        }
+        STAMP(8);                                    // pass 2: product
+        // the partial of CTA dd's units into its slot for this CTA
+        float4* out = recv + ((t & 1) * CLB + rank) * NSLOT + lane;
+        const uint32_t ba = smem_u32(&bar[t & 1]);
+#pragma unroll
+        for (int j = 0; j < S::NTW; ++j) {
+            const float4 v = make_float4(acc[j][0], acc[j][1], acc[j][2],
+                                         acc[j][3]);
+            st_async(cluster_u32(smem_u32(out + (j0 + j) * 32), dd), v,
+                     cluster_u32(ba, dd));
+        }
+        STAMP(12);                                   // pass 2: the sends
+        // while the partials travel: fetch step t-1's operands
+        if (nl) fetch2(t - 1);
+        STAMP(13);                           // pass 2: the next fetch
+    }
+    // no CTA leaves while a store of the cluster may still be in flight
+    cluster.sync();
+    STAMP(14);                                       // epilogue
+    STAMP_END(asr_stamp_bwd);
+}
+
+template <int H, int CLB>
+int bwd2_launch(const BwdArgs<bf16>& a, cudaStream_t s, int* plan) {
+    using S = Bwd2Shape<H, CLB>;
+    const dim3 grid((a.B + S::R - 1) / S::R * CLB, 2);
+    const bf16* const* in = a.in;
+    return launch_clusters(bilstm_bf16_bwd2_kernel<H, CLB>, CLB, S::R,
+                           S::THREADS, grid, S::SMEM, s, plan, in[2], in[3],
+                           in[4], in[8], in[9], in[10], in[11], a.dxg,
+                           (const bf16*)a.cs, a.T, a.B);
+}
+
+template <int H>
+int bwd2_dispatch_cl(const BwdArgs<bf16>& a, cudaStream_t s, int* plan) {
+    if (STAMP_CTAS(bf16_ctas(a.B)) == 8) return bwd2_launch<H, 8>(a, s, plan);
+    return bwd2_launch<H, 4>(a, s, plan);
+}
+
+int bwd2_dispatch(int H, const BwdArgs<bf16>& a, cudaStream_t s, int* plan) {
+    switch (H) {
+    case 64:
+        return bwd2_dispatch_cl<64>(a, s, plan);
+    case 128:
+        return bwd2_dispatch_cl<128>(a, s, plan);
+    case 192:
+        return bwd2_dispatch_cl<192>(a, s, plan);
+    default:
+        return bwd2_dispatch_cl<256>(a, s, plan);
     }
 }
 
@@ -1030,7 +1397,12 @@ int bwd_entry(const BwdArgs<E>& a, int H, void* stream) {
     if (a.B <= 0 || a.T <= 0 || H <= 0) return 0;
     if (H > 1024) return (int)cudaErrorInvalidValue;
     const cudaStream_t s = (cudaStream_t)stream;
-    if (tc_fits(H)) return bwd_tc_dispatch<E>(H, a, s, nullptr);
+    if (tc_fits(H)) {
+        // bf16 at these H is staged (asr_bilstm_bwd_bf16_rebuild, _activate,
+        // _pass2)
+        if constexpr (Elt<E>::BF16) return (int)cudaErrorInvalidValue;
+        else return bwd_tc_dispatch<E>(H, a, s, nullptr);
+    }
     const int Hp = (H + 31) / 32 * 32;
     // KS threads a hidden unit, as many as 1024 threads a block allow (up
     // to 4), and R = min(KS, 2) rows a block
@@ -1044,12 +1416,18 @@ int bwd_plan(int B, int H, int* plan) {
     if (B <= 0 || H <= 0 || H > 1024) return (int)cudaErrorInvalidValue;
     if (!tc_fits(H)) {
         plan[0] = (H + 31) / 32 * 32 <= 512 ? 2 : 1;
-        plan[1] = plan[2] = 0;
+        plan[1] = plan[2] = plan[3] = 0;
         return 0;
     }
     BwdArgs<E> a = {};
     a.B = B;
-    return bwd_tc_dispatch<E>(H, a, nullptr, plan);
+    if constexpr (Elt<E>::BF16) return bwd2_dispatch(H, a, nullptr, plan);
+    else return bwd_tc_dispatch<E>(H, a, nullptr, plan);
+}
+
+// the stage kernels' grid: a block a (direction, row, AU unit pairs)
+inline dim3 stage_grid(int B, int H) {
+    return dim3((unsigned)(2 * B * (H / 2 / AU)));
 }
 
 }  // namespace
@@ -1077,7 +1455,9 @@ ASR_API int asr_bilstm_bwd(const float* xg_f, const float* xg_b,
 }
 
 // The same contract with every operand, output and scratch bf16 (K2-bwd-
-// bf16, the backward of asr_bilstm_bf16).
+// bf16, the backward of asr_bilstm_bf16), for H outside {64, 128, 192,
+// 256} (the simple kernel); at those H it returns cudaErrorInvalidValue:
+// K2-bwd-bf16 runs there as the stages below and the wrapper's product.
 ASR_API int asr_bilstm_bwd_bf16(const bf16* xg_f, const bf16* xg_b,
                                 const bf16* m_f, const bf16* m_b,
                                 const bf16* w_hh, const bf16* w_t,
@@ -1091,11 +1471,59 @@ ASR_API int asr_bilstm_bwd_bf16(const bf16* xg_f, const bf16* xg_b,
     return bwd_entry<bf16>(a, H, stream);
 }
 
-// How asr_bilstm_bwd (asr_bilstm_bwd_bf16) would launch at (B, H), without
-// launching: plan[0] batch rows per cluster, plan[1] clusters in the grid,
-// plan[2] clusters the card holds at once (cudaOccupancyMaxActiveClusters).
-// For the simple kernel (no cluster) plan = {rows a block, 0, 0}.  Returns
-// 0 or a cudaError_t.
+// K2-bwd-bf16 at H in {64, 128, 192, 256}, stage (a): ys_f, ys_b [T, B, H],
+// m_f, m_b [T, B] -> hs [2, T, B, H], the carried h_{t-1} of each step.
+ASR_API int asr_bilstm_bwd_bf16_rebuild(const bf16* ys_f, const bf16* ys_b,
+                                        const bf16* m_f, const bf16* m_b,
+                                        bf16* hs, int T, int B, int H,
+                                        void* stream) {
+    if (B <= 0 || T <= 0) return 0;
+    if (!tc_fits(H)) return (int)cudaErrorInvalidValue;
+    bilstm_bf16_rebuild_kernel<<<stage_grid(B, H), AS * AU, 0,
+                                 (cudaStream_t)stream>>>(ys_f, ys_b, m_f,
+                                                         m_b, hs, T, B, H);
+    return (int)cudaGetLastError();
+}
+
+// Stage (c): xg_f, xg_b [T, B, 4H], the masks, pre [2, T, B, 4H] float32
+// (= hs @ W_hh, stage (b)) -> the activated gates in dxg [2, T, B, 4H] and
+// c_{t-1} in cs [2, T, B, H].
+ASR_API int asr_bilstm_bwd_bf16_activate(const bf16* xg_f, const bf16* xg_b,
+                                         const bf16* m_f, const bf16* m_b,
+                                         const float* pre, bf16* dxg,
+                                         bf16* cs, int T, int B, int H,
+                                         void* stream) {
+    if (B <= 0 || T <= 0) return 0;
+    if (!tc_fits(H)) return (int)cudaErrorInvalidValue;
+    bilstm_bf16_activate_kernel<<<stage_grid(B, H), AS * AU, 0,
+                                  (cudaStream_t)stream>>>(
+        xg_f, xg_b, m_f, m_b, pre, dxg, cs, T, B, H);
+    return (int)cudaGetLastError();
+}
+
+// Pass 2: the masks, w_hh [2, H, 4H], gy_f, gy_b [T, B, H], ghT, gcT
+// [2, B, H], stage (c)'s dxg (activated gates, overwritten with the gate
+// cotangents) and cs.
+ASR_API int asr_bilstm_bwd_bf16_pass2(const bf16* m_f, const bf16* m_b,
+                                      const bf16* w_hh, const bf16* gy_f,
+                                      const bf16* gy_b, const bf16* ghT,
+                                      const bf16* gcT, bf16* dxg,
+                                      bf16* cs, int T, int B, int H,
+                                      void* stream) {
+    if (B <= 0 || T <= 0) return 0;
+    if (!tc_fits(H)) return (int)cudaErrorInvalidValue;
+    const BwdArgs<bf16> a = {{nullptr, nullptr, m_f, m_b, w_hh, nullptr,
+                              nullptr, nullptr, gy_f, gy_b, ghT, gcT},
+                             dxg, nullptr, cs, T, B};
+    return bwd2_dispatch(H, a, (cudaStream_t)stream, nullptr);
+}
+
+// How asr_bilstm_bwd (K2-bwd-bf16's pass 2 for asr_bilstm_bwd_bf16_plan)
+// would launch at (B, H), without launching: plan[0] batch rows per
+// cluster, plan[1] clusters in the grid, plan[2] clusters the card holds at
+// once (cudaOccupancyMaxActiveClusters), plan[3] CTAs a cluster.  For the
+// simple kernel (no cluster) plan = {rows a block, 0, 0, 0}.  Returns 0 or
+// a cudaError_t.
 ASR_API int asr_bilstm_bwd_plan(int B, int H, int* plan) {
     return bwd_plan<float>(B, H, plan);
 }

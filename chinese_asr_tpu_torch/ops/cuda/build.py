@@ -8,6 +8,11 @@ library with a plain C interface.  The library is cached in
 so the first kernel call of a process builds it (seconds) and later ones
 load it.  Nothing here runs at import time: a host without ``nvcc`` can
 import every module and use the plain PyTorch twins on CPU tensors.
+
+``build(sources, defines, stem)`` also makes a measurement library: a
+subset of the sources compiled with extra ``-D`` defines (such as
+``tools/lstm_stamp.py``'s ``ASR_STAMP``) under a name of its own, which
+``use`` puts in place of the product library for the wrappers' calls.
 """
 
 from __future__ import annotations
@@ -44,12 +49,18 @@ def _nvcc() -> str:
     return path
 
 
-def _sources():
-    return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+def _sources(names=None):
+    if names is None:
+        return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+    return [os.path.join(CSRC, n) for n in names]
 
 
-def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _flags(defines=()) -> tuple:
+    return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+
+
+def _digest(defines=()) -> str:
+    h = hashlib.sha256(" ".join(_flags(defines)).encode())
     for path in sorted(glob.glob(os.path.join(CSRC, "*"))):
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as f:
@@ -57,25 +68,27 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
-def library_path() -> str:
-    return os.path.join(BUILD_DIR, f"libasr_kernels-{_digest()}.so")
+def library_path(defines=(), stem: str = "libasr_kernels") -> str:
+    return os.path.join(BUILD_DIR, f"{stem}-{_digest(defines)}.so")
 
 
-def build() -> str:
-    """Compile and link the kernels unless a library for these exact
-    sources is already cached; returns its path.  ``nvcc``'s register and
-    shared-memory report (``-Xptxas -v``) goes to ``build-<hash>.log``
-    beside the library."""
-    so = library_path()
+def build(sources=None, defines=(), stem: str = "libasr_kernels") -> str:
+    """Compile and link the kernels (every ``csrc/*.cu``, or the named
+    ``sources``, with ``-D`` of each of ``defines``) unless a library for
+    these exact sources and flags is already cached; returns its path.
+    ``nvcc``'s register and shared-memory report (``-Xptxas -v``) goes to
+    ``build-<hash>.log`` beside the library."""
+    so = library_path(defines, stem)
     if os.path.exists(so):
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = _nvcc()
-    tag = f"{_digest()}.{os.getpid()}"
+    digest = _digest(defines)
+    tag = f"{digest}.{os.getpid()}"
     jobs = []
-    for src in _sources():
+    for src in _sources(sources):
         obj = os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{tag}.o")
-        cmd = [nvcc, *NVCC_FLAGS, "-c", src, "-o", obj]
+        cmd = [nvcc, *_flags(defines), "-c", src, "-o", obj]
         jobs.append((src, obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
@@ -101,20 +114,35 @@ def build() -> str:
         for obj in objs:
             if os.path.exists(obj):
                 os.remove(obj)
-    with open(os.path.join(BUILD_DIR, f"build-{_digest()}.log"), "w") as f:
+    with open(os.path.join(BUILD_DIR, f"build-{digest}.log"), "w") as f:
         f.write("\n".join(log))
     return so
+
+
+def load(path: str) -> ctypes.CDLL:
+    """Load a library that ``build`` made (it holds ``runtime.cu``)."""
+    lib = ctypes.CDLL(path)
+    lib.asr_error_string.argtypes = [ctypes.c_int]
+    lib.asr_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 def _library() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(build())
-            lib.asr_error_string.argtypes = [ctypes.c_int]
-            lib.asr_error_string.restype = ctypes.c_char_p
-            _lib = lib
+            _lib = load(build())
         return _lib
+
+
+def use(lib):
+    """Make the wrappers call ``lib`` (a measurement library from
+    ``build`` and ``load``, or None for the product library, built at the
+    next call); returns the library in use before."""
+    global _lib
+    with _lock:
+        prev, _lib = _lib, lib
+        return prev
 
 
 def kernel(name: str, argtypes: Sequence) -> ctypes._CFuncPtr:

@@ -27,20 +27,29 @@ every phase passed):
    kernel, twin and the nearest single PyTorch call (K3 and K4 as CUDA
    graphs of 50 calls, on inputs cycled past the L2; also at one and at
    four warps a row, at R = 512, 1024 and 2048);
-2b-bf16. hold K2's bf16 instance (K2-bf16) against its bf16 twin at the
-   same shapes, B=32 and H=16, with its cluster plan, its registers and
-   spills, and cuDNN's bf16 layer beside it;
+2b-bf16. hold K2-bf16 (bf16's own cluster plan: 16 rows a cluster of 8
+   or 4 CTAs, h exchanged by bulk copies on mbarriers) against its bf16
+   twin at the same shapes, B=32 and H=16, and with random non-prefix
+   masks at B=32 and B=128, with its cluster plan (one wave at B=128),
+   its registers and spills, and cuDNN's bf16 layer beside it; build
+   ``tools/lstm_stamp.py``'s stamped library (beside phase 1's build) and
+   print the phase split of a step of K2-bf16 and K2-bwd-bf16 at B=32
+   and B=128 beside the parent design's (recorded);
 2f. hold K2-bwd, the recurrence's backward, against its twin at the
    flagship layer's shape (xg 2 x [332, 32, 1024], the cluster kernel), at
    B=128 and at H=16 (the simple kernel), with random non-prefix masks and
    nonzero final-state cotangents; print its plan and time it beside its
    bound, its twin and cuDNN's backward of one bidirectional layer at B=32
-   and B=128; print the command that times another tree's K2-bwd beside
-   this one's (``chinese_asr_tpu_torch/tools/lstm_bwd_ab.py``);
-2f-bf16. hold K2-bwd-bf16, K2-bwd's bf16 instance (bf16 training),
-   against its bf16 twin at the same shapes, with its plan, its registers
-   and spills, its time beside its bound, its twin, phase 2f's f32 K2-bwd
-   and cuDNN's bf16 backward of one bidirectional layer at B=32 and B=128;
+   and B=128; print the command that times another tree's K2, K2-bf16,
+   K2-bwd and K2-bwd-bf16 beside this one's
+   (``chinese_asr_tpu_torch/tools/lstm_ab.py``);
+2f-bf16. hold K2-bwd-bf16, K2-bwd's bf16 instance (bf16 training: pass 1
+   as three stages, pass 2 a cluster kernel of bf16's own plan), against
+   its bf16 twin at the same shapes and each stage kernel against its
+   plain stage, with its plan, its registers and spills, its time beside
+   its bound, its twin, phase 2f's f32 K2-bwd and cuDNN's bf16 backward
+   of one bidirectional layer at B=32 and B=128, each stage's time, and
+   pass 2's phase split beside the parent design's (recorded);
 2e. hold K5, the ADPCM wire decode, against its twin bit for bit on the
    B=32 batch's wire, a B=1 wire, a full-scale square wave and silence,
    and time it beside the C++ host encoder;
@@ -151,6 +160,7 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
 
 # Tolerances (max abs error, kernel vs its plain twin, both f32 on the card).
@@ -196,6 +206,31 @@ TOL_FEATS = 1e-3
 TOL_ENC = 1e-3
 
 TIMED_RUNS = 7                  # warm main-path runs behind each wall time
+
+# The phase split of K2-bf16's and K2-bwd-bf16's step before their bf16
+# redesign (each the f32 design's bf16 instance), as recorded in PERF.md
+# section 6 (chinese_asr_tpu_torch/tools/lstm_stamp.py on an H100 80GB HBM3
+# at 700 W, us a step at [332, B, 256]); phases 2b-bf16 and 2f-bf16 print
+# it beside this run's split of the design in the tree.
+SPLIT_BEFORE = {
+    "K2-bf16 B=32 (8 CTAs, 16 rows; 1.186 ms)":
+        "products 0.307; partial sums, block barrier 0.097; gates' arrival "
+        "0.099; cell update 0.667; remote stores 0.962; release-arrive, y "
+        "stores, next fetch 1.344; cluster barrier wait 0.441",
+    "K2-bf16 B=128 (8 CTAs, 32 rows; 1.532 ms)":
+        "products 0.362; partial sums, block barrier 0.135; gates' arrival "
+        "0.111; cell update 1.168; remote stores 0.851; release-arrive, y "
+        "stores, next fetch 1.642; cluster barrier wait 0.094",
+    "K2-bwd-bf16 B=32 (one kernel; 1.486 ms)":
+        "pass 1 2.229 (products 0.795, cell and scratch 0.870, rebuild "
+        "0.365); pass 2 2.295 (wait and sum 0.494, operands 0.165, cell "
+        "0.314, block barrier 0.092, product 0.323, remote stores 0.177, "
+        "release-arrive and next fetch 0.730)",
+    "K2-bwd-bf16 B=128 (one kernel; 2.526 ms)":
+        "pass 1 3.613 (products 1.149, cell and scratch 1.589, rebuild "
+        "0.605); pass 2 3.319 (wait and sum 0.278, operands 0.222, cell "
+        "0.513, block barrier 0.223, product 0.410, remote stores 0.209, "
+        "release-arrive and next fetch 1.465)"}
 
 # The ARPA text of tests/data/golden_tri_probing.klm (tests/test_lm_binary.py
 # ARPA_TRI); phase 3c checks that it rebuilds the fixture byte for byte.
@@ -646,8 +681,8 @@ def _graph_vs_eager(np, torch, asr, wavs, scales=None,
 # each kernel of ours by its name in the card's trace, and the launch
 # counters (``_kernel_counters``) that count it
 _TRACE_KERNELS = (("K1", ("logmel_tc_kernel",), ("logmel",)),
-                  ("K2", ("bilstm_tc_kernel<", "bilstm_kernel<"),
-                   ("lstm", "lstm_bf16")),
+                  ("K2", ("bilstm_tc_kernel<", "bilstm_bf16_tc_kernel<",
+                          "bilstm_kernel<"), ("lstm", "lstm_bf16")),
                   ("K3/K4", ("topk_kernel<",), ("topk", "topk_fused")),
                   ("K5", ("adpcm_decode_kernel",), ("adpcm",)))
 
@@ -1266,7 +1301,7 @@ def lstm_bwd_case(torch, lstm, g, Tn, B, h, dtype=None):
     W_hh, random non-prefix masks (a quarter of the steps masked), ys from
     K2, random cotangents of ys and of the final state; all float32, or
     all rounded to ``dtype`` with ys from K2's instance of that type.
-    Also used by chinese_asr_tpu_torch/tools/lstm_bwd_ab.py."""
+    Also used by chinese_asr_tpu_torch/tools/lstm_ab.py."""
     dev = g.device
     dt = dtype or torch.float32
 
@@ -1371,9 +1406,10 @@ def _phase_k2_bwd(np, torch, fails, dev, lstm_k):
                        plan=plan)
         del big
     at.clear()
-    print("K2-bwd against another tree on this card (report): python3 "
-          "chinese_asr_tpu_torch/tools/lstm_bwd_ab.py DIR, DIR another "
-          "commit unpacked with git archive", flush=True)
+    print("K2, K2-bf16, K2-bwd and K2-bwd-bf16 against another tree on "
+          "this card (report): python3 chinese_asr_tpu_torch/tools/"
+          "lstm_ab.py DIR, DIR another commit unpacked with git archive",
+          flush=True)
     r32 = rows[32]
     return dict(
         name="K2-bwd BiLSTM backward", route="cuda",
@@ -1392,14 +1428,18 @@ def _phase_k2_bwd(np, torch, fails, dev, lstm_k):
         shape=f"xg, dxg [2 x {T}, 32, {4 * H}], W_hh [2, {H}, {4 * H}]")
 
 
-def _phase_k2_bwd_bf16(np, torch, fails, dev, lstm_k, f32_row, log):
+def _phase_k2_bwd_bf16(np, torch, fails, dev, lstm_k, f32_row, log,
+                       splits):
     """Phase 2f-bf16: K2-bwd-bf16 against its bf16 twin on the card at the
-    flagship encoder layer's shape (xg 2 x [332, 32, 1024], the cluster
-    kernel), at B=128 and at H=16 (the simple kernel), with random
-    non-prefix masks and nonzero final-state cotangents; its plan,
+    flagship encoder layer's shape (xg 2 x [332, 32, 1024]: pass 1's three
+    stages and the cluster kernel of pass 2), at B=128 and at H=16 (the
+    simple kernel), with random non-prefix masks and nonzero final-state
+    cotangents; each stage kernel against its plain stage; its plan,
     registers, time, bound, twin, the f32 K2-bwd of phase 2f and cuDNN's
-    bf16 backward of one bidirectional layer at B=32 and B=128.  Returns
-    the kernel's row of the ``kernels`` line."""
+    bf16 backward of one bidirectional layer at B=32 and B=128, and from
+    ``splits`` (phase 2b-bf16's stamped runs) each stage's time and pass
+    2's phase split beside the parent design's.  Returns the kernel's row
+    of the ``kernels`` line."""
     T, H = 332, 256
     bf = torch.bfloat16
     g = torch.Generator(device=dev).manual_seed(9)
@@ -1428,8 +1468,28 @@ def _phase_k2_bwd_bf16(np, torch, fails, dev, lstm_k, f32_row, log):
                     f"launch, no f32 one; plan {plan}")
         if h == H:
             at[B] = dict(args=args, plan=plan)
+            # each stage kernel against its plain stage on the same
+            # inputs: (a) exact, (c) from the same f32 pre-activations
+            hs = lstm_k.rebuild_hs(args[5], args[6], args[2], args[3])
+            pre = lstm_k.pre_gates(hs, args[4])
+            got_c = lstm_k.activate(*args[:4], pre)
+            ref_c = lstm_k.activate_plain(*args[:4], pre)
+            err_a = float((hs.float() - lstm_k.rebuild_hs_plain(
+                args[5], args[6], args[2], args[3]).float()).abs().max())
+            err_c = rel_err(got_c, ref_c)
+            errs[B, "stages"] = err_c
+            fails.check(err_a == 0.0 and err_c <= TOL_LSTM_BWD_BF16,
+                        f"K2-bwd-bf16 stages at T={T} B={B} H={h}: (a) the "
+                        f"rebuild of hs equals its plain stage ({err_a}); "
+                        f"(c) the activation and c's roll from the same f32 "
+                        f"pre-activations, relative to max(1, |ref|) "
+                        f"{err_c:.3g} <= {TOL_LSTM_BWD_BF16}")
+            del hs, pre, got_c, ref_c
         del got, ref
-    ptx = _k2_ptxas_lines(log, "bilstm_bwd", "nv_bfloat16")
+    ptx = [line for m in ("bilstm_bf16_bwd2", "bilstm_bf16_rebuild",
+                          "bilstm_bf16_activate")
+           for line in _k2_ptxas_lines(log, m)]
+    ptx += _k2_ptxas_lines(log, "bilstm_bwd_kernel", "nv_bfloat16")
     for line in ptx:
         print("  K2-bwd-bf16 ptxas:", line, flush=True)
     rows = {}
@@ -1469,29 +1529,43 @@ def _phase_k2_bwd_bf16(np, torch, fails, dev, lstm_k, f32_row, log):
         plan = run["plan"]
         print(f"K2-bwd-bf16 at xg 2 x [{T}, {B}, {4 * H}] "
               f"({100 * valid / (2 * T * B):.1f}% of steps valid): {ms:.4f} "
-              f"ms ({ms * 1e3 / (2 * T):.2f} us a step of either pass); "
-              f"the f32 K2-bwd of phase 2f {f32_ms:.4f} ms; bound "
+              f"ms; the f32 K2-bwd of phase 2f {f32_ms:.4f} ms; bound "
               f"{bound:.4f} ms ({by}), {100 * bound / ms:.2f}%; twin "
               f"{plain_ms:.1f} ms; cuDNN's bf16 backward of one layer "
-              f"{cudnn_ms:.4f} ms; plan {plan['clusters']} clusters of 8 "
-              f"CTAs, {plan['rows']} rows each, {plan['waves']} wave(s) "
-              f"(the card holds {plan['max_active_clusters']})", flush=True)
+              f"{cudnn_ms:.4f} ms; pass 2's plan {plan['clusters']} "
+              f"clusters of {plan['ctas']} CTAs, {plan['rows']} rows each, "
+              f"{plan['waves']} wave(s) (the card holds "
+              f"{plan['max_active_clusters']})", flush=True)
         rows[B] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
                        f32_ms=f32_ms, cudnn_layer_bwd_ms=cudnn_ms, plan=plan)
+        if B in splits:
+            r = splits[B]
+            rows[B]["stage_ms"] = r.get("bwd_stage_ms")
+            rows[B]["pass2_split_us_a_step"] = r["bwd"]["us_a_step"]
         del big
+    for k, v in SPLIT_BEFORE.items():
+        if k.startswith("K2-bwd-bf16"):
+            print(f"  split before the bf16 redesign (recorded, PERF.md), {k},"
+                  f" us a step: {v}", flush=True)
+    from chinese_asr_tpu_torch.tools.lstm_stamp import lines
+    for B, r in splits.items():
+        for line in lines(r)["bwd"]:
+            print("  split now: " + line.strip(), flush=True)
     at.clear()
     r32 = rows[32]
     return dict(
         name="K2-bwd-bf16 BiLSTM backward (bf16)", route="cuda",
         source="chinese_asr_tpu_torch/csrc/lstm_bwd.cu",
         replaces="chinese_asr_tpu/ops/rnn.py:297",
-        design="K2-bwd's cluster plan in bf16: W_hh as packed bf16 pairs in "
-               "registers, bf16 mma.m16n8k16 with f32 accumulation, f32 "
-               "cell, bf16 carries and scratch",
-        plan=r32["plan"], ptxas=ptx,
+        design="pass 1 as stages: (a) the rebuild of hs, (b) hs @ W_hh as "
+               "one f32 cuBLAS bmm, (c) the activation and c's roll, time-"
+               "parallel; pass 2 a cluster of 8 or 4 CTAs (16 rows), W_hh^T "
+               "as bf16 pairs in registers, bf16 mma.m16n8k16, partials "
+               "reduce-scattered by st.async on mbarriers",
+        plan=r32["plan"], ptxas=ptx, stage_ms=r32.get("stage_ms"),
+        pass2_split_us_a_step=r32.get("pass2_split_us_a_step"),
         max_abs_err=max(raw.values()), rel_err=max(errs.values()),
-        ms=r32["ms"], pass_step_us=r32["ms"] * 1e3 / (2 * T),
-        plain_ms=r32["plain_ms"], bound_ms=r32["bound_ms"],
+        ms=r32["ms"], plain_ms=r32["plain_ms"], bound_ms=r32["bound_ms"],
         bound_by=r32["bound_by"], bound_peak="bf16 989 TFLOP/s",
         library_ms=None, cudnn_layer_bwd_ms=r32["cudnn_layer_bwd_ms"],
         f32_ms=r32["f32_ms"], b128=rows[128],
@@ -2493,6 +2567,7 @@ def main() -> int:
     from chinese_asr_tpu_torch.ops.cuda import logmel as logmel_k
     from chinese_asr_tpu_torch.ops.cuda import lstm as lstm_k
     from chinese_asr_tpu_torch.ops.cuda import topk as topk_k
+    from chinese_asr_tpu_torch.tools import lstm_stamp
     from chinese_asr_tpu_torch.tools.timing import cold_cycle, graph_ms
     from chinese_asr_tpu_torch.utils.device import resolve_device
     from chinese_asr_tpu_torch.vocab import Vocab
@@ -2505,6 +2580,18 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)}", flush=True)
 
     # ---- phase 1: build ----------------------------------------------------
+    # the stamped build of K2-bf16 and K2-bwd-bf16 (their phase split,
+    # phases 2b-bf16 and 2f-bf16) compiles beside the product's
+    stamped = {}
+
+    def build_stamped():
+        try:
+            stamped["lib"] = lstm_stamp.stamped_library()
+        except (RuntimeError, OSError) as e:       # a check of phase 2b-bf16
+            stamped["error"] = str(e)[-2000:]
+
+    stamper = threading.Thread(target=build_stamped)
+    stamper.start()
     t0 = time.time()
     so = build.build()
     print(f"build: {time.time() - t0:.2f} s -> {os.path.relpath(so)}",
@@ -2698,10 +2785,13 @@ def main() -> int:
     fails.check(float(got[0].float()[m_f == 0].abs().max()) == 0.0,
                 "K2-bf16 (cluster kernel) masked steps emit exact zeros")
     plan16 = lstm_k.plan(B2, H, bf)
-    fails.check(plan16["waves"] == 1,
+    rule16 = lstm_k.cluster_shape(B2, H, bf)
+    fails.check(plan16["waves"] == 1
+                and all(plan16[k] == v for k, v in rule16.items()),
                 f"K2-bf16 at B={B2}: one wave ({plan16['clusters']} clusters "
-                f"of 8, {plan16['rows']} rows each; the card holds "
-                f"{plan16['max_active_clusters']})")
+                f"of {plan16['ctas']} CTAs, {plan16['rows']} rows each; the "
+                f"card holds {plan16['max_active_clusters']}), as "
+                f"cluster_shape's rule {rule16}")
     args16_32 = tuple(a[:, :32].contiguous() for a in args16[:4]) + (w_hh,)
     err16_32, _ = err_bf16(args16_32)
     fails.check(err16_32 <= TOL_LSTM_BF16,
@@ -2709,7 +2799,19 @@ def main() -> int:
                 f"{err16_32:.3g} <= {TOL_LSTM_BF16}")
     ms16_32 = _time_ms(torch, lambda: lstm_k.bidir_lstm_time_loop(*args16_32),
                        20)
+    plan16_32 = lstm_k.plan(32, H, bf)
     del args16_32
+    # random non-prefix masks (a quarter of the steps masked, any row)
+    gnp = torch.Generator(device=dev).manual_seed(4)
+    err16_np = {}
+    for B in (32, B2):
+        npargs = lstm_bwd_case(torch, lstm_k, gnp, T2, B, H, bf)[:5]
+        err16_np[B], _ = err_bf16(npargs)
+        fails.check(err16_np[B] <= TOL_LSTM_BF16,
+                    f"K2-bf16 (cluster kernel) T={T2} B={B} H={H}, random "
+                    f"non-prefix masks: max_abs_err {err16_np[B]:.3g} <= "
+                    f"{TOL_LSTM_BF16}")
+        del npargs
     err16_s, _ = err_bf16((xg_f[..., :4 * hs].contiguous(),
                            xg_b[..., :4 * hs].contiguous(), args16[2],
                            args16[3], w_hh[:, :hs, :4 * hs].contiguous()))
@@ -2742,11 +2844,12 @@ def main() -> int:
         name="K2-bf16 BiLSTM time loop (bf16)", route="cuda",
         source="chinese_asr_tpu_torch/csrc/lstm.cu",
         replaces="chinese_asr_tpu/ops/rnn.py:246",
-        max_abs_err=max(err16, err16_32, err16_s),
+        max_abs_err=max(err16, err16_32, err16_s, *err16_np.values()),
         ms=ms16, step_us=ms16 * 1e3 / T2,
         waves=plan16["waves"], clusters=plan16["clusters"],
         max_active_clusters=plan16["max_active_clusters"],
-        rows_per_cluster=plan16["rows"],
+        rows_per_cluster=plan16["rows"], ctas_per_cluster=plan16["ctas"],
+        plan_b32=plan16_32,
         ms_b32=ms16_32, step_us_b32=ms16_32 * 1e3 / T2,
         plain_ms=_time_ms(torch,
                           lambda: lstm_k.bidir_lstm_time_loop_plain(*args16),
@@ -2758,8 +2861,30 @@ def main() -> int:
     print(f"K2-bf16: {ms16:.4f} ms at B={B2} ({ms16_32:.4f} ms at B=32), "
           f"K2 f32 {kernels['lstm']['ms']:.4f} ms; bound {bound16:.4f} ms "
           f"({by16}); cuDNN bf16 layer {cudnn16_ms:.4f} ms; max_abs_err "
-          f"{kernels['lstm_bf16']['max_abs_err']:.3g}", flush=True)
+          f"{kernels['lstm_bf16']['max_abs_err']:.3g}; plan at B={B2}: "
+          f"{plan16['clusters']} clusters of {plan16['ctas']} CTAs, "
+          f"{plan16['rows']} rows each, {plan16['waves']} wave(s); at B=32: "
+          f"{plan16_32['clusters']} clusters of {plan16_32['ctas']} CTAs, "
+          f"{plan16_32['rows']} rows each", flush=True)
     del args16, xg_f, xg_b, w_hh, got
+    # the phase split of a step (the stamped build), before and after
+    stamper.join()
+    fails.check("lib" in stamped,
+                f"the stamped build of K2-bf16 and K2-bwd-bf16 "
+                f"(tools/lstm_stamp.py) {stamped.get('error', '')}")
+    splits = {}
+    if "lib" in stamped:
+        splits = {B: lstm_stamp.split(torch, stamped["lib"], B)
+                  for B in (32, B2)}
+        for k, v in SPLIT_BEFORE.items():
+            if k.startswith("K2-bf16"):
+                print(f"  split before the bf16 redesign (recorded, PERF.md),"
+                      f" {k}, us a step: {v}", flush=True)
+        for B, r in splits.items():
+            for line in lstm_stamp.lines(r)["fwd"]:
+                print("  split now: " + line.strip(), flush=True)
+        kernels["lstm_bf16"]["split_us_a_step"] = {
+            B: r["fwd"]["us_a_step"] for B, r in splits.items()}
     print(f"phase 2b-bf16: {time.time() - t2b:.1f} s", flush=True)
 
     # ---- phase 2f: K2-bwd, the recurrence's backward ------------------------
@@ -2774,7 +2899,7 @@ def main() -> int:
     t2f = time.time()
     kernels["lstm_bwd_bf16"] = _phase_k2_bwd_bf16(np, torch, fails, dev,
                                                   lstm_k, kernels["lstm_bwd"],
-                                                  log)
+                                                  log, splits)
     print(f"phase 2f-bf16: {time.time() - t2f:.1f} s", flush=True)
 
     # ---- phase 2c: K3 top-k -------------------------------------------------

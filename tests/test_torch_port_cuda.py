@@ -104,8 +104,8 @@ def test_lstm_kernel_any_hidden_size(dev, H, dtype):
         assert a.dtype == dtype
         assert float((a.float() - b.float()).abs().max()) <= tol
     assert tlstm.plan(B, H, dtype) == dict(
-        rows=8 if H <= 512 else 2, clusters=0, max_active_clusters=0,
-        waves=0)
+        rows=8 if H <= 512 else 2, ctas=0, clusters=0,
+        max_active_clusters=0, waves=0)
 
 
 @pytest.mark.parametrize("cfg", [tcfg.AudioConfig(),
@@ -621,7 +621,9 @@ def test_lstm_bf16_kernel_matches_twin(dev, B, H):
     assert float(got[2][:, 0].float().abs().max()) == 0.0
     if H == 256:
         plan = tlstm.plan(B, H, bf)
-        assert plan["rows"] == (16 if B <= 112 else 32)
+        shape = tlstm.cluster_shape(B, H, bf)
+        assert {k: plan[k] for k in shape} == shape
+        assert plan["rows"] == 16
         assert plan["waves"] == 1 or B > 224
 
 
@@ -764,7 +766,7 @@ def test_lstm_bwd_cluster_plan_and_past_one_wave(dev, H):
     plan = tlstm.bwd_plan(225, H)
     assert plan["rows"] == 32 and plan["clusters"] == 16
     assert plan["waves"] == -(-16 // plan["max_active_clusters"])
-    assert tlstm.bwd_plan(32, 16) == dict(rows=2, clusters=0,
+    assert tlstm.bwd_plan(32, 16) == dict(rows=2, ctas=0, clusters=0,
                                           max_active_clusters=0, waves=0)
     args = _lstm_bwd_case(dev, 5, 225, H, seed=H)
     got = tlstm.bidir_lstm_time_loop_bwd(*args)
@@ -896,21 +898,88 @@ def test_lstm_bwd_bf16_kernel_matches_twin(dev, B, H):
     # the row never stepped has no gate cotangent
     assert float(got[0][:, 1].float().abs().max()) == 0.0
     if H == 256:
-        assert tlstm.bwd_plan(B, H, torch.bfloat16)["rows"] == \
-            (16 if B <= 112 else 32)
+        plan = tlstm.bwd_plan(B, H, torch.bfloat16)
+        shape = tlstm.cluster_shape(B, H, torch.bfloat16)
+        assert {k: plan[k] for k in shape} == shape and plan["rows"] == 16
 
 
 @pytest.mark.parametrize("T", [1, 33])
 @pytest.mark.parametrize("B", [1, 17, 113])
 @pytest.mark.parametrize("H", [64, 128, 192, 256])
 def test_lstm_bwd_bf16_cluster_kernel_matches_twin(dev, H, B, T):
-    """The bf16 cluster kernel at every H it takes: one and two row tiles,
-    a ragged tile, 32 rows a cluster from B = 113; random non-prefix
-    masks."""
+    """The bf16 stages and pass 2's cluster kernel at every H it takes:
+    one and two row tiles, a ragged tile, clusters of 4 from B = 113;
+    random non-prefix masks."""
     args = _bf16_case(_lstm_bwd_case(dev, T, B, H, seed=5 * T + B + H))
     got = tlstm.bidir_lstm_time_loop_bwd(*args)
     ref = tlstm.bidir_lstm_time_loop_bwd_plain(*args)
     assert _rel_err16(got, ref) <= TOL_LSTM_BWD_BF16
+
+
+@pytest.mark.parametrize("H", [64, 192, 256])
+@pytest.mark.parametrize("T,B", [(1, 1), (29, 17), (40, 128)])
+def test_lstm_bwd_bf16_stage_kernels_match_plain_stages(dev, T, B, H):
+    """K2-bwd-bf16's pass-1 stage kernels against their plain stages on
+    the same inputs: (a) the rebuild of hs exactly; (c) the activation and
+    c's roll from the same f32 pre-activations of (b), within the bf16
+    bound (a sum within an f32 rounding of a bf16 boundary rounds one ulp
+    apart and c carries it on).  No stage counts a launch."""
+    args = _bf16_case(_lstm_bwd_case(dev, T, B, H, seed=T * B + H))
+    counts = (tlstm.bwd_launches, tlstm.bwd_bf16_launches)
+    hs = tlstm.rebuild_hs(args[5], args[6], args[2], args[3])
+    assert torch.equal(hs, tlstm.rebuild_hs_plain(args[5], args[6], args[2],
+                                                  args[3]))
+    pre = tlstm.pre_gates(hs, args[4])
+    assert pre.dtype == torch.float32
+    ref_pre = tlstm.pre_gates(hs.cpu(), args[4].cpu())
+    assert float((pre.cpu() - ref_pre).abs().max()) <= 1e-4 * max(
+        1.0, float(ref_pre.abs().max()))
+    got = tlstm.activate(*args[:4], pre)
+    ref = tlstm.activate_plain(*args[:4], pre)
+    assert all(a.dtype == torch.bfloat16 for a in got)
+    assert _rel_err16(got, ref) <= TOL_LSTM_BWD_BF16
+    assert (tlstm.bwd_launches, tlstm.bwd_bf16_launches) == counts
+
+
+@pytest.mark.parametrize("B", [32, 128, 200])
+def test_lstm_bf16_kernels_at_flagship_width(dev, B):
+    """K2-bf16 and K2-bwd-bf16 against their twins at H = 256 (the
+    flagship layer) with random non-prefix masks, on the bf16 plan: 16
+    rows a cluster at every B, 8 CTAs at B = 32, 4 at B = 128 and 200;
+    one bf16 count a call and no f32 count, forward and backward."""
+    H, T, bf = 256, 48, torch.bfloat16
+    args = _bf16_case(_lstm_bwd_case(dev, T, B, H, seed=B))
+    counts = lambda: (tlstm.launches, tlstm.bf16_launches,   # noqa: E731
+                      tlstm.bwd_launches, tlstm.bwd_bf16_launches)
+    before = counts()
+    got = tlstm.bidir_lstm_time_loop(*args[:5])
+    assert counts() == (before[0], before[1] + 1, before[2], before[3])
+    ref = tlstm.bidir_lstm_time_loop_plain(*args[:5])
+    for a, b in zip(got, ref):
+        assert a.dtype == bf
+        assert float((a.float() - b.float()).abs().max()) <= TOL_LSTM_BF16
+    before = counts()
+    got = tlstm.bidir_lstm_time_loop_bwd(*args)
+    assert counts() == (before[0], before[1], before[2], before[3] + 1)
+    assert _rel_err16(got, tlstm.bidir_lstm_time_loop_bwd_plain(*args)) \
+        <= TOL_LSTM_BWD_BF16
+    for plan in (tlstm.plan(B, H, bf), tlstm.bwd_plan(B, H, bf)):
+        assert plan["rows"] == 16 and plan["ctas"] == (8 if B <= 112 else 4)
+        assert plan["waves"] == 1
+
+
+def test_lstm_bf16_plan_is_one_wave_at_b128(dev):
+    """The bf16 plan at the main path's B = 128: 16 clusters of 4 CTAs, 16
+    rows each, in one wave, for K2-bf16 and K2-bwd-bf16's pass 2 alike;
+    the f32 kernels keep 8 clusters of 8 at 32 rows."""
+    bf = torch.bfloat16
+    for plan in (tlstm.plan(128, 256, bf), tlstm.bwd_plan(128, 256, bf)):
+        assert {k: plan[k] for k in ("rows", "ctas", "clusters")} == dict(
+            rows=16, ctas=4, clusters=16)
+        assert plan["max_active_clusters"] >= 16 and plan["waves"] == 1
+    for plan in (tlstm.plan(128, 256), tlstm.bwd_plan(128, 256)):
+        assert {k: plan[k] for k in ("rows", "ctas", "clusters")} == dict(
+            rows=32, ctas=8, clusters=8)
 
 
 def test_lstm_bwd_bf16_rejects_bad_operands(dev):
