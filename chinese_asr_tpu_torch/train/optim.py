@@ -18,8 +18,8 @@ attention get a zero update and keep no state; the clip's global norm is
 taken over the parameters that train, as optax's masks give it.
 
 The state is a flat dict of tensors: ``learning_rate`` (the injected
-hyperparameter that ``set_lr`` moves), ``count`` (the update count of Adam
-and AdaBound) and one moment per trainable parameter, keyed
+hyperparameter that ``set_lr`` moves in place), ``count`` (the update
+count of Adam and AdaBound) and one moment per trainable parameter, keyed
 ``mu/<name>``, ``nu/<name>`` or ``trace/<name>`` with ``name`` the
 parameter's path (``decoder/cells/0/w_ih``).
 """
@@ -171,8 +171,10 @@ def make_optimizer(tcfg: TrainConfig) -> Optimizer:
 
 
 def set_lr(opt_state: Flat, lr: float) -> Flat:
-    opt_state["learning_rate"] = torch.tensor(
-        lr, dtype=torch.float32, device=opt_state["learning_rate"].device)
+    """Writes ``lr`` into the state's ``learning_rate`` tensor, in place
+    (a compiled step reads that tensor: ``train/step.py``
+    ``CompiledStep``), and returns the state."""
+    opt_state["learning_rate"].fill_(lr)
     return opt_state
 
 

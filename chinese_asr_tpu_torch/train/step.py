@@ -6,10 +6,14 @@ The reference trains by looping over ``PackedSequence`` steps with a
 shrinking batch (reference model.py:414-453) and one CE over all steps
 (model.py:456-469).  Here, as in JAX, fixed [B, S] token matrices and
 masks replace the packed batch, and scheduled sampling (model.py:434-443)
-is a per-step Bernoulli draw.  JAX compiles the step into one program;
-the port runs it eagerly: the encoder's recurrences through K2 forward and
-K2-bwd backward (``ops/cuda/lstm.py`` ``bidir_lstm``), the decoder as a
-Python loop of S steps under autograd.
+is a per-step Bernoulli draw.  The step's code is eager: the encoder's
+recurrences through K2 forward and K2-bwd backward (``ops/cuda/lstm.py``
+``bidir_lstm``), the decoder as a Python loop of S steps under autograd.
+``train_step`` runs it so (the mesh's step, and the oracle);
+``CompiledStep`` is JAX's jitted step with params and optimizer state
+donated: on the card one CUDA graph a (T, S) bucket that writes the new
+state into the trainer's own tensors (``utils/graphs.py``
+``StepGraphs``), on the CPU the same code eagerly.
 
 Mixed precision (``train.compute_dtype="bfloat16"``), as in JAX: the
 forward and backward run in bf16 (K2-bf16 and K2-bwd-bf16 on the card),
@@ -38,6 +42,7 @@ from ..models import decoder as dec_ops
 from ..models import las
 from ..ops import conv as conv_ops
 from ..parallel import sharding
+from ..utils import graphs
 from . import optim
 from .loss import label_smoothed_ce
 
@@ -51,18 +56,32 @@ def _step(body, remat: bool, *args):
     return body(*args)
 
 
+def draw_coins(gen: torch.Generator, S: int, B: int, ss: float,
+               mesh=None) -> torch.Tensor:
+    """Scheduled sampling's coins [S, B], bool on ``gen``'s device (True:
+    step t feeds the model's own token): drawn from ``gen`` for the global
+    batch ([S, B * data ranks] at once, so every rank consumes ``gen``
+    alike), this rank's columns kept."""
+    Bg = B * sharding.data_size(mesh)
+    coins = torch.rand((S, Bg), generator=gen, device=gen.device)
+    return coins[:, sharding.row_slice(Bg, mesh)] < ss
+
+
 def forward_logits(params, cfg: Config, batch: Batch,
                    gen: Optional[torch.Generator] = None, ss: float = 0.0,
                    bn_updates=None,
                    gate_hoist: Optional[bool] = None,
-                   mesh=None) -> torch.Tensor:
+                   mesh=None, coins: Optional[torch.Tensor] = None
+                   ) -> torch.Tensor:
     """Teacher-forced logits [B, S, V] for the whole target matrix.
 
     ``ss`` > 0 with a generator ``gen`` turns on scheduled sampling: with
     probability ss the input token at step t > 0 is the model's own argmax
     from step t-1 instead of gold (reference model.py:434-443).  The coins
-    are drawn from ``gen`` on its own device ([S, B] at once), so a seed
-    gives the same draws on the CPU and the card.
+    are drawn from ``gen`` on its own device ([S, B] at once,
+    ``draw_coins``), so a seed gives the same draws on the CPU and the
+    card; or they are given, drawn before the step (``coins``, [S, B] bool
+    on the batch's device; ``CompiledStep``).
 
     Without it (the flagship regime) the inputs are known up front, so the
     embedding and the logit products leave the step loop: one [B*S, .]
@@ -71,9 +90,8 @@ def forward_logits(params, cfg: Config, batch: Batch,
     with both biases (JAX: on by default from B >= 64; LSTM decoder with
     input feeding only).  The encoder runs in train mode: its BatchNorms
     normalize with batch statistics and record them into ``bn_updates``.
-    On a mesh, ``batch`` is this data rank's rows, the coins are drawn for
-    the global batch (so every rank consumes ``gen`` alike) and this rank
-    keeps its columns, and the logits are full [B, S, V] rows.
+    On a mesh, ``batch`` is this data rank's rows, the coins this rank's
+    columns of the global batch's, and the logits are full [B, S, V] rows.
     """
     B, S = batch.tokens_in.shape
     dcfg, acfg = cfg.decoder, cfg.attention
@@ -87,13 +105,12 @@ def forward_logits(params, cfg: Config, batch: Batch,
     attn0 = batch.feats.new_zeros((B, ctx))
     dp, ap = params["decoder"], params["attention"]
 
-    if ss > 0.0 and gen is not None:
+    if ss > 0.0 and (coins is not None or gen is not None):
         # each step's logits are needed inside the loop (the argmax feeds
         # step t+1), so nothing hoists
-        Bg = B * sharding.data_size(mesh)
-        coins = torch.rand((S, Bg), generator=gen, device=gen.device)
-        coins = (coins[:, sharding.row_slice(Bg, mesh)] < ss
-                 ).to(batch.tokens_in.device)
+        if coins is None:
+            coins = draw_coins(gen, S, B, ss, mesh).to(
+                batch.tokens_in.device)
 
         def body(cell, attn, tok):
             out = dec_ops.decoder_step(dp, ap, dcfg, acfg, eb.mask, eb.keys,
@@ -147,7 +164,8 @@ def forward_logits(params, cfg: Config, batch: Batch,
 
 
 def loss_fn(params, cfg: Config, batch: Batch,
-            gen: Optional[torch.Generator] = None, mesh=None
+            gen: Optional[torch.Generator] = None, mesh=None,
+            coins: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, Dict]:
     """(label-smoothed CE over the valid tokens, {"accuracy",
     "num_tokens", "bn_stats"}); the CE is taken from float32 logits.
@@ -172,7 +190,7 @@ def loss_fn(params, cfg: Config, batch: Batch,
         conv_ops.ShardStats(lambda t: sharding.sum_shares_over_data(t, mesh),
                             sharding.data_size(mesh))
     logits = forward_logits(params, cfg, batch, gen, cfg.train.ss,
-                            bn_updates, mesh=mesh).float()
+                            bn_updates, mesh=mesh, coins=coins).float()
     S = batch.tokens_out.shape[1]
     mask = (torch.arange(S, device=logits.device)[None, :]
             < batch.text_lens[:, None])
@@ -192,12 +210,14 @@ def loss_fn(params, cfg: Config, batch: Batch,
 
 def train_step(params, opt_state, cfg: Config, tx: optim.Optimizer,
                batch: Batch, gen: Optional[torch.Generator] = None,
-               mesh=None):
+               mesh=None, coins: Optional[torch.Tensor] = None):
     """One update.  Returns (params, opt_state, metrics); the metrics are
-    tensors on the device (no host sync here).  On a mesh, ``params`` and
+    tensors on the device (no host sync here), and ``params`` and
+    ``opt_state`` are left as they were.  On a mesh, ``params`` and
     ``opt_state`` are this rank's shards (``sharding.shard_params``),
     ``batch`` its rows (``sharding.shard_batch``), and the metrics the
-    global batch's.
+    global batch's.  ``coins``: scheduled sampling's draws, made before
+    the step (``forward_logits``).
 
     A non-finite loss skips the update: params and optimizer state come
     back unchanged, the reference's NaN/Inf guard (model.py:473-475).
@@ -208,7 +228,7 @@ def train_step(params, opt_state, cfg: Config, tx: optim.Optimizer,
     flat = optim.flatten(params)
     leaves = {n: t.detach().requires_grad_(True) for n, t in flat.items()}
     loss, aux = loss_fn(optim.unflatten(params, leaves), cfg, batch, gen,
-                        mesh)
+                        mesh, coins)
     grads = torch.autograd.grad(loss, list(leaves.values()),
                                 allow_unused=True)
     with torch.no_grad():
@@ -232,3 +252,48 @@ def train_step(params, opt_state, cfg: Config, tx: optim.Optimizer,
                      for k, v in new_state.items()}
     metrics = {"loss": loss, "grad_norm": gnorm, "skipped": ~finite, **aux}
     return optim.unflatten(params, new_flat), new_state, metrics
+
+
+class CompiledStep:
+    """``train_step`` compiled, as JAX's trainer jits it with params and
+    optimizer state donated (JAX ``train/trainer.py:45-52``):
+    ``step(params, opt_state, batch, gen)`` writes the new params and
+    optimizer state into the tensors of ``params`` and ``opt_state`` and
+    returns them with the metrics (a copy, the caller's).  On the card it
+    replays one CUDA graph a key (the batch's shapes, so a (T, S) bucket
+    and the batch size; the config, whose ``compute_dtype`` it holds; the
+    math switches; the state tensors' addresses), all of one step in one
+    shared pool (``utils/graphs.py`` ``StepGraphs``): the encoder (K2 or
+    K2-bf16), the S decoder steps, the CE, the backward (K2-bwd or
+    K2-bwd-bf16 and autograd's kernels), the gradient norm, the optimizer
+    update, the BatchNorm fold and the non-finite skip.  On the CPU the
+    same code runs eagerly.
+
+    Scheduled sampling's coins are drawn on the host before the replay,
+    from ``gen`` in ``train_step``'s order (``draw_coins``), and copied
+    into the graph's input: the same numbers as the eager step's.  One
+    device only: a mesh steps with ``train_step``."""
+
+    def __init__(self, cfg: Config, tx: optim.Optimizer):
+        self.cfg, self.tx = cfg, tx
+        self.graphs = graphs.StepGraphs()
+
+    def __call__(self, params, opt_state, batch: Batch,
+                 gen: Optional[torch.Generator] = None):
+        cfg, tx = self.cfg, self.tx
+        inputs = tuple(batch)
+        if cfg.train.ss > 0.0 and gen is not None:
+            B, S = batch.tokens_in.shape
+            inputs += (draw_coins(gen, S, B, cfg.train.ss).to(
+                batch.tokens_in.device),)
+
+        def step(*ins):
+            new_params, new_state, metrics = train_step(
+                params, opt_state, cfg, tx, Batch(*ins[:5]),
+                coins=ins[5] if len(ins) > 5 else None)
+            return ((params, new_params), (opt_state, new_state)), metrics
+
+        metrics = self.graphs(
+            ("train_step", cfg, graphs.tensor_ids(params, opt_state)), step,
+            inputs)
+        return params, opt_state, metrics

@@ -3,11 +3,22 @@ Model.train, model.py:84-345): epoch loop, LR ramp-up, EMA-smoothed
 console line, periodic greedy eval with CER, reduce-on-plateau LR, a
 checkpoint per eval named ``step-X_wer-Y.ckpt``.
 
+On one device the step is ``train/step.py`` ``CompiledStep``, JAX's
+jitted step with params and optimizer state donated: on the card one
+CUDA graph a (T, S) bucket, replayed, that writes the new params and
+optimizer state into the trainer's own tensors; on the CPU the same code
+eagerly.  So ``params`` and ``opt_state`` keep their tensors for the
+trainer's life: the LR moves (``optim.set_lr``) and ``resume`` write into
+them, and ``evaluate`` decodes through ``greedy_decode_jit``, whose graph,
+keyed on the params' addresses, is captured once and sees every step's
+values.  ``fit`` reads the loss (and the grad norm with it) once a step.
+
 Over a (data x model) mesh (``mesh=``, ``parallel/sharding.py``) every
 rank runs this loop on the same global batches: it keeps its shard of the
 params (and of their optimizer state) and its rows of each batch, and the
-step equals the single device's (``train/step.py``).  Evaluation decodes on
-the mesh; its CER is the global batch's.  Rank 0 writes the checkpoints
+step equals the single device's (``train/step.py`` ``train_step``, eager:
+it returns new tensors).  Evaluation decodes on the mesh, eagerly; its CER
+is the global batch's.  Rank 0 writes the checkpoints
 from the gathered params, in the single-device format, and the other ranks
 log under ``save_dir/rank<r>``.
 
@@ -26,11 +37,13 @@ import numpy as np
 import torch
 
 from ..config import Config
-from ..decode.greedy import finalize_greedy, greedy_decode
+from ..decode.greedy import (finalize_greedy, greedy_decode,
+                             greedy_decode_jit)
 from ..models import las
 from ..parallel import sharding
 from ..utils.checkpoint import CheckpointManager, TrainVar, load_checkpoint
 from ..utils.device import resolve_device
+from ..utils.graphs import copy_tree
 from ..utils.observe import (EMA, Duration, MetricsLogger,
                              batch_alignment_images, rand_disp_list)
 from . import optim, step as step_mod
@@ -45,7 +58,9 @@ class Trainer:
         ``device`` in float32, the master copy whatever
         ``train.compute_dtype`` (the optimizer state and the checkpoints
         stay float32 too, and ``evaluate`` decodes in float32, as in JAX);
-        ``device`` defaults to ``cuda`` and raises without a GPU.
+        ``device`` defaults to ``cuda`` and raises without a GPU.  The
+        trainer keeps copies: its steps write into them, not into
+        ``params``.
         ``mesh``: a ``DeviceMesh`` from ``sharding.make_mesh``, or "auto";
         ``params`` is the whole tree, the same on every rank."""
         self.mesh = mesh = sharding.resolve_mesh(mesh, cfg, device)
@@ -54,13 +69,17 @@ class Trainer:
         self.cfg = cfg
         self.vocab = vocab
         self.params = las.tree_map(
-            lambda t: t.detach().to(self.device, torch.float32), params)
+            lambda t: t.detach().to(self.device, torch.float32, copy=True),
+            params)
         if mesh is not None:
             self.params = sharding.shard_params(self.params, cfg, mesh)
         self.tx = optim.make_optimizer(cfg.train)
         self.opt_state = self.tx.init(self.params)
-        self._step_fn = lambda p, o, batch, gen: step_mod.train_step(
-            p, o, cfg, self.tx, batch, gen, mesh)
+        if mesh is None:        # JAX: jit, params and opt_state donated
+            self._step_fn = step_mod.CompiledStep(cfg, self.tx)
+        else:
+            self._step_fn = lambda p, o, batch, gen: step_mod.train_step(
+                p, o, cfg, self.tx, batch, gen, mesh)
         self.tv = TrainVar(lr=cfg.train.base_lr)
         self.plateau = optim.PlateauLR(cfg.train)
         self.ckpt = CheckpointManager(cfg.train.save_dir)
@@ -78,25 +97,26 @@ class Trainer:
         ``continue_train_ckpt_path`` or the newest checkpoint in the save
         dir).  A checkpoint of this port resumes in full; one of the JAX
         trainer (optax state) or of another optimizer gives params and
-        train state, and the optimizer state starts fresh."""
+        train state, and the optimizer state starts fresh.  Everything is
+        written into the trainer's tensors."""
         path = path or self.cfg.train.continue_train_ckpt_path \
             or self.ckpt.latest_checkpoint()
         if not path:
             return False
         payload = load_checkpoint(path)
-        self.params = las.params_from_numpy(payload["params"], self.device)
+        params = las.params_from_numpy(payload["params"], self.device)
         if self.mesh is not None:       # a checkpoint holds the whole model
-            self.params = sharding.shard_params(self.params, self.cfg,
-                                                self.mesh)
-        self.opt_state = self.tx.init(self.params)
+            params = sharding.shard_params(params, self.cfg, self.mesh)
+        _assign(self.params, params, path)
+        _assign(self.opt_state, self.tx.init(self.params), path)
         saved = payload.get("opt_state")
         if (payload.get("extra", {}).get("optimizer") == self.tx.kind
                 and isinstance(saved, dict)
                 and set(saved) == set(self.opt_state)):
-            self.opt_state = sharding.shard_flat(
+            _assign(self.opt_state, sharding.shard_flat(
                 {k: torch.as_tensor(np.asarray(v)).to(
                     self.device, self.opt_state[k].dtype)
-                 for k, v in saved.items()}, self.mesh)
+                 for k, v in saved.items()}, self.mesh), path)
         elif saved is not None:
             print(f"resume: {path} holds no {self.tx.kind} state of this "
                   f"port (a JAX trainer's optax state, or another "
@@ -142,9 +162,13 @@ class Trainer:
         return float(np.average(cers, weights=weights))
 
     def _greedy(self, feats, feat_lens):
-        """Greedy decode of an eval batch; on a mesh, the whole batch's
-        result from this rank's rows (``sharding.pad_shard_rows``)."""
+        """Greedy decode of an eval batch: on one device
+        ``greedy_decode_jit``, as JAX's trainer decodes; on a mesh the
+        eager loop, the whole batch's result from this rank's rows
+        (``sharding.pad_shard_rows``)."""
         mesh = self.mesh
+        if mesh is None:
+            return greedy_decode_jit(self.params, self.cfg, feats, feat_lens)
         res = greedy_decode(self.params, self.cfg,
                             *sharding.pad_shard_rows(mesh, feats, feat_lens),
                             mesh)
@@ -170,7 +194,9 @@ class Trainer:
                     batch = sharding.shard_batch(batch, self.cfg, self.mesh)
                 self.params, self.opt_state, metrics = self._step_fn(
                     self.params, self.opt_state, batch, self._gen)
-                loss = float(metrics["loss"])
+                # the step's one host read
+                loss, gnorm = torch.stack(
+                    (metrics["loss"], metrics["grad_norm"])).tolist()
                 self.tv.step += 1
                 self.tv.loss = loss
                 dt = self.duration.toc()
@@ -184,8 +210,7 @@ class Trainer:
                           f"no_imprv {self.plateau.num_no_imprv}",
                           file=sys.stderr)
                 self.logger.scalar("train/loss", loss, self.tv.step)
-                self.logger.scalar("train/grad_norm",
-                                   float(metrics["grad_norm"]), self.tv.step)
+                self.logger.scalar("train/grad_norm", gnorm, self.tv.step)
                 if steps_per_eval > 0 and self.tv.step % steps_per_eval == 0:
                     self._eval_and_checkpoint(eval_loader_fn)
                 if max_steps is not None and self.tv.step >= max_steps:
@@ -223,3 +248,16 @@ class Trainer:
         if self.mesh is not None:
             torch.distributed.barrier()     # the file exists for every rank
         return path
+
+
+def _assign(dst, src, path: str) -> None:
+    """Copy the tree ``src`` into the tensors of ``dst`` (the trainer's
+    params or optimizer state, which a compiled step reads in place);
+    the two must match leaf for leaf in name and shape."""
+    d, s = optim.flatten(dst), optim.flatten(src)
+    wrong = sorted(n for n in d.keys() | s.keys()
+                   if n not in d or n not in s or d[n].shape != s[n].shape)
+    if wrong:
+        raise ValueError(f"resume: {path} does not match the trainer's "
+                         f"tree at {wrong[:5]}")
+    copy_tree(dst, src)

@@ -23,9 +23,10 @@ tensor a cached ``Graphed`` program.
 the kernels and initialises cuBLAS), one graph for the encode and the
 loop's initial state, one graph per chunk of ``unroll`` steps with ``l``
 fixed, and one for the result, all in one private memory pool.  Each
-chunk copies its new state into the state tensors the first graph made,
-so every chunk reads and writes the same tensors and a chunk that is not
-replayed leaves them as the identity steps would.  A call copies the
+chunk copies its new state into the state tensors the first graph made
+(each tensor a step replaces is a copy of its own, ``own_tree``), so
+every chunk reads and writes the same tensors and a chunk that is not replayed
+leaves them as the identity steps would.  A call copies the
 inputs into the graph's own, replays the encode, then the chunks, reading
 ``done`` between two chunks so that an early stop skips the rest, then
 the result, and returns a copy of the result made before any other call
@@ -51,6 +52,11 @@ The kernel wrappers count a launch when they are called, which under
 capture is not a launch.  ``Graphed`` takes each counter's change during
 a capture back out, and adds it again at every replay of that graph, so
 the counters keep meaning launches on the card.
+
+``StepGraphs`` compiles a step that writes new state into the caller's
+tensors (the train step, JAX's jitted step with params and optimizer
+state donated): one graph a key, warmed up and captured as above, all of
+one ``StepGraphs`` in one shared pool, bounded by bytes (its docstring).
 """
 
 from __future__ import annotations
@@ -75,6 +81,9 @@ from ..ops.cuda import topk as topk_k
 BUDGET_FRACTION = 0.25
 # and the most programs cached: each holds its parameters by reference
 MAX_PROGRAMS = 256
+# the share of the card's memory that one ``StepGraphs``'s pool and static
+# inputs may hold before its next new key drops them (its docstring)
+STEP_BUDGET_FRACTION = 0.5
 # the ``*_jit`` forms' steps between two host reads of ``done``: at most
 # max_len / UNROLL syncs a batch, at most UNROLL - 1 identity steps after
 # an early stop
@@ -125,6 +134,77 @@ def copy_tree(dst, src) -> None:
             copy_tree(d, s)
 
 
+def _extent(t: torch.Tensor) -> tuple:
+    """The byte range [start, end) a tensor's elements span."""
+    n = 1 + sum((k - 1) * st for k, st in zip(t.shape, t.stride())) \
+        if t.numel() else 0
+    return t.data_ptr(), t.data_ptr() + n * t.element_size()
+
+
+def written_paths(old, new, path: tuple = ()) -> list:
+    """The places (tuples of keys and indices) of the tensors of ``old``
+    that ``copy_tree(old, new)`` writes: those ``new`` replaces."""
+    if isinstance(new, torch.Tensor):
+        return [] if new is old else [path]
+    if isinstance(new, dict):
+        return [p for k, v in new.items()
+                for p in written_paths(old[k], v, path + (k,))]
+    if isinstance(new, (list, tuple)):
+        return [p for i, (o, v) in enumerate(zip(old, new))
+                for p in written_paths(o, v, path + (i,))]
+    return []
+
+
+def own_tree(tree, paths, path: tuple = ()):
+    """``tree`` with a copy of its own of each tensor at ``paths``
+    (``written_paths``): a graph copies each step's new state into those
+    tensors, which must be neither another state tensor (the decoders'
+    zero state holds one tensor in every slot) nor a caller's (a learned
+    init state is a view of its parameter)."""
+    if isinstance(tree, torch.Tensor):
+        return tree.clone() if path in paths else tree
+    if isinstance(tree, dict):
+        return {k: own_tree(v, paths, path + (k,)) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(own_tree(v, paths, path + (i,))
+                            for i, v in enumerate(tree)))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(own_tree(v, paths, path + (i,))
+                          for i, v in enumerate(tree))
+    return tree
+
+
+def check_writes(dst, src) -> None:
+    """Raise unless the tensors of ``dst`` that ``copy_tree(dst, src)``
+    writes share no memory with each other nor with any other tensor of
+    ``dst``: a graph that copies its new state into its state tensors would
+    otherwise write one buffer twice, or overwrite a tensor it reads."""
+    written, leaves = [], {}
+
+    def walk(d, s):
+        if isinstance(d, torch.Tensor):
+            leaves.setdefault(id(d), d)
+            if s is not d:
+                written.append(d)
+        elif isinstance(d, dict):
+            for k, v in d.items():
+                walk(v, s.get(k, v))
+        elif isinstance(d, (list, tuple)):
+            for v, w in zip(d, s):
+                walk(v, w)
+
+    walk(dst, src)
+    spans = [(t, _extent(t)) for t in leaves.values()]
+    ids = [id(w) for w in written]
+    for w in written:
+        a0, a1 = _extent(w)
+        if ids.count(id(w)) > 1 or any(t is not w and a0 < b1 and b0 < a1
+                                       for t, (b0, b1) in spans):
+            raise ValueError(
+                f"a state tensor {tuple(w.shape)} {w.dtype} that each step "
+                f"writes shares memory with another tensor of the state")
+
+
 def clone_tree(t):
     """A copy of every tensor of ``t`` (dicts, lists, tuples, named
     tuples; anything else as it is)."""
@@ -168,16 +248,21 @@ def lm_key(dlm) -> tuple:
 # --------------------------------------------------------------------------
 # the loop, eager
 # --------------------------------------------------------------------------
-def run_loop(loop, inputs: Sequence[torch.Tensor], unroll: int):
+def run_loop(loop, inputs: Sequence[torch.Tensor], unroll: int,
+             on_step: Optional[Callable] = None):
     """The decode eagerly: ``init``, then chunks of ``unroll`` guarded
     steps with one host read of ``done`` after each chunk but the last,
-    then ``result``; a chunk's first step unguarded (module docstring)."""
+    then ``result``; a chunk's first step unguarded (module docstring).
+    ``on_step(old, new)`` sees each step's state before and after."""
     if unroll < 1:
         raise ValueError(f"unroll={unroll}: need at least 1")
     s = loop.init(*inputs)
     for start in range(0, loop.max_len, unroll):
         for l in range(start, min(start + unroll, loop.max_len)):
-            s = loop.step(s, l, l > start)
+            new = loop.step(s, l, l > start)
+            if on_step is not None:
+                on_step(s, new)
+            s = new
         if start + unroll < loop.max_len and bool(s["done"]):
             break
     return loop.result(s)
@@ -196,6 +281,57 @@ def _add_counts(delta) -> None:
             setattr(mod, attr, getattr(mod, attr) + d)
 
 
+def _warm_up(dev, fn) -> torch.cuda.Stream:
+    """Run ``fn`` eagerly on the side stream of ``dev`` (every warm-up and
+    capture takes it: one cuBLAS workspace, not one a program) and wait
+    for it; returns the stream."""
+    side = _streams.get(dev) or _streams.setdefault(
+        dev, torch.cuda.Stream(dev))
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    torch.cuda.synchronize(dev)
+    return side
+
+
+def _capture(fn, pool, stream, may_be_empty: bool = False):
+    """(graph and its counter changes, what ``fn`` returned), ``fn``
+    captured on ``stream`` into the memory pool ``pool``; with
+    ``may_be_empty`` the graph is None when ``fn`` issued no work.  A
+    failed capture raises."""
+    graph = torch.cuda.CUDAGraph()
+    before = _counts()
+    with torch.cuda.stream(stream):
+        graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+        try:
+            out = fn()
+        except BaseException:
+            try:
+                graph.capture_end()
+            except RuntimeError:
+                pass            # the first error is the one to report
+            raise
+        with warnings.catch_warnings(record=True) as said:
+            warnings.simplefilter("always")
+            graph.capture_end()
+    for w in said:
+        if may_be_empty and "Graph is empty" in str(w.message):
+            graph = None
+        else:
+            warnings.warn_explicit(w.message, w.category, w.filename,
+                                   w.lineno)
+    delta = [a - b for a, b in zip(_counts(), before)]
+    _add_counts([-d for d in delta])    # a capture launches nothing
+    return (graph, delta), out
+
+
+def _replay(graph_delta) -> None:
+    graph, delta = graph_delta
+    graph.replay()
+    _add_counts(delta)
+
+
 class Graphed:
     """One decode program captured as CUDA graphs (module docstring).
     ``capture_ms`` and ``reserved_bytes`` are the capture's cost (its
@@ -211,14 +347,12 @@ class Graphed:
         self.shapes = [tuple(t.shape) for t in inputs]
         self.inputs = [t.clone() for t in inputs]
         # warm-up: builds the kernels, initialises cuBLAS and every lazy
-        # cache a capture must find ready
-        side = _streams.get(dev) or _streams.setdefault(
-            dev, torch.cuda.Stream(dev))
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            finish(run_loop(loop, self.inputs, unroll))
-        torch.cuda.current_stream(dev).wait_stream(side)
-        torch.cuda.synchronize(dev)
+        # cache a capture must find ready, and finds the state tensors a
+        # step replaces (its first chunk runs both kinds of step)
+        written = set()
+        side = _warm_up(dev, lambda: finish(run_loop(
+            loop, self.inputs, unroll,
+            lambda old, new: written.update(written_paths(old, new)))))
         t0 = time.perf_counter()
         reserved0 = torch.cuda.memory_reserved(dev)
         self._pool = torch.cuda.graph_pool_handle()
@@ -229,7 +363,7 @@ class Graphed:
                 lambda: finish(loop.result(loop.init(*self.inputs))))
         else:
             self._init, self.state = self._capture(
-                lambda: loop.init(*self.inputs))
+                lambda: own_tree(loop.init(*self.inputs), written))
             for start in range(0, loop.max_len, unroll):
                 stop = min(start + unroll, loop.max_len)
                 self._chunks.append(self._capture(
@@ -254,39 +388,7 @@ class Graphed:
         copy_tree(self.state, s)
 
     def _capture(self, fn, may_be_empty: bool = False):
-        """(graph and its counter changes, what ``fn`` returned); with
-        ``may_be_empty`` the graph is None when ``fn`` issued no work."""
-        graph = torch.cuda.CUDAGraph()
-        before = _counts()
-        with torch.cuda.stream(self._stream):
-            graph.capture_begin(pool=self._pool,
-                                capture_error_mode="thread_local")
-            try:
-                out = fn()
-            except BaseException:
-                try:
-                    graph.capture_end()
-                except RuntimeError:
-                    pass            # the first error is the one to report
-                raise
-            with warnings.catch_warnings(record=True) as said:
-                warnings.simplefilter("always")
-                graph.capture_end()
-        for w in said:
-            if may_be_empty and "Graph is empty" in str(w.message):
-                graph = None
-            else:
-                warnings.warn_explicit(w.message, w.category, w.filename,
-                                       w.lineno)
-        delta = [a - b for a, b in zip(_counts(), before)]
-        _add_counts([-d for d in delta])    # a capture launches nothing
-        return (graph, delta), out
-
-    @staticmethod
-    def _replay(graph_delta) -> None:
-        graph, delta = graph_delta
-        graph.replay()
-        _add_counts(delta)
+        return _capture(fn, self._pool, self._stream, may_be_empty)
 
     def __call__(self, *inputs):
         """The decode of ``inputs``, a copy of the graphs' outputs.  The
@@ -298,15 +400,15 @@ class Graphed:
             stream.wait_event(self._last)
         for dst, src in zip(self.inputs, inputs):
             dst.copy_(src)
-        self._replay(self._init)
+        _replay(self._init)
         for i, chunk in enumerate(self._chunks):
-            self._replay(chunk)
+            _replay(chunk)
             if i + 1 < len(self._chunks):
                 self.done_reads += 1
                 if bool(self.state["done"]):        # one host sync
                     break
         if self._final is not None:
-            self._replay(self._final)
+            _replay(self._final)
         out = clone_tree(self.out)
         self._last = stream.record_event()
         self.replays += 1
@@ -372,6 +474,172 @@ def run(key: tuple, loop, inputs: Sequence[torch.Tensor], unroll: int,
         else:
             _cache.move_to_end(key)
         return prog(*inputs)
+
+
+# --------------------------------------------------------------------------
+# a step that updates state in place, as CUDA graphs in one shared pool
+# --------------------------------------------------------------------------
+def _commit(fn, inputs, check: bool = False):
+    """``fn(*inputs)``'s writes made (each new value copied into its state
+    tree; with ``check``, ``check_writes`` first), its output returned."""
+    writes, out = fn(*inputs)
+    if check:
+        check_writes([d for d, _ in writes], [s for _, s in writes])
+    for dst, src in writes:
+        copy_tree(dst, src)
+    return out
+
+
+class _StaticInputs:
+    """The static input buffers of every graph of one ``StepGraphs``: one
+    flat buffer a position, each key's input a view at its start.
+    Replays are serial and each copies its inputs in before it runs, so
+    the keys share them.  A key that needs more than a buffer holds gets
+    a new one of twice its size (or the need, if larger); the graphs that
+    read the old keep it alive until they go, so the buffers of a
+    position hold under four times the largest key's input."""
+
+    def __init__(self):
+        self.bufs: list = []
+
+    def views(self, inputs) -> list:
+        out = []
+        for i, t in enumerate(inputs):
+            n = t.numel() * t.element_size()
+            if i == len(self.bufs):
+                self.bufs.append(None)
+            buf = self.bufs[i]
+            if buf is None or buf.numel() < n:
+                buf = self.bufs[i] = torch.empty(
+                    max(n, 2 * (0 if buf is None else buf.numel())),
+                    dtype=torch.uint8, device=t.device)
+            out.append(buf[:n].view(t.dtype).view(t.shape))
+        return out
+
+
+class _StepProgram:
+    """One key's graph of a ``StepGraphs`` step: views of the shared
+    static inputs, the graph (captured into the shared pool after one
+    eager warm-up that commits nothing) and its outputs."""
+
+    def __init__(self, fn, inputs, pool, static: _StaticInputs):
+        dev = inputs[0].device
+        self.inputs = static.views(inputs)
+        for dst, src in zip(self.inputs, inputs):
+            dst.copy_(src)
+        # warm-up: builds the kernels, initialises cuBLAS and every lazy
+        # cache a capture must find ready; its new state is dropped
+        side = _warm_up(dev, lambda: fn(*self.inputs))
+        # the warm-up's memory goes back to the card, not to a cache the
+        # pool cannot use
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        reserved0 = torch.cuda.memory_reserved(dev)
+        self._graph, self.out = _capture(
+            lambda: _commit(fn, self.inputs, check=True), pool, side)
+        torch.cuda.synchronize(dev)
+        self.capture_ms = (time.perf_counter() - t0) * 1e3
+        self.reserved_bytes = max(0, torch.cuda.memory_reserved(dev)
+                                  - reserved0)
+        self.replays = 0
+
+    def __call__(self, *inputs):
+        for dst, src in zip(self.inputs, inputs):
+            dst.copy_(src)
+        _replay(self._graph)
+        self.replays += 1
+        # a copy made before any graph of the pool can overwrite the outputs
+        return clone_tree(self.out)
+
+
+class StepGraphs:
+    """A step that writes new state into the caller's tensors, compiled:
+    the counterpart of ``jax.jit(..., donate_argnums=...)`` over the train
+    step (``train/step.py`` ``CompiledStep``).
+
+    ``__call__(key, fn, inputs)``: ``fn(*inputs)`` returns ``(writes,
+    out)``, ``writes`` pairs (state tree, its new value), ``out`` a tree
+    of tensors.  On a CPU tensor ``fn`` runs eagerly and its new values
+    are copied into the state.  On a CUDA tensor the call replays one
+    graph captured for ``key`` (plus the math switches and the inputs'
+    shapes and types): the inputs copied into the graph's own, the new
+    state copied into the state's tensors inside the graph, and ``out``
+    copied out before the next replay.  The key must hold the state
+    tensors' addresses (``tensor_ids``): a graph reads and writes those.
+    A failed capture or replay raises.
+
+    All graphs of one ``StepGraphs`` share one memory pool and one set of
+    static input buffers (``_StaticInputs``): the state lives outside
+    them, replays are strictly serial, and each replay's outputs are
+    copied out before the next, so a graph may reuse what another left.
+    The pool only grows (``pool_bytes``, its growth over the captures
+    since it was made), and by how much depends on the order in which
+    the keys come (``tools/step_memory.py`` measures it over an epoch's
+    keys).  So the graphs are bounded by the bytes of the pool and the
+    input buffers together: when they hold more than ``budget_fraction``
+    of the card, the next new key first drops every graph and the pool
+    (``resets``), and the keys met again are captured anew.  The card
+    then holds at most the budget plus one key's capture.
+    ``MAX_PROGRAMS`` bounds the count (least recently used out)."""
+
+    def __init__(self):
+        self.budget_fraction = STEP_BUDGET_FRACTION
+        self._cache: "OrderedDict[tuple, _StepProgram]" = OrderedDict()
+        self._pool = None
+        self._static = _StaticInputs()
+        self._lock = threading.Lock()
+        self.captures = 0
+        self.replays = 0
+        self.resets = 0
+        self.pool_bytes = 0
+        self.capture_ms = 0.0       # the captures' time, warm-ups apart
+
+    def input_bytes(self) -> int:
+        """The bytes of the static input buffers, those the cached graphs
+        read and the newest."""
+        held = {b.data_ptr(): b.numel() for b in self._static.bufs
+                if b is not None}
+        for prog in self._cache.values():
+            for t in prog.inputs:
+                st = t.untyped_storage()
+                held[st.data_ptr()] = st.nbytes()
+        return sum(held.values())
+
+    def __call__(self, key: tuple, fn: Callable,
+                 inputs: Sequence[torch.Tensor]):
+        if inputs[0].device.type != "cuda":
+            return _commit(fn, inputs)
+        key = (*key, _math_flags(), *(_spec(t) for t in inputs))
+        with self._lock:
+            prog = self._cache.get(key)
+            if prog is None:
+                budget = self.budget_fraction * (
+                    torch.cuda.get_device_properties(inputs[0].device)
+                    .total_memory)
+                if self._cache and (self.pool_bytes + self.input_bytes()
+                                    > budget):
+                    self._cache.clear()
+                    self._pool, self.pool_bytes = None, 0
+                    self.resets += 1
+                    torch.cuda.empty_cache()
+                if self._pool is None:
+                    self._pool = torch.cuda.graph_pool_handle()
+                prog = _StepProgram(fn, inputs, self._pool, self._static)
+                self._cache[key] = prog
+                self.captures += 1
+                self.pool_bytes += prog.reserved_bytes
+                self.capture_ms += prog.capture_ms
+                evict(self._cache, float("inf"), MAX_PROGRAMS)
+            else:
+                self._cache.move_to_end(key)
+            self.replays += 1
+            return prog(*inputs)
+
+    def programs(self) -> list:
+        """The cached graphs, least recently used first, as (key,
+        program with ``capture_ms``, ``reserved_bytes``, ``replays``)."""
+        with self._lock:
+            return list(self._cache.items())
 
 
 def programs() -> list:

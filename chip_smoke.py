@@ -116,21 +116,38 @@ every phase passed):
    the CPU port's on CPU features of 2 wavs of 2 s; the median of 3 warm
    walls and one device-only profile (launches, busy share) each; then
    ``Trainer.fit`` of CNN1D_RNN (a BatchNorm front, a GRU stack) for 4
-   steps of B=32 and its train step on the card against the CPU port;
+   steps of B=32 (graph replays, against the eager step as in phase 4)
+   and its train step on the card against the CPU port;
 4. train at the flagship ``Config()`` (ADAM, seeded random weights), in
    f32 and then in bf16 mixed precision (``compute_dtype="bfloat16"``):
    ``Trainer.fit`` for 6 steps of B=32 over 32 synthetic 9-10 s wavs with
    seeded 15-30-character transcripts written into ``_build/``, through
    the port's train loader and ``batches_to_device``, ending in one greedy
-   eval (f32) and a checkpoint; check the launches (K1 1, K2 4, K2-bwd 4 a
-   step, in bf16 K2-bf16 4 and K2-bwd-bf16 4; the eval K1 1 and K2 4),
-   that the loss is finite and falls, that the master params and the
-   optimizer state stay float32, the golden model's train step on the card
-   against the CPU port in f32 and bf16, that the f32 checkpoint
+   eval (f32) and a checkpoint; the trainer steps through
+   ``CompiledStep`` (one CUDA graph a (T, S) bucket, replayed) and
+   evaluates through ``greedy_decode_jit``; check the launches (K1 1, K2
+   4, K2-bwd 4 a step, in bf16 K2-bf16 4 and K2-bwd-bf16 4; the eval K1 1
+   and K2 4; the first step and the first eval each once more, their
+   eager warm-up), one capture for the 6 steps, that the loss is finite
+   and falls, that the master params and the optimizer state stay
+   float32, that three more evals replay the eval program with the eager
+   greedy's CER; the graph step against the eager ``train_step`` in turns
+   (7 walls each), their launch calls, kernels, busy share and host
+   syncs, the card's trace of one replay against the K2 / K2-bwd
+   counters, at most 20 launch calls a graph step; a fit over two
+   buckets (the 9-10 s corpus and one of 4-5 s, in turns) against the
+   same fit with the eager step, bit for bit, two captures in one pool;
+   one step at the config's own batch of 256 (the pool's bytes); the
+   first 12 keys an epoch of an AISHELL-1-sized corpus meets at B=256
+   (``tools/step_memory.py``): one capture each, the static inputs
+   shared, the pool within its byte budget; the golden model's train
+   step on the card against the CPU port and the compiled step against
+   the eager one bit for bit, in f32 and bf16; that the f32 checkpoint
    transcribes in ``ASR`` on the card, and the train CLI for 2 steps, f32
-   and ``--bf16``; report for each ms per step (median of the warm steps),
-   the forward / backward / optimizer split by CUDA events, the profiler's
-   busy share and launches of one step, and peak device memory;
+   and ``--bf16``; report for each ms per step (median of the warm
+   steps), the forward / backward / optimizer split of an eager step by
+   CUDA events, the step graphs' captures and pool bytes, and peak
+   device memory;
 4b. the mesh (``parallel/sharding.py``): (a) a one-rank NCCL group, mesh
    1 x 1: ``ASR(bw=16, mesh=make_mesh(cfg))`` on phase 3's batch equals
    ``ASR(bw=16)`` exactly, with K1 1, K2 4 and K3 40 launches; (b) four
@@ -627,12 +644,35 @@ def _launch_profile(torch, fn) -> dict:
     return out
 
 
+TRACE_TRIES = 3
+
+
+def _fullest_trace(torch, fn, counters) -> tuple:
+    """(``_launch_profile`` of one call of ``fn``, the launch counters'
+    increase over that call): of TRACE_TRIES traced calls, the one whose
+    trace holds the most kernel records.  The card's trace of a call can
+    lose records (CUPTI: a trace of the same graphs has come back with
+    a tenth of its kernels missing), and each call of the same graphs on
+    the same inputs runs the same kernels, so the fullest trace is the
+    one to hold against the counters."""
+    best = None
+    for _ in range(TRACE_TRIES):
+        before = {n: getattr(m, a) for n, (m, a) in counters.items()}
+        prof = _launch_profile(torch, fn)
+        counted = {n: getattr(m, a) - before[n]
+                   for n, (m, a) in counters.items()}
+        if best is None or prof["kernels"] > best[0]["kernels"]:
+            best = (prof, counted)
+    return best
+
+
 def _graph_vs_eager(np, torch, asr, wavs, scales=None,
                     one_sync: bool = False, host_trace: bool = True) -> dict:
     """The graph path (``asr.transcribe_wavs``, the ``*_jit`` forms) and
     the eager one (``_eager_transcribe``) on the same batch: their
     transcripts, walls in turns graph / eager (GRAPH_AB_RUNS each, host
-    clock to a synchronize), and one profile of each.  ``one_sync`` adds
+    clock to a synchronize), and one profile of each (of the graph path
+    the fullest of TRACE_TRIES, ``_fullest_trace``).  ``one_sync`` adds
     the eager loop reading the stop flag once (``unroll=max_len``): what
     the eager loop's host syncs cost; ``graph_counted`` is the launch
     counters' increase over the graph path's profiled call, for its
@@ -659,15 +699,12 @@ def _graph_vs_eager(np, torch, asr, wavs, scales=None,
     counters = _kernel_counters()
     for k, fn in paths.items():
         med = float(np.median(walls[k]))
-        if k == "graph" or host_trace:
-            before = {n: getattr(m, a) for n, (m, a) in counters.items()}
+        if k == "graph":
+            prof, out["graph_counted"] = _fullest_trace(torch, fn, counters)
+            out["graph_rows"] = sorted(prof.pop("rows"), reverse=True)
+        elif host_trace:
             prof = _launch_profile(torch, fn)
-            rows = sorted(prof.pop("rows"), reverse=True)
-            if k == "graph":
-                out["graph_rows"] = rows
-                out["graph_counted"] = {
-                    n: getattr(m, a) - before[n]
-                    for n, (m, a) in counters.items()}
+            prof.pop("rows")
         else:
             busy, n, _ = _device_profile(torch, fn, host_ops=False)
             prof = dict(busy_ms=busy, kernels=n, launch_calls=None,
@@ -1572,16 +1609,18 @@ def _phase_k2_bwd_bf16(np, torch, fails, dev, lstm_k, f32_row, log,
         shape=f"bf16 xg, dxg [2 x {T}, 32, {4 * H}], W_hh [2, {H}, {4 * H}]")
 
 
-def _train_corpus(np, rng, root: str, n: int, vocab_chars: str):
-    """``n`` speech-like int16 9-10 s wavs with seeded 15-30-character
-    transcripts over ``vocab_chars``, and their manifest."""
+def _train_corpus(np, rng, root: str, n: int, vocab_chars: str,
+                  secs=(9.0, 10.0), chars=(15, 30)):
+    """``n`` speech-like int16 wavs of ``secs`` seconds with seeded
+    transcripts of ``chars`` characters over ``vocab_chars``, and their
+    manifest."""
     from chinese_asr_tpu_torch.data import dataset
     os.makedirs(root, exist_ok=True)
     utts = []
-    for i, pcm in enumerate(_synthetic_wavs(np, rng, n, 9.0, 10.0)):
+    for i, pcm in enumerate(_synthetic_wavs(np, rng, n, *secs)):
         path = os.path.join(root, f"t{i}.wav")
         _write_wav_i16(path, pcm)
-        k = int(rng.integers(15, 31))
+        k = int(rng.integers(chars[0], chars[1] + 1))
         text = "".join(vocab_chars[j] for j in
                        rng.integers(0, len(vocab_chars), k))
         utts.append(dataset.Utterance(path, text))
@@ -1591,20 +1630,29 @@ def _train_corpus(np, rng, root: str, n: int, vocab_chars: str):
 
 
 def _fit_run(np, torch, fails, dev, gpu, counters, cfg, manifest, vocab,
-             want, label):
+             want, label, host_trace: bool = True):
     """``Trainer.fit`` at ``cfg`` (f32 or bf16) over the corpus through the
     port's loader, ending in one greedy eval and a checkpoint: its
     launches against ``want``, the loss falling, the masters and the
-    optimizer state float32; ms per step (median of the warm steps), one
-    more step split by CUDA events, one profiled, peak device memory.
-    Returns (the run's report, the trainer)."""
+    optimizer state float32; ms per step (median of the warm steps: graph
+    replays); ``Trainer.evaluate`` replaying its one ``greedy_decode_jit``
+    program, its CER against the eager greedy's; one more step split by
+    CUDA events (eager); the graph step against the eager one
+    (``_step_ab``); peak device memory.  Returns (the run's report, the
+    trainer)."""
     from chinese_asr_tpu_torch.data import dataset
+    from chinese_asr_tpu_torch.decode.greedy import greedy_decode
     from chinese_asr_tpu_torch.models import las
     from chinese_asr_tpu_torch.train import optim, step as step_mod
     from chinese_asr_tpu_torch.train.trainer import Trainer
+    from chinese_asr_tpu_torch.utils import graphs
 
     steps = cfg.train.epochs
     tr = Trainer(cfg, las.init_params(cfg, 0), vocab, device=dev)
+    compiled = tr._step_fn
+    fails.check(isinstance(compiled, step_mod.CompiledStep),
+                f"{label}: Trainer on one card steps through CompiledStep "
+                f"({type(compiled).__name__})")
 
     def train_loader():
         return dataset.batches_to_device(
@@ -1615,12 +1663,11 @@ def _fit_run(np, torch, fails, dev, gpu, counters, cfg, manifest, vocab,
             dataset.make_eval_loader(manifest, cfg, vocab), cfg, dev)
 
     losses, walls = [], []
-    orig = tr._step_fn
 
     def timed(*a):
         torch.cuda.synchronize()
         t = time.perf_counter()
-        out = orig(*a)
+        out = compiled(*a)
         losses.append(float(out[2]["loss"]))      # the loop's own sync
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t)
@@ -1637,16 +1684,23 @@ def _fit_run(np, torch, fails, dev, gpu, counters, cfg, manifest, vocab,
     fit_s = time.perf_counter() - t_fit
     launched = {n: getattr(mod, attr) for n, (mod, attr) in counters.items()}
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    tr._step_fn = compiled
     full = dict.fromkeys(counters, 0)
     full.update(want)
     fails.check(launched == full, f"{label}: kernels launched in {steps} "
                                   f"steps and one eval {launched}, wanted "
-                                  f"{full}")
+                                  f"{full} (the first step and the first "
+                                  f"eval each run an eager warm-up before "
+                                  f"their capture)")
     fails.check(tv.step == steps and all(np.isfinite(losses))
                 and losses[-1] < losses[0],
                 f"{label}: {steps} steps at the flagship Config() "
                 f"(compute_dtype {cfg.train.compute_dtype}), B=32; the loss "
                 f"finite and falling {[round(l, 4) for l in losses]}")
+    sg = compiled.graphs
+    fails.check(sg.captures == 1 and sg.replays == steps,
+                f"{label}: {steps} steps of one bucket, {sg.captures} "
+                f"capture(s) and {sg.replays} replays")
     masters = [t.dtype for t in las.tree_leaves(tr.params)]
     states = [v.dtype for v in tr.opt_state.values() if v.is_floating_point()]
     fails.check(set(masters) | set(states) == {torch.float32},
@@ -1657,29 +1711,45 @@ def _fit_run(np, torch, fails, dev, gpu, counters, cfg, manifest, vocab,
         f"step-{steps}_wer-"), f"{label}: fit wrote {ckpt}")
     warm = walls[1:]
     step_ms = float(np.median(warm)) * 1e3
-    print(f"{label}: {steps} steps of B=32, fit {fit_s:.1f} s with its "
-          f"eval and checkpoint; step "
-          f"walls {[round(w * 1e3, 1) for w in walls]} ms, median of the "
-          f"warm {step_ms:.1f} ms on {gpu}; wer {tv.best_wer:.4f}; peak "
-          f"device memory {peak_gib:.2f} GiB, of it {held_gib:.2f} GiB held "
-          f"before the phase", flush=True)
+    print(f"{label}: {steps} steps of B=32 (graph replays), fit "
+          f"{fit_s:.1f} s with its eval and checkpoint; step walls "
+          f"{[round(w * 1e3, 1) for w in walls]} ms (the first with its "
+          f"warm-up and capture), median of the warm {step_ms:.1f} ms on "
+          f"{gpu}; wer {tv.best_wer:.4f}; peak device memory "
+          f"{peak_gib:.2f} GiB, of it {held_gib:.2f} GiB held before the "
+          f"phase", flush=True)
 
-    # Trainer.evaluate, the eager greedy loop (it stays eager: the params
-    # are rebound by every step), over the eval loader
+    # Trainer.evaluate through greedy_decode_jit: the fit's eval captured
+    # its program, these replay it; the eager greedy's CER on these params
+    captured = graphs.captures
     eval_walls = []
     for _ in range(3):
         torch.cuda.synchronize()
         t = time.perf_counter()
-        tr.evaluate(eval_loader())
+        wer = tr.evaluate(eval_loader())
         torch.cuda.synchronize()
         eval_walls.append((time.perf_counter() - t) * 1e3)
     eval_ms = float(np.median(eval_walls))
-    print(f"{label}: Trainer.evaluate (eager greedy, "
+    tr._greedy = lambda f, n: greedy_decode(tr.params, cfg, f, n)
+    eager_walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        eager_wer = tr.evaluate(eval_loader())
+        torch.cuda.synchronize()
+        eager_walls.append((time.perf_counter() - t) * 1e3)
+    del tr._greedy
+    fails.check(graphs.captures == captured and wer == eager_wer,
+                f"{label}: Trainer.evaluate replays its greedy_decode_jit "
+                f"program ({graphs.captures - captured} new captures in 3 "
+                f"evals), CER {wer:.6f} = the eager greedy's {eager_wer:.6f}")
+    eager_eval_ms = float(np.median(eager_walls))
+    print(f"{label}: Trainer.evaluate (greedy_decode_jit, "
           f"{sum(1 for _ in eval_loader())} batch(es) of the corpus) "
           f"{eval_ms:.1f} ms, median of {[round(w, 1) for w in eval_walls]}"
-          f" on {gpu}", flush=True)
+          f"; the eager greedy {eager_eval_ms:.1f} ms on {gpu}", flush=True)
 
-    # one more step on the last batch, split by CUDA events, then profiled
+    # one more step on the last batch, split by CUDA events (eager)
     batch = next(iter(train_loader()))
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
     flat = optim.flatten(tr.params)
@@ -1705,35 +1775,278 @@ def _fit_run(np, torch, fails, dev, gpu, counters, cfg, manifest, vocab,
                  backward_ms=ev[1].elapsed_time(ev[2]),
                  optimizer_ms=ev[2].elapsed_time(ev[3]))
     del leaves, grads, upd, loss
-    prof_ms = []
-
-    def profiled_step():
-        t = time.perf_counter()
-        step_mod.train_step(tr.params, tr.opt_state, cfg, tr.tx, batch,
-                            tr._gen)
-        torch.cuda.synchronize()
-        prof_ms.append((time.perf_counter() - t) * 1e3)
-
-    busy_ms, n_launch, rows = _device_profile(torch, profiled_step,
-                                              host_ops=False)
-    prof_ms = prof_ms[0]
-    # the busy share against the median warm step, as the decode paths
-    # take theirs (the profiler slows the profiled step's host side)
-    print(f"{label} step split by CUDA events: {json.dumps(split)}; one "
-          f"profiled step ({prof_ms:.1f} ms under the profiler): kernels "
-          f"busy {busy_ms:.1f} ms = {100 * busy_ms / step_ms:.1f}% of the "
-          f"median warm step {step_ms:.1f} ms, {n_launch} kernel launches",
+    print(f"{label} eager step split by CUDA events: {json.dumps(split)}",
           flush=True)
-    for us, count, key in rows[:12]:
-        print(f"  {us / 1e3:9.3f} ms  x{count:<5d} {key[:90]}")
+    ab = _step_ab(np, torch, fails, tr, batch, label, gpu, host_trace)
     report = dict(steps=steps, batch=32, compute_dtype=cfg.train.compute_dtype,
                   step_ms=step_ms, step_walls_ms=[w * 1e3 for w in walls],
-                  fit_s=fit_s, eval_ms=eval_ms, losses=losses, split=split,
-                  profiled_step_ms=prof_ms, busy_ms=busy_ms,
-                  busy_share=busy_ms / step_ms, launches_per_step=n_launch,
-                  kernel_launches=launched, peak_gib=peak_gib,
-                  held_gib=held_gib, ckpt=ckpt)
+                  fit_s=fit_s, eval_ms=eval_ms, eager_eval_ms=eager_eval_ms,
+                  losses=losses, split=split,
+                  busy_ms=ab["graph"]["busy_ms"],
+                  busy_share=ab["graph"]["busy_share"],
+                  launches_per_step=ab["graph"]["launch_calls"],
+                  graph_vs_eager=ab, kernel_launches=launched,
+                  peak_gib=peak_gib, held_gib=held_gib, ckpt=ckpt)
     return report, tr
+
+
+# each K2 / K2-bwd kernel of ours by its name in the card's trace, and the
+# launch counters that count it (one K2-bwd-bf16 call runs its stages and
+# pass 2, counted once: pass 2 stands for it)
+_TRACE_TRAIN = (("K2", ("bilstm_tc_kernel<", "bilstm_bf16_tc_kernel<",
+                        "bilstm_kernel<"), ("lstm", "lstm_bf16")),
+                ("K2-bwd", ("bilstm_bwd_tc_kernel<", "bilstm_bf16_bwd2_kernel",
+                            "bilstm_bwd_kernel<"),
+                 ("lstm_bwd", "lstm_bwd_bf16")))
+
+
+def _step_ab(np, torch, fails, tr, batch, label, gpu,
+             host_trace: bool = True) -> dict:
+    """The trainer's graph step (``CompiledStep``, a replay that updates
+    its state) against the eager ``train_step`` on the same state and
+    batch (its result dropped), in turns, GRAPH_AB_RUNS walls each to the
+    loop's host read of the loss; one profile of each (launch calls,
+    kernels, busy share, host syncs; without ``host_trace`` the eager step
+    is traced on the card alone; the graph step's the fullest of
+    TRACE_TRIES, ``_fullest_trace``), and the card's trace of one replay
+    held against the K2 / K2-bwd launch counters (one each a BiLSTM
+    layer);
+    the step graphs' captures, capture ms and pool bytes."""
+    from chinese_asr_tpu_torch.train import step as step_mod
+    compiled = tr._step_fn
+    cfg = tr.cfg
+    enc = cfg.encoder
+    layers = (enc.num_layers if enc.encoder_type == "LSTM"
+              and enc.bidirectional else 0)
+    paths = {
+        "graph": lambda: float(compiled(tr.params, tr.opt_state, batch,
+                                        tr._gen)[2]["loss"]),
+        "eager": lambda: float(step_mod.train_step(
+            tr.params, tr.opt_state, cfg, tr.tx, batch, tr._gen)[2]["loss"])}
+    for fn in paths.values():
+        fn()
+    walls = {k: [] for k in paths}
+    for _ in range(GRAPH_AB_RUNS):
+        for k, fn in paths.items():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls[k].append((time.perf_counter() - t) * 1e3)
+    counters = _kernel_counters()
+    out = {}
+    for k, fn in paths.items():
+        med = float(np.median(walls[k]))
+        if k == "graph":
+            prof, counted = _fullest_trace(torch, fn, counters)
+            rows = sorted(prof.pop("rows"), reverse=True)
+        elif host_trace:
+            prof = _launch_profile(torch, fn)
+            rows = sorted(prof.pop("rows"), reverse=True)
+        else:
+            busy, n, rows = _device_profile(torch, fn, host_ops=False)
+            prof = dict(busy_ms=busy, kernels=n, launch_calls=None,
+                        graph_launches=0, host_syncs=None)
+        out[k] = dict(wall_ms=med, wall_ms_min=min(walls[k]),
+                      wall_ms_max=max(walls[k]), walls_ms=walls[k], **prof,
+                      busy_share=prof["busy_ms"] / med)
+        if k == "graph":
+            traced = {name: (sum(c for _, c, key in rows
+                                 if any(x in key for x in keys)),
+                             sum(counted[n] for n in ctrs))
+                      for name, keys, ctrs in _TRACE_TRAIN}
+            out["traced_vs_counted"] = traced
+            fails.check(all(t == c == layers for t, c in traced.values()),
+                        f"{label}: the card's trace of one step replay "
+                        f"launched what the counters count ({layers} each), "
+                        f"K2 / K2-bwd (traced, counted) {traced}")
+            top = rows[:12]
+    g, e = out["graph"], out["eager"]
+    fails.check(g["launch_calls"] <= 20 and g["graph_launches"] == 1,
+                f"{label}: a graph step makes {g['launch_calls']} launch "
+                f"calls ({g['graph_launches']} graph launch) against the "
+                f"eager step's {e['launch_calls'] or e['kernels']}")
+    sg = compiled.graphs
+    out.update(captures=sg.captures, replays=sg.replays,
+               pool_bytes=sg.pool_bytes, capture_ms=sg.capture_ms)
+    print(_ab_line(f"{label} step", out, gpu).replace("3g ", "4 ", 1)
+          + f"; step graphs: {sg.captures} capture(s) "
+          f"({sg.capture_ms:.0f} ms), pool {sg.pool_bytes / 2**20:.1f} MiB",
+          flush=True)
+    for us, count, key in top:
+        print(f"  {us / 1e3:9.3f} ms  x{count:<5d} {key[:90]}")
+    return out
+
+
+def _bucket_fit(np, torch, fails, dev, cfg, manifests, vocab, label):
+    """``Trainer.fit`` over two (T, S) buckets (the long and the short
+    corpus, in turns, 4 steps) through the step graphs, against the same
+    fit with the eager ``train_step``: one capture a bucket into the one
+    pool, every step's metrics and the final params and optimizer state
+    equal bit for bit (the same kernels in the same order)."""
+    from chinese_asr_tpu_torch.data import dataset
+    from chinese_asr_tpu_torch.models import las
+    from chinese_asr_tpu_torch.train import step as step_mod
+    from chinese_asr_tpu_torch.train.trainer import Trainer
+
+    cfg = cfg.with_("train", save_dir=cfg.train.save_dir + "_buckets")
+
+    def loader():           # long, short, long, short: one batch each
+        for _ in range(2):
+            for m in manifests:
+                yield next(iter(dataset.batches_to_device(
+                    dataset.make_train_loader(m, cfg, vocab, seed=0), cfg,
+                    dev)))
+
+    runs = {}
+    for kind in ("graph", "eager"):
+        tr = Trainer(cfg, las.init_params(cfg, 0), vocab, device=dev)
+        if kind == "eager":
+            tr._step_fn = lambda p, o, b, g, tr=tr: step_mod.train_step(
+                p, o, cfg, tr.tx, b, g)
+        losses, shapes, orig = [], [], tr._step_fn
+
+        def rec(p, o, b, g, orig=orig, losses=losses, shapes=shapes):
+            out = orig(p, o, b, g)
+            losses.append(out[2])
+            shapes.append((tuple(b.feats.shape), tuple(b.tokens_in.shape)))
+            return out
+
+        tr._step_fn = rec
+        tr.fit(loader, None, max_steps=4)
+        runs[kind] = dict(losses=losses, shapes=shapes, params=tr.params,
+                          opt_state=tr.opt_state,
+                          graphs=getattr(orig, "graphs", None))
+        for f in os.listdir(cfg.train.save_dir):
+            if f.endswith(".ckpt"):
+                os.remove(os.path.join(cfg.train.save_dir, f))
+    g, e = runs["graph"], runs["eager"]
+    sg = g["graphs"]
+    # the same kernels in the same order: every step bit for bit, and the
+    # final params and optimizer state
+    differs = [[k for k in ("loss", "grad_norm", "skipped")
+                if not torch.equal(a[k], b[k])]
+               for a, b in zip(g["losses"], e["losses"])]
+    differs.append(_step_differs(torch, las, g["params"], g["opt_state"],
+                                 g["losses"][-1], e["params"],
+                                 e["opt_state"], e["losses"][-1]))
+    progs = sg.programs()
+    fails.check(len(set(g["shapes"])) == 2 and sg.captures == 2
+                and sg.replays == 4 and len(progs) == 2
+                and not any(differs),
+                f"{label}: fit over 2 buckets {sorted(set(g['shapes']))}: "
+                f"{sg.captures} captures into one pool, {sg.replays} replays;"
+                f" graph against eager bit for bit at every step and in the "
+                f"final params and optimizer state (what differs: "
+                f"{differs})")
+    out = dict(shapes=[list(map(list, s)) for s in sorted(set(g["shapes"]))],
+               losses_graph=[float(m["loss"]) for m in g["losses"]],
+               losses_eager=[float(m["loss"]) for m in e["losses"]],
+               differs=differs, captures=sg.captures,
+               pool_bytes=sg.pool_bytes, input_bytes=sg.input_bytes(),
+               programs=[dict(reserved_bytes=p.reserved_bytes,
+                              capture_ms=p.capture_ms, replays=p.replays)
+                         for _, p in progs])
+    print(f"{label} fit over 2 buckets: {json.dumps(out)}", flush=True)
+    return out
+
+
+def _big_batch_step(np, torch, fails, dev, gpu, cfg, rng):
+    """The compiled step at the config's own ``batch_size`` (256): one
+    capture and 3 replays on a featurized batch of 9-10 s wavs with
+    30-token targets: the pool's bytes, the capture ms, the replay walls
+    and peak memory; where it does not fit in the card's memory, that is
+    reported."""
+    from chinese_asr_tpu_torch.audio import features
+    from chinese_asr_tpu_torch.data.dataset import Batch
+    from chinese_asr_tpu_torch.models import las
+    from chinese_asr_tpu_torch.train.trainer import Trainer
+
+    B, S = cfg.train.batch_size, 32
+    wavs = _synthetic_wavs(np, rng, B, 9.0, 10.0)
+    n = max(len(w) for w in wavs)
+    mat = np.zeros((B, n), np.float32)
+    for i, w in enumerate(wavs):
+        mat[i, :len(w)] = w / 32768.0
+    wlens = np.array([len(w) for w in wavs], np.int32)
+    text = rng.integers(4, cfg.vocab.vocab_size, (B, S))
+    tl = rng.integers(16, S + 1, B).astype(np.int32)
+    ti = np.concatenate([np.full((B, 1), cfg.vocab.sos), text[:, :-1]], 1)
+    to = text.copy()
+    to[np.arange(B), tl - 1] = cfg.vocab.eos
+    for i in range(B):
+        ti[i, tl[i]:] = to[i, tl[i]:] = cfg.vocab.pad
+    feats, flens = features.featurize_batch(
+        torch.from_numpy(mat).to(dev), torch.from_numpy(wlens).to(dev),
+        cfg.audio)
+    batch = Batch(feats, flens, *(torch.from_numpy(a.astype(np.int32)).to(dev)
+                                  for a in (ti, to, tl)))
+    tr = Trainer(cfg, las.init_params(cfg, 0), None, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    walls, losses = [], []
+    try:
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            losses.append(float(tr._step_fn(tr.params, tr.opt_state, batch,
+                                            tr._gen)[2]["loss"]))
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t) * 1e3)
+    except torch.cuda.OutOfMemoryError as e:
+        print(f"4 step at B={B} ({cfg.train.compute_dtype}): does not fit "
+              f"on {gpu}: {str(e)[:300]}", flush=True)
+        return dict(batch=B, fits=False)
+    sg = tr._step_fn.graphs
+    fails.check(sg.captures == 1 and all(np.isfinite(losses)),
+                f"4 step at B={B} ({cfg.train.compute_dtype}): one capture, "
+                f"losses finite {[round(x, 4) for x in losses]}")
+    out = dict(batch=B, fits=True, feats=list(feats.shape), tokens=[B, S],
+               pool_bytes=sg.pool_bytes, capture_ms=sg.capture_ms,
+               first_ms=walls[0], replay_ms=float(np.median(walls[1:])),
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    print(f"4 step at B={B} ({cfg.train.compute_dtype}) on {gpu}: "
+          f"{json.dumps(out)}", flush=True)
+    return out
+
+
+MEMORY_MIX_KEYS = 12     # phase 4: the epoch's first keys at B=256
+
+
+def _memory_mix(torch, fails, dev, gpu):
+    """The compiled step's memory over the first MEMORY_MIX_KEYS keys an
+    epoch of the AISHELL-1 model meets in the loader's order (short to
+    long), at the flagship ``Config()``'s batch of 256, f32
+    (``tools/step_memory.py``; its full sweeps are run apart): every key
+    one capture, the static inputs shared (under four times the largest
+    key's), the pool and the inputs within the budget plus one capture."""
+    from chinese_asr_tpu_torch.config import Config
+    from chinese_asr_tpu_torch.tools import step_memory
+    from chinese_asr_tpu_torch.utils import graphs
+
+    cfg = Config().with_("train", save_dir=os.path.join(
+        os.environ.get("TMPDIR", "/tmp"), "step_mem"))
+    samples, chars = step_memory.corpus()
+    keys = list(dict.fromkeys(step_memory.epoch_keys(cfg, samples, chars)))
+    budget = graphs.STEP_BUDGET_FRACTION
+    res = step_memory.sweep(torch, cfg, keys[:MEMORY_MIX_KEYS], dev, budget)
+    out, rows = res["summary"], res["rows"]
+    bound = (budget * torch.cuda.get_device_properties(dev).total_memory
+             + out["largest_capture_bytes"])
+    fails.check(out["keys"] == out["captures"] == MEMORY_MIX_KEYS
+                and out["finite"] and out["stopped"] is None
+                and out["input_bytes"] < 4 * out["largest_key_input_bytes"]
+                and all(r["pool_bytes"] + r["input_bytes"] <= bound
+                        for r in rows),
+                f"4 memory mix: {out['keys']} keys of an epoch at B=256 on "
+                f"{gpu}, {out['captures']} captures, {out['resets']} resets;"
+                f" pool {out['peak_pool_bytes'] / 2**30:.2f} GiB at most, "
+                f"inputs {out['input_bytes'] / 2**20:.0f} MiB against the "
+                f"largest key's {out['largest_key_input_bytes'] / 2**20:.0f}")
+    print(f"4 memory mix: {json.dumps(out)}", flush=True)
+    print("4 memory mix rows: " + json.dumps(
+        [[r["key"], r["pool_bytes"], r["input_bytes"], r["capture_bytes"],
+          round(r["step_ms"], 1)] for r in rows]), flush=True)
+    return out
 
 
 def _golden_step(np, torch, fails, dev, compute_dtype):
@@ -1777,37 +2090,91 @@ def _golden_step(np, torch, fails, dev, compute_dtype):
         tx = optim.make_optimizer(gcfg.train)
         b = Batch(*(torch.tensor(a).to(d) for a in host))
         res.append(step_mod.train_step(params, tx.init(params), gcfg, tx, b))
-    (pc, _, mc), (pg, _, mg) = res
-    dloss = abs(float(mg["loss"]) / float(mc["loss"]) - 1)
-    dnorm = abs(float(mg["grad_norm"]) / float(mc["grad_norm"]) - 1)
-    diff = torch.cat([(a.cpu() - b).abs().ravel() for a, b in
-                      zip(las.tree_leaves(pg), las.tree_leaves(pc))])
-    dpar = float(diff.max())
-    far = float((diff > 1e-4).float().mean())
+    # the compiled step on the card (a capture, then a replay: its second
+    # step against the eager second step from the eager first's state)
+    params = las.params_from_numpy(pn, dev)
+    tx = optim.make_optimizer(gcfg.train)
+    state = tx.init(params)
+    b = Batch(*(torch.tensor(a).to(dev) for a in host))
+    compiled = step_mod.CompiledStep(gcfg, tx)
+    _, _, m1 = compiled(params, state, b)
+    graph = [(las.tree_map(torch.clone, params),
+              {k: v.clone() for k, v in state.items()}, m1)]
+    _, _, m2 = compiled(params, state, b)
+    graph.append((params, state, m2))
+    pe, oe, _ = res[1]
+    eager = [res[1], step_mod.train_step(pe, oe, gcfg, tx, b)]
     if compute_dtype == "float32":
         tol = dict(loss=1e-5, norm=1e-4, par=2e-5, far=0.0)
     else:
         tol = dict(loss=1e-2, norm=2e-2, par=2.5e-3, far=1e-2)
-    fails.check(dloss <= tol["loss"] and dnorm <= tol["norm"]
-                and dpar <= tol["par"] and far <= tol["far"],
+
+    def gaps(p_got, m_got, p_ref, m_ref):
+        diff = torch.cat([(a.cpu() - b.cpu()).abs().ravel() for a, b in
+                          zip(las.tree_leaves(p_got),
+                              las.tree_leaves(p_ref))])
+        return dict(
+            loss_rel=abs(float(m_got["loss"]) / float(m_ref["loss"]) - 1),
+            grad_norm_rel=abs(float(m_got["grad_norm"])
+                              / float(m_ref["grad_norm"]) - 1),
+            params=float(diff.max()),
+            params_far_share=float((diff > 1e-4).float().mean()))
+
+    def within(g):
+        return (g["loss_rel"] <= tol["loss"]
+                and g["grad_norm_rel"] <= tol["norm"]
+                and g["params"] <= tol["par"]
+                and g["params_far_share"] <= tol["far"])
+
+    (pc, _, mc), (pg, _, mg) = res
+    out = gaps(pg, mg, pc, mc)
+    fails.check(within(out),
                 f"golden train_step ({compute_dtype}) card vs CPU port: loss "
-                f"rel {dloss:.3g} <= {tol['loss']}, grad norm rel {dnorm:.3g} "
-                f"<= {tol['norm']}, params {dpar:.3g} <= {tol['par']}, share "
-                f"of params farther apart than 1e-4 {far:.3g} <= "
+                f"rel {out['loss_rel']:.3g} <= {tol['loss']}, grad norm rel "
+                f"{out['grad_norm_rel']:.3g} <= {tol['norm']}, params "
+                f"{out['params']:.3g} <= {tol['par']}, share of params "
+                f"farther apart than 1e-4 {out['params_far_share']:.3g} <= "
                 f"{tol['far']}")
-    return dict(loss_rel=dloss, grad_norm_rel=dnorm, params=dpar,
-                params_far_share=far)
+    # graph against eager on the card: the same kernels in the same order,
+    # so bit for bit
+    out["graph_vs_eager"] = [_step_differs(torch, las, *g, *e)
+                             for g, e in zip(graph, eager)]
+    fails.check(not any(out["graph_vs_eager"])
+                and compiled.graphs.captures == 1
+                and compiled.graphs.replays == 2,
+                f"golden train step ({compute_dtype}) on the card, the "
+                f"compiled step (a capture and a replay) against the eager "
+                f"one, two steps, bit for bit (what differs: "
+                f"{out['graph_vs_eager']})")
+    return out
+
+
+def _step_differs(torch, las, p_got, o_got, m_got, p_ref, o_ref, m_ref):
+    """What of one train step's result differs at all from another's: the
+    metrics by name, the param and optimizer state leaves by count."""
+    bad = [k for k in ("loss", "grad_norm", "skipped")
+           if not torch.equal(m_got[k], m_ref[k])]
+    n_par = sum(not torch.equal(a, b) for a, b in
+                zip(las.tree_leaves(p_got), las.tree_leaves(p_ref)))
+    n_opt = sum(not torch.equal(o_got[k], o_ref[k]) for k in o_ref)
+    return bad + ([f"{n_par} param leaves"] if n_par else []) + (
+        [f"{n_opt} optimizer state leaves"] if n_opt else [])
 
 
 def _phase_training(np, torch, fails, dev, gpu, counters, build_dir):
     """Phase 4: training at the flagship ``Config()`` on the card (ADAM,
     seeded random weights), in f32 and in bf16 mixed precision:
     ``Trainer.fit`` over a synthetic corpus through the port's loader,
-    checks and per-step numbers, the golden model's train step against
-    the CPU port in both, the f32 checkpoint in ``ASR``, and the train CLI
-    (f32 and ``--bf16``).  Returns the path's report."""
+    checks and per-step numbers, the compiled step (``CompiledStep``, a
+    graph a bucket) against the eager one (walls in turns, launch calls,
+    busy share, the trace against the counters), a fit over two buckets,
+    the step at the config's own batch of 256 (pool bytes), the golden
+    model's train step against the CPU port and graph against eager in
+    both, the f32 checkpoint in ``ASR``, and the train CLI (f32 and
+    ``--bf16``).  Returns the path's report."""
     from chinese_asr_tpu_torch.api import ASR
     from chinese_asr_tpu_torch.config import Config
+    from chinese_asr_tpu_torch.utils import graphs
     from chinese_asr_tpu_torch.vocab import Vocab
 
     rng = np.random.default_rng(8)
@@ -1822,28 +2189,47 @@ def _phase_training(np, torch, fails, dev, gpu, counters, build_dir):
                          seed=0)
     assert len(vocab) == cfg.vocab.vocab_size
     manifest, utts = _train_corpus(np, rng, root, 32, chars)
+    short, _ = _train_corpus(np, rng, root + "_short", 32, chars,
+                             secs=(4.0, 5.0), chars=(6, 12))
     # per step K1 1 (the loader featurizes), K2 4 and K2-bwd 4 (their bf16
     # instances in bf16); the f32 eval at the end (one batch of 32) adds K1
-    # 1 and K2 4
+    # 1 and K2 4; the first step and the first eval each run an eager
+    # warm-up before their capture: K2 4 and K2-bwd 4 more, K2 4 more
     f32, tr = _fit_run(np, torch, fails, dev, gpu, counters, cfg, manifest,
-                       vocab, dict(logmel=steps + 1, lstm=4 * steps + 4,
-                                   lstm_bwd=4 * steps), "training")
+                       vocab, dict(logmel=steps + 1, lstm=4 * steps + 12,
+                                   lstm_bwd=4 * steps + 4), "training")
     ckpt = f32.pop("ckpt")
     del tr
+    graphs.clear()
     cfg16 = cfg.with_("train", compute_dtype="bfloat16", save_dir=saves[1])
     bf16, tr = _fit_run(np, torch, fails, dev, gpu, counters, cfg16, manifest,
-                        vocab, dict(logmel=steps + 1, lstm=4,
-                                    lstm_bf16=4 * steps,
-                                    lstm_bwd_bf16=4 * steps),
+                        vocab, dict(logmel=steps + 1, lstm=8,
+                                    lstm_bf16=4 * steps + 4,
+                                    lstm_bwd_bf16=4 * steps + 4),
                         "training bf16")
     bf16.pop("ckpt")
     del tr
-    print(f"training bf16 against f32 in this run: {bf16['step_ms']:.1f} "
-          f"against {f32['step_ms']:.1f} ms a step; backward "
+    graphs.clear()
+    ab32, ab16 = f32["graph_vs_eager"], bf16["graph_vs_eager"]
+    print(f"training bf16 against f32 in this run: graph step "
+          f"{ab16['graph']['wall_ms']:.1f} against "
+          f"{ab32['graph']['wall_ms']:.1f} ms (eager "
+          f"{ab16['eager']['wall_ms']:.1f} against "
+          f"{ab32['eager']['wall_ms']:.1f}); busy {bf16['busy_ms']:.1f} "
+          f"against {f32['busy_ms']:.1f} ms; backward (eager, events) "
           f"{bf16['split']['backward_ms']:.1f} against "
-          f"{f32['split']['backward_ms']:.1f} ms; busy {bf16['busy_ms']:.1f} "
-          f"against {f32['busy_ms']:.1f} ms; peak {bf16['peak_gib']:.2f} "
+          f"{f32['split']['backward_ms']:.1f} ms; peak {bf16['peak_gib']:.2f} "
           f"against {f32['peak_gib']:.2f} GiB", flush=True)
+    for report, c, label in ((f32, cfg, "training"),
+                             (bf16, cfg16, "training bf16")):
+        report["buckets"] = _bucket_fit(np, torch, fails, dev, c,
+                                        (manifest, short), vocab, label)
+        report["batch_256"] = _big_batch_step(
+            np, torch, fails, dev, gpu,
+            c.with_("train", batch_size=Config().train.batch_size), rng)
+        torch.cuda.empty_cache()
+    f32["memory_mix"] = _memory_mix(torch, fails, dev, gpu)
+    torch.cuda.empty_cache()
     f32["golden_card_vs_cpu"] = _golden_step(np, torch, fails, dev, "float32")
     bf16["golden_card_vs_cpu"] = _golden_step(np, torch, fails, dev,
                                               "bfloat16")
@@ -1879,7 +2265,8 @@ def _phase_training(np, torch, fails, dev, gpu, counters, build_dir):
                             for f in os.listdir(cli_save)),
                     f"train CLI {' '.join(flags)}: 2 steps on the card in "
                     f"{report['cli_s']:.1f} s ({last})")
-    for d in [root] + saves:
+    for d in [root, root + "_short"] + saves + [
+            save + "_buckets" for save in saves[:2]]:
         for f in os.listdir(d):
             if f.endswith((".ckpt", ".wav", ".npy")):
                 os.remove(os.path.join(d, f))
@@ -2045,10 +2432,16 @@ def _phase_families(np, torch, fails, ASR, base_cfg, wavs, rng, dev,
                                       flens.to(asr.device))
         same = (torch.equal(g_card.tokens.cpu(), g_cpu.tokens)
                 and torch.equal(g_card.final_lens.cpu(), g_cpu.final_lens))
-        fails.check(err <= TOL_FAMILY_ENC and same,
+        # the graph path on the card against the eager loop, field by field
+        g_jit = greedy.greedy_decode_jit(asr.params, cfg,
+                                         feats.to(asr.device),
+                                         flens.to(asr.device))
+        jit_same = all(torch.equal(a, b) for a, b in zip(g_jit, g_card))
+        fails.check(err <= TOL_FAMILY_ENC and same and jit_same,
                     f"3f {name}: card vs CPU port on 2 wavs of 2 s: encoder "
                     f"{err:.3g} <= {TOL_FAMILY_ENC} of max(1, max|ref|), "
-                    f"greedy tokens equal {same}")
+                    f"greedy tokens equal {same}; greedy_decode_jit equals "
+                    f"the eager greedy on the card {jit_same}")
         report[name] = dict(wall_ms=wall_ms, walls_ms=[w * 1e3 for w in walls],
                             wall_ms_first=w1 * 1e3, launches=n_launch,
                             busy_ms=busy_ms, busy_share=busy_ms / wall_ms,
@@ -2084,7 +2477,8 @@ def _phase_families(np, torch, fails, ASR, base_cfg, wavs, rng, dev,
                     num_eval_steps=1000, seed=0,
                     save_dir=os.path.join(build_dir, "family_ckpt"))
     fit, tr = _fit_run(np, torch, fails, dev, gpu, counters, cfg, manifest,
-                       vocab, dict(logmel=steps + 1), "3f training CNN1D_RNN")
+                       vocab, dict(logmel=steps + 1), "3f training CNN1D_RNN",
+                       host_trace=False)
     init = las.init_params(cfg, 0)
     moved = [float((tr.params["encoder"]["front"]["convs"][i][k].cpu()
                     - init["encoder"]["front"]["convs"][i][k]).abs().max())

@@ -534,3 +534,135 @@ def test_clone_tree_copies_every_leaf():
     for a, b in zip(got, res):
         assert torch.equal(a, b) and a.data_ptr() != b.data_ptr()
     assert torch.equal(tree["x"][0], torch.ones(2))
+
+
+def _overlaps(ts):
+    """Pairs of tensors in ``ts`` whose memory overlaps (by address
+    span), each tensor against those after it; a tensor with an expanded
+    (stride-0) dimension overlaps itself."""
+    spans = [graphs._extent(t) for t in ts]
+    bad = [i for i, t in enumerate(ts)
+           if any(st == 0 and k > 1 for k, st in zip(t.shape, t.stride()))]
+    for i, (a0, a1) in enumerate(spans):
+        for j in range(i + 1, len(spans)):
+            b0, b1 = spans[j]
+            if a0 < b1 and b0 < a1:
+                bad.append((i, j))
+    return bad
+
+
+def _leaves(tree):
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _leaves(v)]
+    return []
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _aliased(written, others):
+    """The places in ``written`` of the tensors that share memory with
+    themselves (an expanded dimension), another of ``written`` or one of
+    ``others``."""
+    bad = _overlaps(list(written) + list(others))
+    n = len(written)
+    return [b for b in bad if (b < n if isinstance(b, int) else b[0] < n)]
+
+
+@pytest.mark.parametrize("over,rows", [
+    (dict(encoder=dict(encoder_type="CNN1D_RNN")), 3),
+    (dict(decoder=dict(num_layers=2)), 3),
+    (dict(decoder=dict(init_cell_state_as_param=True, num_layers=2)), 3),
+    (dict(decoder=dict(init_cell_state_as_param=True, num_layers=2)), 1)],
+    ids=["zero_state", "enc_state_2_layers", "learned_init",
+         "learned_init_1_row"])
+def test_own_tree_gives_each_loop_state_tensor_its_memory(over, rows):
+    """A decode program copies each step's new state into the tensors of
+    its first graph's state, so each tensor a step replaces
+    (``written_paths``) must have memory of its own: the decoders' zero
+    state holds one tensor in every slot, the encoder's state is shared by
+    every layer, a learned init state is an expanded row of its parameter
+    (at one row a plain view of it, which a graph's writes would train).
+    ``own_tree`` copies each such tensor, with equal values, and leaves
+    every other tensor as it is.  The warm-up's eager loop finds the
+    same places (``run_loop``'s ``on_step``)."""
+    cfg = small_cfg(tcfg)
+    for sec, kw in over.items():
+        cfg = cfg.with_(sec, **kw)
+    params = las.init_params(cfg, 0)
+    rng = np.random.RandomState(0)
+    feats = torch.tensor(rng.randn(rows, 24, cfg.audio.feat_dim),
+                         dtype=torch.float32)
+    lens = torch.tensor([24, 17, 9][:rows])
+    for loop in (tgreedy.GreedyLoop(params, cfg),
+                 tbeam.BeamLoop(params, cfg, 2, False)):
+        name = type(loop).__name__
+        raw = loop.init(feats, lens)
+        paths = set(graphs.written_paths(raw, loop.step(raw, 0, False)))
+        owned = graphs.own_tree(raw, paths)
+        written = [_at(owned, p) for p in sorted(paths, key=str)]
+        kept = [t for t in _leaves(owned)
+                if not any(t is w for w in written)]
+        if isinstance(loop, tgreedy.GreedyLoop):     # the case aliases
+            assert _aliased([_at(raw, p) for p in sorted(paths, key=str)],
+                            kept + las.tree_leaves(params)), name
+        assert not _aliased(written, kept + las.tree_leaves(params)), name
+        for p in paths:
+            assert torch.equal(_at(owned, p), _at(raw, p)), (name, p)
+        assert all(a is b for a, b in zip(_leaves(owned["eb"]),
+                                          _leaves(raw["eb"])))
+        assert len(kept) == len(_leaves(raw)) - len(paths)
+        # a program finds them in its warm-up's eager loop
+        seen = set()
+        graphs.run_loop(loop, (feats, lens), 4, lambda old, new: seen.update(
+            graphs.written_paths(old, new)))
+        assert seen == paths, name
+
+
+def test_static_inputs_are_shared_and_grow_by_doubling():
+    """The compiled train step's static inputs (``StepGraphs``): one flat
+    buffer a position that every key's input views from its start; a key
+    that needs more gets a new buffer of twice the size (or its need),
+    while the views made before keep the old one."""
+    static = graphs._StaticInputs()
+    small = static.views([torch.zeros(4, 8),
+                          torch.zeros(3, dtype=torch.int32)])
+    same = static.views([torch.zeros(2, 8), torch.zeros(2, dtype=torch.int32)])
+    assert [tuple(t.shape) for t in same] == [(2, 8), (2,)]
+    assert [t.dtype for t in same] == [torch.float32, torch.int32]
+    for a, b in zip(small, same):
+        assert a.data_ptr() == b.data_ptr()
+    first = static.bufs[0]
+    big = static.views([torch.zeros(5, 8), torch.zeros(3, dtype=torch.bool)])
+    assert big[0].data_ptr() != small[0].data_ptr()
+    assert static.bufs[0].numel() == 2 * first.numel() == 256
+    assert big[1].data_ptr() == small[1].data_ptr()     # 3 bytes fit in 12
+    huge = static.views([torch.zeros(100, 8), torch.zeros(1)])
+    assert static.bufs[0].numel() == 3200 and huge[0].is_contiguous()
+    assert small[0].untyped_storage().nbytes() == 128   # kept by its views
+
+
+def test_check_writes_refuses_a_state_that_aliases():
+    """``check_writes``, which the compiled train step runs at capture on
+    the caller's params and optimizer state, refuses a written tensor that
+    shares memory with another tensor of the state, or that is written
+    twice."""
+    z = torch.zeros(3, 4)
+    big = torch.zeros(10)
+    ok = {"a": torch.zeros(3, 4), "b": torch.zeros(3, 4), "r": big[:5],
+          "s": big[5:]}
+    graphs.check_writes(ok, {"a": torch.ones(3, 4), "b": torch.ones(3, 4),
+                             "r": torch.ones(5), "s": ok["s"]})
+    with pytest.raises(ValueError, match="shares memory"):
+        graphs.check_writes({"h": z, "c": z},
+                            {"h": torch.ones(3, 4), "c": torch.ones(3, 4)})
+    with pytest.raises(ValueError, match="shares memory"):
+        graphs.check_writes({"a": big[:6], "b": big[4:]},
+                            {"a": torch.ones(6), "b": big[4:]})

@@ -1378,3 +1378,262 @@ def test_jit_two_threads_at_one_key_get_their_own_results(dev):
         t.join(timeout=600)
     assert not errors and not wrong
     assert len(graphs.programs()) == 2
+
+
+# --------------------------------------------------------------------------
+# the compiled train step (train/step.py CompiledStep): one CUDA graph a
+# key in one shared pool, against the eager train_step on the card
+# --------------------------------------------------------------------------
+# graph against eager: the same kernels in the same order, so bit for bit
+
+
+def _golden_train_setup(dev, dtype="float32", B=6, T=40, S=5, seed=0):
+    """The golden model's config (clip 1.0, ``dtype``), its params on the
+    card and a seeded batch [B, T] x [B, S] there."""
+    from chinese_asr_tpu_torch.data.dataset import Batch
+    from chinese_asr_tpu_torch.models import las
+    from chinese_asr_tpu_torch.utils.checkpoint import load_checkpoint
+
+    cfg = golden_cfg(tcfg).with_("train", clip=1.0, compute_dtype=dtype)
+    pn = load_checkpoint(os.path.join(GOLD, "model.ckpt"))["params"]
+    rng = np.random.RandomState(seed)
+    feats = rng.randn(B, T, cfg.audio.feat_dim).astype(np.float32)
+    lens = rng.randint(T // 3, T + 1, B).astype(np.int32)
+    lens[0] = T
+    feats[np.arange(T)[None, :] >= lens[:, None]] = 0
+    text = rng.randint(4, cfg.vocab.vocab_size, (B, S))
+    ti = np.concatenate([np.full((B, 1), 1), text[:, :-1]], 1)
+    to = np.concatenate([text[:, :-1], np.full((B, 1), 2)], 1)
+    tl = np.full(B, S, np.int32)
+    batch = Batch(*(torch.tensor(a).to(dev) for a in (feats, lens, ti, to,
+                                                      tl)))
+    return cfg, las.params_from_numpy(pn, dev), batch
+
+
+def _state_leaves(params, opt_state):
+    from chinese_asr_tpu_torch.models import las
+    return las.tree_leaves(params) + [opt_state[k] for k in sorted(opt_state)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_graph_train_step_equals_eager_on_the_card(dev, dtype):
+    """Three steps of the golden model through ``CompiledStep`` (a capture,
+    then replays) against the eager ``train_step`` on the card from the
+    same params: the same kernels in the same order, so the loss, the grad
+    norm, every param and every optimizer state tensor are equal bit for
+    bit at every step; the state keeps its tensors."""
+    from chinese_asr_tpu_torch.models import las
+    from chinese_asr_tpu_torch.train import optim, step
+
+    cfg, params, batch = _golden_train_setup(dev, dtype)
+    tx = optim.make_optimizer(cfg.train)
+    p_g = las.tree_map(torch.clone, params)
+    o_g = tx.init(p_g)
+    p_e, o_e = params, tx.init(params)
+    ptrs = [t.data_ptr() for t in _state_leaves(p_g, o_g)]
+    compiled = step.CompiledStep(cfg, tx)
+    for i in range(3):
+        _, _, m_g = compiled(p_g, o_g, batch)
+        p_e, o_e, m_e = step.train_step(p_e, o_e, cfg, tx, batch)
+        for k in ("loss", "grad_norm", "skipped"):
+            assert torch.equal(m_g[k], m_e[k]), (i, k)
+        assert not bool(m_g["skipped"])
+        for a, b in zip(_state_leaves(p_g, o_g), _state_leaves(p_e, o_e)):
+            assert torch.equal(a, b), i
+    assert compiled.graphs.captures == 1 and compiled.graphs.replays == 3
+    assert ptrs == [t.data_ptr() for t in _state_leaves(p_g, o_g)]
+
+
+def test_graph_train_step_skips_a_non_finite_loss_on_the_card(dev):
+    """A replay whose loss is not finite leaves every param and optimizer
+    state tensor as it was, and reports the skip; the next finite batch
+    of the key steps again."""
+    from chinese_asr_tpu_torch.models import las
+    from chinese_asr_tpu_torch.train import optim, step
+
+    cfg, params, batch = _golden_train_setup(dev)
+    tx = optim.make_optimizer(cfg.train)
+    state = tx.init(params)
+    compiled = step.CompiledStep(cfg, tx)
+    compiled(params, state, batch)                  # capture, one step
+    before = [t.clone() for t in las.tree_leaves(params)
+              + list(state.values())]
+    bad = batch._replace(feats=batch.feats.clone())
+    bad.feats[0, 0, 0] = float("nan")
+    _, _, m = compiled(params, state, bad)
+    assert compiled.graphs.captures == 1            # a replay
+    assert bool(m["skipped"]) and not torch.isfinite(m["loss"])
+    for a, b in zip(las.tree_leaves(params) + list(state.values()), before):
+        assert torch.equal(a, b)
+    _, _, m = compiled(params, state, batch)
+    assert not bool(m["skipped"]) and int(state["count"]) == 2
+
+
+def test_graph_train_step_second_bucket_shares_the_pool_on_the_card(dev):
+    """A second (T, S) bucket captures a second graph into the same pool
+    and views the same static input buffers; a return to the first
+    replays it; the larger bucket captured first, the pool grows to about
+    its need, not the sum."""
+    from chinese_asr_tpu_torch.train import optim, step
+
+    cfg, params, b1 = _golden_train_setup(dev, T=40, S=5)
+    _, _, b2 = _golden_train_setup(dev, T=64, S=8, seed=1)
+    tx = optim.make_optimizer(cfg.train)
+    state = tx.init(params)
+    compiled = step.CompiledStep(cfg, tx)
+    compiled(params, state, b2)
+    first = compiled.graphs.pool_bytes
+    compiled(params, state, b1)
+    compiled(params, state, b2)
+    g = compiled.graphs
+    assert g.captures == 2 and g.replays == 3
+    progs = [p for _, p in g.programs()]
+    assert len(progs) == 2 and [p.replays for p in progs] == [1, 2]
+    assert first > 0 and g.pool_bytes == sum(p.reserved_bytes for p in progs)
+    # the smaller bucket, captured second, fits in what the first left
+    assert g.pool_bytes < 2 * first
+    for a, b in zip(progs[0].inputs, progs[1].inputs):
+        assert a.data_ptr() == b.data_ptr()
+    assert g.input_bytes() == sum(t.numel() * t.element_size()
+                                  for t in progs[1].inputs)
+
+
+def test_graph_train_step_resets_its_pool_past_the_budget_on_the_card(dev):
+    """Past its byte budget (here any pool), a new key first drops every
+    graph and the pool: one graph is left, a key met again is captured
+    anew, and every step still equals the eager one bit for bit."""
+    from chinese_asr_tpu_torch.models import las
+    from chinese_asr_tpu_torch.train import optim, step
+
+    cfg, params, b1 = _golden_train_setup(dev, T=40, S=5)
+    _, _, b2 = _golden_train_setup(dev, T=64, S=8, seed=1)
+    tx = optim.make_optimizer(cfg.train)
+    p_g = las.tree_map(torch.clone, params)
+    o_g = tx.init(p_g)
+    p_e, o_e = params, tx.init(params)
+    compiled = step.CompiledStep(cfg, tx)
+    g = compiled.graphs
+    g.budget_fraction = 1e-12
+    for b in (b1, b2, b2, b1):
+        _, _, m_g = compiled(p_g, o_g, b)
+        p_e, o_e, m_e = step.train_step(p_e, o_e, cfg, tx, b)
+        assert torch.equal(m_g["loss"], m_e["loss"])
+        for x, y in zip(_state_leaves(p_g, o_g), _state_leaves(p_e, o_e)):
+            assert torch.equal(x, y)
+    assert (g.captures, g.resets, g.replays) == (3, 2, 4)
+    assert len(g.programs()) == 1 and g.pool_bytes > 0
+
+
+def test_graph_train_step_counts_replays_on_the_card(dev):
+    """K2 and K2-bwd counters under the step graph: the first call counts
+    its eager warm-up and its replay, a later call one launch a layer
+    each; the bf16 kernels likewise in bf16."""
+    from chinese_asr_tpu_torch.train import optim, step
+
+    layers = golden_cfg(tcfg).encoder.num_layers
+    for dtype, (fwd, bwd) in (("float32", ("launches", "bwd_launches")),
+                              ("bfloat16", ("bf16_launches",
+                                            "bwd_bf16_launches"))):
+        cfg, params, batch = _golden_train_setup(dev, dtype)
+        tx = optim.make_optimizer(cfg.train)
+        state = tx.init(params)
+        compiled = step.CompiledStep(cfg, tx)
+        counts = []
+        for _ in range(3):
+            before = (getattr(tlstm, fwd), getattr(tlstm, bwd))
+            compiled(params, state, batch)
+            counts.append((getattr(tlstm, fwd) - before[0],
+                           getattr(tlstm, bwd) - before[1]))
+        assert counts == [(2 * layers, 2 * layers), (layers, layers),
+                          (layers, layers)], dtype
+
+
+def test_trainer_evaluate_replays_one_greedy_program_on_the_card(dev,
+                                                                 tmp_path):
+    """``Trainer.evaluate`` on the card decodes through
+    ``greedy_decode_jit``: one capture at the first eval, none after a
+    training step and a second eval (the params keep their tensors), and
+    the CER equals the eager greedy's on the same params."""
+    from chinese_asr_tpu_torch.data import dataset
+    from chinese_asr_tpu_torch.decode import greedy
+    from chinese_asr_tpu_torch.models import las
+    from chinese_asr_tpu_torch.ops.metrics import cer
+    from chinese_asr_tpu_torch.train.trainer import Trainer
+    from chinese_asr_tpu_torch.utils import graphs
+    from chinese_asr_tpu_torch.utils.checkpoint import load_checkpoint
+
+    graphs.clear()
+    cfg = golden_cfg(tcfg).with_("train", eval_batch_size=6,
+                                 save_dir=str(tmp_path))
+    vocab = Vocab.build([CHARS * 3], max_num_words=8)
+    refs = [CHARS[i:i + 3] for i in range(6)]
+    mpath = str(tmp_path / "m.tsv")
+    dataset.write_manifest(mpath, [dataset.Utterance(p, r) for p, r in
+                                   zip(golden_wav_paths(), refs)])
+    pn = load_checkpoint(os.path.join(GOLD, "model.ckpt"))["params"]
+    tr = Trainer(cfg, las.params_from_numpy(pn), vocab, device=dev)
+
+    def loader():
+        return dataset.batches_to_device(
+            dataset.make_eval_loader(mpath, cfg, vocab), cfg, dev)
+
+    def eager_cer():
+        b = next(iter(loader()))
+        out = greedy.finalize_greedy(
+            greedy.greedy_decode(tr.params, cfg, b.feats, b.feat_lens),
+            vocab)
+        return float(np.mean([cer(p, r) for p, r in zip(out.pred_text,
+                                                        refs)]))
+
+    first = tr.evaluate(loader())
+    assert graphs.captures >= 1
+    captured = graphs.captures
+    assert first == pytest.approx(eager_cer(), abs=1e-12)
+    _, _, b = _golden_train_setup(dev)
+    tr._step_fn(tr.params, tr.opt_state, b, None)
+    second = tr.evaluate(loader())
+    assert graphs.captures == captured
+    assert second == pytest.approx(eager_cer(), abs=1e-12)
+
+
+@pytest.mark.parametrize("over,rows", [
+    (dict(encoder=dict(encoder_type="CNN1D_RNN")), 5),
+    (dict(decoder=dict(num_layers=2)), 5),
+    (dict(decoder=dict(init_cell_state_as_param=True, num_layers=2)), 5),
+    (dict(decoder=dict(init_cell_state_as_param=True, num_layers=2)), 1)],
+    ids=["zero_state", "enc_state_2_layers", "learned_init",
+         "learned_init_1_row"])
+def test_jit_graph_equals_eager_when_the_init_state_aliases(dev, over, rows):
+    """Decoders whose initial state aliases (the zero state's one tensor
+    in every slot, the encoder's state shared by two layers, a learned
+    init state's expanded row, at one row a plain view of its parameter):
+    ``greedy_decode_jit`` and ``beam_decode_jit`` equal their eager
+    functions field by field on the card, twice, and leave the params as
+    they were: the graphs' state owns its memory (``own_tree``)."""
+    from chinese_asr_tpu_torch.decode import beam, greedy
+    from chinese_asr_tpu_torch.models import las
+    from chinese_asr_tpu_torch.utils import graphs
+    from torch_port_util import small_cfg
+
+    graphs.clear()
+    cfg = small_cfg(tcfg)
+    for sec, kw in over.items():
+        cfg = cfg.with_(sec, **kw)
+    params = las.tree_map(lambda t: t.to(dev), las.init_params(cfg, 0))
+    before = [t.clone() for t in las.tree_leaves(params)]
+    rng = np.random.RandomState(0)
+    feats = torch.tensor(rng.randn(rows, 48, cfg.audio.feat_dim),
+                         dtype=torch.float32, device=dev)
+    lens = torch.tensor([48, 40, 33, 21, 12][:rows], device=dev)
+    for jit, eager in ((greedy.greedy_decode_jit, greedy.greedy_decode),
+                       (lambda *a: beam.beam_decode_jit(a[0], a[1], 3,
+                                                        *a[2:]),
+                        lambda *a: beam.beam_decode(a[0], a[1], 3,
+                                                    *a[2:]))):
+        want = eager(params, cfg, feats, lens)
+        for _ in range(2):
+            got = jit(params, cfg, feats, lens)
+            for name, w in want._asdict().items():
+                assert torch.equal(getattr(got, name), w), name
+            for x, y in zip(las.tree_leaves(params), before):
+                assert torch.equal(x, y)
