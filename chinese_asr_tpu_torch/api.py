@@ -25,7 +25,11 @@ bytes, ``transcribe_long`` cuts long audio at silences, and the CLI's
 ``--serve``/``--serve-http`` keep a model loaded (``serve.py``).
 
 Runs on ``cuda`` unless the caller passes ``device="cpu"``; without a GPU
-and without an explicit device the constructor raises.
+and without an explicit device the constructor raises.  On one card the
+front end is one graph a key and the decode one graph whose loop tests
+its stop flag on the card, so ``_decode_dispatch`` returns while the card
+decodes and ``transcribe_wavs`` prepares the next chunk meanwhile (JAX's
+dispatch-ahead order); ``_decode_finalize`` reads the result.
 
 Over a (data x model) mesh (``mesh=``, ``parallel/sharding.py``) every
 rank is one process that is called with the same wavs: it prepares and
@@ -82,6 +86,16 @@ class _Upload(NamedTuple):
     done: Optional[torch.cuda.Event]
     pinned: Optional[list]
     offset: int = 0
+
+
+class _InFlight(NamedTuple):
+    """A dispatched decode on the card: its result with the fields the
+    finalization reads on their way to pinned host memory, and the event
+    after those copies.  The copies are queued right behind the decode,
+    so a finalization waits for its own batch alone, not for the batches
+    dispatched after it (JAX's result buffers reach the host that way)."""
+    res: tuple
+    ready: torch.cuda.Event
 
 
 class ASR:
@@ -303,6 +317,11 @@ class ASR:
         return _Upload(tensors, N, done, pinned, offset)
 
     def _featurize(self, up: _Upload):
+        """The features of an uploaded batch, (feats in ``compute_dtype``,
+        feat_lens clamped to 1): one device program a key
+        (``features.front_end_jit``: the wire, the buffer's length and
+        type, B, N, the dtype), JAX's ``_feat_fns``; a mesh featurizes
+        eagerly."""
         buf_d, lens_d, sc_d = up.tensors
         if up.done is not None:
             # the compute stream waits for the copy; the tensors, made on
@@ -314,95 +333,132 @@ class ASR:
                 t.record_stream(stream)
         # a batch holding a float wav ships over the float32 flat wire
         # whatever ``wire`` says, so the buffer's dtype picks the decode
-        acfg = self.cfg.audio
-        if self.wire == "padded":
-            feats, feat_lens = features.featurize_batch(
-                buf_d, lens_d, acfg, norm_eps=1e-6, scale=sc_d)
-        else:
-            if self.wire == "adpcm" and buf_d.dtype == torch.uint8:
-                feats, feat_lens = features.featurize_adpcm(
-                    buf_d, lens_d, up.N, acfg, norm_eps=1e-6, scale=sc_d,
-                    offset=up.offset)
-            else:
-                feats, feat_lens = features.featurize_flat(
-                    buf_d, lens_d, up.N, acfg, norm_eps=1e-6, scale=sc_d)
-        # the front end runs in float32; the model in compute_dtype
-        feats = feats.to(self.compute_dtype)
-        # degenerate (shorter than one frame) utterances attend to one zero
-        # frame instead of an all -inf softmax mask
-        return feats, torch.clamp(feat_lens, min=1)
+        wire = self.wire
+        if wire == "adpcm" and buf_d.dtype != torch.uint8:
+            wire = "flat"
+        elif wire == "mulaw":
+            wire = "flat"           # the codes' dtype picks their decode
+        fe = features.front_end if self.mesh is not None \
+            else features.front_end_jit
+        return fe(wire, buf_d, lens_d, sc_d, up.N, self.cfg.audio,
+                  norm_eps=1e-6, dtype=self.compute_dtype, offset=up.offset)
 
     # ---- transcription ------------------------------------------------------
-    def _decode(self, feats, feat_lens) -> List[str]:
-        """Transcripts of the batch; on a mesh ``feats`` is this rank's
-        shard and the transcripts are the whole batch's.  One device
-        decodes through the ``*_jit`` forms, as JAX's ``api.py`` does
-        (CUDA graphs on the card, the guarded loop on the CPU); a mesh
-        through the eager functions."""
+    def _decode_dispatch(self, featurized):
+        """Start the decode of a featurized batch and return its result on
+        the device, as JAX's ``_decode_dispatch`` does: one device issues
+        the ``*_jit`` program JAX picks for the mode (greedy,
+        ``beam_best``, ``beam`` before the host LM, ``beam_rescored_best``,
+        ``lm_fused_best``), queues the copy of its result to pinned host
+        memory behind it (``_to_host``) and returns while the card
+        decodes.  On the CPU the result is finished; on a mesh (``feats``
+        this rank's shard) it is the whole batch's, decoded by the eager
+        functions."""
+        feats, feat_lens = featurized
         mesh = self.mesh
         dcfg = self.cfg.decode
-        if not self.bw or self.bw <= 1:
-            if mesh is None:
-                res = greedy_mod.greedy_decode_jit(self.params, self.cfg,
-                                                   feats, feat_lens)
-            else:
-                res = sharding.gather_rows(greedy_mod.greedy_decode(
-                    self.params, self.cfg, feats, feat_lens, mesh), mesh)
-            return greedy_mod.finalize_greedy(res, self.vocab).pred_text
+        p, cfg, bw = self.params, self.cfg, self.bw
+        if mesh is not None:
+            return self._decode_mesh(feats, feat_lens)
+        if not bw or bw <= 1:
+            # the [B, max_len, L] alignments stay on the card: unread
+            return self._to_host(greedy_mod.greedy_decode_jit(
+                p, cfg, feats, feat_lens), skip=("alignments",))
         if self.dlm is not None and self.lm_mode == "first":
-            if mesh is None:
-                best = lm_fused_mod.lm_fused_decode_best_jit(
-                    self.params, self.cfg, self.bw, feats, feat_lens,
-                    self.dlm, self.tok2lm, self.lm_topn)
-            else:
-                best = lm_fused_mod.lm_fused_decode_best(
-                    self.params, self.cfg, self.bw, feats, feat_lens,
-                    self.dlm, self.tok2lm, self.lm_topn, mesh)
+            res = lm_fused_mod.lm_fused_decode_best_jit(
+                p, cfg, bw, feats, feat_lens, self.dlm, self.tok2lm,
+                self.lm_topn)
         elif self.dlm is not None:
-            lm = (self.dlm, self.tok2lm, dcfg.lm_weight, dcfg.length_weight,
-                  self._lm_bos, self._lm_eos)
-            if mesh is None:
-                best = rescore_mod.beam_rescored_best_jit(
-                    self.params, self.cfg, self.bw, feats, feat_lens, *lm)
-            else:
-                best = rescore_mod.beam_rescored_best(
-                    self.params, self.cfg, self.bw, feats, feat_lens, *lm,
-                    mesh)
-        elif self.lm is not None:
-            # only the finite n-best slots cross to the host rescorer (on
-            # a mesh, after the n-best lists are gathered)
-            if mesh is None:
-                res = beam_mod.beam_decode_jit(self.params, self.cfg,
-                                               self.bw, feats, feat_lens)
-            else:
-                res = sharding.gather_rows(beam_mod.beam_decode(
-                    self.params, self.cfg, self.bw, feats, feat_lens,
-                    mesh=mesh), mesh)
-            return beam_mod.finalize_beam(
-                beam_mod.compact_nbest(res), self.cfg, self.vocab,
-                lm_model=self.lm, second_pass=True,
-                lm_weight=dcfg.lm_weight,
-                length_weight=dcfg.length_weight).pred_text
-        elif mesh is None:
-            best = beam_mod.beam_decode_best_jit(self.params, self.cfg,
-                                                 self.bw, feats, feat_lens)
+            res = rescore_mod.beam_rescored_best_jit(
+                p, cfg, bw, feats, feat_lens, self.dlm, self.tok2lm,
+                dcfg.lm_weight, dcfg.length_weight, self._lm_bos,
+                self._lm_eos)
+        elif self.lm is None:
+            res = beam_mod.beam_decode_best_jit(p, cfg, bw, feats, feat_lens)
         else:
-            best = beam_mod.beam_decode_best(self.params, self.cfg, self.bw,
-                                             feats, feat_lens, mesh)
-        return beam_mod.finalize_best(best, self.vocab).pred_text
+            # the whole n-best crosses (~13 MB at B=128, bw 16); the
+            # host compacts it before the host LM rescores it
+            res = beam_mod.beam_decode_jit(p, cfg, bw, feats, feat_lens)
+        return self._to_host(res)
+
+    def _decode_mesh(self, feats, feat_lens):
+        """A mesh rank's decode through the eager functions: the whole
+        batch's result, finished."""
+        mesh, p, cfg, bw = self.mesh, self.params, self.cfg, self.bw
+        dcfg = cfg.decode
+        if not bw or bw <= 1:
+            return sharding.gather_rows(greedy_mod.greedy_decode(
+                p, cfg, feats, feat_lens, mesh), mesh)
+        if self.dlm is not None and self.lm_mode == "first":
+            return lm_fused_mod.lm_fused_decode_best(
+                p, cfg, bw, feats, feat_lens, self.dlm, self.tok2lm,
+                self.lm_topn, mesh)
+        if self.dlm is not None:
+            return rescore_mod.beam_rescored_best(
+                p, cfg, bw, feats, feat_lens, self.dlm, self.tok2lm,
+                dcfg.lm_weight, dcfg.length_weight, self._lm_bos,
+                self._lm_eos, mesh)
+        if self.lm is None:
+            return beam_mod.beam_decode_best(p, cfg, bw, feats, feat_lens,
+                                             mesh)
+        return sharding.gather_rows(beam_mod.beam_decode(
+            p, cfg, bw, feats, feat_lens, mesh=mesh), mesh)
+
+    def _to_host(self, res, skip=()):
+        """``res`` (a named tuple of tensors) with each field but ``skip``
+        copied into pinned host memory behind the work queued so far, as
+        an ``_InFlight``; on the CPU ``res`` itself."""
+        if self.device.type != "cuda":
+            return res
+        host = {}
+        for name, t in res._asdict().items():
+            if name not in skip:
+                host[name] = torch.empty(t.shape, dtype=t.dtype,
+                                         pin_memory=True)
+                host[name].copy_(t, non_blocking=True)
+        return _InFlight(res._replace(**host), torch.cuda.current_stream(
+            self.device).record_event())
+
+    def _decode_finalize(self, res) -> List[str]:
+        """The transcripts of a ``_decode_dispatch`` result: its host copy
+        waited for, then detokenized (the host LM's second pass first
+        compacts the n-best, then rescores it on the host)."""
+        if isinstance(res, _InFlight):
+            res.ready.synchronize()
+            res = res.res
+        if not self.bw or self.bw <= 1:
+            return greedy_mod.finalize_greedy(res, self.vocab).pred_text
+        if self.dlm is not None or self.lm is None:
+            # the winner is picked on the device (with the LM's totals
+            # under a device LM)
+            return beam_mod.finalize_best(res, self.vocab).pred_text
+        dcfg = self.cfg.decode
+        # only the finite n-best slots cross to the host rescorer
+        return beam_mod.finalize_beam(
+            beam_mod.compact_nbest(res), self.cfg, self.vocab,
+            lm_model=self.lm, second_pass=True, lm_weight=dcfg.lm_weight,
+            length_weight=dcfg.length_weight).pred_text
+
+    def _decode_batch(self, featurized) -> List[str]:
+        """The transcripts of a featurized batch, serially."""
+        return self._decode_finalize(self._decode_dispatch(featurized))
 
     def transcribe_wavs(self, wavs: Sequence[np.ndarray],
                         max_batch: int = 128, scales=None) -> List[str]:
         """Transcribe a list of waveforms.  Lists longer than ``max_batch``
         are length-sorted and chunked (order restored), so a chunk pads
-        only to its own longest wav; chunk c+1 is prepared on the host and
-        its copy issued while chunk c is featurized and decoded.
-        ``scales`` (one float per wav) is a per-utterance gain applied on
-        the device.
+        only to its own longest wav.  The chunks run in JAX's order:
+        chunk c is featurized and its decode dispatched, then chunk c+1 is
+        prepared on the host and its copy issued, then chunk c-1 is
+        finalized, all while the card decodes chunk c; the last chunk is
+        finalized at the end.  ``scales`` (one float per wav) is a
+        per-utterance gain applied on the device.
 
         On a mesh every rank is called with the same wavs; ``max_batch``
         is clamped to a multiple of the data axis and the call padded to
-        one with one-sample wavs, whose transcripts are dropped."""
+        one with one-sample wavs, whose transcripts are dropped.  A mesh's
+        dispatch returns its decode finished, so its chunks run
+        serially."""
         if not wavs:
             return []
         wavs = list(wavs)
@@ -432,15 +488,24 @@ class ASR:
                 chunk, sc, sharding.row_slice(len(idx), self.mesh)))
 
         out: List[str] = [""] * len(wavs)
-        up = upload(chunks[0])
-        for c, idx in enumerate(chunks):
-            cur = up
-            feats = self._featurize(cur)
-            up = upload(chunks[c + 1]) if c + 1 < len(chunks) else None
-            for i, text in zip(idx, self._decode(*feats)):
+
+        def finalize(pend):
+            idx, _, res = pend
+            for i, text in zip(idx, self._decode_finalize(res)):
                 out[i] = text
-            if cur.done is not None:
-                cur.done.synchronize()  # long done: the decode read its data
+            # the upload (its pinned buffers) lived until here: the decode
+            # the finalization read waited for its copy
+
+        up = upload(chunks[0])
+        pend = None     # (chunk indices, its upload, in-flight result)
+        for c, idx in enumerate(chunks):
+            res = self._decode_dispatch(self._featurize(up))
+            cur, up = up, (upload(chunks[c + 1]) if c + 1 < len(chunks)
+                           else None)
+            if pend is not None:
+                finalize(pend)
+            pend = (idx, cur, res)
+        finalize(pend)
         return out[:n_real]
 
     def transcribe_files(self, paths: Sequence[str],

@@ -33,6 +33,7 @@ import torch
 from ..config import AudioConfig
 from ..ops.cuda import adpcm as adpcm_k
 from ..ops.cuda import logmel as logmel_k
+from ..utils import graphs
 
 
 # --------------------------------------------------------------------------
@@ -406,3 +407,68 @@ def featurize_adpcm(buf, lens, N: int, cfg: AudioConfig,
     flat = adpcm_decode_flat(buf, nb)[offset:]
     return featurize_batch(unpack_flat(flat, lens, N), lens, cfg,
                            norm_eps=norm_eps, scale=scale)
+
+
+# --------------------------------------------------------------------------
+# the front end as a compiled program (the JAX package's jitted
+# featurizers: ``api.py`` ``_feat_fns``, ``data/dataset.py`` ``feat_fn``)
+# --------------------------------------------------------------------------
+class FrontEnd:
+    """A featurizer as a loop of no steps, for ``utils/graphs.py``
+    ``run``: on a CUDA tensor one graph a key (the buffer's length and
+    type, the batch, ``N`` and what the key names), K1 and K5 launched
+    inside it; on a CPU tensor the eager function."""
+    max_len = 0
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    def init(self, *tensors):
+        return self.fn(*tensors)
+
+    def result(self, out):
+        return out
+
+
+def front_end(wire: str, buf, lens, scale, N: int, cfg: AudioConfig,
+              norm_eps: float = 1e-6, dtype=torch.float32, offset: int = 0):
+    """The inference front end of one batch (``api.ASR``): the buffer of
+    ``wire`` ("padded" [B, N], "flat" int16 / uint8 mu-law / float32, or
+    "adpcm") featurized in float32, cast to ``dtype``, and the feature
+    lengths clamped to 1 (a wav shorter than one frame attends to one
+    zero frame instead of an all -inf softmax mask)."""
+    if wire == "padded":
+        feats, feat_lens = featurize_batch(buf, lens, cfg, norm_eps=norm_eps,
+                                           scale=scale)
+    elif wire == "adpcm":
+        feats, feat_lens = featurize_adpcm(buf, lens, N, cfg,
+                                           norm_eps=norm_eps, scale=scale,
+                                           offset=offset)
+    else:
+        feats, feat_lens = featurize_flat(buf, lens, N, cfg,
+                                          norm_eps=norm_eps, scale=scale)
+    return feats.to(dtype), torch.clamp(feat_lens, min=1)
+
+
+def front_end_jit(wire: str, buf, lens, scale, N: int, cfg: AudioConfig,
+                  norm_eps: float = 1e-6, dtype=torch.float32,
+                  offset: int = 0):
+    """``front_end`` as one compiled program: on the card a graph a key
+    (``utils/graphs.py``; the outputs are copied out of the graph), on
+    the CPU the eager function."""
+    return graphs.run(
+        ("front_end", wire, N, cfg, norm_eps, dtype, offset),
+        FrontEnd(lambda b, n, sc: front_end(wire, b, n, sc, N, cfg, norm_eps,
+                                            dtype, offset)),
+        (buf, lens, scale), 1)
+
+
+def featurize_batch_jit(wavs, wav_lens, cfg: AudioConfig,
+                        norm_eps: float = 1e-7):
+    """``featurize_batch`` as one compiled program, one graph a (B, N) on
+    the card (the JAX loader's ``feat_fn``), the eager function on the
+    CPU."""
+    return graphs.run(
+        ("featurize_batch", cfg, norm_eps),
+        FrontEnd(lambda w, n: featurize_batch(w, n, cfg, norm_eps=norm_eps)),
+        (wavs, wav_lens), 1)

@@ -278,15 +278,16 @@ def prefetch(iterator, size: int = 2):
 
 def batches_to_device(loader: Loader, cfg: Config, device=None):
     """Host batches -> device batches, featurized on the device
-    (``featurize_batch``; on the card through K1).  Yields ``(feats,
-    feat_lens)`` in infer mode and a :class:`Batch` otherwise.  ``device``
-    defaults to ``cuda`` and raises without a GPU."""
+    (``featurize_batch_jit``: on the card one graph a (B, N), K1 inside
+    it, as JAX's loader jits one featurizer a wav length).  Yields
+    ``(feats, feat_lens)`` in infer mode and a :class:`Batch` otherwise.
+    ``device`` defaults to ``cuda`` and raises without a GPU."""
     from ..audio import features
     from ..utils.device import resolve_device
 
     dev = resolve_device(device)
     for wav_mat, wav_lens, ti, to, tl in prefetch(iter(loader)):
-        feats, feat_lens = features.featurize_batch(
+        feats, feat_lens = features.featurize_batch_jit(
             torch.from_numpy(wav_mat).to(dev),
             torch.from_numpy(wav_lens).to(dev), cfg.audio)
         if ti is None:

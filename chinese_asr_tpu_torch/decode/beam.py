@@ -20,8 +20,8 @@ The loop (``BeamLoop``) is a chain of guarded steps over a state that
 lives on the device, its stop flag included (JAX's ``while_loop`` body
 with ``keep``).  ``beam_decode`` runs it eagerly and reads the flag on
 the host once every ``unroll`` steps; the ``*_jit`` forms run it as one
-compiled program: CUDA graphs on the card (``utils/graphs.py``), the
-same eager loop on the CPU.  On a mesh (``mesh``,
+compiled program: one CUDA graph on the card, which tests the flag there
+(``utils/graphs.py``), the same eager loop on the CPU.  On a mesh (``mesh``,
 ``parallel/sharding.py``; eager only) each rank decodes its data
 shard's rows over full logit rows (the model ranks' slices all-gathered
 before stage 1), the stop flag is the AND over the whole mesh, and the
@@ -394,6 +394,7 @@ def finalize_best(best: BestResult, vocab, text=None) -> EvalOutput:
     tokens = best.tokens.cpu().numpy()
     lens = best.lens.cpu().numpy()
     scores = best.scores.cpu().numpy()
+    graphs.settle()             # the result is read: its chunks' launches
     return with_cer(
         [vocab.decode(tokens[b, : lens[b]]) for b in range(tokens.shape[0])],
         [float(s) for s in scores], vocab, text)
@@ -444,6 +445,7 @@ def finalize_beam(res: BeamResult, cfg: Config, vocab, text=None,
     live_tokens = res.live_tokens.cpu().numpy()
     live_scores = res.live_scores.cpu().numpy()
     l_final = int(res.l_final)
+    graphs.settle()             # the result is read: its chunks' launches
     B, cap = fin_scores.shape
     valid = np.isfinite(fin_scores)                                # [B, cap]
     if second_pass and lm_model is None:

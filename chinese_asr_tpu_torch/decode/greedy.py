@@ -5,8 +5,8 @@ The token loop (``GreedyLoop``) has the batch-wide early exit of the
 reference (``if finished.all(): break``, model.py:578-579) as a stop flag
 on the device: each step is guarded, an identity once every sample is
 finished.  ``greedy_decode`` runs it eagerly and reads the flag on the
-host once every ``unroll`` steps; ``greedy_decode_jit`` runs it as CUDA
-graphs on the card (``utils/graphs.py``).  On a mesh (eager only) the flag
+host once every ``unroll`` steps; ``greedy_decode_jit`` runs it as one
+CUDA graph on the card that tests the flag there (``utils/graphs.py``).  On a mesh (eager only) the flag
 is the AND over the whole mesh (``sharding.all_true``), as JAX's loop
 reads the global batch.
 
@@ -163,6 +163,7 @@ def finalize_greedy(res: GreedyResult, vocab, text=None, feat_lens=None,
     final_lens = res.final_lens.cpu().numpy()
     finished = res.finished.cpu().numpy()
     accum = res.scores.cpu().numpy()
+    graphs.settle()             # the result is read: its chunks' launches
     pred_text, score = [], []
     for i in range(tokens.shape[0]):
         ids = tokens[i, : final_lens[i]]

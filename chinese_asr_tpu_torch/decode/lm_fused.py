@@ -24,8 +24,9 @@ The JAX package's ``legacy_select`` (its first-cut step body, an A/B
 switch with the same output) is not ported.  Beam reorders are exact
 integer gathers.  The loop (``LmFusedLoop``) is a chain of guarded steps
 with its stop flag on the device, run eagerly by ``lm_fused_decode``
-(one host read of the flag every ``unroll`` steps) and as CUDA graphs on
-the card by the ``*_jit`` forms (``utils/graphs.py``).  On a mesh
+(one host read of the flag every ``unroll`` steps) and as one CUDA graph
+on the card, which tests the flag there, by the ``*_jit`` forms
+(``utils/graphs.py``).  On a mesh
 (``mesh``; eager only) it runs as ``decode/beam.py`` does there, the LM
 tables replicated on every rank.
 """

@@ -1,38 +1,43 @@
 """The compiled decode entry points' runner (the ``*_jit`` forms of
-``decode/``): a device-resident decode loop, eager on the CPU and replayed
-as CUDA graphs on the card.  This is the port's counterpart of the JAX
-package's ``jax.jit`` over a ``lax.while_loop``: "jit" in a ``*_jit``
-name means a graph replay here.
+``decode/``, and the front end's ``features.front_end_jit``): a
+device-resident decode loop, eager on the CPU and one CUDA graph on the
+card.  This is the port's counterpart of the JAX package's ``jax.jit``
+over a ``lax.while_loop``: "jit" in a ``*_jit`` name means a graph replay
+here, and as XLA's loop does, the graph tests the loop's stop flag on the
+card, so a call returns as soon as its work is queued.
 
 A decode is a loop object with ``max_len``, ``init(*inputs)`` (encode the
 batch; returns the loop state, a tree of tensors holding a 0-d bool
 ``done``), ``step(state, l, guard)`` (one step; with ``guard`` it is an
 identity once ``done`` holds, as JAX's ``keep`` makes its stopping step)
-and ``result(state)``.
+and ``result(state)``.  A loop of no steps (``max_len`` 0: the front
+end, the rescorer's selection) is ``result(init(*inputs))``.
 
 ``run_loop`` runs it eagerly in chunks of ``unroll`` steps and reads
 ``done`` on the host once per chunk (JAX's ``unroll``, ``beam.py``
 ``body_unrolled``).  Only a step after the first of its chunk can follow
 the stop, so only those are guarded: the first found the loop running
-(the host read before it), and at ``unroll=1`` no step is guarded, which
-saves the guards' kernels where the flag is read every step.  ``run`` is
-what the ``*_jit`` forms call: on a CPU tensor ``run_loop``; on a CUDA
-tensor a cached ``Graphed`` program.
+(the host read before it, or on the card the IF node), and at
+``unroll=1`` no step is guarded.  ``run`` is what the ``*_jit`` forms
+call: on a CPU tensor ``run_loop``; on a CUDA tensor a cached
+``Graphed`` program.
 
 ``Graphed`` captures, after one eager warm-up on a side stream (it builds
-the kernels and initialises cuBLAS), one graph for the encode and the
-loop's initial state, one graph per chunk of ``unroll`` steps with ``l``
-fixed, and one for the result, all in one private memory pool.  Each
-chunk copies its new state into the state tensors the first graph made
-(each tensor a step replaces is a copy of its own, ``own_tree``), so
-every chunk reads and writes the same tensors and a chunk that is not replayed
-leaves them as the identity steps would.  A call copies the
-inputs into the graph's own, replays the encode, then the chunks, reading
-``done`` between two chunks so that an early stop skips the rest, then
-the result, and returns a copy of the result made before any other call
-may replay the program: the outputs are the caller's, as ``jax.jit``'s
-are.  A failed capture or replay raises; nothing falls back to the eager
-loop.
+the kernels and initialises cuBLAS), the encode and the loop's initial
+state, one part per chunk of ``unroll`` steps with ``l`` fixed, and the
+result, all in one private memory pool, and composes them into one
+executable graph (``_Composed``, ``csrc/runtime.cu``): every chunk after
+the first sits inside a conditional IF node whose handle a one-thread
+kernel sets from ``done`` just before it, so once ``done`` holds each
+later chunk costs that kernel alone.  Each chunk copies its new state into
+the state tensors the encode made (each tensor a step replaces is a copy
+of its own, ``own_tree``), so every chunk reads and writes the same
+tensors and a chunk that does not run leaves them as the identity steps
+would.  A call copies the inputs into the graph's own, launches the one
+graph, and returns a copy of the result made before any other call may
+launch the program: the outputs are the caller's, as ``jax.jit``'s are.
+Nothing is read on the host.  A failed capture, composition or launch
+raises; nothing falls back to the eager loop or to host reads.
 
 Programs are cached by the caller's key (everything a replay silently
 depends on: configuration, widths, the ``fused_logp`` choice, and the
@@ -49,27 +54,34 @@ programs' pools hold (``BUDGET_FRACTION`` of the card), and by
 least recently used are evicted and their memory freed.
 
 The kernel wrappers count a launch when they are called, which under
-capture is not a launch.  ``Graphed`` takes each counter's change during
-a capture back out, and adds it again at every replay of that graph, so
-the counters keep meaning launches on the card.
+capture is not a launch.  Each capture's counter changes are taken back
+out; a call adds those of the parts that always run (the encode, the
+first chunk, the result) and leaves those of the guarded chunks pending
+beside a copy of the graph's own count of the chunks that ran
+(``_ran``, on its way to pinned host memory); ``settle`` adds them once
+the call is done.  A decode's finalization calls ``settle`` after its
+host reads, so the counters keep meaning launches on the card.
 
 ``StepGraphs`` compiles a step that writes new state into the caller's
 tensors (the train step, JAX's jitted step with params and optimizer
-state donated): one graph a key, warmed up and captured as above, all of
-one ``StepGraphs`` in one shared pool, bounded by bytes (its docstring).
+state donated): one graph a key, warmed up and captured as above, all
+of one ``StepGraphs`` in one shared pool, bounded by bytes (its docstring).
 """
 
 from __future__ import annotations
 
+import ctypes
+import gc
 import threading
 import time
 import warnings
-from collections import OrderedDict
+from collections import OrderedDict, deque
 from typing import Callable, Optional, Sequence
 
 import torch
 
 from ..ops.cuda import adpcm as adpcm_k
+from ..ops.cuda import build
 from ..ops.cuda import logmel as logmel_k
 from ..ops.cuda import lstm as lstm_k
 from ..ops.cuda import topk as topk_k
@@ -84,9 +96,9 @@ MAX_PROGRAMS = 256
 # the share of the card's memory that one ``StepGraphs``'s pool and static
 # inputs may hold before its next new key drops them (its docstring)
 STEP_BUDGET_FRACTION = 0.5
-# the ``*_jit`` forms' steps between two host reads of ``done``: at most
-# max_len / UNROLL syncs a batch, at most UNROLL - 1 identity steps after
-# an early stop
+# the ``*_jit`` forms' steps a chunk: on the card one IF node a chunk, at
+# most UNROLL - 1 identity steps after an early stop; on the CPU one host
+# read of ``done`` a chunk
 UNROLL = 4
 
 # every kernel launch counter, (module, attribute)
@@ -295,26 +307,36 @@ def _warm_up(dev, fn) -> torch.cuda.Stream:
     return side
 
 
-def _capture(fn, pool, stream, may_be_empty: bool = False):
+def _capture(fn, pool, stream, may_be_empty: bool = False,
+             keep: bool = False):
     """(graph and its counter changes, what ``fn`` returned), ``fn``
     captured on ``stream`` into the memory pool ``pool``; with
-    ``may_be_empty`` the graph is None when ``fn`` issued no work.  A
-    failed capture raises."""
-    graph = torch.cuda.CUDAGraph()
+    ``may_be_empty`` the graph is None when ``fn`` issued no work; with
+    ``keep`` the graph is kept uninstantiated, a part for ``_Composed``.
+    A failed capture raises."""
+    graph = torch.cuda.CUDAGraph(keep_graph=keep)
     before = _counts()
-    with torch.cuda.stream(stream):
-        graph.capture_begin(pool=pool, capture_error_mode="thread_local")
-        try:
-            out = fn()
-        except BaseException:
+    # no cyclic garbage collection while capturing: a destructor it ran
+    # (a graph's, an event's) would call CUDA on this thread mid-capture
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.stream(stream):
+            graph.capture_begin(pool=pool, capture_error_mode="thread_local")
             try:
+                out = fn()
+            except BaseException:
+                try:
+                    graph.capture_end()
+                except RuntimeError:
+                    pass            # the first error is the one to report
+                raise
+            with warnings.catch_warnings(record=True) as said:
+                warnings.simplefilter("always")
                 graph.capture_end()
-            except RuntimeError:
-                pass            # the first error is the one to report
-            raise
-        with warnings.catch_warnings(record=True) as said:
-            warnings.simplefilter("always")
-            graph.capture_end()
+    finally:
+        if collecting:
+            gc.enable()
     for w in said:
         if may_be_empty and "Graph is empty" in str(w.message):
             graph = None
@@ -332,12 +354,70 @@ def _replay(graph_delta) -> None:
     _add_counts(delta)
 
 
+# the launch counts of the guarded chunks that calls replayed, waiting for
+# their chunk count to reach the host: (event after its copy, the pinned
+# count, the counter changes of the first n guarded chunks for each n)
+_pending: deque = deque()
+
+
+def settle(wait: bool = False) -> None:
+    """Add to the launch counters what the guarded chunks of finished
+    calls launched, in call order, as far as the first call still on the
+    card; with ``wait``, wait for every call.  A decode's finalization
+    calls it after its host reads; so does ``run``."""
+    with _lock:
+        while _pending:
+            event, ran, cum = _pending[0]
+            if wait:
+                event.synchronize()
+            elif not event.query():
+                return
+            _pending.popleft()
+            _add_counts(cum[int(ran)])
+
+
+class _Composed:
+    """Captured parts as one executable graph (``csrc/runtime.cu``
+    ``asr_graph_compose``): each part a copy of its captured graph, in
+    order; a guarded part inside a conditional IF node whose handle a
+    one-thread kernel sets from the 0-d bool ``done`` just before it, so
+    the part runs only while ``done`` is false.  Launched on the caller's
+    stream; destroyed with the object."""
+
+    def __init__(self, parts, guarded, done: torch.Tensor):
+        n = len(parts)
+        raw = (ctypes.c_ulonglong * n)(*(g.raw_cuda_graph() for g in parts))
+        flags = (ctypes.c_int * n)(*(int(x) for x in guarded))
+        graph, exec_ = ctypes.c_ulonglong(), ctypes.c_ulonglong()
+        fn = build.kernel("asr_graph_compose", [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p])
+        build.check("asr_graph_compose", fn(
+            raw, flags, n, done.data_ptr(), ctypes.byref(graph),
+            ctypes.byref(exec_)))
+        self._graph, self._exec = graph.value, exec_.value
+
+    def launch(self, stream: torch.cuda.Stream) -> None:
+        fn = build.kernel("asr_graph_launch", [ctypes.c_ulonglong,
+                                               ctypes.c_void_p])
+        build.check("asr_graph_launch", fn(self._exec, stream.cuda_stream))
+
+    def __del__(self):
+        if not getattr(self, "_exec", None):
+            return
+        # a launch still on the card completes first (cudaGraphExecDestroy)
+        fn = build.kernel("asr_graph_destroy", [ctypes.c_ulonglong,
+                                                ctypes.c_ulonglong])
+        fn(self._graph, self._exec)
+        self._exec = None
+
+
 class Graphed:
-    """One decode program captured as CUDA graphs (module docstring).
+    """One decode program as one CUDA graph (module docstring).
     ``capture_ms`` and ``reserved_bytes`` are the capture's cost (its
-    private pool's device memory); ``replays`` and ``done_reads`` count
-    the calls and the host reads of ``done``; ``name`` is the entry
-    point's and ``shapes`` the inputs'."""
+    private pool's device memory); ``replays`` counts the calls; ``name``
+    is the entry point's, ``shapes`` the inputs', and ``chunks`` the
+    chunks of ``unroll`` steps, all but the first guarded."""
 
     def __init__(self, loop, inputs: Sequence[torch.Tensor], unroll: int,
                  finish: Callable, name: str = ""):
@@ -357,58 +437,94 @@ class Graphed:
         reserved0 = torch.cuda.memory_reserved(dev)
         self._pool = torch.cuda.graph_pool_handle()
         self._stream = side
-        self._chunks, self._final = [], None
+        self._exec = self._cum = None
+        self.chunks = 0
         if loop.max_len == 0:           # no loop: one graph
-            self._init, self.out = self._capture(
+            self._graph, self.out = self._capture(
                 lambda: finish(loop.result(loop.init(*self.inputs))))
+            self._fixed = self._graph[1]
         else:
-            self._init, self.state = self._capture(
-                lambda: own_tree(loop.init(*self.inputs), written))
-            for start in range(0, loop.max_len, unroll):
-                stop = min(start + unroll, loop.max_len)
-                self._chunks.append(self._capture(
-                    lambda start=start, stop=stop: self._chunk(loop, start,
-                                                               stop))[0])
-            # a result made of the state's own tensors captures nothing
-            final, self.out = self._capture(
-                lambda: finish(loop.result(self.state)), may_be_empty=True)
-            self._final = final if final[0] is not None else None
+            self._capture_loop(loop, unroll, finish, written)
         torch.cuda.synchronize(dev)
         self.capture_ms = (time.perf_counter() - t0) * 1e3
         self.reserved_bytes = max(0, torch.cuda.memory_reserved(dev)
                                   - reserved0)
         self.replays = 0
-        self.done_reads = 0
         self._last = None       # the event after the last call's copy-out
 
-    def _chunk(self, loop, start: int, stop: int) -> None:
+    def _capture_loop(self, loop, unroll: int, finish: Callable,
+                      written) -> None:
+        """The parts of the one graph: the encode and the loop's initial
+        state, a chunk of ``unroll`` steps at a time with ``l`` fixed (all
+        but the first guarded, each counting itself in ``_ran``), the
+        result; composed by ``_Composed``."""
+        def init():
+            # in the pool, as all the program's memory: zeroed every launch
+            self._ran = torch.zeros((), dtype=torch.int32, device=self.device)
+            return own_tree(loop.init(*self.inputs), written)
+
+        (g, delta), self.state = self._capture(init, keep=True)
+        parts, guarded, fixed, deltas = [g], [False], delta, []
+        for start in range(0, loop.max_len, unroll):
+            stop = min(start + unroll, loop.max_len)
+            first = start == 0
+            (g, delta), _ = self._capture(
+                lambda start=start, stop=stop, first=first: self._chunk(
+                    loop, start, stop, count=not first), keep=True)
+            parts.append(g)
+            guarded.append(not first)
+            if first:
+                fixed = [a + b for a, b in zip(fixed, delta)]
+            else:
+                deltas.append(delta)
+        self.chunks = len(deltas) + 1
+        # a result made of the state's own tensors captures nothing
+        (g, delta), self.out = self._capture(
+            lambda: finish(loop.result(self.state)), may_be_empty=True,
+            keep=True)
+        if g is not None:
+            parts.append(g)
+            guarded.append(False)
+            fixed = [a + b for a, b in zip(fixed, delta)]
+        self._parts = parts             # their pool stays while they do
+        self._exec = _Composed(parts, guarded, self.state["done"])
+        self._fixed = fixed
+        cum = [[0] * len(fixed)]
+        for delta in deltas:
+            cum.append([a + b for a, b in zip(cum[-1], delta)])
+        self._cum = cum
+
+    def _chunk(self, loop, start: int, stop: int, count: bool) -> None:
         s = self.state
         for l in range(start, stop):
             s = loop.step(s, l, l > start)
         copy_tree(self.state, s)
+        if count:
+            self._ran.add_(1)
 
-    def _capture(self, fn, may_be_empty: bool = False):
-        return _capture(fn, self._pool, self._stream, may_be_empty)
+    def _capture(self, fn, may_be_empty: bool = False, keep: bool = False):
+        return _capture(fn, self._pool, self._stream, may_be_empty, keep)
 
     def __call__(self, *inputs):
-        """The decode of ``inputs``, a copy of the graphs' outputs.  The
-        caller holds ``_lock``; a call from another stream first waits
-        for the last call's copy-out, so it cannot overwrite the inputs
-        or outputs that copy still reads."""
+        """The decode of ``inputs``: the inputs copied in, one graph
+        launched, the outputs copied out, nothing read on the host (the
+        counters of the guarded chunks that ran are added by ``settle``
+        once the call is done).  The caller holds ``_lock``; a call from
+        another stream first waits for the last call's copy-out, so it
+        cannot overwrite the inputs or outputs that copy still reads."""
         stream = torch.cuda.current_stream(self.device)
         if self._last is not None:
             stream.wait_event(self._last)
         for dst, src in zip(self.inputs, inputs):
             dst.copy_(src)
-        _replay(self._init)
-        for i, chunk in enumerate(self._chunks):
-            _replay(chunk)
-            if i + 1 < len(self._chunks):
-                self.done_reads += 1
-                if bool(self.state["done"]):        # one host sync
-                    break
-        if self._final is not None:
-            _replay(self._final)
+        if self._exec is None:
+            self._graph[0].replay()
+        else:
+            self._exec.launch(stream)
+            ran = torch.empty((), dtype=torch.int32, pin_memory=True)
+            ran.copy_(self._ran, non_blocking=True)
+            _pending.append((stream.record_event(), ran, self._cum))
+        _add_counts(self._fixed)
         out = clone_tree(self.out)
         self._last = stream.record_event()
         self.replays += 1
@@ -461,6 +577,7 @@ def run(key: tuple, loop, inputs: Sequence[torch.Tensor], unroll: int,
         return finish(run_loop(loop, inputs, unroll))
     key = (*key, _math_flags(), unroll, *(_spec(t) for t in inputs))
     global captures, evictions
+    settle()
     with _lock:
         prog = _cache.get(key)
         if prog is None:

@@ -83,8 +83,9 @@ every phase passed):
    stage 1, and the first pass's batch by its host-loop oracle, counting
    what differs (report only);
 3g. every phase-3 run and the golden shard's five modes (f32 and bf16)
-   through the graph path (``ASR``'s) and through the eager functions
-   called by name: identical transcripts (and expected.json in f32), the
+   through the graph path (``ASR``'s: the front end's graph, then the
+   decode's one graph, its stop test on the card) and through the eager
+   functions called by name (front end and decode): identical transcripts (and expected.json in f32), the
    walls in turns graph / eager (7 each, median [min, max]), launch
    calls, graph launches, kernels, busy share and host syncs a batch
    (profiler; the eager LM runs traced on the card alone) with the graph
@@ -103,7 +104,12 @@ every phase passed):
    reports single-request and burst latencies at the 15 ms window;
 3e. check the overlapped chunk upload (160 wavs at ``max_batch=128``,
    twice, against each sorted chunk alone; the profiler's copy/kernel
-   overlap reported), ``transcribe_long`` on a 60 s wav,
+   overlap reported); time JAX's dispatch-ahead order
+   (``_decode_dispatch``, the next batch prepared, then
+   ``_decode_finalize``) against the serial one in turns, equal
+   transcripts, on that call and in a sustained B=128 loop in bench.py's
+   ``_time_pipelined`` order (flat f32, bf16, ADPCM; walls a batch and
+   the profiler's busy share); ``transcribe_long`` on a 60 s wav,
    ``transcribe_bytes`` against ``transcribe_files``, and
    ``evaluate_manifest`` on the golden shard in all five modes (card
    against CPU); report ``evaluate_manifest`` at flagship width;
@@ -582,13 +588,26 @@ _SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
                "cudaEventSynchronize")
 
 
+def _eager_featurize(asr, up):
+    """``asr._featurize(up)`` through the eager front end
+    (``features.front_end``, the compiled one's plain version)."""
+    from chinese_asr_tpu_torch.audio import features
+    compiled = features.front_end_jit
+    features.front_end_jit = features.front_end
+    try:
+        return asr._featurize(up)
+    finally:
+        features.front_end_jit = compiled
+
+
 def _eager_transcribe(asr, wavs, scales=None, unroll: int = 1):
-    """``asr.transcribe_wavs`` of one chunk with the decode through the
-    eager functions, called by name (the ``*_jit`` forms' plain versions),
-    reading the stop flag every ``unroll`` steps."""
+    """``asr.transcribe_wavs`` of one chunk with the front end and the
+    decode through the eager functions, called by name (the compiled
+    forms' plain versions), reading the stop flag every ``unroll``
+    steps."""
     from chinese_asr_tpu_torch.decode import beam, greedy, lm_fused, rescore
     up = asr._upload(asr._prep(wavs, scales))
-    feats, lens = asr._featurize(up)
+    feats, lens = _eager_featurize(asr, up)
     p, cfg, dc, bw = asr.params, asr.cfg, asr.cfg.decode, asr.bw
     if not bw or bw <= 1:
         return greedy.finalize_greedy(greedy.greedy_decode(
@@ -771,13 +790,11 @@ def _phase_graphs(np, torch, fails, ASR, gpu, runs_spec, texts_of, golden,
                              if any(k in key for k in keys)),
                          sum(counted[n] for n in ctrs))
                   for name, keys, ctrs in _TRACE_KERNELS}
-        # K5 runs eagerly before the graphs and counts at its launch; the
-        # trace of this call has missed its one short launch, so K5 is
-        # reported beside the others and held to nothing here
-        fails.check(all(t == c for k, (t, c) in traced.items() if k != "K5")
+        # K1 and K5 run in the front end's graph, K2-K4 in the decode's
+        fails.check(all(t == c for t, c in traced.values())
                     and traced["K2"][0] > 0 and traced["K1"][0] > 0,
                     f"3g {mode}: the card's trace of one graph-path call "
-                    f"launched what the counters count, K1-K4 (traced, "
+                    f"launched what the counters count, K1-K5 (traced, "
                     f"counted) {traced}")
         r["traced_vs_counted"] = traced
         report[mode] = r
@@ -1010,15 +1027,14 @@ def _serving_mix(np, torch, fails, asr, gpu) -> dict:
 def _program_lines(graphs, what: str) -> list:
     """What each cached program cost to capture and holds on the card,
     printed and returned."""
-    progs = [dict(name=p.name, shapes=p.shapes, chunks=len(p._chunks),
+    progs = [dict(name=p.name, shapes=p.shapes, chunks=p.chunks,
                   capture_ms=p.capture_ms,
-                  reserved_mb=p.reserved_bytes / 2**20, replays=p.replays,
-                  done_reads=p.done_reads) for _, p in graphs.programs()]
+                  reserved_mb=p.reserved_bytes / 2**20, replays=p.replays)
+             for _, p in graphs.programs()]
     for x in progs:
         print(f"3g program {x['name']} {x['shapes']}: capture "
               f"{x['capture_ms']:.0f} ms, reserved {x['reserved_mb']:.1f} MB,"
-              f" {x['replays']} replays, {x['done_reads']} host reads of "
-              f"done", flush=True)
+              f" {x['chunks']} chunks, {x['replays']} replays", flush=True)
     print(f"3g: {len(progs)} programs of the {what} hold "
           f"{sum(x['reserved_mb'] for x in progs):.0f} MB", flush=True)
     return progs
@@ -1180,11 +1196,90 @@ def _phase_serving(np, torch, fails, ASR, cfg, wavs, counters, gpu, golden):
     return serving
 
 
+def _serial_transcribe(asr, wavs, max_batch: int = 128):
+    """``asr.transcribe_wavs`` in the serial order: each chunk prepared,
+    uploaded, featurized, dispatched and finalized before the next is
+    prepared (``_decode_finalize(_decode_dispatch(...))`` a chunk)."""
+    order = sorted(range(len(wavs)), key=lambda i: len(wavs[i])) \
+        if len(wavs) > max_batch else list(range(len(wavs)))
+    out = [""] * len(wavs)
+    for s in range(0, len(order), max_batch):
+        idx = order[s:s + max_batch]
+        up = asr._upload(asr._prep([wavs[i] for i in idx], None))
+        for i, text in zip(idx, asr._decode_batch(asr._featurize(up))):
+            out[i] = text
+    return out
+
+
+SUSTAINED_BATCHES = 4           # batches a timed sustained loop
+SUSTAINED_RUNS = 7              # loops a order, in turns
+
+
+def _sustained(asr, batch, n: int, pipelined: bool) -> list:
+    """``n`` batches of ``batch`` end to end, each prepared on the host,
+    uploaded, featurized, decoded and finalized: pipelined in bench.py's
+    ``_time_pipelined`` order (batch i+1 dispatched before batch i is
+    finalized, so its host preparation runs while the card decodes batch
+    i), or serially.  Returns the transcripts of each batch."""
+    def dispatch():
+        return asr._decode_dispatch(asr._featurize(
+            asr._upload(asr._prep(batch, None))))
+
+    if not pipelined:
+        return [asr._decode_finalize(dispatch()) for _ in range(n)]
+    texts, pend = [], dispatch()
+    for _ in range(n - 1):
+        nxt = dispatch()
+        texts.append(asr._decode_finalize(pend))
+        pend = nxt
+    texts.append(asr._decode_finalize(pend))
+    return texts
+
+
+def _pipelined_vs_serial(np, torch, fails, label, fns, gpu, per: int,
+                         texts_want=None) -> dict:
+    """``fns`` {"pipelined": fn, "serial": fn}, each doing ``per``
+    batches: their results equal (and ``texts_want``), walls in turns
+    (SUSTAINED_RUNS each, host clock to a synchronize, median [min,
+    max], ms a batch), and one device-only profile of each: kernel busy
+    ms a batch and its share of the median wall."""
+    got = {k: fn() for k, fn in fns.items()}
+    fails.check(got["pipelined"] == got["serial"]
+                and (texts_want is None or got["serial"] == texts_want),
+                f"3e {label}: the pipelined order's transcripts equal the "
+                f"serial order's")
+    walls = {k: [] for k in fns}
+    for _ in range(SUSTAINED_RUNS):
+        for k, fn in fns.items():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls[k].append((time.perf_counter() - t) * 1e3 / per)
+    out = {}
+    for k, fn in fns.items():
+        busy, kernels, _ = _device_profile(torch, fn, host_ops=False)
+        med = float(np.median(walls[k]))
+        out[k] = dict(wall_ms=med, wall_ms_min=min(walls[k]),
+                      wall_ms_max=max(walls[k]), busy_ms=busy / per,
+                      kernels=kernels // per, busy_share=busy / per / med)
+    print(f"3e {label} on {gpu}, ms a batch: " + "; ".join(
+        f"{k} {x['wall_ms']:.1f} [{x['wall_ms_min']:.1f}, "
+        f"{x['wall_ms_max']:.1f}], busy {x['busy_ms']:.1f} = "
+        f"{100 * x['busy_share']:.1f}%" for k, x in out.items())
+        + f"; pipelined / serial "
+        f"{out['pipelined']['wall_ms'] / out['serial']['wall_ms']:.3f}",
+        flush=True)
+    return out
+
+
 def _phase_entry_points(np, torch, fails, ASR, cfg, wavs, wavs128, rng,
                         counters, gpu, golden, build_dir):
-    """Phase 3e: the overlapped chunk upload, ``transcribe_long``,
-    ``transcribe_bytes`` and ``evaluate_manifest`` on the card.  Returns
-    the report entries."""
+    """Phase 3e: the overlapped chunk upload, the pipelined order (JAX's
+    dispatch-ahead) against the serial one on 160 wavs in two chunks and
+    in a sustained B=128 loop (flat f32, bf16, ADPCM),
+    ``transcribe_long``, ``transcribe_bytes`` and ``evaluate_manifest``
+    on the card.  Returns the report entries."""
     import shutil
     from torch.profiler import ProfilerActivity, profile
     from chinese_asr_tpu_torch.data import dataset as ds_mod
@@ -1238,6 +1333,24 @@ def _phase_entry_points(np, torch, fails, ASR, cfg, wavs, wavs128, rng,
           f"{alone_s[0]:.3f} + {alone_s[1]:.3f} s; host->device copies "
           f">= 1 MiB in the profiled run (time order; overlap with kernels "
           f"on another stream): {json.dumps(overlap)}", flush=True)
+
+    # JAX's dispatch-ahead order against the serial one, in turns
+    report["pipelined_160"] = _pipelined_vs_serial(
+        np, torch, fails, "160 wavs at max_batch=128 (two chunks)",
+        {"pipelined": lambda: casr.transcribe_wavs(wavs160, max_batch=128),
+         "serial": lambda: _serial_transcribe(casr, wavs160)}, gpu, 1,
+        chunked[0][0])
+    sustained = {}
+    for name, a in (("flat_f32", casr),
+                    ("bf16", ASR(bw=16, cfg=cfg, seed=0,
+                                 compute_dtype="bfloat16")),
+                    ("adpcm", ASR(bw=16, cfg=cfg, seed=0, wire="adpcm"))):
+        n = SUSTAINED_BATCHES
+        sustained[name] = _pipelined_vs_serial(
+            np, torch, fails, f"sustained B=128 {name} ({n} batches a loop)",
+            {"pipelined": lambda a=a: _sustained(a, wavs128, n, True),
+             "serial": lambda a=a: _sustained(a, wavs128, n, False)}, gpu, n)
+    report["sustained_b128"] = sustained
 
     lwav = _synthetic_wavs(np, rng, 1, 60.0, 60.0)[0]
     lpath = os.path.join(build_dir, "long60.wav")
@@ -1678,6 +1791,7 @@ def _fit_run(np, torch, fails, dev, gpu, counters, cfg, manifest, vocab,
     held_gib = torch.cuda.memory_allocated() / 2**30   # earlier phases
     for mod, attr in counters.values():
         setattr(mod, attr, 0)
+    keys = {k for k, _ in graphs.programs()}
     t_fit = time.perf_counter()
     tv = tr.fit(train_loader, eval_loader, max_steps=steps)
     torch.cuda.synchronize()
@@ -1685,12 +1799,18 @@ def _fit_run(np, torch, fails, dev, gpu, counters, cfg, manifest, vocab,
     launched = {n: getattr(mod, attr) for n, (mod, attr) in counters.items()}
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     tr._step_fn = compiled
+    # the loader's featurizer: one graph a (B, N), whose first batch runs
+    # an eager warm-up (K1 once more) before its capture
+    fronts = sum(1 for k, _ in graphs.programs()
+                 if k[0] == "featurize_batch" and k not in keys)
     full = dict.fromkeys(counters, 0)
     full.update(want)
+    full["logmel"] += fronts
     fails.check(launched == full, f"{label}: kernels launched in {steps} "
                                   f"steps and one eval {launched}, wanted "
-                                  f"{full} (the first step and the first "
-                                  f"eval each run an eager warm-up before "
+                                  f"{full} (the first step, the first eval "
+                                  f"and the featurizer's {fronts} new "
+                                  f"key(s) each run an eager warm-up before "
                                   f"their capture)")
     fails.check(tv.step == steps and all(np.isfinite(losses))
                 and losses[-1] < losses[0],

@@ -1189,12 +1189,15 @@ JIT_MODES = ("greedy", "beam", "beam_best", "lm_second", "lm_second_select",
 
 def _jit_setup(dev, dtype=torch.float32):
     """The golden model, its features, LM tables and token map on the
-    card, in ``dtype``."""
+    card, in ``dtype``; the front end's program is dropped, so the cache
+    holds the decode programs alone."""
     from chinese_asr_tpu_torch.lm.device_ngram import DeviceNgramLM
+    from chinese_asr_tpu_torch.utils import graphs
     asr = _golden_asr(device=dev, compute_dtype=(
         "bfloat16" if dtype == torch.bfloat16 else "float32"))
     wavs = [asr._as_wav(w) for w in _golden_wavs()]
     feats, lens = asr._featurize(asr._upload(asr._prep(wavs, None)))
+    graphs.clear()
     dlm = DeviceNgramLM.from_path(os.path.join(GOLD, "lm.arpa"), dev)
     tok2lm = torch.from_numpy(dlm.token_id_table(asr.vocab)).to(dev).long()
     return asr, feats, lens, dlm, tok2lm
@@ -1254,10 +1257,11 @@ def test_jit_graph_equals_eager_on_the_card(dev, mode, dtype):
 
 
 def test_jit_replays_count_launches_on_the_card(dev):
-    """The launch counters under replay: a replay adds what its graphs
-    launch (K3 once a replayed step, K2 once a layer) and a capture adds
-    nothing of its own (the first call counts its eager warm-up and its
-    replay)."""
+    """The launch counters under replay: a replay adds what its graph
+    launches (K3 once a step of a chunk that ran, K2 once a layer) once
+    ``graphs.settle`` has read how many guarded chunks ran, and a capture
+    adds nothing of its own (the first call counts its eager warm-up and
+    its replay); the chunks skipped after the stop add nothing."""
     from chinese_asr_tpu_torch.decode import beam
     from chinese_asr_tpu_torch.utils import graphs
     graphs.clear()
@@ -1270,6 +1274,7 @@ def test_jit_replays_count_launches_on_the_card(dev):
                                    unroll=graphs.UNROLL)
         else:
             res = beam.beam_decode_jit(asr.params, asr.cfg, 4, feats, lens)
+        graphs.settle(wait=True)
         eager.append((tlstm.launches - before[0], ttopk.launches - before[1]))
     steps = (int(res.l_final) // graphs.UNROLL + 1) * graphs.UNROLL
     assert int(res.l_final) < asr.cfg.decode.max_len - 1    # stops early
@@ -1278,7 +1283,8 @@ def test_jit_replays_count_launches_on_the_card(dev):
     assert eager[1] == (2 * layers, 2 * steps)   # warm-up + first replay
     assert eager[2] == (layers, steps)
     (_, prog), = graphs.programs()
-    assert prog.done_reads == 2 and prog.capture_ms > 0
+    assert prog.chunks == -(-asr.cfg.decode.max_len // graphs.UNROLL)
+    assert steps < prog.chunks * graphs.UNROLL and prog.capture_ms > 0
     assert prog.reserved_bytes > 0
 
 
@@ -1313,10 +1319,13 @@ def test_jit_rekeys_on_rebound_params_and_fused_flag(dev, monkeypatch):
 def test_jit_eviction_frees_memory_on_the_card(dev, monkeypatch):
     """The cache holds at most ``BUDGET_FRACTION`` of the card in its
     programs' pools, least recently used out (the newest stays); evicting
-    a program releases its private pool."""
+    a program releases its private pool (the earlier tests' garbage
+    collected first, so that only the programs move the card's memory)."""
+    import gc
     from chinese_asr_tpu_torch.decode import beam
     from chinese_asr_tpu_torch.utils import graphs
     graphs.clear()
+    gc.collect()
     asr, feats, lens, _, _ = _jit_setup(dev)
     beam.beam_decode_best_jit(asr.params, asr.cfg, 4, feats, lens)
     (key_a, prog), = graphs.programs()
@@ -1331,7 +1340,7 @@ def test_jit_eviction_frees_memory_on_the_card(dev, monkeypatch):
                         pool_bytes / 2 / torch.cuda.get_device_properties(
                             dev).total_memory)
     beam.beam_decode_best_jit(asr.params, asr.cfg, 4, feats[:3], lens[:3])
-    (key_b, _), = graphs.programs()
+    (key_b,) = [k for k, _ in graphs.programs()]     # holds no program
     assert key_b != key_a and graphs.evictions == gone + 1
     graphs.clear()
     assert graphs.programs() == []
@@ -1378,6 +1387,162 @@ def test_jit_two_threads_at_one_key_get_their_own_results(dev):
         t.join(timeout=600)
     assert not errors and not wrong
     assert len(graphs.programs()) == 2
+
+
+# --------------------------------------------------------------------------
+# dispatch-ahead: the decode loop's stop test on the card (each chunk after
+# the first inside a conditional IF node), ASR._decode_dispatch returning
+# before the decode ends, and the front end as one graph a key
+# --------------------------------------------------------------------------
+LOOP_MODES = ("greedy", "beam", "beam_best", "lm_second", "lm_first",
+              "lm_first_best")
+
+
+def _loop_call(mode, asr, feats, lens, dlm, tok2lm, jit: bool, unroll: int):
+    """``_jit_call`` of a looping mode with ``unroll`` passed to both the
+    ``*_jit`` form and its eager function (``run_loop``)."""
+    from chinese_asr_tpu_torch.decode import beam, greedy, lm_fused, rescore
+    p, cfg, dc = asr.params, asr.cfg, asr.cfg.decode
+    bos, eos = (int(x) for x in dlm.word_ids(["<s>", "</s>"]))
+    lm = (dlm, tok2lm, dc.lm_weight, dc.length_weight, bos, eos)
+    kw = dict(unroll=unroll)
+    if mode == "greedy":
+        fn = greedy.greedy_decode_jit if jit else greedy.greedy_decode
+        return fn(p, cfg, feats, lens, **kw)
+    if mode == "beam":
+        fn = beam.beam_decode_jit if jit else beam.beam_decode
+        return fn(p, cfg, 4, feats, lens, **kw)
+    if mode == "beam_best":
+        fn = beam.beam_decode_best_jit if jit else beam.beam_decode_best
+        return fn(p, cfg, 4, feats, lens, **kw)
+    if mode == "lm_second":
+        fn = (rescore.beam_rescored_best_jit if jit
+              else rescore.beam_rescored_best)
+        return fn(p, cfg, 4, feats, lens, *lm, **kw)
+    fn = {("lm_first", True): lm_fused.lm_fused_decode_jit,
+          ("lm_first", False): lm_fused.lm_fused_decode,
+          ("lm_first_best", True): lm_fused.lm_fused_decode_best_jit,
+          ("lm_first_best", False): lm_fused.lm_fused_decode_best}[mode, jit]
+    return fn(p, cfg, 4, feats, lens, dlm, tok2lm, 8, **kw)
+
+
+@pytest.mark.parametrize("model", ["golden", "random"])
+@pytest.mark.parametrize("mode", LOOP_MODES)
+def test_jit_conditional_chunks_equal_run_loop_on_the_card(dev, mode, model):
+    """Each looping ``*_jit`` form (one graph, every chunk after the first
+    under an IF node on ``~done``) equals its eager function, which runs
+    ``run_loop`` reading ``done`` on the host, field by field, at unroll
+    1, 2, 3 and 4: on the golden model, which stops early (at unroll 1
+    on a chunk boundary, and at some larger unroll inside a chunk), and
+    at random weights."""
+    from chinese_asr_tpu_torch.decode import beam
+    from chinese_asr_tpu_torch.models import las
+    from chinese_asr_tpu_torch.utils import graphs
+    graphs.clear()
+    asr, feats, lens, dlm, tok2lm = _jit_setup(dev)
+    if model == "random":
+        asr.params = las.init_params(asr.cfg, 3, dev)
+    stop = beam.beam_decode(asr.params, asr.cfg, 4, feats, lens).l_final
+    stops = int(stop) + 1
+    max_len = asr.cfg.decode.max_len
+    mid = []
+    for unroll in (1, 2, 3, 4):
+        want = _loop_call(mode, asr, feats, lens, dlm, tok2lm, False, unroll)
+        for _ in range(2):
+            got = _loop_call(mode, asr, feats, lens, dlm, tok2lm, True,
+                             unroll)
+            for name, w in want._asdict().items():
+                assert torch.equal(getattr(got, name), w), (unroll, name)
+        mid.append(stops % unroll != 0)
+    if model == "golden":
+        assert stops < max_len - 1 and any(mid)
+    assert len(graphs.programs()) == 4
+
+
+def test_decode_dispatch_returns_before_the_decode_ends_on_the_card(dev):
+    """``ASR(bw=16)._decode_dispatch`` of a featurized B=32 batch of 9-10 s
+    wavs at the flagship width returns with the decode still queued on
+    the stream; its finalization gives the serial call's transcripts."""
+    from chinese_asr_tpu_torch.api import ASR
+    from chinese_asr_tpu_torch.utils import graphs
+    from torch_port_util import random_wavs
+    graphs.clear()
+    asr = ASR(bw=16, device=dev, seed=0)
+    rng = np.random.default_rng(0)
+    wavs = random_wavs(rng, rng.integers(144000, 160000, 32))
+    first = asr._decode_batch(asr._featurize(asr._upload(asr._prep(wavs,
+                                                                   None))))
+    feats = asr._featurize(asr._upload(asr._prep(wavs, None)))
+    torch.cuda.synchronize()
+    res = asr._decode_dispatch(feats)
+    assert not torch.cuda.current_stream().query()
+    assert asr._decode_finalize(res) == first
+    graphs.clear()
+
+
+@pytest.mark.parametrize("mode,kw", [
+    ("greedy", dict(bw=None)), ("beam_bw4", dict(bw=4)),
+    ("lm_second", dict(bw=4, lm_mode="second")),
+    ("lm_second_host", dict(bw=4, lm_mode="second_host")),
+    ("lm_first", dict(bw=4, lm_mode="first", lm_topn=8))])
+def test_two_dispatches_of_one_key_get_their_own_batches_on_the_card(
+        dev, mode, kw):
+    """Two golden batches of one key (the shard and the shard reversed)
+    dispatched one after the other before either is finalized: each
+    finalization gives its own batch's serial transcripts, and the two
+    share one front-end and one decode program."""
+    from chinese_asr_tpu_torch.utils import graphs
+    graphs.clear()
+    if "lm_mode" in kw:
+        kw = dict(kw, lm_path=os.path.join(GOLD, "lm.arpa"))
+    asr = _golden_asr(device=dev, **kw)
+    batches = [_golden_wavs(), _golden_wavs()[::-1]]
+
+    def featurized(w):
+        return asr._featurize(asr._upload(asr._prep(w, None)))
+    want = [asr._decode_batch(featurized(w)) for w in batches]
+    assert want[0] != want[1]
+    held = len(graphs.programs())
+    pend = [asr._decode_dispatch(featurized(w)) for w in batches]
+    assert [asr._decode_finalize(r) for r in pend] == want
+    assert len(graphs.programs()) == held == 2
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("wire", ["flat", "padded", "mulaw", "adpcm"])
+def test_front_end_graph_equals_eager_on_the_card(dev, wire, dtype):
+    """``ASR._featurize`` (one graph a key, ``features.front_end_jit``) at
+    its capture and at a replay equals the eager ``features.front_end``
+    on the same upload bit for bit; a replay counts K1 once (and K5 once
+    over the ADPCM wire)."""
+    from chinese_asr_tpu_torch.api import ASR
+    from chinese_asr_tpu_torch.utils import graphs
+    from torch_port_util import random_wavs
+    graphs.clear()
+    asr = ASR(device=dev, wire=wire, compute_dtype=dtype, seed=0)
+    rng = np.random.default_rng(2)
+    wavs = random_wavs(rng, [16000, 7000, 300, 23000])
+    scales = [1.0, 0.5, 2.0, 1.3]
+    for _ in range(2):
+        before = (tlogmel.launches, tadpcm.launches)
+        up = asr._upload(asr._prep(wavs, scales))
+        feats, lens = asr._featurize(up)
+        counted = (tlogmel.launches - before[0], tadpcm.launches - before[1])
+        name = "flat" if wire == "mulaw" else wire
+        ef, el = tfeat.front_end(name, *up.tensors, up.N, asr.cfg.audio,
+                                 1e-6, asr.compute_dtype)
+        assert feats.dtype == asr.compute_dtype
+        assert torch.equal(feats, ef) and torch.equal(lens, el)
+    assert counted == (1, int(wire == "adpcm"))
+    (key, prog), = graphs.programs()
+    assert key[0] == "front_end" and prog.replays == 2
+    wav = torch.from_numpy(np.stack([w[:7000] for w in wavs[:2]])).to(dev)
+    wl = torch.tensor([7000, 6000], dtype=torch.int32, device=dev)
+    for _ in range(2):
+        got = tfeat.featurize_batch_jit(wav, wl, asr.cfg.audio)
+        want = tfeat.featurize_batch(wav, wl, asr.cfg.audio)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    graphs.clear()
 
 
 # --------------------------------------------------------------------------
