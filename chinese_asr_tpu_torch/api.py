@@ -60,6 +60,7 @@ from .models import las
 from .parallel import sharding
 from .utils.checkpoint import load_checkpoint
 from .utils.device import resolve_device
+from .utils.observe import span
 from .vocab import SPECIALS, Vocab
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -162,6 +163,7 @@ class ASR:
         self.flat_pow2 = flat_pow2
         self.compute_dtype = _DTYPES[compute_dtype]
         self._copy_stream = None        # the card's upload stream, at first use
+        self._calls = 0                 # transcribe_wavs calls, for the spans
         if isinstance(vocab, str):
             self.vocab = Vocab.load(vocab)
         elif isinstance(vocab, Vocab):
@@ -423,21 +425,23 @@ class ASR:
         """The transcripts of a ``_decode_dispatch`` result: its host copy
         waited for, then detokenized (the host LM's second pass first
         compacts the n-best, then rescores it on the host)."""
-        if isinstance(res, _InFlight):
-            res.ready.synchronize()
-            res = res.res
-        if not self.bw or self.bw <= 1:
-            return greedy_mod.finalize_greedy(res, self.vocab).pred_text
-        if self.dlm is not None or self.lm is None:
-            # the winner is picked on the device (with the LM's totals
-            # under a device LM)
-            return beam_mod.finalize_best(res, self.vocab).pred_text
-        dcfg = self.cfg.decode
-        # only the finite n-best slots cross to the host rescorer
-        return beam_mod.finalize_beam(
-            beam_mod.compact_nbest(res), self.cfg, self.vocab,
-            lm_model=self.lm, second_pass=True, lm_weight=dcfg.lm_weight,
-            length_weight=dcfg.length_weight).pred_text
+        with span("asr.finalize.wait"):
+            if isinstance(res, _InFlight):
+                res.ready.synchronize()
+                res = res.res
+        with span("asr.finalize.detok"):
+            if not self.bw or self.bw <= 1:
+                return greedy_mod.finalize_greedy(res, self.vocab).pred_text
+            if self.dlm is not None or self.lm is None:
+                # the winner is picked on the device (with the LM's totals
+                # under a device LM)
+                return beam_mod.finalize_best(res, self.vocab).pred_text
+            dcfg = self.cfg.decode
+            # only the finite n-best slots cross to the host rescorer
+            return beam_mod.finalize_beam(
+                beam_mod.compact_nbest(res), self.cfg, self.vocab,
+                lm_model=self.lm, second_pass=True, lm_weight=dcfg.lm_weight,
+                length_weight=dcfg.length_weight).pred_text
 
     def _decode_batch(self, featurized) -> List[str]:
         """The transcripts of a featurized batch, serially."""
@@ -458,7 +462,12 @@ class ASR:
         is clamped to a multiple of the data axis and the call padded to
         one with one-sample wavs, whose transcripts are dropped.  A mesh's
         dispatch returns its decode finished, so its chunks run
-        serially."""
+        serially.
+
+        The call's spans (``utils/observe.py``): ``asr.call`` around it,
+        and for each chunk ``asr.prep``, ``asr.upload``,
+        ``asr.featurize``, ``asr.dispatch`` and ``asr.finalize`` around
+        its stages, each with the chunk's index."""
         if not wavs:
             return []
         wavs = list(wavs)
@@ -466,7 +475,11 @@ class ASR:
         dp = sharding.data_size(self.mesh)
         if dp > 1:
             max_batch = max(dp, max_batch - max_batch % dp)
-            pad = (-n_real) % dp
+        pad = (-n_real) % dp
+        self._calls += 1
+        call = self._calls
+        with span("asr.call", lambda: f"call {call} rows {n_real} chunks "
+                  f"{-(-(n_real + pad) // max_batch)}"):
             if pad:
                 dt = np.int16 if all(np.issubdtype(np.asarray(w).dtype,
                                                    np.integer)
@@ -474,39 +487,55 @@ class ASR:
                 wavs += [np.zeros(1, dt)] * pad
                 if scales is not None:
                     scales = list(scales) + [1.0] * pad
-        order = sorted(range(len(wavs)), key=lambda i: len(wavs[i])) \
-            if len(wavs) > max_batch else list(range(len(wavs)))
-        chunks = [order[s:s + max_batch]
-                  for s in range(0, len(order), max_batch)]
+            order = sorted(range(len(wavs)), key=lambda i: len(wavs[i])) \
+                if len(wavs) > max_batch else list(range(len(wavs)))
+            chunks = [order[s:s + max_batch]
+                      for s in range(0, len(order), max_batch)]
 
-        def upload(idx):        # one chunk at a time: host memory O(chunk)
-            chunk = [wavs[i] for i in idx]
-            sc = None if scales is None else [scales[i] for i in idx]
-            if self.mesh is None:
-                return self._upload(self._prep(chunk, sc))
-            return self._upload(*self._prep_rows(
-                chunk, sc, sharding.row_slice(len(idx), self.mesh)))
+            def upload(c):      # one chunk at a time: host memory O(chunk)
+                idx = chunks[c]
+                chunk = [wavs[i] for i in idx]
+                sc = None if scales is None else [scales[i] for i in idx]
 
-        out: List[str] = [""] * len(wavs)
+                def prep_detail():
+                    N = audio_io.round_up(max(1, max(map(len, chunk))),
+                                          self.wav_bucket)
+                    return f"chunk {c} B {len(idx)} N {N}"
+                with span("asr.prep", prep_detail):
+                    if self.mesh is None:
+                        prep = (self._prep(chunk, sc),)
+                    else:
+                        prep = self._prep_rows(
+                            chunk, sc, sharding.row_slice(len(idx), self.mesh))
+                with span("asr.upload", lambda: f"chunk {c} bytes "
+                          f"{sum(a.nbytes for a in prep[0][:3])}"):
+                    return self._upload(*prep)
 
-        def finalize(pend):
-            idx, _, res = pend
-            for i, text in zip(idx, self._decode_finalize(res)):
-                out[i] = text
-            # the upload (its pinned buffers) lived until here: the decode
-            # the finalization read waited for its copy
+            out: List[str] = [""] * len(wavs)
 
-        up = upload(chunks[0])
-        pend = None     # (chunk indices, its upload, in-flight result)
-        for c, idx in enumerate(chunks):
-            res = self._decode_dispatch(self._featurize(up))
-            cur, up = up, (upload(chunks[c + 1]) if c + 1 < len(chunks)
-                           else None)
-            if pend is not None:
-                finalize(pend)
-            pend = (idx, cur, res)
-        finalize(pend)
-        return out[:n_real]
+            def finalize(pend):
+                c, _, res = pend
+                with span("asr.finalize", lambda: f"chunk {c}"):
+                    texts = self._decode_finalize(res)
+                for i, text in zip(chunks[c], texts):
+                    out[i] = text
+                # the upload (its pinned buffers) lived until here: the
+                # decode the finalization read waited for its copy
+
+            up = upload(0)
+            pend = None     # (chunk index, its upload, in-flight result)
+            for c in range(len(chunks)):
+                with span("asr.featurize", lambda: f"chunk {c}"):
+                    feats = self._featurize(up)
+                with span("asr.dispatch", lambda: f"chunk {c}"):
+                    res = self._decode_dispatch(feats)
+                cur, up = up, (upload(c + 1) if c + 1 < len(chunks)
+                               else None)
+                if pend is not None:
+                    finalize(pend)
+                pend = (c, cur, res)
+            finalize(pend)
+            return out[:n_real]
 
     def transcribe_files(self, paths: Sequence[str],
                          transcode: bool = False) -> List[str]:

@@ -13,6 +13,16 @@ Endpoints:
                                   directly; anything else goes through
                                   the ffmpeg transcoder) -> {"text": ...}
   GET  /healthz                   {"ok": true, "backend": "cuda", ...}
+                                  and the batcher's counters
+
+The counters in ``/healthz`` (``MicroBatcher``'s attributes, since its
+start): ``batches``, the decode calls issued; ``requests``, the requests
+they served; ``rejected``, the submits refused with a 429;
+``queue_wait_s_sum``, ``queue_wait_s_max`` and ``queue_wait_n``, the
+seconds from a request's ``submit`` to the worker taking it into a batch
+(their sum, the longest, and how many); ``padded_rows``, the dummy rows
+the batch ladder added.  Each batch's ``transcribe_wavs`` is the span
+``asr.serve.batch`` (rows, padded rows; ``utils/observe.py``).
 
 Run via ``python -m chinese_asr_tpu_torch.api --serve-http 8000 ...`` or
 ``serve_http(asr, port=8000).serve_forever()``.  The server decodes on the
@@ -36,6 +46,7 @@ from urllib.parse import parse_qs, urlparse
 import numpy as np
 
 from .data import audio_io
+from .utils.observe import span
 
 
 def decode_request_audio(asr, data: bytes, suffix: str = ""
@@ -128,6 +139,10 @@ class MicroBatcher:
         self.pad_batches = pad_batches
         self.batches = 0            # decode calls issued
         self.requests = 0
+        self.padded_rows = 0        # dummy rows the ladder added
+        self.queue_wait_s_sum = 0.0     # submit -> taken into a batch
+        self.queue_wait_s_max = 0.0
+        self.queue_wait_n = 0
         self._q: "queue.Queue" = queue.Queue()
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._thread.start()
@@ -168,7 +183,7 @@ class MicroBatcher:
                 f"pending queue at capacity ({self.max_queue}); retry later")
         ev = threading.Event()
         box: dict = {}
-        self._q.put((wav, scale, ev, box))
+        self._q.put((wav, scale, ev, box, time.monotonic()))
         if not ev.wait(timeout):
             raise TimeoutError("transcription timed out")
         if "err" in box:
@@ -201,12 +216,18 @@ class MicroBatcher:
                     stopping = True      # finish this batch, then exit
                     break
                 batch.append(item)
+            now = time.monotonic()
+            waits = [now - b[4] for b in batch]
+            self.queue_wait_s_sum += sum(waits)
+            self.queue_wait_s_max = max(self.queue_wait_s_max, *waits)
+            self.queue_wait_n += len(batch)
             self.batches += 1
             self.requests += len(batch)
+            pad = self._ladder(len(batch)) - len(batch)
+            self.padded_rows += pad
             try:
                 wavs = [b[0] for b in batch]
                 scales = [b[1] for b in batch]
-                pad = self._ladder(len(batch)) - len(batch)
                 if pad:
                     # dummies keep the batch dtype: an int16 dummy in a
                     # float batch (or vice versa) would flip the wire's
@@ -215,13 +236,15 @@ class MicroBatcher:
                     dt = np.int16 if np.issubdtype(dt, np.integer) else dt
                     wavs += [np.zeros(1, dt)] * pad
                     scales += [1.0] * pad
-                texts = self.asr.transcribe_wavs(
-                    wavs, max_batch=self.max_batch, scales=scales)
-                for (_, _, ev, box), text in zip(batch, texts):
+                with span("asr.serve.batch",
+                          lambda: f"rows {len(batch)} padded {pad}"):
+                    texts = self.asr.transcribe_wavs(
+                        wavs, max_batch=self.max_batch, scales=scales)
+                for (_, _, ev, box, _), text in zip(batch, texts):
                     box["text"] = text
                     ev.set()
             except Exception as e:  # noqa: BLE001 -- fail the whole batch
-                for _, _, ev, box in batch:
+                for _, _, ev, box, _ in batch:
                     box["err"] = e
                     ev.set()
             if stopping:
@@ -251,6 +274,10 @@ def _make_handler(asr, batcher: MicroBatcher):
                     "batches": batcher.batches,
                     "requests": batcher.requests,
                     "rejected": batcher.rejected,
+                    "queue_wait_s_sum": batcher.queue_wait_s_sum,
+                    "queue_wait_s_max": batcher.queue_wait_s_max,
+                    "queue_wait_n": batcher.queue_wait_n,
+                    "padded_rows": batcher.padded_rows,
                 })
             else:
                 self._reply(404, {"error": "not found"})

@@ -12,6 +12,10 @@ trainer's life: the LR moves (``optim.set_lr``) and ``resume`` write into
 them, and ``evaluate`` decodes through ``greedy_decode_jit``, whose graph,
 keyed on the params' addresses, is captured once and sees every step's
 values.  ``fit`` reads the loss (and the grad norm with it) once a step.
+Each step's parts are spans (``utils/observe.py``): ``asr.train.load``
+(the next batch from the loader), ``asr.train.step`` (the step call),
+``asr.train.read`` (the loss read, which waits for the step) and
+``asr.train.log``.
 
 Over a (data x model) mesh (``mesh=``, ``parallel/sharding.py``) every
 rank runs this loop on the same global batches: it keeps its shard of the
@@ -45,7 +49,7 @@ from ..utils.checkpoint import CheckpointManager, TrainVar, load_checkpoint
 from ..utils.device import resolve_device
 from ..utils.graphs import copy_tree
 from ..utils.observe import (EMA, Duration, MetricsLogger,
-                             batch_alignment_images, rand_disp_list)
+                             batch_alignment_images, rand_disp_list, span)
 from . import optim, step as step_mod
 from .step import Batch
 
@@ -182,35 +186,50 @@ class Trainer:
         cfg = self.cfg.train
         steps_per_eval = cfg.num_eval_steps
         for epoch in range(cfg.epochs):
-            for batch in train_loader_fn():
+            batches = iter(train_loader_fn())
+            while True:
+                n = self.tv.step + 1
+                with span("asr.train.load", lambda: f"step {n}"):
+                    batch = next(batches, None)
+                if batch is None:
+                    break
                 self.duration.tic()
-                # LR ramp-up (model.py:185-187)
-                if cfg.ramp_up_iters > 0 and self.tv.step < cfg.ramp_up_iters:
-                    self.opt_state = optim.set_lr(
-                        self.opt_state,
-                        optim.ramp_up_lr(self.plateau.lr, self.tv.step,
-                                         cfg.ramp_up_iters))
-                if self.mesh is not None:
-                    batch = sharding.shard_batch(batch, self.cfg, self.mesh)
-                self.params, self.opt_state, metrics = self._step_fn(
-                    self.params, self.opt_state, batch, self._gen)
-                # the step's one host read
-                loss, gnorm = torch.stack(
-                    (metrics["loss"], metrics["grad_norm"])).tolist()
-                self.tv.step += 1
-                self.tv.loss = loss
-                dt = self.duration.toc()
-                ema = self.ema.update(loss)
-                if self.cfg.verbose and self.tv.step % 10 == 0:
-                    # console line (model.py:216-224)
-                    print(f"step {self.tv.step} epoch {epoch} "
-                          f"loss {loss:.4f} ema {ema:.4f} {dt * 1e3:.0f}ms "
-                          f"lr {optim.get_lr(self.opt_state):.2e} "
-                          f"best_wer {self.tv.best_wer:.5f} "
-                          f"no_imprv {self.plateau.num_no_imprv}",
-                          file=sys.stderr)
-                self.logger.scalar("train/loss", loss, self.tv.step)
-                self.logger.scalar("train/grad_norm", gnorm, self.tv.step)
+                with span("asr.train.step", lambda: f"step {n} T "
+                          f"{batch.feats.shape[1]} S "
+                          f"{batch.tokens_in.shape[1]}"):
+                    # LR ramp-up (model.py:185-187)
+                    if cfg.ramp_up_iters > 0 and \
+                            self.tv.step < cfg.ramp_up_iters:
+                        self.opt_state = optim.set_lr(
+                            self.opt_state,
+                            optim.ramp_up_lr(self.plateau.lr, self.tv.step,
+                                             cfg.ramp_up_iters))
+                    if self.mesh is not None:
+                        batch = sharding.shard_batch(batch, self.cfg,
+                                                     self.mesh)
+                    self.params, self.opt_state, metrics = self._step_fn(
+                        self.params, self.opt_state, batch, self._gen)
+                with span("asr.train.read", lambda: f"step {n}"):
+                    # the step's one host read
+                    loss, gnorm = torch.stack(
+                        (metrics["loss"], metrics["grad_norm"])).tolist()
+                with span("asr.train.log", lambda: f"step {n}"):
+                    self.tv.step += 1
+                    self.tv.loss = loss
+                    dt = self.duration.toc()
+                    ema = self.ema.update(loss)
+                    if self.cfg.verbose and self.tv.step % 10 == 0:
+                        # console line (model.py:216-224)
+                        print(f"step {self.tv.step} epoch {epoch} "
+                              f"loss {loss:.4f} ema {ema:.4f} "
+                              f"{dt * 1e3:.0f}ms "
+                              f"lr {optim.get_lr(self.opt_state):.2e} "
+                              f"best_wer {self.tv.best_wer:.5f} "
+                              f"no_imprv {self.plateau.num_no_imprv}",
+                              file=sys.stderr)
+                    self.logger.scalar("train/loss", loss, self.tv.step)
+                    self.logger.scalar("train/grad_norm", gnorm,
+                                       self.tv.step)
                 if steps_per_eval > 0 and self.tv.step % steps_per_eval == 0:
                     self._eval_and_checkpoint(eval_loader_fn)
                 if max_steps is not None and self.tv.step >= max_steps:

@@ -3,18 +3,59 @@
 ``Duration``, util.py:2379-2397 ``EMA``, util.py:307-423 alignment image
 export, util.py:298-304 transcript sampling), a JSONL metrics logger in
 place of the reference's missing TensorBoard ``Logger`` (model.py:6), and
-a ``torch.profiler`` hook.
+the program's spans.
+
+Spans (``span``) mark the program's layer boundaries on the
+``torch.profiler`` timeline and clock, beside the card's kernels, copies
+and memsets, so that each gap in the card's work can be put down to what
+the host was doing.  They record only while a profiler session records;
+otherwise a span costs one check.  To get them, open any
+``torch.profiler.profile(...)`` around the calls, then
+``export_chrome_trace``; with ``record_shapes=True`` each span's args
+carry its ``detail``.  A span is a host range (a ``cpu_op`` row, not a
+``user_annotation``), so it adds no row to the card's timeline.
+
+  asr.call              ``ASR.transcribe_wavs``, the whole call
+                        (call number, rows, chunks); around each chunk's
+                        calls of
+  asr.prep              ``_prep`` / ``_prep_rows``: the chunk's wire
+                        buffer on the host (chunk, B, N)
+  asr.upload            ``_upload``: the copy issued (chunk, wire bytes)
+  asr.featurize         ``_featurize``: the copy-event wait queued, the
+                        front end's graph launched (chunk)
+  asr.dispatch          ``_decode_dispatch`` with ``_to_host`` (chunk)
+  asr.finalize          ``_decode_finalize`` (chunk), which holds
+    asr.finalize.wait   the host blocked on the chunk's result copy
+    asr.finalize.detok  what follows: the winner's detokenize (and the
+                        host LM's rescoring), ``graphs.settle`` included
+  asr.train.load        ``Trainer.fit``: the next batch from the loader
+                        (upload and featurize) (step)
+  asr.train.step        the step call: coins, input copies, graph replay
+                        (step, (T, S))
+  asr.train.read        the loss and grad-norm read, which waits for the
+                        step (step)
+  asr.train.log         the EMA, the console line and the logger (step)
+  asr.serve.batch       ``MicroBatcher``: one batch's ``transcribe_wavs``
+                        (rows, padded rows)
+
+The spans of one chunk share its index, those of one step its number.
+No span sits inside a function a CUDA graph captures: it would run only
+at capture.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import random
 import time
-from typing import List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence, Union
 
 import numpy as np
+import torch
+
+_OFF = contextlib.nullcontext()
 
 
 class Duration:
@@ -117,26 +158,16 @@ def rand_disp_list(preds: Sequence[str], refs: Sequence[str], n: int = 3,
     return [f"pred: {preds[i]} | ref: {refs[i]}" for i in idx]
 
 
-class Profiler:
-    """``torch.profiler`` over the block (CPU, and CUDA when a card is
-    present); the Chrome trace goes to ``<log_dir>/trace.json`` and the
-    profile stays on ``.prof`` for ``key_averages()``."""
-
-    def __init__(self, log_dir: str):
-        self.log_dir = log_dir
-        self.prof = None
-
-    def __enter__(self):
-        import torch
-        acts = [torch.profiler.ProfilerActivity.CPU]
-        if torch.cuda.is_available():
-            acts.append(torch.profiler.ProfilerActivity.CUDA)
-        self.prof = torch.profiler.profile(activities=acts)
-        self.prof.__enter__()
-        return self
-
-    def __exit__(self, *exc):
-        self.prof.__exit__(*exc)
-        os.makedirs(self.log_dir, exist_ok=True)
-        self.prof.export_chrome_trace(os.path.join(self.log_dir,
-                                                   "trace.json"))
+def span(name: str, detail: Union[str, Callable[[], str], None] = None):
+    """A context manager that marks ``name`` (``asr.``...) on the profiler's
+    timeline while a ``torch.profiler`` session records, with ``detail``
+    (a string, or a callable that builds one, called only then) as its
+    args; otherwise one shared no-op context."""
+    if not torch.autograd._profiler_enabled():
+        return _OFF
+    if detail is None:
+        return torch._C._profiler._RecordFunctionFast(name)
+    if callable(detail):
+        detail = detail()
+    return torch._C._profiler._RecordFunctionFast(name, (),
+                                                  {"detail": str(detail)})

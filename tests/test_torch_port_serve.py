@@ -153,6 +153,22 @@ def test_concurrent_requests_are_microbatched(server):
     assert srv.batcher.batches - before < len(payloads)
 
 
+def test_healthz_counts_queue_wait_and_padded_rows():
+    """Two requests in one window ride one batch of 2, a size on the
+    ladder: both count a queue wait, no row is padded."""
+    srv = _start(_small_asr(), max_batch=2, window_ms=5000.0)
+    try:
+        results = _concurrent(
+            lambda i: _post(srv.server_port, _wav_bytes(200 + i)), 2)
+        assert all(s == 200 for s, _ in results)
+        obj = _healthz(srv.server_port)
+    finally:
+        _close(srv)
+    assert obj["batches"] == 1 and obj["requests"] == 2
+    assert obj["queue_wait_n"] == 2 and obj["padded_rows"] == 0
+    assert 0.0 < obj["queue_wait_s_max"] <= obj["queue_wait_s_sum"] < 5.0
+
+
 def test_microbatcher_sheds_load_when_queue_full():
     """Saturation degrades to a fast rejection (Overloaded), not unbounded
     queueing; the queued requests still complete."""
