@@ -12,6 +12,7 @@ from typing import Dict, Tuple
 import torch
 
 from ..config import AttentionConfig
+from ..ops.cuda import attention as attn_k
 
 Params = Dict[str, torch.Tensor]
 
@@ -81,14 +82,18 @@ def attend_beam(p: Params, cfg: AttentionConfig, mask, hidden_state, keys,
     """Beam-shaped read: k beams per sample share one copy of keys/values
     (never tiled nor reordered).  mask [B, L]; hidden_state [B, k, H];
     keys [B, L, a]; values [B, L, d] -> (context [B, k, ctx], align
-    [B, k, L]; for several heads the first head's).  The tanh intermediate
-    is [B, k, L, a] (~350 MB f32 at B=128, k=16, L=332, a=128)."""
+    [B, k, L]; for several heads the first head's).
+
+    One head: the scores and their softmax are K6
+    (``ops/cuda/attention.py``; on the CPU its plain twin), which never
+    forms the [B, k, L, a] tanh intermediate.  Several heads keep the
+    plain expression and its intermediate: no benchmarked configuration
+    runs them, and their softmax per head is another reduction."""
     q = hidden_state @ p["w_hidden"]                      # [B, k, a]
-    e = torch.tanh(keys[:, None, :, :] + q[:, :, None, :]) * p["v"]
     if cfg.heads == 1:
-        scores = e.sum(dim=-1)                            # [B, k, L]
-        align = torch.softmax(mask[:, None, :] + scores, dim=-1)
+        align = attn_k.beam_scores_softmax(mask, q, keys, p["v"])
         return torch.bmm(align, values), align            # [B, k, d]
+    e = torch.tanh(keys[:, None, :, :] + q[:, :, None, :]) * p["v"]
     B, k, L, a = e.shape
     n = cfg.heads
     scores = e.reshape(B, k, L, n, a // n).sum(dim=-1)    # [B, k, L, n]

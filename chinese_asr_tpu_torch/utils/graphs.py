@@ -81,6 +81,7 @@ from typing import Callable, Optional, Sequence
 import torch
 
 from ..ops.cuda import adpcm as adpcm_k
+from ..ops.cuda import attention as attn_k
 from ..ops.cuda import build
 from ..ops.cuda import logmel as logmel_k
 from ..ops.cuda import lstm as lstm_k
@@ -105,7 +106,8 @@ UNROLL = 4
 COUNTERS = ((logmel_k, "launches"), (lstm_k, "launches"),
             (lstm_k, "bf16_launches"), (topk_k, "launches"),
             (topk_k, "fused_launches"), (adpcm_k, "launches"),
-            (lstm_k, "bwd_launches"), (lstm_k, "bwd_bf16_launches"))
+            (lstm_k, "bwd_launches"), (lstm_k, "bwd_bf16_launches"),
+            (attn_k, "launches"))
 
 _cache: "OrderedDict[tuple, Graphed]" = OrderedDict()
 _lock = threading.RLock()

@@ -50,6 +50,11 @@ every phase passed):
    its bound, its twin, phase 2f's f32 K2-bwd and cuDNN's bf16 backward
    of one bidirectional layer at B=32 and B=128, each stage's time, and
    pass 2's phase split beside the parent design's (recorded);
+2g. hold K6, the beam's attention read, against its twin at the offline
+   cells' shapes (B=128, k=16, a=128, L = 100, 166 and 433 frames; f32
+   and bf16; ragged rows and one masked everywhere) and time it (CUDA
+   graphs of 20 calls) beside its twin and its bound (its tanhf's
+   special-function operations at the SMs' rate);
 2e. hold K5, the ADPCM wire decode, against its twin bit for bit on the
    B=32 batch's wire, a B=1 wire, a full-scale square wave and silence,
    and time it beside the C++ host encoder;
@@ -118,8 +123,9 @@ every phase passed):
    stack, the GRU decoder, Luong wiring and 4 heads with ``map_enc`` and
    ``linear_map`` (``FAMILY_RUNS``), each ``ASR(bw=16)`` on the B=32
    batch: the launches (K1 1, K3 40, K2 4 only on the bidirectional LSTM
-   encoder), two runs equal, the card's encoder and greedy tokens against
-   the CPU port's on CPU features of 2 wavs of 2 s; the median of 3 warm
+   encoder, K6 40 with one attention head), two runs equal, the card's
+   encoder and greedy tokens against the CPU port's on CPU features of 2
+   wavs of 2 s; the median of 3 warm
    walls and one device-only profile (launches, busy share) each; then
    ``Trainer.fit`` of CNN1D_RNN (a BatchNorm front, a GRU stack) for 4
    steps of B=32 (graph replays, against the eager step as in phase 4)
@@ -156,8 +162,8 @@ every phase passed):
    device memory;
 4b. the mesh (``parallel/sharding.py``): (a) a one-rank NCCL group, mesh
    1 x 1: ``ASR(bw=16, mesh=make_mesh(cfg))`` on phase 3's batch equals
-   ``ASR(bw=16)`` exactly, with K1 1, K2 4 and K3 40 launches; (b) four
-   ranks spawned from this script share the card over gloo as a 2 x 2
+   ``ASR(bw=16)`` exactly, with K1 1, K2 4, K3 40 and K6 40 launches; (b)
+   four ranks spawned from this script share the card over gloo as a 2 x 2
    mesh at the flagship ``Config()`` (V = 5004, 2502 a model rank; the
    library phase 1 built serves every rank): each runs beam bw 16 and
    greedy on the B=32 batch (16 rows a data rank) against phase 3's
@@ -166,8 +172,8 @@ every phase passed):
    against ``expected.json``, and three ``Trainer.fit`` steps at B=32 in
    f32 and bf16 against the single device's (f32 loss 1e-5 relative,
    params 2e-4 / 2e-5; bf16 loss 1e-2; masters float32); every rank's
-   launches are checked (K1, K2, K3; K2-bwd in f32 training, K2-bf16 and
-   K2-bwd-bf16 in bf16); the walls (median of 3 warm runs), the
+   launches are checked (K1, K2, K3, K6; K2-bwd in f32 training, K2-bf16
+   and K2-bwd-bf16 in bf16); the walls (median of 3 warm runs), the
    collectives and their bytes a batch or step are printed beside the
    card's line, as gloo-through-the-host figures on one shared card, and
    rows that differ from one device (random weights) with their score
@@ -286,6 +292,10 @@ H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12          # f32 outside the tensor cores
 H100_TF32_FLOPS = 495e12        # TF32 tensor cores, dense
 H100_BF16_FLOPS = 989e12        # bf16 tensor cores, dense
+# special-function results a second: 16 a clock an SM, 132 SMs, 1.98 GHz
+H100_SFU_PER_S = 16 * 132 * 1.98e9
+K6_LENGTHS = (100, 166, 433)    # encoder frames of the offline cells'
+                                # shortest, a middle and the longest chunk
 
 
 def _gpu_line() -> str:
@@ -314,6 +324,78 @@ def _bound_ms(nbytes: float, ops: float, flops: float = H100_F32_FLOPS):
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     t_ops = ops / flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _phase_k6(np, torch, fails, dev, attn_k, graph_ms, gpu) -> dict:
+    """Phase 2g: K6 against its twin at the offline cells' shapes (B=128,
+    k=16, a=128, L in K6_LENGTHS; f32 and bf16; rows of unequal length,
+    the last masked everywhere), timed as CUDA graphs of 20 calls beside
+    its twin and its bound: each tanhf the rows need (k * a a frame
+    within its row) as two special-function operations (ex2, rcp) at
+    H100_SFU_PER_S, or its bytes (keys, q, v and the mask read once,
+    align written once) at the HBM's rate."""
+    B, k, a = 128, 16, 128
+    by_shape = {}
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        for L in K6_LENGTHS:
+            g = torch.Generator(device=dev).manual_seed(L)
+            keys = torch.randn(B, L, a, device=dev, generator=g)
+            q = torch.randn(B, k, a, device=dev, generator=g)
+            v = 0.1 * torch.randn(a, device=dev, generator=g)
+            lens = torch.randint(L // 3, L + 1, (B,), device=dev,
+                                 generator=g)
+            lens[0], lens[-1] = L, 0
+            mask = torch.where(torch.arange(L, device=dev)[None]
+                               < lens[:, None], 0.0, float("-inf"))
+            ops = [t.to(dtype).contiguous() for t in (mask, q, keys, v)]
+            with torch.no_grad():
+                before = attn_k.launches
+                got = attn_k.beam_scores_softmax(*ops).float()
+                launched = attn_k.launches - before
+                ref = attn_k.beam_scores_softmax_plain(
+                    *[t.float() for t in ops])
+                nan = torch.isnan(ref)
+                err = (got - ref)[~nan].abs()
+                lim = (1e-5 if dtype == torch.float32
+                       else 2 ** -8 * ref[~nan].abs() + 1e-6)
+                ok = (launched == 1 and torch.equal(torch.isnan(got), nan)
+                      and bool((err <= lim).all()))
+                what = ("an f32 sum order" if dtype == torch.float32
+                        else "a bf16 rounding")
+                fails.check(ok, f"K6 {tag} [{B}, {k}, {L}, {a}]: one launch, "
+                                f"NaN rows as the twin's, within {what} of "
+                                f"the twin in f32 (max "
+                                f"{float(err.max()):.3g})")
+                ms = graph_ms(lambda: attn_k.beam_scores_softmax(*ops),
+                              iters=20)
+                plain_ms = graph_ms(
+                    lambda: attn_k.beam_scores_softmax_plain(*ops), iters=3)
+            es = 2 if dtype == torch.bfloat16 else 4
+            # the tanhf these rows need: k * a a frame within its row
+            t_ops = 2 * k * a * int(lens.sum()) / H100_SFU_PER_S * 1e3
+            t_bytes = (B * L * a + B * k * a + a + B * L + B * k * L) * es \
+                / H100_BYTES_PER_S * 1e3
+            bound, by = max((t_ops, "operations"), (t_bytes, "bytes"))
+            by_shape[f"{tag}_L{L}"] = dict(
+                ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                share=bound / ms, max_abs_err=float(err.max()),
+                plan=attn_k.plan(B, k, L, a, dtype))
+            print(f"K6 {tag} [{B}, {k}, {L}, {a}]: {ms:.4f} ms, bound "
+                  f"{bound:.4f} ms ({by}) = {100 * bound / ms:.1f} %, twin "
+                  f"{plain_ms:.3f} ms ({plain_ms / ms:.1f}x); max err "
+                  f"{float(err.max()):.3g}; plan "
+                  f"{json.dumps(by_shape[f'{tag}_L{L}']['plan'])} on {gpu}",
+                  flush=True)
+    main = by_shape[f"f32_L{K6_LENGTHS[-1]}"]
+    return dict(name="K6 beam attention read", route="cuda",
+                source="chinese_asr_tpu_torch/csrc/attention.cu",
+                replaces=None, max_abs_err=main["max_abs_err"],
+                ms=main["ms"], plain_ms=main["plain_ms"],
+                bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+                library_ms=None, by_shape=by_shape,
+                shape=f"mask [{B}, L], q [{B}, {k}, {a}], keys [{B}, L, "
+                      f"{a}] -> align [{B}, {k}, L], L in {K6_LENGTHS}; "
+                      f"the main figures f32 at L={K6_LENGTHS[-1]}")
 
 
 def _k2_ptxas_lines(log_path: str, *markers: str, exclude: str = ""):
@@ -740,7 +822,8 @@ _TRACE_KERNELS = (("K1", ("logmel_tc_kernel",), ("logmel",)),
                   ("K2", ("bilstm_tc_kernel<", "bilstm_bf16_tc_kernel<",
                           "bilstm_kernel<"), ("lstm", "lstm_bf16")),
                   ("K3/K4", ("topk_kernel<",), ("topk", "topk_fused")),
-                  ("K5", ("adpcm_decode_kernel",), ("adpcm",)))
+                  ("K5", ("adpcm_decode_kernel",), ("adpcm",)),
+                  ("K6", ("beam_attention_kernel<",), ("attention",)))
 
 
 def _ab_line(label: str, r: dict, gpu: str) -> str:
@@ -790,11 +873,12 @@ def _phase_graphs(np, torch, fails, ASR, gpu, runs_spec, texts_of, golden,
                              if any(k in key for k in keys)),
                          sum(counted[n] for n in ctrs))
                   for name, keys, ctrs in _TRACE_KERNELS}
-        # K1 and K5 run in the front end's graph, K2-K4 in the decode's
+        # K1 and K5 run in the front end's graph, K2-K4 and K6 in the
+        # decode's
         fails.check(all(t == c for t, c in traced.values())
                     and traced["K2"][0] > 0 and traced["K1"][0] > 0,
                     f"3g {mode}: the card's trace of one graph-path call "
-                    f"launched what the counters count, K1-K5 (traced, "
+                    f"launched what the counters count, K1-K6 (traced, "
                     f"counted) {traced}")
         r["traced_vs_counted"] = traced
         report[mode] = r
@@ -803,7 +887,8 @@ def _phase_graphs(np, torch, fails, ASR, gpu, runs_spec, texts_of, golden,
         # where the graph path's device time goes: the twelve largest
         # kernels, then the port's own further down
         ours = [x for x in rows[12:] if any(
-            n in x[2] for n in ("topk_kernel", "bilstm", "logmel", "adpcm"))]
+            n in x[2] for n in ("topk_kernel", "bilstm", "logmel", "adpcm",
+                                "beam_attention"))]
         for us, count, key in rows[:12] + ours:
             print(f"  {us / 1e3:9.3f} ms  x{count:<5d} {key[:90]}")
     os.environ["CHINESE_ASR_PALLAS_FUSED"] = "0"
@@ -1094,7 +1179,8 @@ def _phase_serving(np, torch, fails, ASR, cfg, wavs, counters, gpu, golden):
         same = False
     fails.check(same, "serve: every reply equals transcribe_wavs of the "
                       "same 32 wavs, peak scales and row order, exactly")
-    fails.check(all(served_counts[n] > 0 for n in ("logmel", "lstm", "topk"))
+    fails.check(all(served_counts[n] > 0
+                    for n in ("logmel", "lstm", "topk", "attention"))
                 and served_counts["topk_fused"] == 0,
                 f"serve: kernels launched in the served batch "
                 f"{served_counts}")
@@ -2523,7 +2609,8 @@ def _phase_families(np, torch, fails, ASR, base_cfg, wavs, rng, dev,
         bilstm = (cfg.encoder.encoder_type == "LSTM"
                   and cfg.encoder.bidirectional)
         want = dict.fromkeys(counters, 0)
-        want.update(logmel=1, topk=40, lstm=4 if bilstm else 0)
+        want.update(logmel=1, topk=40, lstm=4 if bilstm else 0,
+                    attention=40 if cfg.attention.heads == 1 else 0)
         fails.check(c1 == want, f"3f {name}: kernels launched {c1} by a "
                                 f"replay, wanted {want}")
         fails.check(t1 == t2 and len(t1) == len(wavs)
@@ -2630,6 +2717,7 @@ MESH_NEAR_TIE = 1 / 128
 def _kernel_counters():
     """Each kernel's launch counter (module, attribute), by kernel name."""
     from chinese_asr_tpu_torch.ops.cuda import adpcm as adpcm_k
+    from chinese_asr_tpu_torch.ops.cuda import attention as attn_k
     from chinese_asr_tpu_torch.ops.cuda import logmel as logmel_k
     from chinese_asr_tpu_torch.ops.cuda import lstm as lstm_k
     from chinese_asr_tpu_torch.ops.cuda import topk as topk_k
@@ -2640,7 +2728,8 @@ def _kernel_counters():
             "topk_fused": (topk_k, "fused_launches"),
             "adpcm": (adpcm_k, "launches"),
             "lstm_bwd": (lstm_k, "bwd_launches"),
-            "lstm_bwd_bf16": (lstm_k, "bwd_bf16_launches")}
+            "lstm_bwd_bf16": (lstm_k, "bwd_bf16_launches"),
+            "attention": (attn_k, "launches")}
 
 
 def _mesh_decode(torch, np, asr, wavs, counters):
@@ -2913,7 +3002,7 @@ def _phase_mesh(np, torch, fails, gpu, dev, cfg, wavs, texts_of, arpa3,
                 f"the card; the decode issued {run['collectives']['calls']} "
                 f"collectives (none: a 1x1 mesh decodes as one device)")
     want = dict.fromkeys(counters, 0)
-    want.update(logmel=1, lstm=4, topk=40)
+    want.update(logmel=1, lstm=4, topk=40, attention=40)
     fails.check(run["launches"] == want,
                 f"mesh 1x1 (NCCL) beam_bw16: launches {run['launches']}")
     fails.check(run["texts"] == texts_of["beam_bw16"] and run["stable"],
@@ -2955,10 +3044,13 @@ def _phase_mesh(np, torch, fails, gpu, dev, cfg, wavs, texts_of, arpa3,
     outs = launch.run_ranks(_mesh_rank, MESH_SHAPE[0] * MESH_SHAPE[1],
                             args=(spec,), device_type="cuda", timeout_s=600)
     ranks_s = time.time() - t_spawn
-    decode_want = {"beam_bw16": dict(logmel=1, lstm=4, topk=40),
+    decode_want = {"beam_bw16": dict(logmel=1, lstm=4, topk=40,
+                                     attention=40),
                    "greedy": dict(logmel=1, lstm=4),
-                   "beam_bw16_lm2": dict(logmel=1, lstm=4, topk=None),
-                   "beam_bw16_lm1": dict(logmel=1, lstm=4, topk=None)}
+                   "beam_bw16_lm2": dict(logmel=1, lstm=4, topk=None,
+                                         attention=None),
+                   "beam_bw16_lm1": dict(logmel=1, lstm=4, topk=None,
+                                         attention=None)}
     steps = MESH_TRAIN_STEPS
     train_want = {"float32": dict(logmel=steps, lstm=4 * steps,
                                   lstm_bwd=4 * steps),
@@ -3077,6 +3169,7 @@ def main() -> int:
     from chinese_asr_tpu_torch.lm.device_ngram import DeviceNgramLM
     from chinese_asr_tpu_torch.models import las
     from chinese_asr_tpu_torch.ops.cuda import adpcm as adpcm_k
+    from chinese_asr_tpu_torch.ops.cuda import attention as attn_k
     from chinese_asr_tpu_torch.ops.cuda import build
     from chinese_asr_tpu_torch.ops.cuda import logmel as logmel_k
     from chinese_asr_tpu_torch.ops.cuda import lstm as lstm_k
@@ -3746,6 +3839,12 @@ def main() -> int:
                   f"{topk_k.plan(rows, V, k)['warps_per_row']})", flush=True)
         del xs, ls
 
+    # ---- phase 2g: K6, the beam's attention read ----------------------------
+    t2g = time.time()
+    kernels["attention"] = _phase_k6(np, torch, fails, dev, attn_k, graph_ms,
+                                     gpu)
+    print(f"phase 2g: {time.time() - t2g:.1f} s", flush=True)
+
     # ---- phase 3: main path --------------------------------------------------
     cfg = Config()
     wavs = _synthetic_wavs(np, rng, 32, 9.0, 10.0)
@@ -3867,27 +3966,28 @@ def main() -> int:
     # mode, ASR, batch, fused stage 1, the kernels that must run: each with
     # its exact launches per batch (4 encoder layers, 40 decode steps, as
     # random weights never stop early, one ADPCM decode) or None for "> 0"
-    any3 = dict.fromkeys(("logmel", "lstm", "topk"))
+    any3 = dict.fromkeys(("logmel", "lstm", "topk", "attention"))
+    beam = {"logmel": 1, "lstm": 4, "topk": 40, "attention": 40}
     runs_spec = (
-        ("beam_bw16", ASR(bw=16, cfg=cfg, seed=0), wavs, False, any3),  # cuda
+        ("beam_bw16", ASR(bw=16, cfg=cfg, seed=0), wavs, False, beam),  # cuda
         ("greedy", ASR(bw=None, cfg=cfg, seed=0), wavs, False,
          dict.fromkeys(("logmel", "lstm"))),
-        ("beam_bw16_b128", ASR(bw=16, cfg=cfg, seed=0), wavs128, False, any3),
+        ("beam_bw16_b128", ASR(bw=16, cfg=cfg, seed=0), wavs128, False, beam),
         ("beam_bw16_lm2", lm_asrs[3], wavs, False, any3),
         ("beam_bw16_lm2_fused", lm_asrs[3], wavs, True,
-         dict.fromkeys(("logmel", "lstm", "topk_fused"))),
+         dict.fromkeys(("logmel", "lstm", "topk_fused", "attention"))),
         ("beam_bw16_lm2_o5", lm_asrs[5], wavs, False, any3),
         ("beam_bw16_lm1", lm_asrs["first"], wavs, False, any3),
         ("beam_bw16_bf16", ASR(bw=16, cfg=cfg, seed=0,
                                compute_dtype="bfloat16"), wavs, False,
-         {"logmel": 1, "lstm_bf16": 4, "topk": 40}),
+         {"logmel": 1, "lstm_bf16": 4, "topk": 40, "attention": 40}),
         ("beam_bw16_b128_bf16", ASR(bw=16, cfg=cfg, seed=0,
                                     compute_dtype="bfloat16"), wavs128,
-         False, {"logmel": 1, "lstm_bf16": 4, "topk": 40}),
+         False, {"logmel": 1, "lstm_bf16": 4, "topk": 40, "attention": 40}),
         ("beam_bw16_mulaw", ASR(bw=16, cfg=cfg, seed=0, wire="mulaw"), wavs,
-         False, {"logmel": 1, "lstm": 4, "topk": 40}),
+         False, {"logmel": 1, "lstm": 4, "topk": 40, "attention": 40}),
         ("beam_bw16_adpcm", asr_adpcm, wavs, False,
-         {"logmel": 1, "lstm": 4, "topk": 40, "adpcm": 1}))
+         {"logmel": 1, "lstm": 4, "topk": 40, "adpcm": 1, "attention": 40}))
     # the bf16 and lossy-wire runs, reported against the f32 flat wire's
     lossy_suffixes = ("_bf16", "_mulaw", "_adpcm")
     t3_lossy = 0.0
@@ -3896,7 +3996,8 @@ def main() -> int:
     launches_from = {"logmel": "beam_bw16", "lstm": "beam_bw16",
                      "lstm_bf16": "beam_bw16_bf16", "topk": "beam_bw16",
                      "topk_fused": "beam_bw16_lm2_fused",
-                     "adpcm": "beam_bw16_adpcm", "lstm_bwd": "training",
+                     "adpcm": "beam_bw16_adpcm", "attention": "beam_bw16",
+                     "lstm_bwd": "training",
                      "lstm_bwd_bf16": "training bf16"}
     paths, texts_of = {}, {}
     for mode, asr, batch, fused, need in runs_spec:
@@ -4204,7 +4305,7 @@ def main() -> int:
     paths["families"] = _phase_families(np, torch, fails, ASR, cfg, wavs,
                                         rng, dev, counters, gpu,
                                         build.BUILD_DIR)
-    for n in ("logmel", "topk", "lstm"):
+    for n in ("logmel", "topk", "lstm", "attention"):
         kernels[n]["launches_families"] = {
             run: paths["families"][run]["kernel_launches"][n]
             for run, _ in FAMILY_RUNS}

@@ -9,7 +9,9 @@ Tolerances are the ones chip_smoke.py states: log-mel 2e-3 absolute,
 BiLSTM 1e-4 absolute (bf16: TOL_LSTM_BF16, below), top-k exact, fused
 top-k 1e-5 absolute on values (the logsumexp is summed in another order),
 indices exact where the values are separated by more than that, ADPCM
-decode exact.
+decode exact, the beam's attention read (K6) 1e-5 absolute on align in
+float32 (the sum over a is taken in another order) and, in bf16, one
+bf16 rounding of the twin evaluated in float32 on the same bf16 inputs.
 """
 
 import json
@@ -22,6 +24,7 @@ import torch
 from chinese_asr_tpu_torch import config as tcfg
 from chinese_asr_tpu_torch.audio import features as tfeat
 from chinese_asr_tpu_torch.ops.cuda import adpcm as tadpcm
+from chinese_asr_tpu_torch.ops.cuda import attention as tattn
 from chinese_asr_tpu_torch.ops.cuda import logmel as tlogmel
 from chinese_asr_tpu_torch.ops.cuda import lstm as tlstm
 from chinese_asr_tpu_torch.ops.cuda import topk as ttopk
@@ -36,6 +39,11 @@ pytestmark = pytest.mark.cuda
 # rounding of a bf16 rounding boundary lands one bf16 ulp apart (<= 7.8e-3
 # below 2) and the recurrence carries it on; chip_smoke.py's bound
 TOL_LSTM_BF16 = 3e-2
+# K6 in bf16 against the bf16 twin, which rounds the sum, tanh, the
+# product with v and the sum over a to bf16 before its softmax: a score's
+# rounding (2^-9 of |score| <= 4) moves its softmax weight by up to ~0.8 %
+# of itself, and align's own rounding 2^-9 of it: ~1.2e-2 at align 1
+TOL_ATTN_BF16_TWIN = 1.6e-2
 
 
 @pytest.fixture
@@ -1258,30 +1266,32 @@ def test_jit_graph_equals_eager_on_the_card(dev, mode, dtype):
 
 def test_jit_replays_count_launches_on_the_card(dev):
     """The launch counters under replay: a replay adds what its graph
-    launches (K3 once a step of a chunk that ran, K2 once a layer) once
-    ``graphs.settle`` has read how many guarded chunks ran, and a capture
-    adds nothing of its own (the first call counts its eager warm-up and
-    its replay); the chunks skipped after the stop add nothing."""
+    launches (K3 and K6 once a step of a chunk that ran, K2 once a layer)
+    once ``graphs.settle`` has read how many guarded chunks ran, and a
+    capture adds nothing of its own (the first call counts its eager
+    warm-up and its replay); the chunks skipped after the stop add
+    nothing."""
     from chinese_asr_tpu_torch.decode import beam
     from chinese_asr_tpu_torch.utils import graphs
     graphs.clear()
     asr, feats, lens, _, _ = _jit_setup(dev)
     eager = []
     for run in range(3):
-        before = (tlstm.launches, ttopk.launches)
+        before = (tlstm.launches, ttopk.launches, tattn.launches)
         if run == 0:
             res = beam.beam_decode(asr.params, asr.cfg, 4, feats, lens,
                                    unroll=graphs.UNROLL)
         else:
             res = beam.beam_decode_jit(asr.params, asr.cfg, 4, feats, lens)
         graphs.settle(wait=True)
-        eager.append((tlstm.launches - before[0], ttopk.launches - before[1]))
+        eager.append((tlstm.launches - before[0], ttopk.launches - before[1],
+                      tattn.launches - before[2]))
     steps = (int(res.l_final) // graphs.UNROLL + 1) * graphs.UNROLL
     assert int(res.l_final) < asr.cfg.decode.max_len - 1    # stops early
     layers = asr.cfg.encoder.num_layers
-    assert eager[0] == (layers, steps)
-    assert eager[1] == (2 * layers, 2 * steps)   # warm-up + first replay
-    assert eager[2] == (layers, steps)
+    assert eager[0] == (layers, steps, steps)
+    assert eager[1] == (2 * layers, 2 * steps, 2 * steps)   # warm-up + replay
+    assert eager[2] == (layers, steps, steps)
     (_, prog), = graphs.programs()
     assert prog.chunks == -(-asr.cfg.decode.max_len // graphs.UNROLL)
     assert steps < prog.chunks * graphs.UNROLL and prog.capture_ms > 0
@@ -1802,3 +1812,126 @@ def test_jit_graph_equals_eager_when_the_init_state_aliases(dev, over, rows):
                 assert torch.equal(getattr(got, name), w), name
             for x, y in zip(las.tree_leaves(params), before):
                 assert torch.equal(x, y)
+
+
+def _attn_inputs(dev, B, k, L, a, dtype, seed):
+    """K6's operands: rows of unequal length, the first full and, from
+    B = 3 on, the last masked everywhere."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    keys = torch.randn(B, L, a, device=dev, generator=g)
+    q = torch.randn(B, k, a, device=dev, generator=g)
+    v = 0.1 * torch.randn(a, device=dev, generator=g)
+    lens = torch.randint(1, L + 1, (B,), device=dev, generator=g)
+    lens[0] = L
+    if B >= 3:
+        lens[-1] = 0
+    mask = torch.where(torch.arange(L, device=dev)[None] < lens[:, None],
+                       0.0, float("-inf"))
+    return [t.to(dtype).contiguous() for t in (mask, q, keys, v)]
+
+
+def _attn_against_twins(got, ops):
+    """K6's align against the twin in float32 on the same operands (NaN
+    rows alike; f32 1e-5 absolute, bf16 one bf16 rounding) and, in bf16,
+    against the bf16 twin within TOL_ATTN_BF16_TWIN."""
+    ref = tattn.beam_scores_softmax_plain(*[t.float() for t in ops])
+    nan = torch.isnan(ref)
+    assert torch.equal(torch.isnan(got), nan)
+    err = (got.float() - ref)[~nan].abs()
+    if got.dtype == torch.float32:
+        assert err.numel() == 0 or float(err.max()) <= 1e-5
+        return
+    assert bool((err <= 2 ** -8 * ref[~nan].abs() + 1e-6).all())
+    ref16 = tattn.beam_scores_softmax_plain(*ops).float()
+    err16 = (got.float() - ref16)[~nan].abs()
+    assert err16.numel() == 0 or float(err16.max()) <= TOL_ATTN_BF16_TWIN
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B", [1, 3, 128])
+@pytest.mark.parametrize("a", [8, 128])
+@pytest.mark.parametrize("L", [1, 7, 100, 433, 3100])
+@pytest.mark.parametrize("k", [1, 4, 16])
+def test_beam_attention_kernel_matches_twin(dev, k, L, a, B, dtype,
+                                            monkeypatch):
+    """K6 at each shape against its twin; at L = 3100 under the split plan
+    (scores in a device scratch), which these B take only when forced."""
+    ops = _attn_inputs(dev, B, k, L, a, dtype, seed=B * 7919 + k * 31 + L)
+    if L == 3100:
+        plan = tattn.plan
+        monkeypatch.setattr(tattn, "plan",
+                            lambda *x: {**plan(*x), "split": True})
+    before = tattn.launches
+    with torch.no_grad():
+        got = tattn.beam_scores_softmax(*ops)
+    assert tattn.launches == before + 1
+    assert got.dtype == dtype and got.shape == (B, k, L)
+    _attn_against_twins(got, ops)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_beam_attention_kernel_split_plan_where_plan_takes_it(dev, dtype):
+    """A block a sample (B past twice the SMs) with more scores than
+    shared memory holds: plan itself picks the split."""
+    B, k, L, a = 280, 16, 3600, 8
+    assert tattn.plan(B, k, L, a, dtype)["split"]
+    assert not tattn.plan(B, k, 3000, a, dtype)["split"]
+    ops = _attn_inputs(dev, B, k, L, a, dtype, seed=5)
+    with torch.no_grad():
+        _attn_against_twins(tattn.beam_scores_softmax(*ops), ops)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_beam_attention_kernel_in_a_cuda_graph(dev, dtype):
+    """Captured and replayed as the decode graph holds it: the replay on
+    new operands equals an eager launch bit for bit, and counts one
+    launch at capture."""
+    B, k, L, a = 128, 16, 166, 128
+    ops = _attn_inputs(dev, B, k, L, a, dtype, seed=9)
+    static = [t.clone() for t in ops]
+    with torch.no_grad():
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            tattn.beam_scores_softmax(*static)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        before = tattn.launches
+        with torch.cuda.graph(graph):
+            out = tattn.beam_scores_softmax(*static)
+        assert tattn.launches == before + 1
+        new = _attn_inputs(dev, B, k, L, a, dtype, seed=10)
+        for s_, n_ in zip(static, new):
+            s_.copy_(n_)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = tattn.beam_scores_softmax(*new)
+    assert torch.equal(torch.isnan(out), torch.isnan(want))
+    assert torch.equal(torch.nan_to_num(out), torch.nan_to_num(want))
+
+
+def test_beam_attention_kernel_rejects_bad_operands(dev):
+    mask, q, keys, v = _attn_inputs(dev, 2, 4, 10, 8, torch.float32, seed=1)
+    with torch.no_grad():
+        with pytest.raises(ValueError):                  # mixed dtypes
+            tattn.beam_scores_softmax(mask.bfloat16(), q, keys, v)
+        with pytest.raises(ValueError):                  # not contiguous
+            tattn.beam_scores_softmax(
+                mask, q, keys.transpose(0, 1).contiguous().transpose(0, 1),
+                v)
+        with pytest.raises(ValueError):                  # 7 * 4 bytes a row
+            tattn.beam_scores_softmax(mask, q[..., :7].contiguous(),
+                                      keys[..., :7].contiguous(),
+                                      v[:7].contiguous())
+        with pytest.raises(ValueError):                  # float64
+            tattn.beam_scores_softmax(mask.double(), q.double(),
+                                      keys.double(), v.double())
+    with pytest.raises(ValueError):                      # needs a gradient
+        tattn.beam_scores_softmax(mask, q.requires_grad_(), keys, v)
+    before = tattn.launches
+    cpu = [t.detach().cpu() for t in (mask, q, keys, v)]
+    tattn.beam_scores_softmax(*cpu)                      # the twin
+    assert tattn.launches == before
