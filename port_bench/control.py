@@ -41,6 +41,7 @@ def main(argv=None) -> int:
     ap.add_argument("--fault", default=None)
     ap.add_argument("--program", action="store_true")
     args = ap.parse_args(argv)
+    common.keep_freed_memory()
     cell = common.load("workloads", args.workload)
     cfg = common.load("configs", cell["config"])
     mix = common.load("traffic", cell["traffic"])

@@ -32,6 +32,25 @@ def process_start() -> float:
         return time.time()
 
 
+def keep_freed_memory() -> None:
+    """Have glibc serve every host allocation from its heap and keep
+    what is freed there.  The program allocates its host buffers anew
+    for each chunk (tens of MB); glibc maps blocks that large fresh and
+    unmaps them when freed, so each chunk faults in new pages, and on a
+    virtual machine what a fresh page costs drifts over tens of seconds.
+    Kept in the heap, the next chunk reuses pages already mapped: the
+    same work, without the page faults' drift (PERF.md §2).  Stops the
+    run where the C library refuses either setting."""
+    import ctypes
+    import ctypes.util
+    libc = ctypes.CDLL(ctypes.util.find_library("c") or "libc.so.6")
+    m_trim_threshold, m_mmap_threshold = -1, -3
+    if not (libc.mallopt(m_mmap_threshold, 1 << 30)
+            and libc.mallopt(m_trim_threshold, 1 << 31)):
+        raise RuntimeError("mallopt refused to keep freed memory in the "
+                           "heap")
+
+
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(description="One run of one benchmark cell.")
     ap.add_argument("--workload", required=True)

@@ -24,6 +24,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from port_bench import encoders
 from port_bench.lib import trace, traffic, weights
 from port_bench.reference import las as ref
 
@@ -72,6 +73,7 @@ class Driver:
     def __init__(self, cell: dict, cfg: dict, mix: dict, seed: int,
                  device: str = "cuda"):
         self.cell, self.cfg, self.mix, self.seed = cell, cfg, mix, seed
+        encoders.of(cfg)        # no family module: stop before set-up
         self.device = torch.device(device)
         self.spans = trace.Spans()
         self.calls: List[dict] = []          # per completed call
@@ -253,7 +255,7 @@ def judge(cfg: dict, params: dict, wavs, got: List[dict], device,
     lw = dec["length_weight"]
     with torch.no_grad(), prec.active():
         feats = [ref.features(w, cfg["audio"], prec, device) for w in wavs]
-        enc, lens, state = ref.encode(prec, params, feats)
+        enc, lens, state = ref.encode(prec, params, feats, cfg)
         searched = ref.beam_search(prec, params, enc, lens, state,
                                    cfg["beam_width"], dec["max_len"],
                                    voc["sos"], voc["eos"], lw)
@@ -302,7 +304,7 @@ def control(cell: dict, cfg: dict, mix: dict, seed: int, precision: str,
                 continue
             feats = [ref.features(d.wavs[i], cfg["audio"], prec, dev)
                      for i in ch]
-            enc, lens, state = ref.encode(prec, as_served, feats)
+            enc, lens, state = ref.encode(prec, as_served, feats, cfg)
             out = ref.beam_search(prec, as_served, enc, lens, state,
                                   cfg["beam_width"], cfg["decode"]["max_len"],
                                   voc["sos"], voc["eos"],

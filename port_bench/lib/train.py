@@ -26,6 +26,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from port_bench import encoders
 from port_bench.lib import trace, traffic, weights
 from port_bench.lib.offline import Parts, port_config, set_precision, sync
 from port_bench.reference import las as ref
@@ -50,6 +51,7 @@ class Driver:
     def __init__(self, cell: dict, cfg: dict, mix: dict, seed: int,
                  device: str = "cuda"):
         self.cell, self.cfg, self.mix, self.seed = cell, cfg, mix, seed
+        encoders.of(cfg)        # no family module: stop before set-up
         self.device = torch.device(device)
         self.spans = trace.Spans()
         self.steps = 0
@@ -268,8 +270,7 @@ def judge(cfg: dict, params: dict, batches, got: dict, device,
     with prec.active():
         with torch.no_grad():
             rb = ref_batches(cfg, batches, device, prec)
-        losses, first, after = ref.adam_steps(prec, params, rb, cfg["train"],
-                                              len(rb))
+        losses, first, after = ref.adam_steps(prec, params, rb, cfg, len(rb))
     p0 = ref.leaves(params)
     loss_gap = max(abs(a - b) / abs(b) for a, b in zip(got["loss"], losses))
     gn = {n: float(first[n].norm()) for n in first}
@@ -298,7 +299,6 @@ def control(cell: dict, cfg: dict, mix: dict, seed: int, precision: str,
     with prec.active():
         with torch.no_grad():
             rb = ref_batches(cfg, batches, dev, prec)
-        losses, first, after = ref.adam_steps(prec, params, rb, cfg["train"],
-                                              len(rb))
+        losses, first, after = ref.adam_steps(prec, params, rb, cfg, len(rb))
     got = {"loss": losses, "first": first, "params": after}
     return judge(cfg, params, batches, got, dev)

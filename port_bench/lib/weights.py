@@ -1,9 +1,10 @@
 """Random weights of a LAS configuration, made by the benchmark from the
 seed on the device in two generator calls (one normal draw for every
 matrix and vector, one uniform draw for the output bias), in the
-parameter tree the program takes: ``encoder/layers[i]/{fwd,bwd}``,
-``attention``, ``decoder`` with right-multiplied ``[in, out]`` matrices
-and LSTM gates in (i, f, g, o) order.
+parameter tree the program takes: the encoder family's tensors
+(``port_bench/encoders``), then ``attention`` and ``decoder`` with
+right-multiplied ``[in, out]`` matrices and LSTM gates in (i, f, g, o)
+order, sized by the family's output width.
 
 Scales follow the reference's initialisers: xavier-normal input and
 projection matrices, recurrent matrices at the scale of an orthogonal
@@ -19,43 +20,36 @@ from typing import List, Tuple
 
 import torch
 
+from port_bench import encoders
 
-def _layout(cfg: dict) -> Tuple[List[tuple], int]:
-    """[(path, shape, std or None for zeros, forget-bias H or 0)] and the
-    vocabulary size."""
-    enc, dec, att = cfg["encoder"], cfg["decoder"], cfg["attention"]
-    a = cfg["audio"]
-    D = a["n_mels"] * 3 * 3
-    H, Hd, E, A = enc["hidden_size"], dec["hidden_size"], dec["embed_dim"], \
-        att["attn_size"]
+
+def _layout(cfg: dict) -> Tuple[List[tuple], int, int]:
+    """[(path, shape, init)] in draw order, the vocabulary size and the
+    encoder's output width.  ``init``: a normal std (float), "zeros",
+    "ones", or ("forget", H) for zeros with the forget gate's H entries
+    0.5."""
+    family = encoders.of(cfg)
+    dec, att = cfg["decoder"], cfg["attention"]
+    Hd, E, A = dec["hidden_size"], dec["embed_dim"], att["attn_size"]
     V = cfg["vocab"]["max_num_words"] + 4
-    enc_size = 2 * H
-    out = []
-    for i in range(enc["num_layers"]):
-        d_in = D if i == 0 else enc_size
-        for d in ("fwd", "bwd"):
-            pre = ("encoder", "layers", i, d)
-            out += [(pre + ("w_ih",), (d_in, 4 * H),
-                     math.sqrt(2.0 / (d_in + 4 * H)), 0),
-                    (pre + ("w_hh",), (H, 4 * H), 1.0 / math.sqrt(4 * H), 0),
-                    (pre + ("b_ih",), (4 * H,), None, H),
-                    (pre + ("b_hh",), (4 * H,), None, H)]
+    enc_size = family.enc_size(cfg)
+    out = list(family.layout(cfg))
     out += [(("attention", "w_enc"), (enc_size, A),
-             math.sqrt(2.0 / (enc_size + A)), 0),
-            (("attention", "b_attn"), (A,), None, 0),
-            (("attention", "w_hidden"), (Hd, A), math.sqrt(2.0 / (Hd + A)), 0),
-            (("attention", "v"), (A,), 0.1, 0),
-            (("decoder", "embedding"), (V, E), 0.1, 0)]
+             math.sqrt(2.0 / (enc_size + A))),
+            (("attention", "b_attn"), (A,), "zeros"),
+            (("attention", "w_hidden"), (Hd, A), math.sqrt(2.0 / (Hd + A))),
+            (("attention", "v"), (A,), 0.1),
+            (("decoder", "embedding"), (V, E), 0.1)]
     d_in = E + enc_size
     out += [(("decoder", "cells", 0, "w_ih"), (d_in, 4 * Hd),
-             math.sqrt(2.0 / (d_in + 4 * Hd)), 0),
+             math.sqrt(2.0 / (d_in + 4 * Hd))),
             (("decoder", "cells", 0, "w_hh"), (Hd, 4 * Hd),
-             1.0 / math.sqrt(4 * Hd), 0),
-            (("decoder", "cells", 0, "b_ih"), (4 * Hd,), None, Hd),
-            (("decoder", "cells", 0, "b_hh"), (4 * Hd,), None, Hd),
+             1.0 / math.sqrt(4 * Hd)),
+            (("decoder", "cells", 0, "b_ih"), (4 * Hd,), ("forget", Hd)),
+            (("decoder", "cells", 0, "b_hh"), (4 * Hd,), ("forget", Hd)),
             (("decoder", "proj_w"), (Hd + enc_size, V),
-             math.sqrt(2.0 / (Hd + enc_size + V)), 0)]
-    return out, V
+             math.sqrt(2.0 / (Hd + enc_size + V)))]
+    return out, V, enc_size
 
 
 def _put(tree, path, value):
@@ -75,28 +69,43 @@ def _put(tree, path, value):
         node[path[-1]] = value
 
 
+def _check_init(path, init) -> None:
+    """Refuses an ``init`` that is none of the four forms."""
+    if isinstance(init, float) or init in ("zeros", "ones"):
+        return
+    if (isinstance(init, tuple) and len(init) == 2 and init[0] == "forget"
+            and isinstance(init[1], int)):
+        return
+    raise ValueError(f"weights: {path} has init {init!r}; an init is a "
+                     f"float std, \"zeros\", \"ones\" or (\"forget\", H)")
+
+
 def make_params(cfg: dict, seed: int, device) -> dict:
     """The float32 parameter tree of ``cfg`` from ``seed`` on ``device``."""
     device = torch.device(device)
     gen = torch.Generator(device=device).manual_seed(seed % (1 << 63))
-    layout, V = _layout(cfg)
-    n = sum(math.prod(s) for _, s, std, _ in layout if std is not None)
+    layout, V, enc_size = _layout(cfg)
+    for path, _, init in layout:
+        _check_init(path, init)
+    n = sum(math.prod(s) for _, s, init in layout if isinstance(init, float))
     normal = torch.randn(n, generator=gen, device=device)
     Hd = cfg["decoder"]["hidden_size"]
-    enc_size = 2 * cfg["encoder"]["hidden_size"]
     bound = 1.0 / math.sqrt(Hd + enc_size)
     proj_b = (torch.rand(V, generator=gen, device=device) * 2.0 - 1.0) * bound
     tree: dict = {}
     off = 0
-    for path, shape, std, forget in layout:
-        if std is None:
-            t = torch.zeros(shape, device=device)
-            if forget:
-                t[forget:2 * forget] = 0.5
-        else:
+    for path, shape, init in layout:
+        if isinstance(init, float):
             size = math.prod(shape)
-            t = normal[off:off + size].view(shape) * std
+            t = normal[off:off + size].view(shape) * init
             off += size
+        elif init == "ones":
+            t = torch.ones(shape, device=device)
+        else:
+            t = torch.zeros(shape, device=device)
+            if isinstance(init, tuple):
+                H = init[1]
+                t[H:2 * H] = 0.5
         _put(tree, path, t)
     tree["decoder"]["embedding"][cfg["vocab"]["pad"]] = 0.0
     tree["decoder"]["proj_b"] = proj_b

@@ -1,8 +1,9 @@
 """The plain reference of the LAS configurations: the log-mel front end,
-the residual bidirectional LSTM encoder, the Bahdanau attention decoder
-with input feeding, beam search and the training loss, written from the
-published model (shawnthu/chinese-asr: data.py's features, encoder.py,
-attention.py, decoder.py, model.py's beam search) in plain PyTorch.
+the Bahdanau attention decoder with input feeding, beam search and the
+training loss, written from the published model (shawnthu/chinese-asr:
+data.py's features, attention.py, decoder.py, model.py's beam search) in
+plain PyTorch.  The encoder is the configuration's family's
+(``port_bench/encoders/<encoder_type>.py``, from encoder.py).
 
 It imports nothing of the program under test and takes nothing it made:
 the weights are the benchmark's own tensors (``port_bench/lib/weights.py``)
@@ -15,10 +16,9 @@ math is float32 throughout; sums of scores are float64.
 
 Departures from the published code, each the program's documented
 semantics: the eps floor of the mel power applies to exact zeros only;
-the backward direction of each layer starts from zero at a row's last
-frame (a packed sequence does the same); beam search keeps 2k candidates
-a step, harvests finished hypotheses among the top k, and stops when
-every row's best candidate is eos (model.py:875-909).
+beam search keeps 2k candidates a step, harvests finished hypotheses
+among the top k, and stops when every row's best candidate is eos
+(model.py:875-909).  The families note their own.
 """
 
 from __future__ import annotations
@@ -30,6 +30,8 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+
+from port_bench import encoders
 
 F32_EPS = float(np.finfo(np.float32).eps)
 
@@ -120,10 +122,13 @@ def _tables(sr: int, n_fft: int, window_len: float, f_min: float,
 
 
 def features(wav_i16: np.ndarray, audio: dict, prec: Precision, device):
-    """One utterance of int16 PCM -> [T // 3, 9 * n_mels] float32: the
+    """One utterance of int16 PCM -> its features [T', D] float32: the
     reference's stft(n_fft, hop, win_length, hann, center=False) power,
-    mel, log, identity / delta / delta-delta, x3 channel-major stacking
-    and the per-utterance normalisation (unbiased std, eps 1e-6)."""
+    mel and log; with ``delta_delta`` identity / delta / delta-delta
+    channels; with ``downsample`` x3 channel-major stacking of frames
+    (T' = T // 3); with ``normalize`` the per-utterance normalisation
+    (unbiased std, eps 1e-6).  D is n_mels, x3 with deltas, x3 stacked,
+    channel-major as the program's ``audio/features.py`` lays it out."""
     sr, n_fft = audio["sample_rate"], audio["n_fft"]
     hop = int(sr * audio["window_step"])
     cos, sin, fb, taps = _tables(sr, n_fft, audio["window_len"],
@@ -132,22 +137,30 @@ def features(wav_i16: np.ndarray, audio: dict, prec: Precision, device):
     x = torch.from_numpy(wav_i16.astype(np.float32) / 32768.0).to(device)
     x = x[1:] - audio["preemphasis"] * x[:-1]
     T = 1 + (x.shape[0] - n_fft) // hop
-    if T < 3:
-        raise ValueError("an utterance shorter than three frames")
+    n = T // 3 if audio["downsample"] else T
+    if n < 1:
+        raise ValueError("an utterance shorter than one encoder frame")
     frames = x.unfold(0, n_fft, hop)[:T]                          # [T, n_fft]
     power = prec.mm(frames, cos) ** 2 + prec.mm(frames, sin) ** 2
     mel = prec.mm(power, fb)
     mel = torch.where(mel == 0.0, torch.full_like(mel, F32_EPS), mel)
     lm = torch.log(mel)                                           # [T, M]
-    pad = torch.nn.functional.pad(lm, (0, 0, 4, 4))
-    shifts = torch.stack([pad[j:j + T] for j in range(9)])        # [9, T, M]
-    chans = torch.einsum("jtm,jc->ctm", shifts, taps)             # [3, T, M]
-    T3 = T // 3
-    M = lm.shape[1]
-    f = chans[:, :T3 * 3].reshape(3, T3, 3 * M).transpose(0, 1)
-    f = f.reshape(T3, 9 * M)
+    if audio["delta_delta"]:
+        pad = torch.nn.functional.pad(lm, (0, 0, 4, 4))
+        shifts = torch.stack([pad[j:j + T] for j in range(9)])    # [9, T, M]
+        chans = torch.einsum("jtm,jc->ctm", shifts, taps)         # [3, T, M]
+    else:
+        chans = lm[None]                                          # [1, T, M]
+    C, M = chans.shape[0], lm.shape[1]
+    if audio["downsample"]:
+        f = chans[:, :n * 3].reshape(C, n, 3 * M).transpose(0, 1)
+        f = f.reshape(n, 3 * C * M)
+    else:
+        f = chans.transpose(0, 1).reshape(n, C * M)
+    if not audio["normalize"]:
+        return f
     mean = f.mean(dim=0, keepdim=True)
-    std = f.std(dim=0, unbiased=True, keepdim=True) if T3 > 1 else \
+    std = f.std(dim=0, unbiased=True, keepdim=True) if n > 1 else \
         torch.zeros_like(mean)
     return (f - mean) / (std + 1e-6)
 
@@ -163,7 +176,8 @@ def pad_batch(feats: Sequence[torch.Tensor]):
 
 
 # --------------------------------------------------------------------------
-# encoder (reference encoder.py:9-83, util.py:1284-1291)
+# the LSTM cell (the decoder's and the LSTM family's), and the decoder's
+# initial state from an encoder family's (``port_bench/encoders/``)
 # --------------------------------------------------------------------------
 def _lstm_cell(prec, p, x_gates, h, c):
     g = x_gates + prec.mm(h, p["w_hh"])
@@ -172,44 +186,15 @@ def _lstm_cell(prec, p, x_gates, h, c):
     return torch.sigmoid(o) * torch.tanh(c), c
 
 
-def _reverse(x, lens):
-    """Each row's first ``lens`` steps of x [B, T, D] in reverse order,
-    the rest in place."""
-    T = x.shape[1]
-    t = torch.arange(T, device=x.device)[None, :]
-    idx = torch.where(t < lens[:, None], lens[:, None] - 1 - t, t)
-    return torch.gather(x, 1, idx[..., None].expand(x.shape))
-
-
-def _lstm_dir(prec, p, x, lens):
-    """x [B, T, D] -> (y [B, T, H] zero past each length, final (h, c))."""
-    B, T, _ = x.shape
-    H = p["w_hh"].shape[0]
-    xg = prec.mm(x, p["w_ih"]) + p["b_ih"] + p["b_hh"]
-    h = x.new_zeros((B, H))
-    c = x.new_zeros((B, H))
-    ys = []
-    for t in range(T):
-        h2, c2 = _lstm_cell(prec, p, xg[:, t], h, c)
-        live = (t < lens)[:, None]
-        h = torch.where(live, h2, h)
-        c = torch.where(live, c2, c)
-        ys.append(torch.where(live, h2, torch.zeros_like(h2)))
-    return torch.stack(ys, dim=1), (h, c)
-
-
-def encoder(prec, layers, x, lens):
-    """The residual stack of bidirectional LSTM layers -> (out [B, T, 2H],
-    the last layer's final (h, c), directions concatenated)."""
-    state = None
-    for i, layer in enumerate(layers):
-        y_f, (h_f, c_f) = _lstm_dir(prec, layer["fwd"], x, lens)
-        y_b, (h_b, c_b) = _lstm_dir(prec, layer["bwd"], _reverse(x, lens),
-                                    lens)
-        y = torch.cat([y_f, _reverse(y_b, lens)], dim=-1)
-        x = x + y if i > 0 else y
-        state = (torch.cat([h_f, h_b], -1), torch.cat([c_f, c_b], -1))
-    return x, state
+def initial_state(params, enc, state=None):
+    """The decoder's initial (h, c) for the encoded batch ``enc``: the
+    encoder's final ``state`` where it has the decoder's width, else zeros
+    (reference decoder.py:56-73, with no learned initial state)."""
+    Hd = params["decoder"]["cells"][0]["w_hh"].shape[0]
+    if state is not None and state[0].shape[-1] == Hd:
+        return state
+    z = enc.new_zeros((enc.shape[0], Hd))
+    return z, z
 
 
 # --------------------------------------------------------------------------
@@ -255,11 +240,13 @@ class Decoder:
         self.h, self.c, self.ahs = self.h[rows], self.c[rows], self.ahs[rows]
 
 
-def encode(prec, params, feats):
-    """Padded features of a batch -> (enc, lens, state)."""
+def encode(prec, params, feats, cfg=None):
+    """Padded features of a batch -> (enc, lens, the decoder's initial
+    state), by the encoder family of the configuration ``cfg``
+    (``port_bench/encoders``; the flagship's, LSTM, where None)."""
     x, lens = pad_batch(feats)
-    enc, state = encoder(prec, params["encoder"]["layers"], x, lens)
-    return enc, lens, state
+    family = encoders.of(cfg) if cfg else encoders.load("LSTM")
+    return family.encode(prec, params, x, lens, cfg)
 
 
 # --------------------------------------------------------------------------
@@ -371,10 +358,11 @@ def detokenize(tokens: Sequence[int], specials: Sequence[str]) -> str:
 # training (reference model.py:414-469, util.py:265-295; optax adam)
 # --------------------------------------------------------------------------
 def train_loss(prec, params, feats, tokens_in, tokens_out, text_lens,
-               label_smooth: float):
+               cfg: dict):
     """Teacher-forced label-smoothed cross entropy over the valid target
     tokens of a batch, averaged over them."""
-    enc, lens, state = encode(prec, params, feats)
+    label_smooth = cfg["train"]["label_smooth"]
+    enc, lens, state = encode(prec, params, feats, cfg)
     B, S = tokens_in.shape
     dec = Decoder(prec, params, enc, lens, state, 1)
     logps = [dec.step(tokens_in[:, t]) for t in range(S)]
@@ -403,13 +391,13 @@ def leaves(tree, prefix: str = "") -> Dict[str, torch.Tensor]:
     return {prefix[:-1]: tree}
 
 
-def adam_steps(prec, params, batches, tcfg: dict, steps: int):
+def adam_steps(prec, params, batches, cfg: dict, steps: int):
     """``steps`` Adam steps (optax.adam after add_decayed_weights, as the
     reference's torch Adam with weight decay) -> per step the loss, the
     first step's gradient with the decay added (what Adam's first moment
     is made of) and the parameters after the last step, by leaf path."""
     b1, b2, eps = 0.9, 0.999, 1e-8
-    lr, wd = tcfg["base_lr"], tcfg["l2_decay"]
+    lr, wd = cfg["train"]["base_lr"], cfg["train"]["l2_decay"]
     p = {n: t.detach().clone().requires_grad_(True)
          for n, t in leaves(params).items()}
     mu = {n: torch.zeros_like(t) for n, t in p.items()}
@@ -417,7 +405,7 @@ def adam_steps(prec, params, batches, tcfg: dict, steps: int):
     losses, first = [], None
     for s in range(steps):
         tree = _tree_like(params, p)
-        loss = train_loss(prec, tree, *batches[s], tcfg["label_smooth"])
+        loss = train_loss(prec, tree, *batches[s], cfg)
         grads = torch.autograd.grad(loss, list(p.values()))
         losses.append(float(loss.detach()))
         with torch.no_grad():

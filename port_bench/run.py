@@ -10,7 +10,8 @@ runs for ``--seconds``; the plain reference judges what the window
 produced once the program's memory is read and freed.  ``--trace 0``
 reports the cell's end-to-end metrics, ``--trace 1`` its per-layer ones
 (``port_bench/metrics/<name>.py`` reads each).  The last line of standard
-output is the result, as JSON.
+output is the result, as JSON.  The process keeps the host memory it
+frees in glibc's heap (``common.keep_freed_memory``).
 """
 
 import os
@@ -79,6 +80,7 @@ def run_cell(args, device: str = "cuda"):
 
 def main(argv=None) -> int:
     args = common.parse_args(argv)
+    common.keep_freed_memory()
     cell = common.load("workloads", args.workload)
     common.require_cards(cell["chips"])
     result, checks = run_cell(args)

@@ -24,6 +24,7 @@ from port_bench.lib import common, program, trace  # noqa: E402
 
 def main(argv=None) -> int:
     args = common.parse_args(argv)
+    common.keep_freed_memory()
     cell = common.load("workloads", args.workload)
     common.require_cards(cell["chips"])
     with open(os.path.join(common.BENCH, "spans.json")) as f:

@@ -11,6 +11,7 @@ import pytest
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))))
 
+from port_bench import encoders  # noqa: E402
 from port_bench.lib import common  # noqa: E402
 
 TINY_SEED = 2 ** 31 + 12345
@@ -18,7 +19,7 @@ TINY_SEED = 2 ** 31 + 12345
 
 def tiny_config(cfg: dict) -> dict:
     cfg = copy.deepcopy(cfg)
-    cfg["encoder"].update(hidden_size=16, num_layers=2)
+    cfg["encoder"] = encoders.of(cfg).tiny(cfg["encoder"])
     cfg["decoder"].update(hidden_size=32, embed_dim=8)
     cfg["attention"]["attn_size"] = 8
     cfg["vocab"]["max_num_words"] = 60

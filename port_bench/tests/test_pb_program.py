@@ -156,3 +156,34 @@ def test_a_span_on_the_card_adds_no_device_row(card):
     assert not [k for k in s["kernels"] if k.startswith("asr.")]
     assert sum(p["idle_by_span"].values()) == pytest.approx(
         s["window_s"] - s["busy_s"], rel=1e-6, abs=1e-9)
+
+
+_RSS_AFTER_FREE = """
+import sys
+sys.path.insert(0, {root!r})
+import numpy as np
+from port_bench.lib import common
+def rss():
+    with open("/proc/self/status") as f:
+        return [int(l.split()[1]) * 1024 for l in f if l.startswith("VmRSS")][0]
+if {keep}:
+    common.keep_freed_memory()
+base = rss()
+a = np.ones(64 << 20, np.uint8)
+del a
+print(rss() - base)
+"""
+
+
+@pytest.mark.parametrize("keep", [False, True])
+def test_keep_freed_memory_keeps_a_freed_block_mapped(keep):
+    """With the policy a freed 64 MB block stays mapped in the heap, for
+    the next allocation to reuse; without it glibc unmaps it at once."""
+    import subprocess
+    import sys
+    root = os.path.dirname(common.BENCH)
+    out = subprocess.run(
+        [sys.executable, "-c", _RSS_AFTER_FREE.format(root=root, keep=keep)],
+        capture_output=True, text=True, check=True)
+    kept = int(out.stdout.split()[-1])
+    assert (kept > 48 << 20) == keep
