@@ -88,7 +88,9 @@ class EncoderConfig:
 
     encoder_type: str = "LSTM"     # CNN1D, CNN2D, LSTM, GRU, RNN_TANH, RNN_RELU,
                                    # SELF_ATTENTION, SELF_LOCAL_ATTENTION, CNN1D_RNN,
-                                   # CNN1D_SELF_ATTENTION, CRNN
+                                   # CNN1D_SELF_ATTENTION, CRNN, DCNN,
+                                   # CONFORMER (d = hidden_size, heads,
+                                   # ffn_size, conv kernel ks)
     hidden_size: int = 256
     num_layers: int = 4
     residual: bool = True

@@ -4,8 +4,8 @@ The RNN family (LSTM, GRU, RNN_TANH, RNN_RELU; reference ``RNNEncoder``,
 encoder.py:9-83) is the residual stack of ``ops/rnn.py``: the flagship
 4-layer bidirectional LSTM runs its recurrence through kernel K2, the
 other modes and unidirectional stacks through plain time loops.  The
-conv / self-attention families live in ``encoders_extra.py``; all share
-the ``EncoderOut`` contract.
+conv / self-attention families live in ``encoders_extra.py``, the
+Conformer in ``conformer.py``; all share the ``EncoderOut`` contract.
 """
 
 from __future__ import annotations
@@ -59,6 +59,9 @@ def rnn_encoder(p: Params, ecfg: EncoderConfig, x, lens) -> EncoderOut:
 def init_encoder(gen: torch.Generator, cfg: Config) -> Params:
     if cfg.encoder.encoder_type in _RNN_FAMILY:
         return init_rnn_encoder(gen, cfg.encoder, cfg.audio.feat_dim)
+    if cfg.encoder.encoder_type == "CONFORMER":
+        from . import conformer
+        return conformer.init_conformer(gen, cfg)
     from . import encoders_extra
     return encoders_extra.init_encoder(gen, cfg)
 
@@ -70,13 +73,18 @@ def apply_encoder(p: Params, cfg: Config, x, lens, train: bool = False,
     updates into the ``bn_updates`` list (``ops/conv.py`` apply_norm)."""
     if cfg.encoder.encoder_type in _RNN_FAMILY:
         return rnn_encoder(p, cfg.encoder, x, lens)
+    if cfg.encoder.encoder_type == "CONFORMER":
+        from . import conformer
+        y, out_lens = conformer.apply_conformer(p, cfg, x, lens, train=train,
+                                                updates=bn_updates)
+        return EncoderOut(y, out_lens, None)
     from . import encoders_extra
     return encoders_extra.apply_encoder(p, cfg, x, lens, train=train,
                                         updates=bn_updates)
 
 
 def encoder_output_size(cfg: Config) -> int:
-    if cfg.encoder.encoder_type in _RNN_FAMILY:
+    if cfg.encoder.encoder_type in _RNN_FAMILY + ("CONFORMER",):
         return cfg.encoder.enc_size
     from . import encoders_extra
     return encoders_extra.encoder_output_size(cfg)

@@ -15,6 +15,7 @@ import torch
 
 from ..config import Config
 from ..ops.masks import softmax_mask
+from ..utils.observe import span
 from . import attention as attn_ops
 from . import decoder as dec_ops
 from . import encoder as enc_ops
@@ -114,8 +115,9 @@ def encode(params: Params, cfg: Config, feats, feat_lens,
     ``train`` switches the BatchNorm encoders to batch statistics and, with
     a ``bn_updates`` list, records the running-stat updates for the train
     step (torch BatchNorm semantics)."""
-    enc = enc_ops.apply_encoder(params["encoder"], cfg, feats, feat_lens,
-                                train=train, bn_updates=bn_updates)
+    with span("asr.encode", lambda: f"B {feats.shape[0]} T {feats.shape[1]}"):
+        enc = enc_ops.apply_encoder(params["encoder"], cfg, feats, feat_lens,
+                                    train=train, bn_updates=bn_updates)
     mask = softmax_mask(enc.out_lens, enc.out.shape[1], enc.out.dtype)
     cell_state = dec_ops.get_initial_state(params["decoder"], cfg.decoder,
                                            feats.shape[0], enc.state)

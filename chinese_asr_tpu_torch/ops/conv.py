@@ -280,3 +280,71 @@ def same_conv2d(p: Params, x):
     t0, f0 = (kt - 1) // 2, (kf - 1) // 2
     return conv2d_nhwc(x, p["w"], padding=(f0, kf - 1 - f0,
                                            t0, kt - 1 - t0)) + p["b"]
+
+
+# --------------------------------------------------------------------------
+# the Conformer's convolutions: ESPnet's Conv2dSubsampling (two valid 3x3
+# stride-2 convolutions with ReLU, flattened channel-major into a linear
+# map) and the convolution module's depthwise conv1d and BatchNorm
+# --------------------------------------------------------------------------
+# the most elements the subsampling's first convolution holds at once: it
+# runs a slice of rows at a time, so that the widest intermediate of the
+# model ([B, C, (T-1)/2, (F-1)/2], 6.6 GB at B=128 of 13 s, C=512) is not
+# held whole (1 GiB in float32)
+SUBSAMPLE_SLICE_ELEMS = 1 << 28
+
+
+def subsample_out_len(lens):
+    """Frames out of the two valid stride-2 convolutions of a row of
+    ``lens`` frames: ((l - 1) // 2 - 1) // 2, at least 0."""
+    l1 = torch.div(lens - 1, 2, rounding_mode="floor")
+    return torch.clamp(torch.div(l1 - 1, 2, rounding_mode="floor"), min=0)
+
+
+def conv2d_subsampling(p: Dict[str, Params], x, lens):
+    """x [B, T, F] features (padding zeroed), lens [B] -> (y [B, T2, d]
+    zero past each row's length, T2 = ((T - 1) // 2 - 1) // 2, the lens
+    out).  ``p``: ``conv1`` / ``conv2`` ({w [3, 3, in, C], b [C]}, the
+    layout of ``init_conv2d``) and ``out`` ({w [C * F2, d], b [d]}, F2 =
+    ((F - 1) // 2 - 1) // 2).  A valid convolution's outputs within a
+    row's length read only that row's frames; rows are independent, so
+    the convolutions run ``SUBSAMPLE_SLICE_ELEMS`` at a time."""
+    B, T, Fq = x.shape
+    w1 = p["conv1"]["w"].permute(3, 2, 0, 1)
+    w2 = p["conv2"]["w"].permute(3, 2, 0, 1)
+    per_row = w1.shape[0] * ((T - 1) // 2) * ((Fq - 1) // 2)
+    rows = max(1, SUBSAMPLE_SLICE_ELEMS // max(1, per_row))
+    outs = []
+    for s in range(0, B, rows):
+        h = F.conv2d(x[s:s + rows, None], w1, p["conv1"]["b"],
+                     stride=2).relu_()
+        h = F.conv2d(h, w2, p["conv2"]["b"], stride=2).relu_()
+        # [b, C, T2, F2] -> [b, T2, C * F2]: feature c * F2 + f
+        outs.append(F.linear(h.transpose(1, 2).flatten(2),
+                             p["out"]["w"].t(), p["out"]["b"]))
+    y = outs[0] if len(outs) == 1 else torch.cat(outs)
+    lens = subsample_out_len(lens)
+    return y * length_mask(lens, y.shape[1], y.dtype)[..., None], lens
+
+
+def depthwise_conv1d_same(x, w, b, lens):
+    """x [B, L, C], w [K, C], b [C] -> [B, C, L] channel-first: each
+    channel convolved with its own K taps, frames at or past a row's
+    length zeroed at the input, padded as torch's ``padding="same"``
+    ((K - 1) // 2 frames before, K // 2 after: 15 and 16 at K = 32)."""
+    K = w.shape[0]
+    x = x * length_mask(lens, x.shape[1], x.dtype)[..., None]
+    xc = F.pad(x.transpose(1, 2), ((K - 1) // 2, K // 2))
+    return F.conv1d(xc, w.t()[:, None, :], b, groups=x.shape[2])
+
+
+def batch_norm_channels_first(p: Params, y, train: bool, eps: float = 1e-5,
+                              updates=None):
+    """``apply_norm``'s BatchNorm of y [B, C, L] over its channels, with
+    its ``train`` / ``updates`` contract; in inference one fused kernel
+    over the running statistics."""
+    if train:
+        return apply_norm(p, y.transpose(1, 2), "BN", True, eps,
+                          updates=updates).transpose(1, 2)
+    return F.batch_norm(y, p["bn_mean"], p["bn_var"], p["norm_scale"],
+                        p["norm_bias"], False, 0.0, eps)

@@ -247,3 +247,61 @@ def attention_block(p: Params, x, lens, heads: int, ws: Optional[int] = None):
     x = layer_norm(p["ln1_scale"], p["ln1_bias"], y)
     y = ffn(p["ffn"], x)
     return layer_norm(p["ln2_scale"], p["ln2_bias"], x + y)
+
+
+# --------------------------------------------------------------------------
+# relative-position multi-head attention (Transformer-XL's, as the
+# Conformer uses it; Gulati et al. 2020, section 2.1).  It keeps none of
+# the quirks above: no input scaling, no absolute positions.
+# --------------------------------------------------------------------------
+def rel_pos_table(length: int, dim: int, dtype, device):
+    """R [2 L - 1, dim]: row m is the sinusoid of the relative distance
+    L - 1 - m (L - 1 down to -(L - 1)), sin at even features and cos at
+    odd ones of the angle d / 10000 ** (2 (k // 2) / dim); computed in
+    float64 on the device (a captured graph computes it too)."""
+    d = torch.arange(length - 1, -length, -1, dtype=torch.float64,
+                     device=device)
+    k = torch.arange(dim, device=device)
+    angle = d[:, None] / torch.pow(10000.0, (2 * (k // 2)).double() / dim)
+    return torch.where(k % 2 == 0, torch.sin(angle),
+                       torch.cos(angle)).to(dtype)
+
+
+def rel_shift(bd):
+    """bd [H, B, L, 2 L - 1] (contiguous; column m holds relative distance
+    L - 1 - m) -> the view [B, H, L, L] whose (i, j) entry is bd's at
+    distance i - j, column L - 1 - i + j."""
+    H, B, L, M = bd.shape
+    return bd.as_strided((B, H, L, L), (L * M, B * L * M, M - 1, 1),
+                         bd.storage_offset() + L - 1)
+
+
+def linear(x, w, b):
+    """x @ w + b for w [in, out], the bias added in the product's
+    epilogue (one kernel, not a product and a broadcast add)."""
+    return torch.nn.functional.linear(x, w.t(), b)
+
+
+def rel_pos_attention(p: Params, x, lens, heads: int, table):
+    """x [B, L, D] (the block's normalized input), lens [B] -> [B, L, D].
+    For head h, query i and key j the score is ((q_i + u_h) . k_j + (q_i +
+    v_h) . (R_{i-j} W_pos)_h) / sqrt(D / heads), keys at or past a row's
+    length masked (a row of no frames keeps its first), softmax over j;
+    the heads' outputs concatenated through ``w_o``.  ``p``: ``w_qkv``
+    [D, 3D], ``b_qkv``, ``w_pos`` [D, D] (no bias), ``pos_u`` / ``pos_v``
+    [heads, D / heads], ``w_o`` [D, D], ``b_o``.  ``table``: R
+    (``rel_pos_table`` of L and D), which a stack of blocks computes
+    once."""
+    B, L, D = x.shape
+    dk = D // heads
+    q, k, v = linear(x, p["w_qkv"], p["b_qkv"]).view(
+        B, L, 3, heads, dk).permute(2, 0, 3, 1, 4)         # [B, H, L, dk]
+    pos = (table @ p["w_pos"]).view(
+        2 * L - 1, heads, dk).permute(1, 2, 0)             # [H, dk, 2L-1]
+    scores = (q + p["pos_u"][:, None]) @ k.transpose(-1, -2)
+    qv = (q + p["pos_v"][:, None]).transpose(0, 1).reshape(heads, B * L, dk)
+    bd = (qv @ pos).view(heads, B, L, 2 * L - 1)
+    scores.add_(rel_shift(bd)).mul_(dk ** -0.5)
+    scores.add_(softmax_mask(lens.clamp(min=1), L, x.dtype)[:, None, None])
+    att = torch.softmax(scores, dim=-1) @ v                # [B, H, L, dk]
+    return linear(att.transpose(1, 2).reshape(B, L, D), p["w_o"], p["b_o"])

@@ -80,6 +80,7 @@ from typing import Callable, Optional, Sequence
 
 import torch
 
+from ..models import conformer as conformer_m
 from ..ops.cuda import adpcm as adpcm_k
 from ..ops.cuda import attention as attn_k
 from ..ops.cuda import build
@@ -102,12 +103,13 @@ STEP_BUDGET_FRACTION = 0.5
 # read of ``done`` a chunk
 UNROLL = 4
 
-# every kernel launch counter, (module, attribute)
+# every kernel launch counter, and the Conformer's blocks, (module,
+# attribute)
 COUNTERS = ((logmel_k, "launches"), (lstm_k, "launches"),
             (lstm_k, "bf16_launches"), (topk_k, "launches"),
             (topk_k, "fused_launches"), (adpcm_k, "launches"),
             (lstm_k, "bwd_launches"), (lstm_k, "bwd_bf16_launches"),
-            (attn_k, "launches"))
+            (attn_k, "launches"), (conformer_m, "blocks"))
 
 _cache: "OrderedDict[tuple, Graphed]" = OrderedDict()
 _lock = threading.RLock()

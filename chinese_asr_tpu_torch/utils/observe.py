@@ -28,6 +28,11 @@ carry its ``detail``.  A span is a host range (a ``cpu_op`` row, not a
     asr.finalize.wait   the host blocked on the chunk's result copy
     asr.finalize.detok  what follows: the winner's detokenize (and the
                         host LM's rescoring), ``graphs.settle`` included
+  asr.encode            ``models/las.py`` ``encode``: the encoder (B, T),
+                        where it runs eagerly: on the CPU, and a train
+                        step outside a graph.  Inside a captured graph
+                        (the card's decode, its train step) a host span
+                        times nothing: it ran once, at capture
   asr.train.load        ``Trainer.fit``: the next batch from the loader
                         (upload and featurize) (step)
   asr.train.step        the step call: coins, input copies, graph replay
@@ -39,8 +44,8 @@ carry its ``detail``.  A span is a host range (a ``cpu_op`` row, not a
                         (rows, padded rows)
 
 The spans of one chunk share its index, those of one step its number.
-No span sits inside a function a CUDA graph captures: it would run only
-at capture.
+No span but ``asr.encode`` sits inside a function a CUDA graph
+captures: there it runs only at capture.
 """
 
 from __future__ import annotations

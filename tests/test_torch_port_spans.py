@@ -2,7 +2,8 @@
 the profiler one shared no-op that builds no detail; under
 ``torch.profiler`` the chunk pipeline's spans of ``ASR.transcribe_wavs``
 and the step spans of ``Trainer.fit``, counted, nested by time and
-tagged with their chunk or step."""
+tagged with their chunk or step; the encoder's eager ``asr.encode``
+inside each chunk's dispatch and each step's step call."""
 
 import numpy as np
 import pytest
@@ -96,10 +97,10 @@ CASES = {
                    {"asr.call": 1, "asr.prep": 3, "asr.upload": 3,
                     "asr.featurize": 3, "asr.dispatch": 3,
                     "asr.finalize": 3, "asr.finalize.wait": 3,
-                    "asr.finalize.detok": 3}),
+                    "asr.finalize.detok": 3, "asr.encode": 3}),
     "fit": (_fit, "step", 2,
             {"asr.train.load": 2, "asr.train.step": 2, "asr.train.read": 2,
-             "asr.train.log": 2}),
+             "asr.train.log": 2, "asr.encode": 2}),
 }
 
 
@@ -117,8 +118,15 @@ def test_spans_under_the_profiler(tmp_path, case):
     assert got == want
     # every span of the call (or the step) names its chunk (or step),
     # and each chunk or step has one span of each name
-    tagged = [r for r in rows if r[0] != "asr.call"
+    tagged = [r for r in rows if r[0] not in ("asr.call", "asr.encode")
               and not r[0].startswith("asr.finalize.")]
+    # the encoder runs eagerly on the CPU: once inside each chunk's
+    # dispatch (or each step's step call), tagged with its shape
+    outer = "asr.dispatch" if case == "transcribe" else "asr.train.step"
+    for enc in [r for r in rows if r[0] == "asr.encode"]:
+        assert enc[3].startswith("B ") and " T " in enc[3]
+        assert sum(_inside(enc, r) for r in rows if r[0] == outer) == 1
+    rows = [r for r in rows if r[0] != "asr.encode"]
     for name in {r[0] for r in tagged}:
         ids = [r[3].split()[1] for r in tagged if r[0] == name]
         assert all(r[3].startswith(unit + " ") for r in tagged
