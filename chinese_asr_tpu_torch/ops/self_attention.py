@@ -21,6 +21,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from .cuda import gemm as gemm_k
 from .masks import length_mask, softmax_mask
 
 Params = Dict[str, torch.Tensor]
@@ -278,7 +279,14 @@ def rel_shift(bd):
 
 def linear(x, w, b):
     """x @ w + b for w [in, out], the bias added in the product's
-    epilogue (one kernel, not a product and a broadcast add)."""
+    epilogue (one kernel, not a product and a broadcast add).  On float32
+    CUDA operands with no autograd graph to record and ``in`` a multiple
+    of 8 that kernel is K7 (``ops/cuda/gemm.py``: 3xTF32 on the tensor
+    cores); anything else (CPU tensors, training, bf16) takes
+    ``F.linear``, counted in ``gemm.fallbacks``."""
+    if gemm_k.takes(x, w, b):
+        return gemm_k.linear(x, w, b)
+    gemm_k.fallbacks += 1
     return torch.nn.functional.linear(x, w.t(), b)
 
 

@@ -84,6 +84,7 @@ from ..models import conformer as conformer_m
 from ..ops.cuda import adpcm as adpcm_k
 from ..ops.cuda import attention as attn_k
 from ..ops.cuda import build
+from ..ops.cuda import gemm as gemm_k
 from ..ops.cuda import logmel as logmel_k
 from ..ops.cuda import lstm as lstm_k
 from ..ops.cuda import topk as topk_k
@@ -103,13 +104,14 @@ STEP_BUDGET_FRACTION = 0.5
 # read of ``done`` a chunk
 UNROLL = 4
 
-# every kernel launch counter, and the Conformer's blocks, (module,
-# attribute)
+# every kernel launch counter, the Conformer's blocks and the products
+# that K7 did not take, (module, attribute)
 COUNTERS = ((logmel_k, "launches"), (lstm_k, "launches"),
             (lstm_k, "bf16_launches"), (topk_k, "launches"),
             (topk_k, "fused_launches"), (adpcm_k, "launches"),
             (lstm_k, "bwd_launches"), (lstm_k, "bwd_bf16_launches"),
-            (attn_k, "launches"), (conformer_m, "blocks"))
+            (attn_k, "launches"), (conformer_m, "blocks"),
+            (gemm_k, "launches"), (gemm_k, "fallbacks"))
 
 _cache: "OrderedDict[tuple, Graphed]" = OrderedDict()
 _lock = threading.RLock()
@@ -519,6 +521,7 @@ class Graphed:
         stream = torch.cuda.current_stream(self.device)
         if self._last is not None:
             stream.wait_event(self._last)
+        gemm_k.refresh()        # K7's weight splits, if a weight changed
         for dst, src in zip(self.inputs, inputs):
             dst.copy_(src)
         if self._exec is None:
@@ -600,15 +603,31 @@ def run(key: tuple, loop, inputs: Sequence[torch.Tensor], unroll: int,
 # --------------------------------------------------------------------------
 # a step that updates state in place, as CUDA graphs in one shared pool
 # --------------------------------------------------------------------------
-def _commit(fn, inputs, check: bool = False):
+def _commit(fn, inputs, check: bool = False, written=None):
     """``fn(*inputs)``'s writes made (each new value copied into its state
-    tree; with ``check``, ``check_writes`` first), its output returned."""
+    tree; with ``check``, ``check_writes`` first), its output returned;
+    ``written``, a list, gets the state trees written."""
     writes, out = fn(*inputs)
     if check:
         check_writes([d for d, _ in writes], [s for _, s in writes])
     for dst, src in writes:
         copy_tree(dst, src)
+        if written is not None:
+            written.append(dst)
     return out
+
+
+def _bump_versions(tree) -> None:
+    """Count a replay's writes into the state's version counters, as the
+    eager copies would (K7's weight splits key on them)."""
+    if isinstance(tree, torch.Tensor):
+        torch.autograd.graph.increment_version(tree)
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            _bump_versions(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            _bump_versions(v)
 
 
 class _StaticInputs:
@@ -656,8 +675,10 @@ class _StepProgram:
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         reserved0 = torch.cuda.memory_reserved(dev)
+        self._written = []
         self._graph, self.out = _capture(
-            lambda: _commit(fn, self.inputs, check=True), pool, side)
+            lambda: _commit(fn, self.inputs, check=True,
+                            written=self._written), pool, side)
         torch.cuda.synchronize(dev)
         self.capture_ms = (time.perf_counter() - t0) * 1e3
         self.reserved_bytes = max(0, torch.cuda.memory_reserved(dev)
@@ -668,6 +689,7 @@ class _StepProgram:
         for dst, src in zip(self.inputs, inputs):
             dst.copy_(src)
         _replay(self._graph)
+        _bump_versions(self._written)
         self.replays += 1
         # a copy made before any graph of the pool can overwrite the outputs
         return clone_tree(self.out)

@@ -55,6 +55,12 @@ every phase passed):
    and bf16; ragged rows and one masked everywhere) and time it (CUDA
    graphs of 20 calls) beside its twin and its bound (its tanhf's
    special-function operations at the SMs' rate);
+2h. hold K7, the Conformer's 3xTF32 GEMM, against the float64 product at
+   the FFN's shape ([128 x 317, 512] x [512, 2048]) and the subsampling's
+   K = 9728 (one row slice, [21 x 317, 9728] x [9728, 512]), within 4x of
+   cuBLAS's float32 error, one launch a call, and time it (CUDA graphs of
+   10 calls) beside cuBLAS's float32 product, its twin and its bound (3
+   TF32 passes at the tensor cores' rate, or its bytes);
 2e. hold K5, the ADPCM wire decode, against its twin bit for bit on the
    B=32 batch's wire, a B=1 wire, a full-scale square wave and silence,
    and time it beside the C++ host encoder;
@@ -396,6 +402,68 @@ def _phase_k6(np, torch, fails, dev, attn_k, graph_ms, gpu) -> dict:
                 shape=f"mask [{B}, L], q [{B}, {k}, {a}], keys [{B}, L, "
                       f"{a}] -> align [{B}, {k}, L], L in {K6_LENGTHS}; "
                       f"the main figures f32 at L={K6_LENGTHS[-1]}")
+
+
+# K7's shapes: the Conformer's FFN d -> 4d at the longest chunk (8 sorted
+# chunks of 128 rows, 317 frames), and one row slice of the subsampling's
+# map (21 rows at SUBSAMPLE_SLICE_ELEMS, 512 channels x 19 features)
+K7_SHAPES = ((128 * 317, 512, 2048), (21 * 317, 9728, 512))
+
+
+def _phase_k7(np, torch, fails, dev, gemm_k, graph_ms, gpu) -> dict:
+    """Phase 2h: K7 against the float64 product at K7_SHAPES, each error
+    measured against |x| @ |w| + |b|: one launch a call and within 4x of
+    cuBLAS's float32 product (TF32 off).  Timed as CUDA graphs of 10 calls
+    beside cuBLAS's product (``library_ms``), its twin and its bound: 3
+    TF32 passes of 2 M K N at H100_TF32_FLOPS, or its bytes (x, w and b
+    read once, y written once) at the HBM's rate."""
+    by_shape = {}
+    for M, K, N in K7_SHAPES:
+        g = torch.Generator(device=dev).manual_seed(K + N)
+        x = torch.randn(M, K, device=dev, generator=g)
+        w = torch.randn(K, N, device=dev, generator=g) * K ** -0.5
+        b = torch.randn(N, device=dev, generator=g)
+        with torch.no_grad():
+            before = gemm_k.launches
+            y = gemm_k.linear(x, w, b)
+            launched = gemm_k.launches - before
+            lib = torch.nn.functional.linear(x, w.t(), b)
+            x64, w64 = x.double(), w.double()
+            ref = x64 @ w64 + b.double()
+            scale = x64.abs() @ w64.abs() + b.double().abs()
+            err = float(((y.double() - ref).abs() / scale).max())
+            lib_err = float(((lib.double() - ref).abs() / scale).max())
+            del x64, w64, ref, scale, y, lib
+            fails.check(launched == 1 and err <= 4 * lib_err,
+                        f"K7 [{M}, {K}] x [{K}, {N}]: one launch, within 4x "
+                        f"of cuBLAS's float32 error against float64 ({err:.3g}"
+                        f" against {lib_err:.3g}, of |x| @ |w| + |b|)")
+            ms = graph_ms(lambda: gemm_k.linear(x, w, b), iters=10)
+            lib_ms = graph_ms(
+                lambda: torch.nn.functional.linear(x, w.t(), b), iters=10)
+            plain_ms = graph_ms(lambda: gemm_k.linear_plain(x, w, b),
+                                iters=3)
+        t_ops = 3 * 2 * M * K * N / H100_TF32_FLOPS * 1e3
+        t_bytes = 4 * (M * K + K * N + N + M * N) / H100_BYTES_PER_S * 1e3
+        bound, by = max((t_ops, "operations"), (t_bytes, "bytes"))
+        key = f"{M}x{K}x{N}"
+        by_shape[key] = dict(ms=ms, library_ms=lib_ms, plain_ms=plain_ms,
+                             bound_ms=bound, bound_by=by, share=bound / ms,
+                             err=err, library_err=lib_err)
+        print(f"K7 [{M}, {K}] x [{K}, {N}]: {ms:.4f} ms, bound {bound:.4f} ms"
+              f" ({by}) = {100 * bound / ms:.1f} %, cuBLAS f32 {lib_ms:.4f} "
+              f"ms ({lib_ms / ms:.2f}x), twin {plain_ms:.3f} ms; error "
+              f"{err:.3g}, cuBLAS {lib_err:.3g} on {gpu}", flush=True)
+        del x, w, b
+    main = by_shape[f"{K7_SHAPES[0][0]}x{K7_SHAPES[0][1]}x{K7_SHAPES[0][2]}"]
+    return dict(name="K7 3xTF32 GEMM", route="cuda",
+                source="chinese_asr_tpu_torch/csrc/gemm.cu", replaces=None,
+                max_rel_err=main["err"], ms=main["ms"],
+                plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+                bound_by=main["bound_by"], library_ms=main["library_ms"],
+                by_shape=by_shape,
+                shape=f"x [M, K] @ w [K, N] + b, (M, K, N) in {K7_SHAPES}; "
+                      f"the main figures the first")
 
 
 def _k2_ptxas_lines(log_path: str, *markers: str, exclude: str = ""):
@@ -2718,6 +2786,7 @@ def _kernel_counters():
     """Each kernel's launch counter (module, attribute), by kernel name."""
     from chinese_asr_tpu_torch.ops.cuda import adpcm as adpcm_k
     from chinese_asr_tpu_torch.ops.cuda import attention as attn_k
+    from chinese_asr_tpu_torch.ops.cuda import gemm as gemm_k
     from chinese_asr_tpu_torch.ops.cuda import logmel as logmel_k
     from chinese_asr_tpu_torch.ops.cuda import lstm as lstm_k
     from chinese_asr_tpu_torch.ops.cuda import topk as topk_k
@@ -2729,7 +2798,8 @@ def _kernel_counters():
             "adpcm": (adpcm_k, "launches"),
             "lstm_bwd": (lstm_k, "bwd_launches"),
             "lstm_bwd_bf16": (lstm_k, "bwd_bf16_launches"),
-            "attention": (attn_k, "launches")}
+            "attention": (attn_k, "launches"),
+            "gemm": (gemm_k, "launches")}
 
 
 def _mesh_decode(torch, np, asr, wavs, counters):
@@ -3171,6 +3241,7 @@ def main() -> int:
     from chinese_asr_tpu_torch.ops.cuda import adpcm as adpcm_k
     from chinese_asr_tpu_torch.ops.cuda import attention as attn_k
     from chinese_asr_tpu_torch.ops.cuda import build
+    from chinese_asr_tpu_torch.ops.cuda import gemm as gemm_k
     from chinese_asr_tpu_torch.ops.cuda import logmel as logmel_k
     from chinese_asr_tpu_torch.ops.cuda import lstm as lstm_k
     from chinese_asr_tpu_torch.ops.cuda import topk as topk_k
@@ -3845,6 +3916,11 @@ def main() -> int:
                                      gpu)
     print(f"phase 2g: {time.time() - t2g:.1f} s", flush=True)
 
+    # ---- phase 2h: K7, the Conformer's 3xTF32 GEMM ---------------------------
+    t2h = time.time()
+    kernels["gemm"] = _phase_k7(np, torch, fails, dev, gemm_k, graph_ms, gpu)
+    print(f"phase 2h: {time.time() - t2h:.1f} s", flush=True)
+
     # ---- phase 3: main path --------------------------------------------------
     cfg = Config()
     wavs = _synthetic_wavs(np, rng, 32, 9.0, 10.0)
@@ -3998,7 +4074,8 @@ def main() -> int:
                      "topk_fused": "beam_bw16_lm2_fused",
                      "adpcm": "beam_bw16_adpcm", "attention": "beam_bw16",
                      "lstm_bwd": "training",
-                     "lstm_bwd_bf16": "training bf16"}
+                     "lstm_bwd_bf16": "training bf16",
+                     "gemm": None}          # K7: the Conformer's alone
     paths, texts_of = {}, {}
     for mode, asr, batch, fused, need in runs_spec:
         t_run = time.time()

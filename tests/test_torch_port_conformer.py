@@ -33,6 +33,7 @@ from chinese_asr_tpu_torch.models import encoder as tenc
 from chinese_asr_tpu_torch.models import las
 from chinese_asr_tpu_torch.ops import conv as tconv
 from chinese_asr_tpu_torch.ops import self_attention as tsa
+from chinese_asr_tpu_torch.ops.cuda import gemm as tgemm
 from chinese_asr_tpu_torch.train import optim
 from chinese_asr_tpu_torch.train.trainer import Trainer
 from port_bench import encoders
@@ -296,6 +297,24 @@ def test_blocks_counted_and_the_eager_encode_spanned():
     assert tconf.blocks - before == 17
     spans = [e for e in prof.events() if e.name == "asr.encode"]
     assert len(spans) == 1
+
+
+@pytest.mark.parametrize("slice_elems", [tconv.SUBSAMPLE_SLICE_ELEMS, 1])
+def test_every_product_goes_through_linear(monkeypatch, slice_elems):
+    """The encoder's products all go through ``ops/self_attention.py``
+    ``linear`` (on the card, K7): 8 a block and one for each of the
+    subsampling's row slices (one, or a row each); on the CPU each is
+    counted as a fallback to F.linear."""
+    monkeypatch.setattr(tconv, "SUBSAMPLE_SLICE_ELEMS", slice_elems)
+    cfg = _cfg()
+    pcfg = offline.port_config(cfg)
+    params = weights.make_params(cfg, TINY_SEED, "cpu")["encoder"]
+    x, lens = _feats(cfg, [61, 40, 23, 9])
+    before = tgemm.launches, tgemm.fallbacks
+    tenc.apply_encoder(params, pcfg, x, lens)
+    slices = 1 if slice_elems > 1 else len(lens)
+    assert (tgemm.launches - before[0], tgemm.fallbacks - before[1]) == (
+        0, 8 * pcfg.encoder.num_layers + slices)
 
 
 def test_the_program_and_the_reference_count_frames_alike():

@@ -11,7 +11,9 @@ top-k 1e-5 absolute on values (the logsumexp is summed in another order),
 indices exact where the values are separated by more than that, ADPCM
 decode exact, the beam's attention read (K6) 1e-5 absolute on align in
 float32 (the sum over a is taken in another order) and, in bf16, one
-bf16 rounding of the twin evaluated in float32 on the same bf16 inputs.
+bf16 rounding of the twin evaluated in float32 on the same bf16 inputs;
+the 3xTF32 GEMM (K7) within 4x of cuBLAS's float32 error against the
+float64 product, each error measured against |x| @ |w| + |b|.
 """
 
 import json
@@ -23,8 +25,11 @@ import torch
 
 from chinese_asr_tpu_torch import config as tcfg
 from chinese_asr_tpu_torch.audio import features as tfeat
+from chinese_asr_tpu_torch.models import conformer as tconf
+from chinese_asr_tpu_torch.ops import self_attention as tsa
 from chinese_asr_tpu_torch.ops.cuda import adpcm as tadpcm
 from chinese_asr_tpu_torch.ops.cuda import attention as tattn
+from chinese_asr_tpu_torch.ops.cuda import gemm as tgemm
 from chinese_asr_tpu_torch.ops.cuda import logmel as tlogmel
 from chinese_asr_tpu_torch.ops.cuda import lstm as tlstm
 from chinese_asr_tpu_torch.ops.cuda import topk as ttopk
@@ -1935,3 +1940,206 @@ def test_beam_attention_kernel_rejects_bad_operands(dev):
     cpu = [t.detach().cpu() for t in (mask, q, keys, v)]
     tattn.beam_scores_softmax(*cpu)                      # the twin
     assert tattn.launches == before
+
+
+# ---- K7: the 3xTF32 GEMM (csrc/gemm.cu) ------------------------------------
+def _gemm_err(y, x, w, b):
+    """max |y - x @ w - b| over |x| @ |w| + |b|, in float64."""
+    x64, w64 = x.double(), w.double()
+    ref = x64 @ w64
+    scale = x64.abs() @ w64.abs()
+    if b is not None:
+        ref, scale = ref + b.double(), scale + b.double().abs()
+    return float(((y.double() - ref).abs() / scale).max())
+
+
+def _gemm_inputs(dev, M, K, N, bias=True, seed=0, transposed=False):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if transposed:          # the pointwise-2 input: [B, L, D] of [B, D, L]
+        x = torch.randn(M // 317, K, 317, device=dev,
+                        generator=g).transpose(1, 2)
+    else:
+        x = torch.randn(M, K, device=dev, generator=g)
+    w = torch.randn(K, N, device=dev, generator=g) * K ** -0.5
+    b = torch.randn(N, device=dev, generator=g) if bias else None
+    return x, w, b
+
+
+# (M, K, N, bias, transposed): the Conformer's products at ragged M (8
+# sorted chunks of 128 rows, the longest 317 frames): the FFN's two, QKV,
+# the output map, the pointwise convolutions (the second on its
+# transposed input), the subsampling's map of 512 x 19 features
+GEMM_SHAPES = [(128 * 317, 512, 2048, True, False),
+               (1000, 2048, 512, True, False),
+               (1000, 512, 1536, True, False),
+               (1000, 512, 512, False, False),
+               (1000, 512, 1024, True, False),
+               (4 * 317, 512, 512, True, True),
+               (2000, 9728, 512, True, False)]
+
+
+@pytest.mark.parametrize("M,K,N,bias,transposed", GEMM_SHAPES)
+def test_gemm_kernel_within_cublas_error(dev, M, K, N, bias, transposed):
+    """K7 against the float64 product at each Conformer shape: one launch
+    a call, and no farther from it than 4x cuBLAS's float32 product (TF32
+    off), both measured against |x| @ |w| + |b|."""
+    x, w, b = _gemm_inputs(dev, M, K, N, bias, seed=K + N, transposed=transposed)
+    with torch.no_grad():
+        before, fell = tgemm.launches, tgemm.fallbacks
+        y = tsa.linear(x, w, b)
+        torch.cuda.synchronize()
+        assert (tgemm.launches - before, tgemm.fallbacks - fell) == (1, 0)
+        lib = torch.nn.functional.linear(x, w.t(), b)
+    assert y.shape == (*x.shape[:-1], N)
+    err, lib_err = _gemm_err(y, x, w, b), _gemm_err(lib, x, w, b)
+    assert err <= 4 * lib_err, (err, lib_err)
+
+
+@pytest.mark.parametrize("M,K,N", [(7, 8, 3), (130, 40, 200), (129, 8, 129),
+                                   (1, 512, 2048), (300, 16, 1)])
+def test_gemm_kernel_edge_shapes(dev, M, K, N):
+    """Ragged M and N, K under a stage, an odd N (scalar stores): within
+    2^-20 of |x| @ |w| + |b| (a few float32 roundings)."""
+    x, w, b = _gemm_inputs(dev, M, K, N, seed=M)
+    with torch.no_grad():
+        y = tgemm.linear(x, w, b)
+        assert _gemm_err(y, x, w, b) <= 2 ** -20
+        y0 = tgemm.linear(x, w, None)
+        assert _gemm_err(y0, x, w, None) <= 2 ** -20
+        assert tgemm.linear(x[:0], w, b).shape == (0, N)
+
+
+def test_gemm_dispatch_falls_back_where_the_kernel_does_not_run(dev):
+    """``linear`` takes K7 only for float32 without a graph to record and
+    K a multiple of 8; otherwise F.linear, bit for bit, counted."""
+    x, w, b = _gemm_inputs(dev, 64, 32, 48, seed=3)
+    cases = [(x.requires_grad_(), w, b),                   # autograd
+             (x.detach().bfloat16(), w.bfloat16(), b.bfloat16()),
+             (x.detach()[:, :30], w[:30], b)]              # K % 8 != 0
+    for xx, ww, bb in cases:
+        before, fell = tgemm.launches, tgemm.fallbacks
+        got = tsa.linear(xx, ww, bb)
+        assert (tgemm.launches - before, tgemm.fallbacks - fell) == (0, 1)
+        assert torch.equal(got, torch.nn.functional.linear(xx, ww.t(), bb))
+        assert got.requires_grad == xx.requires_grad
+    with pytest.raises(ValueError):
+        tgemm.linear(x.detach().double(), w.double(), b.double())
+
+
+def test_gemm_weight_split_follows_updates_in_place(dev):
+    """The cached hi / lo split of a weight is made again after an update
+    in place (its version counter), and goes with the weight."""
+    x, w, b = _gemm_inputs(dev, 256, 64, 128, seed=4)
+    with torch.no_grad():
+        y1 = tgemm.linear(x, w, b)
+        assert id(w) in tgemm._splits
+        w.mul_(-2.0)
+        y2 = tgemm.linear(x, w, b)
+    assert _gemm_err(y2, x, w, b) <= 2 ** -20
+    assert not torch.allclose(y1, y2)
+    key = id(w)
+    del w
+    assert key not in tgemm._splits
+
+
+def test_gemm_kernel_in_a_cuda_graph(dev):
+    """Captured as the decode graph holds it (after a warm-up that fills the
+    split cache): a replay on new inputs equals an eager launch bit for
+    bit, and the capture counts one launch."""
+    x, w, b = _gemm_inputs(dev, 2 * 317, 512, 1024, seed=5)
+    static = x.clone()
+    with torch.no_grad():
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            tsa.linear(static, w, b)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        before = tgemm.launches
+        with torch.cuda.graph(graph):
+            out = tsa.linear(static, w, b)
+        assert tgemm.launches == before + 1
+        new = torch.randn_like(x)
+        static.copy_(new)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = tsa.linear(new, w, b)
+    assert torch.equal(out, want)
+
+
+def _small_conformer_cfg():
+    return tcfg.Config(
+        audio=tcfg.AudioConfig(delta_delta=False, downsample=False),
+        encoder=tcfg.EncoderConfig(encoder_type="CONFORMER", hidden_size=64,
+                                   num_layers=2, ffn_size=128,
+                                   self_attn_heads=4, ks=8))
+
+
+def _small_conformer_feats():
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(3, 90, 80, generator=g)
+    lens = torch.tensor([90, 61, 17])
+    x[torch.arange(90)[None] >= lens[:, None]] = 0.0
+    return x, lens
+
+
+def test_conformer_on_the_card_runs_its_products_on_k7(dev):
+    """A small Conformer (d 64, 2 blocks) on the card: 8 K7 launches a block
+    and one for the subsampling's map, none falling back, its output
+    within 1e-4 of the CPU's (F.linear there)."""
+    cfg = _small_conformer_cfg()
+    params = tconf.init_conformer(torch.Generator().manual_seed(0), cfg)
+    x, lens = _small_conformer_feats()
+    want, wl = tconf.apply_conformer(params, cfg, x, lens)
+    on = lambda t: ({k: on(v) for k, v in t.items()} if isinstance(t, dict)
+                    else [on(v) for v in t] if isinstance(t, list)
+                    else t.to(dev))
+    with torch.no_grad():
+        before, fell = tgemm.launches, tgemm.fallbacks
+        got, gl = tconf.apply_conformer(on(params), cfg, x.to(dev),
+                                        lens.to(dev))
+        assert (tgemm.launches - before, tgemm.fallbacks - fell) == (
+            8 * 2 + 1, 0)
+    assert torch.equal(gl.cpu(), wl)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=0)
+
+
+def test_gemm_split_follows_weights_updated_between_replays(dev):
+    """A decode program captured with K7's weight splits, its weights then
+    updated in place (as a trainer between evaluations): the next replay
+    decodes as the eager loop does on the new weights, not on the splits
+    cached at capture."""
+    from chinese_asr_tpu_torch.decode import greedy
+    from chinese_asr_tpu_torch.models import las
+    cfg = _small_conformer_cfg()
+    params = las.init_params(cfg, seed=2, device=dev)
+    x, lens = _small_conformer_feats()
+    x, lens = x.to(dev), lens.to(dev)
+    with torch.no_grad():
+        greedy.greedy_decode_jit(params, cfg, x, lens)
+        for blk in params["encoder"]["blocks"]:
+            blk["ffn1"]["w1"].mul_(-1.5)
+            blk["mhsa"]["w_o"].add_(0.05)
+        got = greedy.greedy_decode_jit(params, cfg, x, lens)
+        want = greedy.greedy_decode(params, cfg, x, lens)
+    assert torch.equal(got.tokens, want.tokens)
+    torch.testing.assert_close(got.scores, want.scores, atol=1e-4, rtol=0)
+
+
+def test_step_graph_replays_count_in_the_states_versions(dev):
+    """A step program's replay writes its state in place on the card: each
+    replay counts one write in every state tensor's version counter, as
+    the eager copy does (K7's weight splits key on it)."""
+    from chinese_asr_tpu_torch.utils import graphs
+    state = {"w": torch.zeros(8, device=dev), "m": [torch.ones(8, device=dev)]}
+    fn = lambda x: ([(state, {"w": state["w"] + x,
+                              "m": [state["m"][0] * 2]})], state["w"].sum())
+    steps = graphs.StepGraphs()
+    x = torch.ones(8, device=dev)
+    steps(("toy",), fn, [x])                       # capture
+    v = (state["w"]._version, state["m"][0]._version)
+    for _ in range(3):
+        steps(("toy",), fn, [x])
+    assert (state["w"]._version - v[0], state["m"][0]._version - v[1]) == (
+        3, 3)
+    assert steps.captures == 1 and float(state["w"][0]) == 4.0

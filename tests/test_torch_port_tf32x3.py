@@ -1,6 +1,7 @@
 """The 3xTF32 arithmetic of the tensor-core kernels K1 (log-mel), K2
-(BiLSTM time loop) and K2-bwd's cluster kernel (its backward), emulated in
-plain torch on the CPU at the flagship widths.
+(BiLSTM time loop), K2-bwd's cluster kernel (its backward) and K7 (the
+Conformer's dense products), emulated in plain torch on the CPU at the
+flagship widths.
 
 Each operand of a tensor-core product is split into a TF32 hi word and a
 TF32 lo word, and lo*hi + hi*lo + hi*hi is summed in f32 (the lo*lo term is
@@ -11,9 +12,13 @@ The emulation takes the kernels' own split tables (``ops/cuda/logmel.py``
 ``_kernel_tables``) where they have them, so the fragment layout is
 checked too.  K2-bwd splits both its products the way K2 does: the
 rebuilt h (pass 1) and dxg_t (pass 2) with ``cvt.rna``, its W_hh slice by
-truncation.  Tolerances are chip_smoke.py's: log-mel 2e-3 absolute,
-BiLSTM 1e-4 absolute, K2-bwd 1e-4 of each output's scale.  Inputs are
-made with numpy from a seed.
+truncation.  K7 rounds both operands with ``cvt.rna`` (its weight's
+split made once on the host, ``ops/cuda/gemm.py`` ``weight_split``), sums
+each 32-k stage's three products on the tensor cores and adds the
+stages in float32.  Tolerances are chip_smoke.py's: log-mel 2e-3
+absolute, BiLSTM 1e-4 absolute, K2-bwd 1e-4 of each output's scale; K7
+within 4x of a float32 product's distance from the float64 one, measured
+against |x| @ |w|.  Inputs are made with numpy from a seed.
 """
 
 import numpy as np
@@ -22,11 +27,14 @@ import torch
 
 from chinese_asr_tpu_torch import config as tcfg
 from chinese_asr_tpu_torch.audio import features as tfeat
+from chinese_asr_tpu_torch.ops import self_attention as tsa
+from chinese_asr_tpu_torch.ops.cuda import gemm as tgemm
 from chinese_asr_tpu_torch.ops.cuda import logmel as tlogmel
 from chinese_asr_tpu_torch.ops.cuda import lstm as tlstm
 
 from torch_port_util import (golden_cfg, matmul_tf32x1, matmul_tf32x3,
-                             round_tf32, speech_like_wavs, trunc_tf32)
+                             round_tf32, speech_like_wavs, split_tf32,
+                             trunc_tf32)
 
 TOL_LOGMEL = 2e-3
 TOL_LSTM = 1e-4
@@ -283,3 +291,101 @@ def test_lstm_bwd_one_tf32_product_is_not_enough(lstm_bwd_case):
     got = _lstm_bwd_emulated(*args, lambda a, b: matmul_tf32x1(a, b, "rna",
                                                                "rna"))
     assert _rel_err(got, want) > TOL_LSTM_BWD
+
+
+# ---- K7: the Conformer's dense products (csrc/gemm.cu) ---------------------
+K7_STAGE = 32          # k a stage: the tensor cores' partial sums
+
+
+def _gemm_case(K, M=64, N=96, seed=7):
+    rng = np.random.default_rng(seed + K)
+    x = torch.from_numpy(rng.standard_normal((M, K), np.float32))
+    w = torch.from_numpy(rng.standard_normal((K, N), np.float32) / np.sqrt(K))
+    return x, w.float()
+
+
+def _gemm_err(y, x, w):
+    x64, w64 = x.double(), w.double()
+    return float(((y.double() - x64 @ w64).abs() / (x64.abs() @ w64.abs()))
+                 .max())
+
+
+def _gemm_staged(x, w, product):
+    """K7's sum: ``product`` of each 32-k stage, the stages added in f32."""
+    acc = torch.zeros(x.shape[0], w.shape[1])
+    for k0 in range(0, x.shape[1], K7_STAGE):
+        acc = acc + product(x[:, k0:k0 + K7_STAGE], w[k0:k0 + K7_STAGE])
+    return acc
+
+
+def test_gemm_split_is_the_kernels_rounding():
+    """K7's split, host side (the weight's, cached K-major) and the twin's,
+    is cvt.rna's: the one ``matmul_tf32x3`` emulates."""
+    x, w = _gemm_case(512)
+    for got, want in zip(tgemm.split_tf32(x), split_tf32(x, "rna")):
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    hl = tgemm.weight_split(w)
+    assert hl.shape == (2, w.shape[1], w.shape[0]) and hl.is_contiguous()
+    for got, want in zip(hl, split_tf32(w, "rna")):
+        assert torch.equal(got.t(), want)
+    assert tgemm.weight_split(w) is hl                  # cached
+
+
+def test_gemm_weight_split_is_made_again_in_place():
+    """An update of the weight in place (its version counter) makes the
+    split again at the same address, which captured graphs hold: at the
+    next call, or at ``refresh`` before a graph's replay."""
+    x, w = _gemm_case(64, N=24)
+    hl = tgemm.weight_split(w)
+    ptr = hl.data_ptr()
+    for update in (lambda: tgemm.weight_split(w), tgemm.refresh):
+        w.mul_(-3.0).add_(0.25)
+        update()
+        assert hl.data_ptr() == ptr and tgemm.weight_split(w) is hl
+        for got, want in zip(hl, split_tf32(w, "rna")):
+            assert torch.equal(got.t(), want)
+
+
+@pytest.mark.parametrize("K", [512, 2048, 9728])
+def test_gemm_3xtf32_within_f32_error(K):
+    """K7's arithmetic, staged as the kernel sums, no farther from the
+    float64 product than 4x a float32 product (the bound the card's test
+    holds the kernel to against cuBLAS), at the Conformer's K."""
+    x, w = _gemm_case(K)
+    f32 = _gemm_err(x @ w, x, w)
+    got = _gemm_staged(x, w, lambda a, b: matmul_tf32x3(a, b, "rna", "rna"))
+    assert _gemm_err(got, x, w) <= 4 * f32
+    assert _gemm_err(tgemm.linear_plain(x, w), x, w) <= 4 * f32
+
+
+@pytest.mark.parametrize("K", [512, 9728])
+def test_gemm_one_tf32_product_is_not_enough(K):
+    """Why three: hi*hi alone sits over 100x farther from float64."""
+    x, w = _gemm_case(K)
+    f32 = _gemm_err(x @ w, x, w)
+    got = _gemm_staged(x, w, lambda a, b: matmul_tf32x1(a, b, "rna", "rna"))
+    assert _gemm_err(got, x, w) > 100 * f32
+
+
+@pytest.mark.parametrize("case", ["cpu", "autograd", "bf16", "no_bias"])
+def test_linear_off_the_card_is_f_linear(case):
+    """``ops/self_attention.py`` ``linear`` keeps F.linear, bit for bit, on
+    CPU tensors, under autograd and in bf16, and counts each call as a
+    fallback; K7 never launches."""
+    x, w = _gemm_case(64, M=12, N=40)
+    b = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        40, np.float32))
+    if case == "bf16":
+        x, w, b = x.bfloat16(), w.bfloat16(), b.bfloat16()
+    if case == "no_bias":
+        b = None
+    if case == "autograd":
+        x.requires_grad_()
+    before, fell = tgemm.launches, tgemm.fallbacks
+    got = tsa.linear(x.view(3, 4, 64), w, b)
+    assert (tgemm.launches - before, tgemm.fallbacks - fell) == (0, 1)
+    want = torch.nn.functional.linear(x.view(3, 4, 64), w.t(), b)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+    if case == "autograd":
+        got.sum().backward()
+        assert x.grad is not None
