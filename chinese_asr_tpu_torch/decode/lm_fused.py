@@ -194,7 +194,7 @@ def lm_fused_decode(params, cfg: Config, bw: int, feats, feat_lens,
 def _key(name: str, params, cfg: Config, bw: int, dlm, tok2lm,
          topn: int) -> tuple:
     return (name, cfg, bw, topn, graphs.tensor_ids(params, tok2lm),
-            graphs.lm_key(dlm))
+            dlm.graph_key())
 
 
 @torch.no_grad()

@@ -94,7 +94,7 @@ def rescore_select_jit(res: BeamResult, dlm, tok2lm, lm_weight: float,
     copied out of the graph), on the CPU the plain call."""
     return graphs.run(
         ("rescore_select", lm_weight, length_weight, bos_id, eos_id,
-         graphs.tensor_ids(tok2lm), graphs.lm_key(dlm)),
+         graphs.tensor_ids(tok2lm), dlm.graph_key()),
         _Select(dlm, tok2lm, lm_weight, length_weight, bos_id, eos_id),
         tuple(res), 1)
 
@@ -141,7 +141,7 @@ def beam_rescored_best_jit(params, cfg, bw: int, feats, feat_lens, dlm,
     return graphs.run(
         beam_mod.beam_key("beam_rescored", params, cfg, bw, fused,
                           lm_weight, length_weight, bos_id, eos_id,
-                          graphs.tensor_ids(tok2lm), graphs.lm_key(dlm)),
+                          graphs.tensor_ids(tok2lm), dlm.graph_key()),
         beam_mod.BeamLoop(params, cfg, bw, fused,
                           lm_track=(dlm, tok2lm, bos_id, eos_id)),
         (feats, feat_lens), unroll,

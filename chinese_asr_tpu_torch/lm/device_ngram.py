@@ -62,6 +62,7 @@ import numpy as np
 import torch
 
 from ..utils.device import resolve_device
+from ..utils.graphs import tensor_ids
 from . import ngram
 from .ngram import PyNgramLM
 
@@ -342,6 +343,12 @@ class DeviceNgramLM:
     def null_context(self, n_rows: int) -> np.ndarray:
         """[n_rows, order-1] empty histories -- kenlm null state."""
         return np.full((n_rows, max(self.order - 1, 1)), -1, np.int32)
+
+    def graph_key(self) -> tuple:
+        """Everything of this LM that its probes read: a part of the key
+        of a compiled decode that scores with it (``utils/graphs.py``)."""
+        return (self.order, self.probes, self.unk_id, self.hashed,
+                self._bos_id, tensor_ids(self.tbls, self.uni))
 
 
 def _mul32(h, c: int):

@@ -37,8 +37,9 @@ norm_scale, norm_bias, bn_mean, bn_var, pw2_w, pw2_b}), ``ln_scale``,
 ``ln_bias``.
 
 ``blocks`` counts the blocks applied, as the kernel wrappers count their
-launches (``utils/graphs.py`` ``COUNTERS``, so a graph's replay counts
-its blocks).
+launches: a registered counter (``utils/observe.py``), so a graph's
+replay counts its blocks.  The dense products are ``ops/cuda/gemm.py``
+``linear`` (K7 on the card).
 """
 
 from __future__ import annotations
@@ -51,13 +52,15 @@ import torch.nn.functional as F
 from ..config import Config
 from ..ops import conv as conv_ops
 from ..ops import self_attention as sa_ops
+from ..ops.cuda import gemm as gemm_k
 from ..ops.masks import length_mask
 from ..ops.rnn import xavier_normal
-from ..ops.self_attention import linear
+from ..utils import observe
 
 Params = Dict
 
 blocks = 0      # blocks applied (launch-style: a graph's replay adds its own)
+observe.register_counters(__name__, "blocks")
 
 LN_EPS = 1e-5
 BN_EPS = 1e-5
@@ -130,15 +133,16 @@ def _ln(p: Params, x):
 
 
 def _ffn_apply(p: Params, x):
-    h = F.silu(linear(_ln(p, x), p["w1"], p["b1"]))
-    return linear(h, p["w2"], p["b2"])
+    h = F.silu(gemm_k.linear(_ln(p, x), p["w1"], p["b1"]))
+    return gemm_k.linear(h, p["w2"], p["b2"])
 
 
 def _conv_module(p: Params, x, lens, train: bool, updates):
-    h = F.glu(linear(_ln(p, x), p["pw1_w"], p["pw1_b"]), dim=-1)
+    h = F.glu(gemm_k.linear(_ln(p, x), p["pw1_w"], p["pw1_b"]), dim=-1)
     h = conv_ops.depthwise_conv1d_same(h, p["dw_w"], p["dw_b"], lens)
     h = conv_ops.batch_norm_channels_first(p, h, train, BN_EPS, updates)
-    return linear(F.silu(h).transpose(1, 2), p["pw2_w"], p["pw2_b"])
+    return gemm_k.linear(F.silu(h).transpose(1, 2), p["pw2_w"],
+                         p["pw2_b"])
 
 
 def block(p: Params, x, lens, heads: int, table, train: bool = False,

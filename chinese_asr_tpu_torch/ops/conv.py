@@ -25,7 +25,7 @@ import torch.nn.functional as F
 
 from .masks import length_mask
 from .rnn import xavier_normal as _xavier
-from .self_attention import linear
+from .cuda import gemm as gemm_k
 
 Params = Dict[str, torch.Tensor]
 
@@ -321,8 +321,8 @@ def conv2d_subsampling(p: Dict[str, Params], x, lens):
                      stride=2).relu_()
         h = F.conv2d(h, w2, p["conv2"]["b"], stride=2).relu_()
         # [b, C, T2, F2] -> [b, T2, C * F2]: feature c * F2 + f
-        outs.append(linear(h.transpose(1, 2).flatten(2), p["out"]["w"],
-                           p["out"]["b"]))
+        outs.append(gemm_k.linear(h.transpose(1, 2).flatten(2),
+                                  p["out"]["w"], p["out"]["b"]))
     y = outs[0] if len(outs) == 1 else torch.cat(outs)
     lens = subsample_out_len(lens)
     return y * length_mask(lens, y.shape[1], y.dtype)[..., None], lens

@@ -22,12 +22,14 @@ import ctypes
 
 import torch
 
+from ...utils import observe
 from . import build
 
 ADPCM_K = 256            # samples per block (16 ms at 16 kHz)
 ADPCM_IDX_MAX = 95       # largest step index
 
 launches = 0             # kernel launches (the twin never counts)
+observe.register_counters(__name__, "launches")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 

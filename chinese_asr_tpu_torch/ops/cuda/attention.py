@@ -13,7 +13,10 @@ in PyTorch it writes and reads a [B, k, L, a] tensor four times a decode
 step, the largest device time outside the GEMMs in the offline beam
 decode's trace; K6 never forms that tensor.  It is bound by its accurate
 ``tanhf`` arithmetic (B*k*L*a of them), not by its bytes.  ``plan`` says
-how a launch spreads the work.
+how a launch spreads the work.  K6 reads a key row in 16-byte units, so
+the wrapper runs a width off that grain at ``grain(a)``, with q, keys and
+v padded by zero columns (each adds tanh(0 + 0) * 0 = 0 to a score), and
+copies keys that start off a 16-byte boundary.
 """
 
 from __future__ import annotations
@@ -21,10 +24,13 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
+from ...utils import observe
 from . import build
 
 launches = 0          # K6 kernel launches (the twin never counts)
+observe.register_counters(__name__, "launches")
 
 SMS = 132             # the H100's streaming multiprocessors
 WARPS = 8             # warps a block at most (the kernel's launch bound)
@@ -84,6 +90,13 @@ def plan(B: int, k: int, L: int, a: int, dtype) -> dict:
                 smem=fixed + (0 if split else 4 * kb * L))
 
 
+def grain(a: int, dtype) -> int:
+    """The width K6 runs attention width ``a`` at: a key row rounded up
+    to whole 16-byte units."""
+    n = 16 // _ITEMSIZE[dtype]
+    return -(-a // n) * n
+
+
 def beam_scores_softmax_plain(mask, q, keys, v):
     """The expression K6 computes, as PyTorch writes it: a [B, k, L, a]
     tanh intermediate, summed over a, then the softmax over L."""
@@ -94,8 +107,11 @@ def beam_scores_softmax_plain(mask, q, keys, v):
 
 def beam_scores_softmax(mask, q, keys, v):
     """align [B, k, L] of the beam's additive attention.  A CPU tensor takes
-    the plain twin; a CUDA tensor launches K6.  The kernel has no backward,
-    so it refuses operands that need a gradient."""
+    the plain twin; a CUDA tensor launches K6, at ``grain(a)`` where a row
+    of keys is off the 16-byte grain.  Raises on operands of other shapes
+    or of mixed or other dtypes than float32 and bfloat16, where the key
+    tiles overflow shared memory (``plan``), and, since the kernel has no
+    backward, on operands that need a gradient."""
     B, k, a = q.shape
     L = keys.shape[1]
     if (tuple(mask.shape) != (B, L) or tuple(keys.shape) != (B, L, a)
@@ -107,6 +123,9 @@ def beam_scores_softmax(mask, q, keys, v):
     if keys.device.type == "cpu":
         return beam_scores_softmax_plain(mask, q, keys, v)
     dt = keys.dtype
+    if dt not in _ITEMSIZE:
+        raise ValueError(f"beam_scores_softmax: K6 takes float32 or "
+                         f"bfloat16, got {dt}")
     for name, t, shape in (("mask", mask, (B, L)), ("q", q, (B, k, a)),
                            ("keys", keys, (B, L, a)), ("v", v, (a,))):
         build.require(f"beam_scores_softmax {name}", t, dt, shape)
@@ -114,18 +133,21 @@ def beam_scores_softmax(mask, q, keys, v):
             t.requires_grad for t in (mask, q, keys, v)):
         raise ValueError("beam_scores_softmax: K6 has no backward; call it "
                          "under torch.no_grad()")
-    if keys.data_ptr() % 16:
-        raise ValueError("beam_scores_softmax: keys must be 16-byte aligned")
     out = torch.empty((B, k, L), dtype=dt, device=keys.device)
     if out.numel() == 0:
         return out
-    p = plan(B, k, L, a, dt)
+    ap = grain(a, dt)
+    p = plan(B, k, L, ap, dt)
+    if ap != a:
+        q, keys, v = (F.pad(t, (0, ap - a)) for t in (q, keys, v))
+    elif keys.data_ptr() % 16:
+        keys = keys.clone()
     scratch = (torch.empty((B, k, L), dtype=torch.float32, device=keys.device)
                if p["split"] else None)
     fn = build.kernel("asr_beam_attention", [_P] * 6 + [_I] * 8 + [_P])
     rc = fn(mask.data_ptr(), q.data_ptr(), keys.data_ptr(), v.data_ptr(),
             out.data_ptr(), None if scratch is None else scratch.data_ptr(),
-            B, k, L, a, int(dt == torch.bfloat16), p["beams_per_block"],
+            B, k, L, ap, int(dt == torch.bfloat16), p["beams_per_block"],
             p["tile"], p["threads"],
             torch.cuda.current_stream(keys.device).cuda_stream)
     build.check("asr_beam_attention", rc)

@@ -13,6 +13,11 @@ import every module and use the plain PyTorch twins on CPU tensors.
 subset of the sources compiled with extra ``-D`` defines (such as
 ``tools/lstm_stamp.py``'s ``ASR_STAMP``) under a name of its own, which
 ``use`` puts in place of the product library for the wrappers' calls.
+
+A kernel module whose kernel reads a cache of its operands (K7's weight
+splits) registers its refresh with ``on_replay``; ``utils/graphs.py``
+calls ``refresh`` before each launch of a captured program, which runs
+no Python of its own.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _lib = None
+_refreshers: list = []      # ``on_replay``'s functions
 
 
 def _nvcc() -> str:
@@ -173,3 +179,16 @@ def check(name: str, rc: int) -> None:
     if rc != 0:
         msg = _library().asr_error_string(rc).decode()
         raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
+
+
+def on_replay(fn) -> None:
+    """Have ``refresh`` call ``fn()``: it brings a kernel's caches up to
+    date with the tensors they were made from."""
+    _refreshers.append(fn)
+
+
+def refresh() -> None:
+    """Every registered cache brought up to date: called before a captured
+    program replays the launches it holds."""
+    for fn in _refreshers:
+        fn()

@@ -14,11 +14,14 @@ cuBLAS runs the port's float32 products with TF32 off on the CUDA cores
 is bound by the tensor cores: three TF32 passes, 165 TFLOP/s of float32
 work on the H100.
 
-``ops/self_attention.py`` ``linear`` dispatches here (``takes``); what K7
-does not take stays on ``F.linear``, counted in ``fallbacks``.  The
-weight's split (``weight_split``) is computed once a weight and version
-and cached: [2, N, K], the hi and lo words laid out K-major, as a TF32
-wgmma reads its B operand.
+``linear`` launches K7 where ``takes`` holds: float32 operands on the
+card with no gradient to record, K not a multiple of 8 on zero-padded
+operands (a zero column adds 0 to every product).  The products K7 does
+not compute (on the CPU, under autograd, in bf16) take ``F.linear``, as
+the port did before K7, counted in ``fallbacks``.  The weight's split
+(``weight_split``) is computed once a weight and version and cached: [2,
+N, K], the hi and lo words laid out K-major, as a TF32 wgmma reads its B
+operand.
 """
 
 from __future__ import annotations
@@ -27,12 +30,14 @@ import ctypes
 import weakref
 
 import torch
+import torch.nn.functional as F
 
+from ...utils import observe
 from . import build
 
 launches = 0          # K7 launches (the twin never counts)
-fallbacks = 0         # ops/self_attention.py ``linear`` calls that took
-                      # F.linear instead
+fallbacks = 0         # ``linear`` calls that took F.linear instead
+observe.register_counters(__name__, "launches", "fallbacks")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -72,8 +77,9 @@ def weight_split(w):
     """w [K, N] -> [2, N, K] float32: its hi and lo TF32 words, K-major.
     Cached a weight tensor and its version counter, so an update in place
     is never served stale (a CUDA graph's replay runs no Python: the
-    decode programs call ``refresh`` before each, and the step programs
-    count their writes into the version counters, ``utils/graphs.py``);
+    decode programs call ``refresh`` before each, through
+    ``build.refresh``, and the step programs count their writes into the
+    version counters, ``utils/graphs.py``);
     an entry goes when its weight does.  A split made while a CUDA graph
     captures is not cached (its memory belongs to the graph's pool); the
     program's warm-up, which runs before every capture, fills the
@@ -100,6 +106,9 @@ def refresh() -> None:
             _refresh(w, hit)
 
 
+build.on_replay(refresh)
+
+
 def linear_plain(x, w, b=None):
     """The kernel's arithmetic in PyTorch: both operands split as the
     kernel splits them, lo*hi + hi*lo + hi*hi summed (in f32 products of
@@ -112,8 +121,8 @@ def linear_plain(x, w, b=None):
 
 def takes(x, w, b) -> bool:
     """Whether ``linear`` runs on K7: float32 CUDA operands on one device,
-    no autograd graph to record (the kernel has no backward), w [K, N]
-    with K a multiple of 8 and at least 8."""
+    of shapes that agree, and no autograd graph to record (the kernel has
+    no backward)."""
     if not (x.is_cuda and x.dtype == torch.float32 and w.dim() == 2
             and w.dtype == torch.float32 and w.device == x.device
             and x.dim() >= 1 and x.shape[-1] == w.shape[0]):
@@ -121,42 +130,40 @@ def takes(x, w, b) -> bool:
     if b is not None and (b.dtype != torch.float32 or b.device != x.device
                           or tuple(b.shape) != (w.shape[1],)):
         return False
-    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad or (
-            b is not None and b.requires_grad)):
-        return False
-    K = w.shape[0]
-    return K >= 8 and K % 8 == 0
+    return not (torch.is_grad_enabled() and (
+        x.requires_grad or w.requires_grad
+        or (b is not None and b.requires_grad)))
 
 
 def linear(x, w, b=None):
-    """y [..., N] = x [..., K] @ w [K, N] + b.  A CPU tensor takes the plain
-    twin; a CUDA tensor launches K7, or raises on what it does not take
-    (``takes``).  One launch a call."""
-    if x.device.type == "cpu":
-        return linear_plain(x, w, b)
+    """y [..., N] = x [..., K] @ w [K, N] + b, the bias added in the
+    product's epilogue.  One K7 launch where ``takes`` holds, its K
+    padded to a multiple of 8 (at least 8) with zeros; otherwise
+    ``F.linear``, counted in ``fallbacks`` (it raises where the shapes
+    disagree)."""
+    global launches, fallbacks
     if not takes(x, w, b):
-        raise ValueError(
-            f"tf32x3 linear: needs float32 CUDA operands without a graph "
-            f"to record, x [..., K], w [K, N], b [N], K a multiple of 8; "
-            f"got x {tuple(x.shape)} {x.dtype}, w {tuple(w.shape)} "
-            f"{w.dtype}, b {None if b is None else tuple(b.shape)}")
+        fallbacks += 1
+        return F.linear(x, w.t(), b)
     K, N = w.shape
     x2 = x.reshape(-1, K)
-    if (x2.stride(1) != 1 or x2.stride(0) < K or x2.stride(0) % 4
-            or x2.data_ptr() % 16):
-        x2 = x2.contiguous()
     M = x2.shape[0]
     y = torch.empty((M, N), dtype=torch.float32, device=x.device)
     if M == 0:
         return y.view(*x.shape[:-1], N)
     hl = weight_split(w)
+    Kp = max(8, -(-K // 8) * 8)
+    if Kp != K:
+        x2, hl = F.pad(x2, (0, Kp - K)), F.pad(hl, (0, Kp - K))
+    elif (x2.stride(1) != 1 or x2.stride(0) < K or x2.stride(0) % 4
+            or x2.data_ptr() % 16):
+        x2 = x2.clone(memory_format=torch.contiguous_format)
     bias = None if b is None else b.contiguous()
     fn = build.kernel("asr_gemm_tf32x3", [_P, _I, _P, _P, _P, _P, _I, _I, _I,
                                           _P])
     rc = fn(x2.data_ptr(), x2.stride(0), hl[0].data_ptr(), hl[1].data_ptr(),
-            None if bias is None else bias.data_ptr(), y.data_ptr(), M, N, K,
+            None if bias is None else bias.data_ptr(), y.data_ptr(), M, N, Kp,
             torch.cuda.current_stream(x.device).cuda_stream)
     build.check("asr_gemm_tf32x3", rc)
-    global launches
     launches += 1
     return y.view(*x.shape[:-1], N)

@@ -18,9 +18,11 @@ import functools
 import numpy as np
 import torch
 
+from ...utils import observe
 from . import build
 
 launches = 0          # kernel launches (the twin never counts)
+observe.register_counters(__name__, "launches")
 
 _EPS = float(np.finfo(np.float32).eps)
 _P, _I = ctypes.c_void_p, ctypes.c_int

@@ -52,12 +52,15 @@ import ctypes
 import torch
 from torch.autograd.function import once_differentiable
 
+from ...utils import observe
 from . import build
 
 launches = 0          # f32 kernel launches (the twin never counts)
 bf16_launches = 0     # bf16 kernel (K2-bf16) launches
 bwd_launches = 0      # K2-bwd launches
 bwd_bf16_launches = 0  # K2-bwd-bf16 launches
+observe.register_counters(__name__, "launches", "bf16_launches",
+                          "bwd_launches", "bwd_bf16_launches")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 

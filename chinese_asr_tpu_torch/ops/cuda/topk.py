@@ -26,10 +26,12 @@ import ctypes
 
 import torch
 
+from ...utils import observe
 from . import build
 
 launches = 0          # K3 kernel launches (the twin never counts)
 fused_launches = 0    # K4 kernel launches (the twin never counts)
+observe.register_counters(__name__, "launches", "fused_launches")
 
 SLOTS = 8             # candidates a lane keeps (csrc/topk.cu S)
 MAX_CAND_K = 32       # a larger k takes the flat extraction (KMAX)

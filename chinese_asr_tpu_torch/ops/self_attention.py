@@ -277,19 +277,6 @@ def rel_shift(bd):
                          bd.storage_offset() + L - 1)
 
 
-def linear(x, w, b):
-    """x @ w + b for w [in, out], the bias added in the product's
-    epilogue (one kernel, not a product and a broadcast add).  On float32
-    CUDA operands with no autograd graph to record and ``in`` a multiple
-    of 8 that kernel is K7 (``ops/cuda/gemm.py``: 3xTF32 on the tensor
-    cores); anything else (CPU tensors, training, bf16) takes
-    ``F.linear``, counted in ``gemm.fallbacks``."""
-    if gemm_k.takes(x, w, b):
-        return gemm_k.linear(x, w, b)
-    gemm_k.fallbacks += 1
-    return torch.nn.functional.linear(x, w.t(), b)
-
-
 def rel_pos_attention(p: Params, x, lens, heads: int, table):
     """x [B, L, D] (the block's normalized input), lens [B] -> [B, L, D].
     For head h, query i and key j the score is ((q_i + u_h) . k_j + (q_i +
@@ -302,7 +289,7 @@ def rel_pos_attention(p: Params, x, lens, heads: int, table):
     once."""
     B, L, D = x.shape
     dk = D // heads
-    q, k, v = linear(x, p["w_qkv"], p["b_qkv"]).view(
+    q, k, v = gemm_k.linear(x, p["w_qkv"], p["b_qkv"]).view(
         B, L, 3, heads, dk).permute(2, 0, 3, 1, 4)         # [B, H, L, dk]
     pos = (table @ p["w_pos"]).view(
         2 * L - 1, heads, dk).permute(1, 2, 0)             # [H, dk, 2L-1]
@@ -312,4 +299,5 @@ def rel_pos_attention(p: Params, x, lens, heads: int, table):
     scores.add_(rel_shift(bd)).mul_(dk ** -0.5)
     scores.add_(softmax_mask(lens.clamp(min=1), L, x.dtype)[:, None, None])
     att = torch.softmax(scores, dim=-1) @ v                # [B, H, L, dk]
-    return linear(att.transpose(1, 2).reshape(B, L, D), p["w_o"], p["b_o"])
+    return gemm_k.linear(att.transpose(1, 2).reshape(B, L, D), p["w_o"],
+                         p["b_o"])

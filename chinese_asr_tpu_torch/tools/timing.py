@@ -1,5 +1,4 @@
-"""Device timing of short kernels on the card, shared by ``chip_smoke.py``
-and ``topk_ab.py``.
+"""Device timing of short kernels on the card, for ``chip_smoke.py``.
 
 A top-k launch takes less device time than its wrapper's Python takes to
 issue it, so an eager loop times the host: ``graph_ms`` captures the calls

@@ -54,13 +54,15 @@ programs' pools hold (``BUDGET_FRACTION`` of the card), and by
 least recently used are evicted and their memory freed.
 
 The kernel wrappers count a launch when they are called, which under
-capture is not a launch.  Each capture's counter changes are taken back
-out; a call adds those of the parts that always run (the encode, the
+capture is not a launch.  Each capture's changes of the registered
+counters (``utils/observe.py``) are taken back out, by name; a call adds those of the parts that always run (the encode, the
 first chunk, the result) and leaves those of the guarded chunks pending
 beside a copy of the graph's own count of the chunks that ran
 (``_ran``, on its way to pinned host memory); ``settle`` adds them once
 the call is done.  A decode's finalization calls ``settle`` after its
-host reads, so the counters keep meaning launches on the card.
+host reads, so the counters keep meaning launches on the card.  A
+replay runs no Python, so each call first brings the kernels' caches up
+to date (``ops/cuda/build.py`` ``refresh``), as an eager call would.
 
 ``StepGraphs`` compiles a step that writes new state into the caller's
 tensors (the train step, JAX's jitted step with params and optimizer
@@ -80,14 +82,8 @@ from typing import Callable, Optional, Sequence
 
 import torch
 
-from ..models import conformer as conformer_m
-from ..ops.cuda import adpcm as adpcm_k
-from ..ops.cuda import attention as attn_k
 from ..ops.cuda import build
-from ..ops.cuda import gemm as gemm_k
-from ..ops.cuda import logmel as logmel_k
-from ..ops.cuda import lstm as lstm_k
-from ..ops.cuda import topk as topk_k
+from . import observe
 
 # the share of the card's memory that every cached program's private
 # pool may hold together: a program holds ~82 MB a million batch samples
@@ -103,15 +99,6 @@ STEP_BUDGET_FRACTION = 0.5
 # most UNROLL - 1 identity steps after an early stop; on the CPU one host
 # read of ``done`` a chunk
 UNROLL = 4
-
-# every kernel launch counter, the Conformer's blocks and the products
-# that K7 did not take, (module, attribute)
-COUNTERS = ((logmel_k, "launches"), (lstm_k, "launches"),
-            (lstm_k, "bf16_launches"), (topk_k, "launches"),
-            (topk_k, "fused_launches"), (adpcm_k, "launches"),
-            (lstm_k, "bwd_launches"), (lstm_k, "bwd_bf16_launches"),
-            (attn_k, "launches"), (conformer_m, "blocks"),
-            (gemm_k, "launches"), (gemm_k, "fallbacks"))
 
 _cache: "OrderedDict[tuple, Graphed]" = OrderedDict()
 _lock = threading.RLock()
@@ -257,12 +244,6 @@ def tensor_ids(*trees) -> tuple:
     return tuple(out)
 
 
-def lm_key(dlm) -> tuple:
-    """Everything of a ``DeviceNgramLM`` that its probes read."""
-    return (dlm.order, dlm.probes, dlm.unk_id, dlm.hashed, dlm._bos_id,
-            tensor_ids(dlm.tbls, dlm.uni))
-
-
 # --------------------------------------------------------------------------
 # the loop, eager
 # --------------------------------------------------------------------------
@@ -289,14 +270,9 @@ def run_loop(loop, inputs: Sequence[torch.Tensor], unroll: int,
 # --------------------------------------------------------------------------
 # the loop, as CUDA graphs
 # --------------------------------------------------------------------------
-def _counts() -> list:
-    return [getattr(mod, attr) for mod, attr in COUNTERS]
-
-
-def _add_counts(delta) -> None:
-    for (mod, attr), d in zip(COUNTERS, delta):
-        if d:
-            setattr(mod, attr, getattr(mod, attr) + d)
+def _plus(a: dict, b: dict) -> dict:
+    """Two counter changes (``observe.count_changes``) summed, by name."""
+    return {n: a.get(n, 0) + b.get(n, 0) for n in {**a, **b}}
 
 
 def _warm_up(dev, fn) -> torch.cuda.Stream:
@@ -321,7 +297,7 @@ def _capture(fn, pool, stream, may_be_empty: bool = False,
     ``keep`` the graph is kept uninstantiated, a part for ``_Composed``.
     A failed capture raises."""
     graph = torch.cuda.CUDAGraph(keep_graph=keep)
-    before = _counts()
+    before = observe.counts()
     # no cyclic garbage collection while capturing: a destructor it ran
     # (a graph's, an event's) would call CUDA on this thread mid-capture
     collecting = gc.isenabled()
@@ -349,15 +325,16 @@ def _capture(fn, pool, stream, may_be_empty: bool = False,
         else:
             warnings.warn_explicit(w.message, w.category, w.filename,
                                    w.lineno)
-    delta = [a - b for a, b in zip(_counts(), before)]
-    _add_counts([-d for d in delta])    # a capture launches nothing
+    delta = observe.count_changes(before)
+    # a capture launches nothing
+    observe.add_counts({n: -d for n, d in delta.items()})
     return (graph, delta), out
 
 
 def _replay(graph_delta) -> None:
     graph, delta = graph_delta
     graph.replay()
-    _add_counts(delta)
+    observe.add_counts(delta)
 
 
 # the launch counts of the guarded chunks that calls replayed, waiting for
@@ -379,7 +356,7 @@ def settle(wait: bool = False) -> None:
             elif not event.query():
                 return
             _pending.popleft()
-            _add_counts(cum[int(ran)])
+            observe.add_counts(cum[int(ran)])
 
 
 class _Composed:
@@ -480,7 +457,7 @@ class Graphed:
             parts.append(g)
             guarded.append(not first)
             if first:
-                fixed = [a + b for a, b in zip(fixed, delta)]
+                fixed = _plus(fixed, delta)
             else:
                 deltas.append(delta)
         self.chunks = len(deltas) + 1
@@ -491,13 +468,13 @@ class Graphed:
         if g is not None:
             parts.append(g)
             guarded.append(False)
-            fixed = [a + b for a, b in zip(fixed, delta)]
+            fixed = _plus(fixed, delta)
         self._parts = parts             # their pool stays while they do
         self._exec = _Composed(parts, guarded, self.state["done"])
         self._fixed = fixed
-        cum = [[0] * len(fixed)]
+        cum = [{}]
         for delta in deltas:
-            cum.append([a + b for a, b in zip(cum[-1], delta)])
+            cum.append(_plus(cum[-1], delta))
         self._cum = cum
 
     def _chunk(self, loop, start: int, stop: int, count: bool) -> None:
@@ -521,7 +498,7 @@ class Graphed:
         stream = torch.cuda.current_stream(self.device)
         if self._last is not None:
             stream.wait_event(self._last)
-        gemm_k.refresh()        # K7's weight splits, if a weight changed
+        build.refresh()         # the kernels' caches of changed weights
         for dst, src in zip(self.inputs, inputs):
             dst.copy_(src)
         if self._exec is None:
@@ -531,7 +508,7 @@ class Graphed:
             ran = torch.empty((), dtype=torch.int32, pin_memory=True)
             ran.copy_(self._ran, non_blocking=True)
             _pending.append((stream.record_event(), ran, self._cum))
-        _add_counts(self._fixed)
+        observe.add_counts(self._fixed)
         out = clone_tree(self.out)
         self._last = stream.record_event()
         self.replays += 1
@@ -619,7 +596,8 @@ def _commit(fn, inputs, check: bool = False, written=None):
 
 def _bump_versions(tree) -> None:
     """Count a replay's writes into the state's version counters, as the
-    eager copies would (K7's weight splits key on them)."""
+    eager copies would: a kernel's cache of a tensor keys on its
+    version."""
     if isinstance(tree, torch.Tensor):
         torch.autograd.graph.increment_version(tree)
     elif isinstance(tree, dict):

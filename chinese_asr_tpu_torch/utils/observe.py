@@ -46,6 +46,13 @@ carry its ``detail``.  A span is a host range (a ``cpu_op`` row, not a
 The spans of one chunk share its index, those of one step its number.
 No span but ``asr.encode`` sits inside a function a CUDA graph
 captures: there it runs only at capture.
+
+Counters (``register_counters``) are module-level ints that count what
+the card ran: each kernel module's launches and fallbacks, the
+Conformer's blocks.  A module registers its own where it defines them,
+each under ``<module's last name>.<attribute>`` (``topk.launches``);
+``utils/graphs.py`` takes a capture's changes back out and adds them at
+each replay, so the counters keep meaning work on the card.
 """
 
 from __future__ import annotations
@@ -54,8 +61,9 @@ import contextlib
 import json
 import os
 import random
+import sys
 import time
-from typing import Callable, List, Optional, Sequence, Union
+from typing import Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -176,3 +184,47 @@ def span(name: str, detail: Union[str, Callable[[], str], None] = None):
         detail = detail()
     return torch._C._profiler._RecordFunctionFast(name, (),
                                                   {"detail": str(detail)})
+
+
+# name -> (module, attribute) of every registered counter, in the order
+# of registration
+_counters: Dict[str, tuple] = {}
+
+
+def register_counters(module: str, *attrs: str) -> None:
+    """Register the module-level int counters ``attrs`` of the module
+    named ``module`` (its ``__name__``, while it imports), each under
+    ``<module's last name>.<attribute>``.  Raises where another module's
+    counter has that name."""
+    mod = sys.modules[module]
+    for attr in attrs:
+        name = f"{module.rsplit('.', 1)[-1]}.{attr}"
+        old = _counters.get(name)
+        if old is not None and (old[0].__name__, old[1]) != (module, attr):
+            raise ValueError(f"counter {name} of {module} is already "
+                             f"{old[0].__name__}.{old[1]}")
+        _counters[name] = (mod, attr)
+
+
+def counters() -> Dict[str, tuple]:
+    """Every registered counter: name -> (module, attribute)."""
+    return dict(_counters)
+
+
+def counts() -> Dict[str, int]:
+    """Every registered counter's value, by name."""
+    return {n: getattr(mod, attr) for n, (mod, attr) in _counters.items()}
+
+
+def count_changes(before: Dict[str, int]) -> Dict[str, int]:
+    """The counters that moved since ``counts()`` gave ``before`` (a
+    counter registered since counts from 0), by name."""
+    return {n: v - before.get(n, 0) for n, v in counts().items()
+            if v != before.get(n, 0)}
+
+
+def add_counts(delta: Dict[str, int]) -> None:
+    """Add ``delta`` (name -> change) to the registered counters."""
+    for n, d in delta.items():
+        mod, attr = _counters[n]
+        setattr(mod, attr, getattr(mod, attr) + d)

@@ -40,9 +40,7 @@ every phase passed):
    B=128 and at H=16 (the simple kernel), with random non-prefix masks and
    nonzero final-state cotangents; print its plan and time it beside its
    bound, its twin and cuDNN's backward of one bidirectional layer at B=32
-   and B=128; print the command that times another tree's K2, K2-bf16,
-   K2-bwd and K2-bwd-bf16 beside this one's
-   (``chinese_asr_tpu_torch/tools/lstm_ab.py``);
+   and B=128;
 2f-bf16. hold K2-bwd-bf16, K2-bwd's bf16 instance (bf16 training: pass 1
    as three stages, pass 2 a cluster kernel of bf16's own plan), against
    its bf16 twin at the same shapes and each stage kernel against its
@@ -781,26 +779,35 @@ def _eager_transcribe(asr, wavs, scales=None, unroll: int = 1):
     return beam.finalize_best(best, asr.vocab).pred_text
 
 
-def _launch_profile(torch, fn) -> dict:
-    """One call of ``fn`` under torch.profiler (host and card): the
-    kernels' busy ms and count on the card, the host's launch calls
+def _launch_profile(torch, fn, mark=None) -> dict:
+    """One call of ``fn`` under torch.profiler (host and card), the
+    session's second: the first is its schedule's warm-up step, traced and
+    dropped, since a session can lose its first device records (from none
+    to all of 64 in a run of this script on torch 2.11; ROADMAP B9).
+    ``mark`` is called between the two calls.  Returns
+    the kernels' busy ms and count on the card, the host's launch calls
     (kernels, graphs, copies, memsets; ``_LAUNCH_CALLS``), of which graph
     launches, the host's waits for the card (``_SYNC_CALLS``, less the
     profile's own final synchronize), and the card's (us, count, name)
-    rows."""
+    rows (not the step's own ``ProfilerStep#`` span)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for step in range(2):
+            if step and mark is not None:
+                mark()
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
     out = dict(busy_ms=0.0, kernels=0, launch_calls=0, graph_launches=0,
                host_syncs=-1, rows=[])
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA:
             us = getattr(e, "self_device_time_total",
                          getattr(e, "self_cuda_time_total", 0))
-            if us > 0:
+            if us > 0 and not e.key.startswith("ProfilerStep"):
                 out["busy_ms"] += us / 1e3
                 out["kernels"] += e.count
                 out["rows"].append((us, e.count, e.key))
@@ -820,14 +827,16 @@ def _fullest_trace(torch, fn, counters) -> tuple:
     """(``_launch_profile`` of one call of ``fn``, the launch counters'
     increase over that call): of TRACE_TRIES traced calls, the one whose
     trace holds the most kernel records.  The card's trace of a call can
-    lose records (CUPTI: a trace of the same graphs has come back with
-    a tenth of its kernels missing), and each call of the same graphs on
-    the same inputs runs the same kernels, so the fullest trace is the
-    one to hold against the counters."""
+    lose records (a session's first ones, which ``_launch_profile``'s
+    warm-up step takes; earlier, a tenth of a trace of the same graphs),
+    and each call of the same graphs on the same inputs runs the same
+    kernels, so the fullest trace is the one to hold against the
+    counters, over the traced call alone."""
     best = None
     for _ in range(TRACE_TRIES):
-        before = {n: getattr(m, a) for n, (m, a) in counters.items()}
-        prof = _launch_profile(torch, fn)
+        before = {}
+        prof = _launch_profile(torch, fn, mark=lambda: before.update(
+            {n: getattr(m, a) for n, (m, a) in counters.items()}))
         counted = {n: getattr(m, a) - before[n]
                    for n, (m, a) in counters.items()}
         if best is None or prof["kernels"] > best[0]["kernels"]:
@@ -886,12 +895,15 @@ def _graph_vs_eager(np, torch, asr, wavs, scales=None,
 
 # each kernel of ours by its name in the card's trace, and the launch
 # counters (``_kernel_counters``) that count it
-_TRACE_KERNELS = (("K1", ("logmel_tc_kernel",), ("logmel",)),
+_TRACE_KERNELS = (("K1", ("logmel_tc_kernel",), ("logmel.launches",)),
                   ("K2", ("bilstm_tc_kernel<", "bilstm_bf16_tc_kernel<",
-                          "bilstm_kernel<"), ("lstm", "lstm_bf16")),
-                  ("K3/K4", ("topk_kernel<",), ("topk", "topk_fused")),
-                  ("K5", ("adpcm_decode_kernel",), ("adpcm",)),
-                  ("K6", ("beam_attention_kernel<",), ("attention",)))
+                          "bilstm_kernel<"),
+                   ("lstm.launches", "lstm.bf16_launches")),
+                  ("K3/K4", ("topk_kernel<",),
+                   ("topk.launches", "topk.fused_launches")),
+                  ("K5", ("adpcm_decode_kernel",), ("adpcm.launches",)),
+                  ("K6", ("beam_attention_kernel<",),
+                   ("attention.launches",)))
 
 
 def _ab_line(label: str, r: dict, gpu: str) -> str:
@@ -1248,8 +1260,9 @@ def _phase_serving(np, torch, fails, ASR, cfg, wavs, counters, gpu, golden):
     fails.check(same, "serve: every reply equals transcribe_wavs of the "
                       "same 32 wavs, peak scales and row order, exactly")
     fails.check(all(served_counts[n] > 0
-                    for n in ("logmel", "lstm", "topk", "attention"))
-                and served_counts["topk_fused"] == 0,
+                    for n in ("logmel.launches", "lstm.launches",
+                              "topk.launches", "attention.launches"))
+                and served_counts["topk.fused_launches"] == 0,
                 f"serve: kernels launched in the served batch "
                 f"{served_counts}")
     in_order = [row_of.get(i) for i in range(len(wavs))] == \
@@ -1565,7 +1578,8 @@ def _phase_entry_points(np, torch, fails, ASR, cfg, wavs, wavs128, rng,
                       in counters.items()}
         fails.check(res["card"]["pred"] == expected[mode]
                     and res["card"]["cer"] == res["cpu"]["cer"]
-                    and ec["logmel"] > 0 and ec["lstm"] > 0,
+                    and ec["logmel.launches"] > 0
+                    and ec["lstm.launches"] > 0,
                     f"evaluate_manifest golden {mode} on the card: "
                     f"expected.json's predictions, CER "
                     f"{res['card']['cer']:.4f} (CPU {res['cpu']['cer']:.4f}); "
@@ -1604,8 +1618,7 @@ def lstm_bwd_case(torch, lstm, g, Tn, B, h, dtype=None):
     """K2-bwd's operands at [Tn, B, h] on ``g``'s device: random gates and
     W_hh, random non-prefix masks (a quarter of the steps masked), ys from
     K2, random cotangents of ys and of the final state; all float32, or
-    all rounded to ``dtype`` with ys from K2's instance of that type.
-    Also used by chinese_asr_tpu_torch/tools/lstm_ab.py."""
+    all rounded to ``dtype`` with ys from K2's instance of that type."""
     dev = g.device
     dt = dtype or torch.float32
 
@@ -1710,10 +1723,6 @@ def _phase_k2_bwd(np, torch, fails, dev, lstm_k):
                        plan=plan)
         del big
     at.clear()
-    print("K2, K2-bf16, K2-bwd and K2-bwd-bf16 against another tree on "
-          "this card (report): python3 chinese_asr_tpu_torch/tools/"
-          "lstm_ab.py DIR, DIR another commit unpacked with git archive",
-          flush=True)
     r32 = rows[32]
     return dict(
         name="K2-bwd BiLSTM backward", route="cuda",
@@ -1959,7 +1968,7 @@ def _fit_run(np, torch, fails, dev, gpu, counters, cfg, manifest, vocab,
                  if k[0] == "featurize_batch" and k not in keys)
     full = dict.fromkeys(counters, 0)
     full.update(want)
-    full["logmel"] += fronts
+    full["logmel.launches"] += fronts
     fails.check(launched == full, f"{label}: kernels launched in {steps} "
                                   f"steps and one eval {launched}, wanted "
                                   f"{full} (the first step, the first eval "
@@ -2068,10 +2077,11 @@ def _fit_run(np, torch, fails, dev, gpu, counters, cfg, manifest, vocab,
 # launch counters that count it (one K2-bwd-bf16 call runs its stages and
 # pass 2, counted once: pass 2 stands for it)
 _TRACE_TRAIN = (("K2", ("bilstm_tc_kernel<", "bilstm_bf16_tc_kernel<",
-                        "bilstm_kernel<"), ("lstm", "lstm_bf16")),
+                        "bilstm_kernel<"),
+                 ("lstm.launches", "lstm.bf16_launches")),
                 ("K2-bwd", ("bilstm_bwd_tc_kernel<", "bilstm_bf16_bwd2_kernel",
                             "bilstm_bwd_kernel<"),
-                 ("lstm_bwd", "lstm_bwd_bf16")))
+                 ("lstm.bwd_launches", "lstm.bwd_bf16_launches")))
 
 
 def _step_ab(np, torch, fails, tr, batch, label, gpu,
@@ -2470,16 +2480,19 @@ def _phase_training(np, torch, fails, dev, gpu, counters, build_dir):
     # 1 and K2 4; the first step and the first eval each run an eager
     # warm-up before their capture: K2 4 and K2-bwd 4 more, K2 4 more
     f32, tr = _fit_run(np, torch, fails, dev, gpu, counters, cfg, manifest,
-                       vocab, dict(logmel=steps + 1, lstm=4 * steps + 12,
-                                   lstm_bwd=4 * steps + 4), "training")
+                       vocab, {"logmel.launches": steps + 1,
+                               "lstm.launches": 4 * steps + 12,
+                               "lstm.bwd_launches": 4 * steps + 4},
+                       "training")
     ckpt = f32.pop("ckpt")
     del tr
     graphs.clear()
     cfg16 = cfg.with_("train", compute_dtype="bfloat16", save_dir=saves[1])
     bf16, tr = _fit_run(np, torch, fails, dev, gpu, counters, cfg16, manifest,
-                        vocab, dict(logmel=steps + 1, lstm=8,
-                                    lstm_bf16=4 * steps + 4,
-                                    lstm_bwd_bf16=4 * steps + 4),
+                        vocab, {"logmel.launches": steps + 1,
+                                "lstm.launches": 8,
+                                "lstm.bf16_launches": 4 * steps + 4,
+                                "lstm.bwd_bf16_launches": 4 * steps + 4},
                         "training bf16")
     bf16.pop("ckpt")
     del tr
@@ -2677,8 +2690,10 @@ def _phase_families(np, torch, fails, ASR, base_cfg, wavs, rng, dev,
         bilstm = (cfg.encoder.encoder_type == "LSTM"
                   and cfg.encoder.bidirectional)
         want = dict.fromkeys(counters, 0)
-        want.update(logmel=1, topk=40, lstm=4 if bilstm else 0,
-                    attention=40 if cfg.attention.heads == 1 else 0)
+        want.update({"logmel.launches": 1, "topk.launches": 40,
+                     "lstm.launches": 4 if bilstm else 0,
+                     "attention.launches":
+                         40 if cfg.attention.heads == 1 else 0})
         fails.check(c1 == want, f"3f {name}: kernels launched {c1} by a "
                                 f"replay, wanted {want}")
         fails.check(t1 == t2 and len(t1) == len(wavs)
@@ -2752,7 +2767,8 @@ def _phase_families(np, torch, fails, ASR, base_cfg, wavs, rng, dev,
                     num_eval_steps=1000, seed=0,
                     save_dir=os.path.join(build_dir, "family_ckpt"))
     fit, tr = _fit_run(np, torch, fails, dev, gpu, counters, cfg, manifest,
-                       vocab, dict(logmel=steps + 1), "3f training CNN1D_RNN",
+                       vocab, {"logmel.launches": steps + 1},
+                       "3f training CNN1D_RNN",
                        host_trace=False)
     init = las.init_params(cfg, 0)
     moved = [float((tr.params["encoder"]["front"]["convs"][i][k].cpu()
@@ -2783,23 +2799,14 @@ MESH_NEAR_TIE = 1 / 128
 
 
 def _kernel_counters():
-    """Each kernel's launch counter (module, attribute), by kernel name."""
-    from chinese_asr_tpu_torch.ops.cuda import adpcm as adpcm_k
-    from chinese_asr_tpu_torch.ops.cuda import attention as attn_k
-    from chinese_asr_tpu_torch.ops.cuda import gemm as gemm_k
-    from chinese_asr_tpu_torch.ops.cuda import logmel as logmel_k
-    from chinese_asr_tpu_torch.ops.cuda import lstm as lstm_k
-    from chinese_asr_tpu_torch.ops.cuda import topk as topk_k
-    return {"logmel": (logmel_k, "launches"),
-            "lstm": (lstm_k, "launches"),
-            "lstm_bf16": (lstm_k, "bf16_launches"),
-            "topk": (topk_k, "launches"),
-            "topk_fused": (topk_k, "fused_launches"),
-            "adpcm": (adpcm_k, "launches"),
-            "lstm_bwd": (lstm_k, "bwd_launches"),
-            "lstm_bwd_bf16": (lstm_k, "bwd_bf16_launches"),
-            "attention": (attn_k, "launches"),
-            "gemm": (gemm_k, "launches")}
+    """The program's registered counters (``utils/observe.py``), name ->
+    (module, attribute): every kernel's launches and fallbacks and the
+    Conformer's blocks, once the modules that register them are
+    imported."""
+    import chinese_asr_tpu_torch.api  # noqa: F401
+    import chinese_asr_tpu_torch.models.conformer  # noqa: F401
+    from chinese_asr_tpu_torch.utils import observe
+    return observe.counters()
 
 
 def _mesh_decode(torch, np, asr, wavs, counters):
@@ -3072,7 +3079,8 @@ def _phase_mesh(np, torch, fails, gpu, dev, cfg, wavs, texts_of, arpa3,
                 f"the card; the decode issued {run['collectives']['calls']} "
                 f"collectives (none: a 1x1 mesh decodes as one device)")
     want = dict.fromkeys(counters, 0)
-    want.update(logmel=1, lstm=4, topk=40, attention=40)
+    want.update({"logmel.launches": 1, "lstm.launches": 4,
+                 "topk.launches": 40, "attention.launches": 40})
     fails.check(run["launches"] == want,
                 f"mesh 1x1 (NCCL) beam_bw16: launches {run['launches']}")
     fails.check(run["texts"] == texts_of["beam_bw16"] and run["stable"],
@@ -3114,18 +3122,21 @@ def _phase_mesh(np, torch, fails, gpu, dev, cfg, wavs, texts_of, arpa3,
     outs = launch.run_ranks(_mesh_rank, MESH_SHAPE[0] * MESH_SHAPE[1],
                             args=(spec,), device_type="cuda", timeout_s=600)
     ranks_s = time.time() - t_spawn
-    decode_want = {"beam_bw16": dict(logmel=1, lstm=4, topk=40,
-                                     attention=40),
-                   "greedy": dict(logmel=1, lstm=4),
-                   "beam_bw16_lm2": dict(logmel=1, lstm=4, topk=None,
-                                         attention=None),
-                   "beam_bw16_lm1": dict(logmel=1, lstm=4, topk=None,
-                                         attention=None)}
+    front = {"logmel.launches": 1, "lstm.launches": 4}
+    decode_want = {"beam_bw16": {**front, "topk.launches": 40,
+                                 "attention.launches": 40},
+                   "greedy": front,
+                   "beam_bw16_lm2": {**front, "topk.launches": None,
+                                     "attention.launches": None},
+                   "beam_bw16_lm1": {**front, "topk.launches": None,
+                                     "attention.launches": None}}
     steps = MESH_TRAIN_STEPS
-    train_want = {"float32": dict(logmel=steps, lstm=4 * steps,
-                                  lstm_bwd=4 * steps),
-                  "bfloat16": dict(logmel=steps, lstm_bf16=4 * steps,
-                                   lstm_bwd_bf16=4 * steps)}
+    train_want = {"float32": {"logmel.launches": steps,
+                              "lstm.launches": 4 * steps,
+                              "lstm.bwd_launches": 4 * steps},
+                  "bfloat16": {"logmel.launches": steps,
+                               "lstm.bf16_launches": 4 * steps,
+                               "lstm.bwd_bf16_launches": 4 * steps}}
     for o in outs:
         r = o["rank"]
         fails.check(o["backend"] == "gloo" and o["device"] == "cuda:0",
@@ -4042,40 +4053,49 @@ def main() -> int:
     # mode, ASR, batch, fused stage 1, the kernels that must run: each with
     # its exact launches per batch (4 encoder layers, 40 decode steps, as
     # random weights never stop early, one ADPCM decode) or None for "> 0"
-    any3 = dict.fromkeys(("logmel", "lstm", "topk", "attention"))
-    beam = {"logmel": 1, "lstm": 4, "topk": 40, "attention": 40}
+    any3 = dict.fromkeys(("logmel.launches", "lstm.launches", "topk.launches",
+                          "attention.launches"))
+    beam = {"logmel.launches": 1, "lstm.launches": 4, "topk.launches": 40,
+            "attention.launches": 40}
+    beam16 = {"logmel.launches": 1, "lstm.bf16_launches": 4,
+              "topk.launches": 40, "attention.launches": 40}
     runs_spec = (
         ("beam_bw16", ASR(bw=16, cfg=cfg, seed=0), wavs, False, beam),  # cuda
         ("greedy", ASR(bw=None, cfg=cfg, seed=0), wavs, False,
-         dict.fromkeys(("logmel", "lstm"))),
+         dict.fromkeys(("logmel.launches", "lstm.launches"))),
         ("beam_bw16_b128", ASR(bw=16, cfg=cfg, seed=0), wavs128, False, beam),
         ("beam_bw16_lm2", lm_asrs[3], wavs, False, any3),
         ("beam_bw16_lm2_fused", lm_asrs[3], wavs, True,
-         dict.fromkeys(("logmel", "lstm", "topk_fused", "attention"))),
+         dict.fromkeys(("logmel.launches", "lstm.launches",
+                        "topk.fused_launches", "attention.launches"))),
         ("beam_bw16_lm2_o5", lm_asrs[5], wavs, False, any3),
         ("beam_bw16_lm1", lm_asrs["first"], wavs, False, any3),
         ("beam_bw16_bf16", ASR(bw=16, cfg=cfg, seed=0,
                                compute_dtype="bfloat16"), wavs, False,
-         {"logmel": 1, "lstm_bf16": 4, "topk": 40, "attention": 40}),
+         beam16),
         ("beam_bw16_b128_bf16", ASR(bw=16, cfg=cfg, seed=0,
                                     compute_dtype="bfloat16"), wavs128,
-         False, {"logmel": 1, "lstm_bf16": 4, "topk": 40, "attention": 40}),
+         False, beam16),
         ("beam_bw16_mulaw", ASR(bw=16, cfg=cfg, seed=0, wire="mulaw"), wavs,
-         False, {"logmel": 1, "lstm": 4, "topk": 40, "attention": 40}),
+         False, beam),
         ("beam_bw16_adpcm", asr_adpcm, wavs, False,
-         {"logmel": 1, "lstm": 4, "topk": 40, "adpcm": 1, "attention": 40}))
+         {**beam, "adpcm.launches": 1}))
     # the bf16 and lossy-wire runs, reported against the f32 flat wire's
     lossy_suffixes = ("_bf16", "_mulaw", "_adpcm")
     t3_lossy = 0.0
-    # the run each kernel's launch count is read from: K1-K3 the main
-    # path's, K4 the fused LM path's
-    launches_from = {"logmel": "beam_bw16", "lstm": "beam_bw16",
-                     "lstm_bf16": "beam_bw16_bf16", "topk": "beam_bw16",
-                     "topk_fused": "beam_bw16_lm2_fused",
-                     "adpcm": "beam_bw16_adpcm", "attention": "beam_bw16",
-                     "lstm_bwd": "training",
-                     "lstm_bwd_bf16": "training bf16",
-                     "gemm": None}          # K7: the Conformer's alone
+    # each kernel's launch counter and the run its count is read from:
+    # K1-K3 the main path's, K4 the fused LM path's
+    launches_from = {
+        "logmel": ("logmel.launches", "beam_bw16"),
+        "lstm": ("lstm.launches", "beam_bw16"),
+        "lstm_bf16": ("lstm.bf16_launches", "beam_bw16_bf16"),
+        "topk": ("topk.launches", "beam_bw16"),
+        "topk_fused": ("topk.fused_launches", "beam_bw16_lm2_fused"),
+        "adpcm": ("adpcm.launches", "beam_bw16_adpcm"),
+        "attention": ("attention.launches", "beam_bw16"),
+        "lstm_bwd": ("lstm.bwd_launches", "training"),
+        "lstm_bwd_bf16": ("lstm.bwd_bf16_launches", "training bf16"),
+        "gemm": ("gemm.launches", None)}    # K7: the Conformer's alone
     paths, texts_of = {}, {}
     for mode, asr, batch, fused, need in runs_spec:
         t_run = time.time()
@@ -4131,8 +4151,9 @@ def main() -> int:
               f"{audio_s / wall:.1f} audio-s/s on {gpu}; launches {c1}; "
               f"first transcript {t1[0][:60]!r}", flush=True)
         for n in kernels:
-            if launches_from[n] == mode:
-                kernels[n]["launches"] = c1[n]
+            ctr, run = launches_from[n]
+            if run == mode:
+                kernels[n]["launches"] = c1[ctr]
         if mode.endswith(lossy_suffixes):
             paths[mode]["wire"] = _wire_cost(np, torch, asr, batch)
             base = texts_of["beam_bw16_b128" if len(batch) == 128
@@ -4147,10 +4168,11 @@ def main() -> int:
     paths["beam_bw16"]["wire"] = _wire_cost(np, torch, runs_spec[0][1], wavs)
     print(f"beam_bw16: wire {json.dumps(paths['beam_bw16']['wire'])}; the "
           f"bf16 and lossy-wire runs took {t3_lossy:.1f} s", flush=True)
-    kernels["topk"]["launches_lm1"] = paths["beam_bw16_lm1"]["launches"]["topk"]
+    lm1 = paths["beam_bw16_lm1"]["launches"]
+    kernels["topk"]["launches_lm1"] = lm1["topk.launches"]
     print(f"beam_bw16_lm1: K3 launched {kernels['topk']['launches_lm1']} times "
-          f"per batch (k=20 proposals), K4 "
-          f"{paths['beam_bw16_lm1']['launches']['topk_fused']}", flush=True)
+          f"per batch (k=20 proposals), K4 {lm1['topk.fused_launches']}",
+          flush=True)
     os.environ["CHINESE_ASR_PALLAS_FUSED"] = "0"
     differ = sum(a != b for a, b in zip(texts_of["beam_bw16_lm2"],
                                         texts_of["beam_bw16_lm2_fused"]))
@@ -4325,7 +4347,7 @@ def main() -> int:
     for name, kw in (("bf16", dict(compute_dtype="bfloat16")),
                      ("mulaw", dict(wire="mulaw")),
                      ("adpcm", dict(wire="adpcm"))):
-        k2 = "lstm_bf16" if name == "bf16" else "lstm"
+        k2 = "lstm.bf16_launches" if name == "bf16" else "lstm.launches"
         for mode, bw in (("greedy", None), ("beam_bw4", 4)):
             def golden_asr(**more):
                 return ASR(ckpt_path=os.path.join(gold, "model.ckpt"),
@@ -4336,7 +4358,7 @@ def main() -> int:
                    for n, (m, a) in counters.items()}
             cpu = golden_asr(device="cpu").transcribe_files(gpaths)
             fails.check(card == cpu and ran[k2] > 0
-                        and (ran["adpcm"] > 0) == (name == "adpcm"),
+                        and (ran["adpcm.launches"] > 0) == (name == "adpcm"),
                         f"golden shard {mode} {name} on the card (through "
                         f"{k2}{' and K5' if name == 'adpcm' else ''}) equals "
                         f"the CPU port; equals expected.json: "
@@ -4384,7 +4406,7 @@ def main() -> int:
                                         build.BUILD_DIR)
     for n in ("logmel", "topk", "lstm", "attention"):
         kernels[n]["launches_families"] = {
-            run: paths["families"][run]["kernel_launches"][n]
+            run: paths["families"][run]["kernel_launches"][launches_from[n][0]]
             for run, _ in FAMILY_RUNS}
     print(f"phase 3f: {time.time() - t3f:.1f} s", flush=True)
     from chinese_asr_tpu_torch.utils import graphs
@@ -4396,7 +4418,7 @@ def main() -> int:
                                         build.BUILD_DIR)
     for n, run in (("lstm_bwd", paths["training"]),
                    ("lstm_bwd_bf16", paths["training"]["bf16"])):
-        kernels[n]["launches"] = run["kernel_launches"][n]
+        kernels[n]["launches"] = run["kernel_launches"][launches_from[n][0]]
         kernels[n]["launches_per_step"] = kernels[n]["launches"] // run["steps"]
     print(f"phase 4: {time.time() - t4:.1f} s", flush=True)
 
@@ -4408,10 +4430,11 @@ def main() -> int:
     os.remove(arpa3)
     mesh_runs = paths["mesh"]["gloo_2x2"]
     for n in kernels:
+        ctr = launches_from[n][0]
         kernels[n]["launches_mesh_2x2_rank0"] = {
-            "beam_bw16": mesh_runs["beam_bw16"]["launches"][n],
-            "train_f32": mesh_runs["train_float32"]["launches"][n],
-            "train_bf16": mesh_runs["train_bfloat16"]["launches"][n]}
+            "beam_bw16": mesh_runs["beam_bw16"]["launches"][ctr],
+            "train_f32": mesh_runs["train_float32"]["launches"][ctr],
+            "train_bf16": mesh_runs["train_bfloat16"]["launches"][ctr]}
     print(f"phase 4b: {time.time() - t4b:.1f} s", flush=True)
 
     # ---- phase 5: report -----------------------------------------------------

@@ -295,6 +295,35 @@ def test_plan_refuses_rows_off_the_16_byte_grain(a, dtype):
         ak.plan(2, 4, 10, 8, torch.float16)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("a", [6, 100, 128, 4096])
+def test_grain_puts_every_width_on_the_16_byte_grain(a, dtype):
+    """``grain``, the width the wrapper launches K6 at: the least width at
+    or above ``a`` whose key row is whole 16-byte units (a = 100 stays in
+    f32 and goes to 104 in bf16; a = 6 goes to 8 in both; a = 128 stays).
+    ``plan`` refuses a row off the grain and plans the grain's, except
+    where the two key tiles overflow shared memory (a = 4096), where the
+    wrapper raises.  The zero columns leave every score as it was."""
+    n = 16 // (2 if dtype == torch.bfloat16 else 4)
+    ap = ak.grain(a, dtype)
+    assert ap % n == 0 and ap - n < a <= ap
+    (m, q, kk, v), _ = inputs(2, 4, 9, a, seed=a, dtype=torch.float64)
+    pad = lambda t: torch.nn.functional.pad(t, (0, ap - a))
+    torch.testing.assert_close(
+        ak.beam_scores_softmax_plain(m, pad(q), pad(kk), pad(v)),
+        ak.beam_scores_softmax_plain(m, q, kk, v), atol=1e-12, rtol=0)
+    for B, k, L in ((128, 16, 300), (1, 1, 7), (300, 4, 3100)):
+        if ap != a:
+            with pytest.raises(ValueError):
+                ak.plan(B, k, L, a, dtype)
+        if a < 4096:
+            check_plan(B, k, L, ap, dtype)
+        else:
+            with pytest.raises(ValueError):
+                ak.plan(B, k, L, ap, dtype)
+
+
 # ---- routing ------------------------------------------------------------
 def test_attend_beam_routes_one_head_through_the_wrapper(monkeypatch):
     calls = []
@@ -342,9 +371,12 @@ def test_attend_beam_keeps_several_heads_on_the_plain_path(monkeypatch):
 
 
 def test_wrapper_counts_no_launch_on_the_cpu():
-    (m, q, kk, v), _ = inputs(2, 4, 9, 8, seed=13)
+    """On the CPU the twin runs, counted as no launch, also at a width off
+    K6's grain."""
     before = ak.launches
-    ak.beam_scores_softmax(m, q, kk, v)
+    for a in (8, 7):
+        (m, q, kk, v), _ = inputs(2, 4, 9, a, seed=13)
+        ak.beam_scores_softmax(m, q, kk, v)
     assert ak.launches == before
     with pytest.raises(ValueError):
         ak.beam_scores_softmax(m[:, :5], q, kk, v)

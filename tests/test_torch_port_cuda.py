@@ -26,7 +26,6 @@ import torch
 from chinese_asr_tpu_torch import config as tcfg
 from chinese_asr_tpu_torch.audio import features as tfeat
 from chinese_asr_tpu_torch.models import conformer as tconf
-from chinese_asr_tpu_torch.ops import self_attention as tsa
 from chinese_asr_tpu_torch.ops.cuda import adpcm as tadpcm
 from chinese_asr_tpu_torch.ops.cuda import attention as tattn
 from chinese_asr_tpu_torch.ops.cuda import gemm as tgemm
@@ -1919,6 +1918,11 @@ def test_beam_attention_kernel_in_a_cuda_graph(dev, dtype):
 
 
 def test_beam_attention_kernel_rejects_bad_operands(dev):
+    """Malformed operands raise, and so does a width whose key tiles
+    overflow shared memory; a key row off the 16-byte grain (7 f32 words)
+    launches K6 at ``grain(a)`` on zero-padded operands, and keys off a
+    16-byte boundary launch it on an aligned copy, each matching the
+    twin."""
     mask, q, keys, v = _attn_inputs(dev, 2, 4, 10, 8, torch.float32, seed=1)
     with torch.no_grad():
         with pytest.raises(ValueError):                  # mixed dtypes
@@ -1927,19 +1931,73 @@ def test_beam_attention_kernel_rejects_bad_operands(dev):
             tattn.beam_scores_softmax(
                 mask, q, keys.transpose(0, 1).contiguous().transpose(0, 1),
                 v)
-        with pytest.raises(ValueError):                  # 7 * 4 bytes a row
-            tattn.beam_scores_softmax(mask, q[..., :7].contiguous(),
-                                      keys[..., :7].contiguous(),
-                                      v[:7].contiguous())
+        odd = torch.empty(keys.numel() + 1, device=dev)[1:].view(
+            keys.shape).copy_(keys)                      # 4 bytes off
+        for ops in ((mask, q[..., :7].contiguous(),      # 7 * 4 bytes a row
+                     keys[..., :7].contiguous(), v[:7].contiguous()),
+                    (mask, q, odd, v)):
+            before = tattn.launches
+            got = tattn.beam_scores_softmax(*ops)
+            assert tattn.launches == before + 1
+            _attn_against_twins(got, ops)
         with pytest.raises(ValueError):                  # float64
             tattn.beam_scores_softmax(mask.double(), q.double(),
                                       keys.double(), v.double())
+        wide = _attn_inputs(dev, 2, 4, 10, 4096, torch.float32, seed=2)
+        with pytest.raises(ValueError):                  # tiles overflow
+            tattn.beam_scores_softmax(*wide)
     with pytest.raises(ValueError):                      # needs a gradient
         tattn.beam_scores_softmax(mask, q.requires_grad_(), keys, v)
     before = tattn.launches
     cpu = [t.detach().cpu() for t in (mask, q, keys, v)]
     tattn.beam_scores_softmax(*cpu)                      # the twin
     assert tattn.launches == before
+
+
+@pytest.mark.parametrize("attn_size,dtype", [(100, "bfloat16"),
+                                             (6, "float32")],
+                         ids=["a100_bf16", "a6_f32"])
+def test_beam_decode_at_widths_off_k6s_grain(dev, attn_size, dtype,
+                                             monkeypatch):
+    """``ASR(bw=4)`` at an attention width whose key row is off K6's
+    16-byte grain (200 and 24 bytes): the one-head beam decode launches
+    K6 at ``grain(a)``, each eager call within the twin's tolerance on
+    its own operands; the compiled decode gives the eager loop's tokens,
+    and ``transcribe_wavs`` transcribes."""
+    from chinese_asr_tpu_torch.api import ASR
+    from chinese_asr_tpu_torch.decode import beam
+    from chinese_asr_tpu_torch.utils import graphs
+    from torch_port_util import random_wavs
+    graphs.clear()
+    cfg = tcfg.Config().with_("attention", attn_size=attn_size)
+    asr = ASR(bw=4, cfg=cfg, device=dev, compute_dtype=dtype, seed=0)
+    wavs = random_wavs(np.random.default_rng(3), [16000, 24000, 9000])
+    feats, lens = asr._featurize(asr._upload(asr._prep(wavs, None)))
+    kernel, checked = tattn.beam_scores_softmax, []
+
+    def against_twin(*ops):
+        got = kernel(*ops)
+        _attn_against_twins(got, ops)
+        checked.append(ops[2].shape[-1])
+        return got
+
+    before = tattn.launches
+    with torch.no_grad():
+        got = beam.beam_decode_best_jit(asr.params, asr.cfg, 4, feats, lens)
+        graphs.settle(wait=True)
+        assert tattn.launches > before
+        monkeypatch.setattr(tattn, "beam_scores_softmax", against_twin)
+        before = tattn.launches
+        want = beam.beam_decode_best(asr.params, asr.cfg, 4, feats, lens)
+        monkeypatch.undo()
+    assert checked and set(checked) == {attn_size}
+    assert tattn.launches - before == len(checked)
+    assert torch.equal(got.tokens, want.tokens)
+    assert torch.equal(got.lens, want.lens)
+    before = tattn.launches
+    texts = asr.transcribe_wavs(wavs)
+    assert len(texts) == 3 and tattn.launches > before
+    graphs.clear()
 
 
 # ---- K7: the 3xTF32 GEMM (csrc/gemm.cu) ------------------------------------
@@ -1986,7 +2044,7 @@ def test_gemm_kernel_within_cublas_error(dev, M, K, N, bias, transposed):
     x, w, b = _gemm_inputs(dev, M, K, N, bias, seed=K + N, transposed=transposed)
     with torch.no_grad():
         before, fell = tgemm.launches, tgemm.fallbacks
-        y = tsa.linear(x, w, b)
+        y = tgemm.linear(x, w, b)
         torch.cuda.synchronize()
         assert (tgemm.launches - before, tgemm.fallbacks - fell) == (1, 0)
         lib = torch.nn.functional.linear(x, w.t(), b)
@@ -2010,20 +2068,30 @@ def test_gemm_kernel_edge_shapes(dev, M, K, N):
 
 
 def test_gemm_dispatch_falls_back_where_the_kernel_does_not_run(dev):
-    """``linear`` takes K7 only for float32 without a graph to record and
-    K a multiple of 8; otherwise F.linear, bit for bit, counted."""
+    """``gemm.linear`` takes K7 for float32 without a graph to record, K
+    off a multiple of 8 on zero-padded operands and x off a 16-byte
+    boundary on an aligned copy, within 2^-20 of |x| @ |w| + |b|; under
+    autograd, in bf16 and in float64 it takes F.linear, bit for bit,
+    counted."""
     x, w, b = _gemm_inputs(dev, 64, 32, 48, seed=3)
+    odd = torch.empty(x.numel() + 1, device=dev)[1:].view(x.shape).copy_(x)
+    with torch.no_grad():
+        for xx, ww in ((x[:, :30], w[:30]),              # K % 8 != 0
+                       (x[:, :5].contiguous(), w[:5]),   # K under 8
+                       (odd, w)):                        # 4 bytes off
+            before, fell = tgemm.launches, tgemm.fallbacks
+            got = tgemm.linear(xx, ww, b)
+            assert (tgemm.launches - before, tgemm.fallbacks - fell) == (1, 0)
+            assert _gemm_err(got, xx, ww, b) <= 2 ** -20
     cases = [(x.requires_grad_(), w, b),                   # autograd
              (x.detach().bfloat16(), w.bfloat16(), b.bfloat16()),
-             (x.detach()[:, :30], w[:30], b)]              # K % 8 != 0
+             (x.detach().double(), w.double(), b.double())]
     for xx, ww, bb in cases:
         before, fell = tgemm.launches, tgemm.fallbacks
-        got = tsa.linear(xx, ww, bb)
+        got = tgemm.linear(xx, ww, bb)
         assert (tgemm.launches - before, tgemm.fallbacks - fell) == (0, 1)
         assert torch.equal(got, torch.nn.functional.linear(xx, ww.t(), bb))
         assert got.requires_grad == xx.requires_grad
-    with pytest.raises(ValueError):
-        tgemm.linear(x.detach().double(), w.double(), b.double())
 
 
 def test_gemm_weight_split_follows_updates_in_place(dev):
@@ -2052,18 +2120,18 @@ def test_gemm_kernel_in_a_cuda_graph(dev):
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
-            tsa.linear(static, w, b)
+            tgemm.linear(static, w, b)
         torch.cuda.current_stream().wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         before = tgemm.launches
         with torch.cuda.graph(graph):
-            out = tsa.linear(static, w, b)
+            out = tgemm.linear(static, w, b)
         assert tgemm.launches == before + 1
         new = torch.randn_like(x)
         static.copy_(new)
         graph.replay()
         torch.cuda.synchronize()
-        want = tsa.linear(new, w, b)
+        want = tgemm.linear(new, w, b)
     assert torch.equal(out, want)
 
 

@@ -27,7 +27,7 @@ import torch
 
 from chinese_asr_tpu_torch import config as tcfg
 from chinese_asr_tpu_torch.audio import features as tfeat
-from chinese_asr_tpu_torch.ops import self_attention as tsa
+from chinese_asr_tpu_torch.ops.cuda import build
 from chinese_asr_tpu_torch.ops.cuda import gemm as tgemm
 from chinese_asr_tpu_torch.ops.cuda import logmel as tlogmel
 from chinese_asr_tpu_torch.ops.cuda import lstm as tlstm
@@ -334,11 +334,13 @@ def test_gemm_split_is_the_kernels_rounding():
 def test_gemm_weight_split_is_made_again_in_place():
     """An update of the weight in place (its version counter) makes the
     split again at the same address, which captured graphs hold: at the
-    next call, or at ``refresh`` before a graph's replay."""
+    next call, or at ``refresh`` before a graph's replay (which the graph
+    runner calls through ``build.refresh``)."""
     x, w = _gemm_case(64, N=24)
     hl = tgemm.weight_split(w)
     ptr = hl.data_ptr()
-    for update in (lambda: tgemm.weight_split(w), tgemm.refresh):
+    for update in (lambda: tgemm.weight_split(w), tgemm.refresh,
+                   build.refresh):
         w.mul_(-3.0).add_(0.25)
         update()
         assert hl.data_ptr() == ptr and tgemm.weight_split(w) is hl
@@ -369,8 +371,8 @@ def test_gemm_one_tf32_product_is_not_enough(K):
 
 @pytest.mark.parametrize("case", ["cpu", "autograd", "bf16", "no_bias"])
 def test_linear_off_the_card_is_f_linear(case):
-    """``ops/self_attention.py`` ``linear`` keeps F.linear, bit for bit, on
-    CPU tensors, under autograd and in bf16, and counts each call as a
+    """``ops/cuda/gemm.py`` ``linear`` keeps F.linear, bit for bit, on CPU
+    tensors, under autograd and in bf16, and counts each call as a
     fallback; K7 never launches."""
     x, w = _gemm_case(64, M=12, N=40)
     b = torch.from_numpy(np.random.default_rng(1).standard_normal(
@@ -382,7 +384,7 @@ def test_linear_off_the_card_is_f_linear(case):
     if case == "autograd":
         x.requires_grad_()
     before, fell = tgemm.launches, tgemm.fallbacks
-    got = tsa.linear(x.view(3, 4, 64), w, b)
+    got = tgemm.linear(x.view(3, 4, 64), w, b)
     assert (tgemm.launches - before, tgemm.fallbacks - fell) == (0, 1)
     want = torch.nn.functional.linear(x.view(3, 4, 64), w.t(), b)
     assert got.dtype == want.dtype and torch.equal(got, want)
