@@ -20,12 +20,12 @@ CUDA tensor launches the kernel.  Where a well-formed input is off the
 kernel's grain, the function brings it there and launches: K6 pads a
 key row to whole 16-byte units with zero columns and copies keys off a
 16-byte boundary, K7 pads K to a multiple of 8 and copies an x it cannot
-read in place.  K7's ``linear`` is also the port's float32 product where
-K7 does not compute it: under autograd (K7 has no backward) and in other
-dtypes it takes ``F.linear``, as the port did before K7, counted in
-``fallbacks`` (on the CPU too).  Everything else raises: shapes that
-disagree, mixed dtypes or a dtype the kernel has no version of, an
-operand layout it cannot read, a needed gradient where the kernel has no
-backward, K6 at a width whose key tiles overflow shared memory, and K2
-at a hidden size above 1024.
+read in place.  K7's ``linear`` (and ``linear_pair``) is also the port's
+product where K7 does not compute it: under autograd (K7 has no
+backward) and in other dtypes it takes the plain ``x @ w + b``, as the
+port did before K7, counted in ``fallbacks`` (on the CPU too).
+Everything else raises: shapes that disagree, mixed dtypes or a dtype
+the kernel has no version of, an operand layout it cannot read, a needed
+gradient where the kernel has no backward, K6 at a width whose key tiles
+overflow shared memory, and K2 at a hidden size above 1024.
 """

@@ -1,4 +1,5 @@
-"""K7: the Conformer encoder's dense products, ``y = x @ w + b`` in
+"""K7: the Conformer encoder's dense products and the beam decode step's
+(the output projection, the LSTM cell's gates), ``y = x @ w + b`` in
 float32 on the tensor cores as 3xTF32 (``csrc/gemm.cu``), with its plain
 twin.
 
@@ -17,8 +18,10 @@ work on the H100.
 ``linear`` launches K7 where ``takes`` holds: float32 operands on the
 card with no gradient to record, K not a multiple of 8 on zero-padded
 operands (a zero column adds 0 to every product).  The products K7 does
-not compute (on the CPU, under autograd, in bf16) take ``F.linear``, as
-the port did before K7, counted in ``fallbacks``.  The weight's split
+not compute (on the CPU, under autograd, in bf16) take the plain ``x @ w
++ b``, the expression its callers ran before K7 (bit for bit, forward and
+backward), counted in ``fallbacks``; ``linear_pair`` does the same for
+the LSTM cell's two gate products.  The weight's split
 (``weight_split``) is computed once a weight and version and cached: [2,
 N, K], the hi and lo words laid out K-major, as a TF32 wgmma reads its B
 operand.
@@ -36,7 +39,7 @@ from ...utils import observe
 from . import build
 
 launches = 0          # K7 launches (the twin never counts)
-fallbacks = 0         # ``linear`` calls that took F.linear instead
+fallbacks = 0         # products left to the plain ``x @ w (+ b)``
 observe.register_counters(__name__, "launches", "fallbacks")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -138,13 +141,13 @@ def takes(x, w, b) -> bool:
 def linear(x, w, b=None):
     """y [..., N] = x [..., K] @ w [K, N] + b, the bias added in the
     product's epilogue.  One K7 launch where ``takes`` holds, its K
-    padded to a multiple of 8 (at least 8) with zeros; otherwise
-    ``F.linear``, counted in ``fallbacks`` (it raises where the shapes
-    disagree)."""
+    padded to a multiple of 8 (at least 8) with zeros; otherwise ``x @ w
+    + b`` (``x @ w`` without a bias), counted in ``fallbacks`` (it raises
+    where the shapes disagree)."""
     global launches, fallbacks
     if not takes(x, w, b):
         fallbacks += 1
-        return F.linear(x, w.t(), b)
+        return x @ w if b is None else x @ w + b
     K, N = w.shape
     x2 = x.reshape(-1, K)
     M = x2.shape[0]
@@ -167,3 +170,15 @@ def linear(x, w, b=None):
     build.check("asr_gemm_tf32x3", rc)
     launches += 1
     return y.view(*x.shape[:-1], N)
+
+
+def linear_pair(x, w, h, u, b, c):
+    """x @ w + h @ u + b + c, the LSTM cell's gates: two K7 launches where
+    ``takes`` holds for both products, b + c added in the first one's
+    epilogue; otherwise that expression as written, its two products
+    counted in ``fallbacks``."""
+    global fallbacks
+    if takes(x, w, b) and takes(h, u, c):
+        return linear(x, w, b + c) + linear(h, u)
+    fallbacks += 2
+    return x @ w + h @ u + b + c

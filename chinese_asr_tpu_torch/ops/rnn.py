@@ -20,7 +20,9 @@ zero states, the hoisted ``x @ W_ih`` in bf16, and K2's bf16 instance
 Every other recurrence -- GRU and RNN layers and unidirectional stacks --
 is a Python loop over time of plain torch ops with the input product
 hoisted out of it, as JAX's ``lax.scan`` loops are plain XLA: no Pallas
-kernel stands behind them.  The decoder's cells are plain torch too.
+kernel stands behind them.  The decoder's cells are plain torch too, but
+for the LSTM cell's two gate products, which ``ops/cuda/gemm.py``
+``linear_pair`` runs on K7 in float32 without autograd on the card.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from typing import Dict, List, Optional
 
 import torch
 
+from .cuda import gemm
 from .cuda import lstm as lstm_k
 
 Params = Dict[str, torch.Tensor]
@@ -95,7 +98,8 @@ def lstm_from_gates(gates, c):
 
 
 def lstm_step(p: Params, x, h, c):
-    gates = x @ p["w_ih"] + h @ p["w_hh"] + p["b_ih"] + p["b_hh"]
+    gates = gemm.linear_pair(x, p["w_ih"], h, p["w_hh"], p["b_ih"],
+                             p["b_hh"])
     return lstm_from_gates(gates, c)
 
 

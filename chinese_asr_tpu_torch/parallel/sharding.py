@@ -55,6 +55,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..ops.cuda import gemm
+
 # collectives issued by this module since ``reset_counts``: calls, and the
 # bytes of the tensors they carry on this rank (an all-reduce's input, an
 # all-gather's output)
@@ -293,10 +295,11 @@ class _SumDataShares(torch.autograd.Function):
 def vocab_logits(x, w, b, mesh=None):
     """``x @ w + b`` with ``w`` [K, V/mp] and ``b`` [V/mp] this model
     rank's columns: the logits' [..., V/mp] slice all-gathered to full
-    [..., V] rows on every model rank.  Without a model axis, the plain
-    product."""
+    [..., V] rows on every model rank.  Without a model axis, one
+    product through ``ops/cuda/gemm.py`` ``linear`` (K7 in float32 on the
+    card, the bias in its epilogue; else ``x @ w + b``)."""
     if model_size(mesh) == 1:
-        return x @ w + b
+        return gemm.linear(x, w, b)
     group = mesh.get_group(1)
     y = _ToVocabShards.apply(x, group) @ w + b
     return _GatherVocab.apply(y, group, mesh.get_local_rank(1))

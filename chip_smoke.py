@@ -53,12 +53,16 @@ every phase passed):
    and bf16; ragged rows and one masked everywhere) and time it (CUDA
    graphs of 20 calls) beside its twin and its bound (its tanhf's
    special-function operations at the SMs' rate);
-2h. hold K7, the Conformer's 3xTF32 GEMM, against the float64 product at
-   the FFN's shape ([128 x 317, 512] x [512, 2048]) and the subsampling's
-   K = 9728 (one row slice, [21 x 317, 9728] x [9728, 512]), within 4x of
-   cuBLAS's float32 error, one launch a call, and time it (CUDA graphs of
-   10 calls) beside cuBLAS's float32 product, its twin and its bound (3
-   TF32 passes at the tensor cores' rate, or its bytes);
+2h. hold K7, the 3xTF32 GEMM, against the float64 product at the
+   Conformer's FFN shape ([128 x 317, 512] x [512, 2048]) and the
+   subsampling's K = 9728 (one row slice, [21 x 317, 9728] x [9728, 512]),
+   within 4x of cuBLAS's float32 error, and at the beam decode step's three
+   ([2048, 1024] x [1024, 5004] with its bias, the LSTM gates' [2048, 768]
+   x [768, 2048] with theirs and [2048, 512] x [512, 2048]), no farther
+   than cuBLAS's, one launch a call, and time it (CUDA graphs of 10 calls)
+   beside cuBLAS's float32 product (the decode's: ``x @ w (+ b)``, as the
+   decoder ran it before K7), its twin and its bound (3 TF32 passes at the
+   tensor cores' rate, or its bytes);
 2e. hold K5, the ADPCM wire decode, against its twin bit for bit on the
    B=32 batch's wire, a B=1 wire, a full-scale square wave and silence,
    and time it beside the C++ host encoder;
@@ -406,51 +410,69 @@ def _phase_k6(np, torch, fails, dev, attn_k, graph_ms, gpu) -> dict:
 # chunks of 128 rows, 317 frames), and one row slice of the subsampling's
 # map (21 rows at SUBSAMPLE_SLICE_ELEMS, 512 channels x 19 features)
 K7_SHAPES = ((128 * 317, 512, 2048), (21 * 317, 9728, 512))
+# the beam decode step's products at B = 128, k = 16 (M = 2048 rows), with
+# or without a bias in the epilogue: the output projection [h, context] ->
+# 5004 logits, the LSTM gates' input product (b_ih + b_hh in its
+# epilogue) and their recurrent one; a call of 8 chunks runs each 320 times
+K7_DECODE_SHAPES = ((2048, 1024, 5004, True), (2048, 768, 2048, True),
+                    (2048, 512, 2048, False))
 
 
 def _phase_k7(np, torch, fails, dev, gemm_k, graph_ms, gpu) -> dict:
-    """Phase 2h: K7 against the float64 product at K7_SHAPES, each error
-    measured against |x| @ |w| + |b|: one launch a call and within 4x of
-    cuBLAS's float32 product (TF32 off).  Timed as CUDA graphs of 10 calls
-    beside cuBLAS's product (``library_ms``), its twin and its bound: 3
-    TF32 passes of 2 M K N at H100_TF32_FLOPS, or its bytes (x, w and b
-    read once, y written once) at the HBM's rate."""
+    """Phase 2h: K7 against the float64 product at K7_SHAPES and
+    K7_DECODE_SHAPES, each error measured against |x| @ |w| + |b|: one
+    launch a call and within 4x of cuBLAS's float32 product (TF32 off) at
+    the Conformer's shapes, no farther than it at the decode's.  Timed as
+    CUDA graphs of 10 calls beside cuBLAS's product (``library_ms``: the
+    Conformer's ``F.linear``, the decode's ``x @ w (+ b)``), its twin and
+    its bound: 3 TF32 passes of 2 M K N at H100_TF32_FLOPS, or its bytes
+    (x, w and b read once, y written once) at the HBM's rate."""
     by_shape = {}
-    for M, K, N in K7_SHAPES:
+    for M, K, N, has_bias, decode in (
+            [(M, K, N, True, False) for M, K, N in K7_SHAPES]
+            + [(M, K, N, b, True) for M, K, N, b in K7_DECODE_SHAPES]):
         g = torch.Generator(device=dev).manual_seed(K + N)
         x = torch.randn(M, K, device=dev, generator=g)
         w = torch.randn(K, N, device=dev, generator=g) * K ** -0.5
-        b = torch.randn(N, device=dev, generator=g)
+        b = torch.randn(N, device=dev, generator=g) if has_bias else None
+        if decode:
+            lib_fn = (lambda: x @ w) if b is None else (lambda: x @ w + b)
+        else:
+            lib_fn = lambda: torch.nn.functional.linear(x, w.t(), b)
         with torch.no_grad():
             before = gemm_k.launches
             y = gemm_k.linear(x, w, b)
             launched = gemm_k.launches - before
-            lib = torch.nn.functional.linear(x, w.t(), b)
+            lib = lib_fn()
             x64, w64 = x.double(), w.double()
-            ref = x64 @ w64 + b.double()
-            scale = x64.abs() @ w64.abs() + b.double().abs()
+            ref, scale = x64 @ w64, x64.abs() @ w64.abs()
+            if b is not None:
+                ref, scale = ref + b.double(), scale + b.double().abs()
             err = float(((y.double() - ref).abs() / scale).max())
             lib_err = float(((lib.double() - ref).abs() / scale).max())
             del x64, w64, ref, scale, y, lib
-            fails.check(launched == 1 and err <= 4 * lib_err,
-                        f"K7 [{M}, {K}] x [{K}, {N}]: one launch, within 4x "
-                        f"of cuBLAS's float32 error against float64 ({err:.3g}"
-                        f" against {lib_err:.3g}, of |x| @ |w| + |b|)")
+            within = 1 if decode else 4
+            fails.check(launched == 1 and err <= within * lib_err,
+                        f"K7 [{M}, {K}] x [{K}, {N}]: one launch, within "
+                        f"{within}x of cuBLAS's float32 error against "
+                        f"float64 ({err:.3g} against {lib_err:.3g}, of |x| @ "
+                        f"|w| + |b|)")
             ms = graph_ms(lambda: gemm_k.linear(x, w, b), iters=10)
-            lib_ms = graph_ms(
-                lambda: torch.nn.functional.linear(x, w.t(), b), iters=10)
+            lib_ms = graph_ms(lib_fn, iters=10)
             plain_ms = graph_ms(lambda: gemm_k.linear_plain(x, w, b),
                                 iters=3)
         t_ops = 3 * 2 * M * K * N / H100_TF32_FLOPS * 1e3
-        t_bytes = 4 * (M * K + K * N + N + M * N) / H100_BYTES_PER_S * 1e3
+        t_bytes = 4 * (M * K + K * N + (N if has_bias else 0)
+                       + M * N) / H100_BYTES_PER_S * 1e3
         bound, by = max((t_ops, "operations"), (t_bytes, "bytes"))
         key = f"{M}x{K}x{N}"
         by_shape[key] = dict(ms=ms, library_ms=lib_ms, plain_ms=plain_ms,
                              bound_ms=bound, bound_by=by, share=bound / ms,
-                             err=err, library_err=lib_err)
-        print(f"K7 [{M}, {K}] x [{K}, {N}]: {ms:.4f} ms, bound {bound:.4f} ms"
-              f" ({by}) = {100 * bound / ms:.1f} %, cuBLAS f32 {lib_ms:.4f} "
-              f"ms ({lib_ms / ms:.2f}x), twin {plain_ms:.3f} ms; error "
+                             err=err, library_err=lib_err, bias=has_bias)
+        print(f"K7 [{M}, {K}] x [{K}, {N}]{' + b' if has_bias else ''}: "
+              f"{ms:.4f} ms, bound {bound:.4f} ms ({by}) = "
+              f"{100 * bound / ms:.1f} %, cuBLAS f32 {lib_ms:.4f} ms "
+              f"({lib_ms / ms:.2f}x), twin {plain_ms:.3f} ms; error "
               f"{err:.3g}, cuBLAS {lib_err:.3g} on {gpu}", flush=True)
         del x, w, b
     main = by_shape[f"{K7_SHAPES[0][0]}x{K7_SHAPES[0][1]}x{K7_SHAPES[0][2]}"]
@@ -460,8 +482,9 @@ def _phase_k7(np, torch, fails, dev, gemm_k, graph_ms, gpu) -> dict:
                 plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
                 bound_by=main["bound_by"], library_ms=main["library_ms"],
                 by_shape=by_shape,
-                shape=f"x [M, K] @ w [K, N] + b, (M, K, N) in {K7_SHAPES}; "
-                      f"the main figures the first")
+                shape=f"x [M, K] @ w [K, N] + b, (M, K, N) in {K7_SHAPES} "
+                      f"and, the bias as marked, in {K7_DECODE_SHAPES}; the "
+                      f"main figures the first")
 
 
 def _k2_ptxas_lines(log_path: str, *markers: str, exclude: str = ""):
@@ -903,7 +926,8 @@ _TRACE_KERNELS = (("K1", ("logmel_tc_kernel",), ("logmel.launches",)),
                    ("topk.launches", "topk.fused_launches")),
                   ("K5", ("adpcm_decode_kernel",), ("adpcm.launches",)),
                   ("K6", ("beam_attention_kernel<",),
-                   ("attention.launches",)))
+                   ("attention.launches",)),
+                  ("K7", ("tf32x3_gemm_kernel",), ("gemm.launches",)))
 
 
 def _ab_line(label: str, r: dict, gpu: str) -> str:
@@ -953,12 +977,12 @@ def _phase_graphs(np, torch, fails, ASR, gpu, runs_spec, texts_of, golden,
                              if any(k in key for k in keys)),
                          sum(counted[n] for n in ctrs))
                   for name, keys, ctrs in _TRACE_KERNELS}
-        # K1 and K5 run in the front end's graph, K2-K4 and K6 in the
+        # K1 and K5 run in the front end's graph, K2-K4, K6 and K7 in the
         # decode's
         fails.check(all(t == c for t, c in traced.values())
                     and traced["K2"][0] > 0 and traced["K1"][0] > 0,
                     f"3g {mode}: the card's trace of one graph-path call "
-                    f"launched what the counters count, K1-K6 (traced, "
+                    f"launched what the counters count, K1-K7 (traced, "
                     f"counted) {traced}")
         r["traced_vs_counted"] = traced
         report[mode] = r
@@ -968,7 +992,7 @@ def _phase_graphs(np, torch, fails, ASR, gpu, runs_spec, texts_of, golden,
         # kernels, then the port's own further down
         ours = [x for x in rows[12:] if any(
             n in x[2] for n in ("topk_kernel", "bilstm", "logmel", "adpcm",
-                                "beam_attention"))]
+                                "beam_attention", "tf32x3_gemm"))]
         for us, count, key in rows[:12] + ours:
             print(f"  {us / 1e3:9.3f} ms  x{count:<5d} {key[:90]}")
     os.environ["CHINESE_ASR_PALLAS_FUSED"] = "0"
@@ -1969,12 +1993,13 @@ def _fit_run(np, torch, fails, dev, gpu, counters, cfg, manifest, vocab,
     full = dict.fromkeys(counters, 0)
     full.update(want)
     full["logmel.launches"] += fronts
-    fails.check(launched == full, f"{label}: kernels launched in {steps} "
-                                  f"steps and one eval {launched}, wanted "
-                                  f"{full} (the first step, the first eval "
-                                  f"and the featurizer's {fronts} new "
-                                  f"key(s) each run an eager warm-up before "
-                                  f"their capture)")
+    fails.check(all(launched[n] > 0 if v is None else launched[n] == v
+                    for n, v in full.items()),
+                f"{label}: kernels launched in {steps} "
+                f"steps and one eval {launched}, wanted {full} (None: at "
+                f"least once; the first step, the first eval and the "
+                f"featurizer's {fronts} new key(s) each run an eager warm-up "
+                f"before their capture)")
     fails.check(tv.step == steps and all(np.isfinite(losses))
                 and losses[-1] < losses[0],
                 f"{label}: {steps} steps at the flagship Config() "
@@ -2478,11 +2503,15 @@ def _phase_training(np, torch, fails, dev, gpu, counters, build_dir):
     # per step K1 1 (the loader featurizes), K2 4 and K2-bwd 4 (their bf16
     # instances in bf16); the f32 eval at the end (one batch of 32) adds K1
     # 1 and K2 4; the first step and the first eval each run an eager
-    # warm-up before their capture: K2 4 and K2-bwd 4 more, K2 4 more
+    # warm-up before their capture: K2 4 and K2-bwd 4 more, K2 4 more; K7
+    # runs the f32 eval's decode products, none of the steps' (under
+    # autograd, counted as fallbacks; None: at least once)
+    on_k7 = {"gemm.launches": None, "gemm.fallbacks": None}
     f32, tr = _fit_run(np, torch, fails, dev, gpu, counters, cfg, manifest,
                        vocab, {"logmel.launches": steps + 1,
                                "lstm.launches": 4 * steps + 12,
-                               "lstm.bwd_launches": 4 * steps + 4},
+                               "lstm.bwd_launches": 4 * steps + 4,
+                               **on_k7},
                        "training")
     ckpt = f32.pop("ckpt")
     del tr
@@ -2492,7 +2521,8 @@ def _phase_training(np, torch, fails, dev, gpu, counters, build_dir):
                         vocab, {"logmel.launches": steps + 1,
                                 "lstm.launches": 8,
                                 "lstm.bf16_launches": 4 * steps + 4,
-                                "lstm.bwd_bf16_launches": 4 * steps + 4},
+                                "lstm.bwd_bf16_launches": 4 * steps + 4,
+                                **on_k7},
                         "training bf16")
     bf16.pop("ckpt")
     del tr
@@ -2693,7 +2723,12 @@ def _phase_families(np, torch, fails, ASR, base_cfg, wavs, rng, dev,
         want.update({"logmel.launches": 1, "topk.launches": 40,
                      "lstm.launches": 4 if bilstm else 0,
                      "attention.launches":
-                         40 if cfg.attention.heads == 1 else 0})
+                         40 if cfg.attention.heads == 1 else 0,
+                     # K7: the projection a step, and an LSTM layer's two
+                     # gate products
+                     "gemm.launches": 40 * (1 + 2 * cfg.decoder.num_layers
+                                            * (cfg.decoder.decoder_type
+                                               == "LSTM"))})
         fails.check(c1 == want, f"3f {name}: kernels launched {c1} by a "
                                 f"replay, wanted {want}")
         fails.check(t1 == t2 and len(t1) == len(wavs)
@@ -2767,7 +2802,9 @@ def _phase_families(np, torch, fails, ASR, base_cfg, wavs, rng, dev,
                     num_eval_steps=1000, seed=0,
                     save_dir=os.path.join(build_dir, "family_ckpt"))
     fit, tr = _fit_run(np, torch, fails, dev, gpu, counters, cfg, manifest,
-                       vocab, {"logmel.launches": steps + 1},
+                       vocab, {"logmel.launches": steps + 1,
+                               "gemm.launches": None,
+                               "gemm.fallbacks": None},
                        "3f training CNN1D_RNN",
                        host_trace=False)
     init = las.init_params(cfg, 0)
@@ -3080,7 +3117,8 @@ def _phase_mesh(np, torch, fails, gpu, dev, cfg, wavs, texts_of, arpa3,
                 f"collectives (none: a 1x1 mesh decodes as one device)")
     want = dict.fromkeys(counters, 0)
     want.update({"logmel.launches": 1, "lstm.launches": 4,
-                 "topk.launches": 40, "attention.launches": 40})
+                 "topk.launches": 40, "attention.launches": 40,
+                 "gemm.launches": 120})
     fails.check(run["launches"] == want,
                 f"mesh 1x1 (NCCL) beam_bw16: launches {run['launches']}")
     fails.check(run["texts"] == texts_of["beam_bw16"] and run["stable"],
@@ -3122,21 +3160,28 @@ def _phase_mesh(np, torch, fails, gpu, dev, cfg, wavs, texts_of, arpa3,
     outs = launch.run_ranks(_mesh_rank, MESH_SHAPE[0] * MESH_SHAPE[1],
                             args=(spec,), device_type="cuda", timeout_s=600)
     ranks_s = time.time() - t_spawn
-    front = {"logmel.launches": 1, "lstm.launches": 4}
+    # K7: the LSTM gates' two products a step (the projection runs on the
+    # model axis, off K7)
+    front = {"logmel.launches": 1, "lstm.launches": 4, "gemm.launches": None}
     decode_want = {"beam_bw16": {**front, "topk.launches": 40,
-                                 "attention.launches": 40},
+                                 "attention.launches": 40,
+                                 "gemm.launches": 80},
                    "greedy": front,
                    "beam_bw16_lm2": {**front, "topk.launches": None,
                                      "attention.launches": None},
                    "beam_bw16_lm1": {**front, "topk.launches": None,
                                      "attention.launches": None}}
     steps = MESH_TRAIN_STEPS
+    # the decoder's products under autograd: off K7, counted (None: at
+    # least once)
     train_want = {"float32": {"logmel.launches": steps,
                               "lstm.launches": 4 * steps,
-                              "lstm.bwd_launches": 4 * steps},
+                              "lstm.bwd_launches": 4 * steps,
+                              "gemm.fallbacks": None},
                   "bfloat16": {"logmel.launches": steps,
                                "lstm.bf16_launches": 4 * steps,
-                               "lstm.bwd_bf16_launches": 4 * steps}}
+                               "lstm.bwd_bf16_launches": 4 * steps,
+                               "gemm.fallbacks": None}}
     for o in outs:
         r = o["rank"]
         fails.check(o["backend"] == "gloo" and o["device"] == "cuda:0",
@@ -3162,9 +3207,10 @@ def _phase_mesh(np, torch, fails, gpu, dev, cfg, wavs, texts_of, arpa3,
             full.update(need)
             ref = single[dtype]["losses"]
             tol = 1e-5 if dtype == "float32" else 1e-2
-            fails.check(run["launches"] == full,
-                        f"mesh 2x2 rank {r} train {dtype}: launches "
-                        f"{run['launches']}")
+            got = run["launches"]
+            fails.check(all(got[n] > 0 if v is None else got[n] == v
+                            for n, v in full.items()),
+                        f"mesh 2x2 rank {r} train {dtype}: launches {got}")
             fails.check(all(np.isfinite(run["losses"]))
                         and run["dtypes"] == ["torch.float32"]
                         and np.allclose(run["losses"], ref, rtol=tol,
@@ -4052,22 +4098,27 @@ def main() -> int:
 
     # mode, ASR, batch, fused stage 1, the kernels that must run: each with
     # its exact launches per batch (4 encoder layers, 40 decode steps, as
-    # random weights never stop early, one ADPCM decode) or None for "> 0"
+    # random weights never stop early, 3 K7 products a f32 step, one ADPCM
+    # decode) or None for "> 0"
     any3 = dict.fromkeys(("logmel.launches", "lstm.launches", "topk.launches",
-                          "attention.launches"))
+                          "attention.launches", "gemm.launches"))
     beam = {"logmel.launches": 1, "lstm.launches": 4, "topk.launches": 40,
-            "attention.launches": 40}
+            "attention.launches": 40, "gemm.launches": 120}
+    # bf16: K7's three products a step left to ``x @ w + b``, counted
     beam16 = {"logmel.launches": 1, "lstm.bf16_launches": 4,
-              "topk.launches": 40, "attention.launches": 40}
+              "topk.launches": 40, "attention.launches": 40,
+              "gemm.fallbacks": 120}
     runs_spec = (
         ("beam_bw16", ASR(bw=16, cfg=cfg, seed=0), wavs, False, beam),  # cuda
         ("greedy", ASR(bw=None, cfg=cfg, seed=0), wavs, False,
-         dict.fromkeys(("logmel.launches", "lstm.launches"))),
+         dict.fromkeys(("logmel.launches", "lstm.launches",
+                        "gemm.launches"))),
         ("beam_bw16_b128", ASR(bw=16, cfg=cfg, seed=0), wavs128, False, beam),
         ("beam_bw16_lm2", lm_asrs[3], wavs, False, any3),
         ("beam_bw16_lm2_fused", lm_asrs[3], wavs, True,
          dict.fromkeys(("logmel.launches", "lstm.launches",
-                        "topk.fused_launches", "attention.launches"))),
+                        "topk.fused_launches", "attention.launches",
+                        "gemm.launches"))),
         ("beam_bw16_lm2_o5", lm_asrs[5], wavs, False, any3),
         ("beam_bw16_lm1", lm_asrs["first"], wavs, False, any3),
         ("beam_bw16_bf16", ASR(bw=16, cfg=cfg, seed=0,
@@ -4095,7 +4146,7 @@ def main() -> int:
         "attention": ("attention.launches", "beam_bw16"),
         "lstm_bwd": ("lstm.bwd_launches", "training"),
         "lstm_bwd_bf16": ("lstm.bwd_bf16_launches", "training bf16"),
-        "gemm": ("gemm.launches", None)}    # K7: the Conformer's alone
+        "gemm": ("gemm.launches", "beam_bw16")}
     paths, texts_of = {}, {}
     for mode, asr, batch, fused, need in runs_spec:
         t_run = time.time()

@@ -301,10 +301,10 @@ def test_blocks_counted_and_the_eager_encode_spanned():
 
 @pytest.mark.parametrize("slice_elems", [tconv.SUBSAMPLE_SLICE_ELEMS, 1])
 def test_every_product_goes_through_linear(monkeypatch, slice_elems):
-    """The encoder's products all go through ``ops/self_attention.py``
+    """The encoder's products all go through ``ops/cuda/gemm.py``
     ``linear`` (on the card, K7): 8 a block and one for each of the
     subsampling's row slices (one, or a row each); on the CPU each is
-    counted as a fallback to F.linear."""
+    counted as a fallback to ``x @ w + b``."""
     monkeypatch.setattr(tconv, "SUBSAMPLE_SLICE_ELEMS", slice_elems)
     cfg = _cfg()
     pcfg = offline.port_config(cfg)

@@ -25,6 +25,7 @@ import torch
 
 from chinese_asr_tpu_torch import config as tcfg
 from chinese_asr_tpu_torch.audio import features as tfeat
+from chinese_asr_tpu_torch.models import attention as tattn_ops
 from chinese_asr_tpu_torch.models import conformer as tconf
 from chinese_asr_tpu_torch.ops.cuda import adpcm as tadpcm
 from chinese_asr_tpu_torch.ops.cuda import attention as tattn
@@ -2071,7 +2072,7 @@ def test_gemm_dispatch_falls_back_where_the_kernel_does_not_run(dev):
     """``gemm.linear`` takes K7 for float32 without a graph to record, K
     off a multiple of 8 on zero-padded operands and x off a 16-byte
     boundary on an aligned copy, within 2^-20 of |x| @ |w| + |b|; under
-    autograd, in bf16 and in float64 it takes F.linear, bit for bit,
+    autograd, in bf16 and in float64 it takes ``x @ w + b``, bit for bit,
     counted."""
     x, w, b = _gemm_inputs(dev, 64, 32, 48, seed=3)
     odd = torch.empty(x.numel() + 1, device=dev)[1:].view(x.shape).copy_(x)
@@ -2090,7 +2091,7 @@ def test_gemm_dispatch_falls_back_where_the_kernel_does_not_run(dev):
         before, fell = tgemm.launches, tgemm.fallbacks
         got = tgemm.linear(xx, ww, bb)
         assert (tgemm.launches - before, tgemm.fallbacks - fell) == (0, 1)
-        assert torch.equal(got, torch.nn.functional.linear(xx, ww.t(), bb))
+        assert torch.equal(got, xx @ ww + bb)
         assert got.requires_grad == xx.requires_grad
 
 
@@ -2135,6 +2136,103 @@ def test_gemm_kernel_in_a_cuda_graph(dev):
     assert torch.equal(out, want)
 
 
+# (M, K, N): the beam decode step's f32 products at B = 128, k = 16: the
+# output projection [h, context] -> 5004 logits, the LSTM cell's input
+# (embedding and fed-back context) and recurrent gate products
+GEMM_DECODE_SHAPES = [(2048, 1024, 5004), (2048, 768, 2048), (2048, 512, 2048)]
+
+
+@pytest.mark.parametrize("bias", [True, False])
+@pytest.mark.parametrize("M,K,N", GEMM_DECODE_SHAPES)
+def test_gemm_kernel_at_the_decode_shapes(dev, M, K, N, bias):
+    """K7 at the decode step's three shapes, with and without the bias in
+    its epilogue: one launch, and no farther from the float64 product than
+    cuBLAS's float32 product (TF32 off) on the same operands, both
+    measured against |x| @ |w| + |b|."""
+    x, w, b = _gemm_inputs(dev, M, K, N, bias, seed=K + N + bias)
+    with torch.no_grad():
+        before, fell = tgemm.launches, tgemm.fallbacks
+        y = tgemm.linear(x, w, b)
+        torch.cuda.synchronize()
+        assert (tgemm.launches - before, tgemm.fallbacks - fell) == (1, 0)
+        lib = x @ w if b is None else x @ w + b
+    err, lib_err = _gemm_err(y, x, w, b), _gemm_err(lib, x, w, b)
+    assert err <= lib_err, (err, lib_err)
+
+
+def test_beam_decode_runs_its_step_products_on_k7(dev):
+    """A captured f32 beam decode (``ASR(bw=16)`` at the flagship widths)
+    launches K7 three times a step, as often as K6 (once a step) three
+    times over, none falling back; its hypotheses and scores match the
+    eager loop's, which launches K7 as often."""
+    from chinese_asr_tpu_torch.api import ASR
+    from chinese_asr_tpu_torch.decode import beam
+    from chinese_asr_tpu_torch.utils import graphs
+    from torch_port_util import random_wavs
+    graphs.clear()
+    asr = ASR(bw=16, device=dev, seed=0)
+    wavs = random_wavs(np.random.default_rng(5), [16000, 24000, 9000])
+    feats, lens = asr._featurize(asr._upload(asr._prep(wavs, None)))
+    counts = lambda: (tgemm.launches, tgemm.fallbacks, tattn.launches)
+    ran = []
+    with torch.no_grad():
+        for fn in (beam.beam_decode_best_jit, beam.beam_decode_best_jit,
+                   beam.beam_decode_best):
+            before = counts()
+            out = fn(asr.params, asr.cfg, 16, feats, lens)
+            graphs.settle(wait=True)
+            k7, fell, k6 = (a - b for a, b in zip(counts(), before))
+            assert k6 > 0 and (k7, fell) == (3 * k6, 0), (k7, fell, k6)
+            ran.append(out)
+    for got in ran[:2]:
+        assert torch.equal(got.tokens, ran[2].tokens)
+        assert torch.equal(got.lens, ran[2].lens)
+        torch.testing.assert_close(got.scores, ran[2].scores, atol=1e-5,
+                                   rtol=0)
+    graphs.clear()
+
+
+def test_bf16_beam_step_launches_no_k7(dev):
+    """A bf16 beam decode step at the flagship widths (B = 8, k = 16)
+    leaves its three products to the parent's expressions: no K7 launch,
+    three fallbacks, and logits and gates equal bit for bit to ``x @ w +
+    b`` and ``x @ w_ih + h @ w_hh + b_ih + b_hh`` on the same operands."""
+    from chinese_asr_tpu_torch.models import decoder as tdec
+    from chinese_asr_tpu_torch.models import las as tlas
+    from chinese_asr_tpu_torch.ops import rnn as trnn
+    from chinese_asr_tpu_torch.ops.masks import softmax_mask
+    cfg = tcfg.Config()
+    p = tlas.tree_map(lambda t: t.to(dev, torch.bfloat16),
+                      tlas.init_params(cfg, 1))
+    dp, ap = p["decoder"], p["attention"]
+    g = torch.Generator(device=dev).manual_seed(6)
+    B, k, L, H = 8, 16, 50, cfg.decoder.hidden_size
+    rnd = lambda *shape: torch.randn(*shape, device=dev, generator=g).bfloat16()
+    enc = rnd(B, L, dp["proj_w"].shape[0] - H)
+    keys, values = tattn_ops.compute_key_value(ap, cfg.attention, enc)
+    mask = softmax_mask(torch.randint(1, L + 1, (B,), device=dev,
+                                      generator=g), L, torch.bfloat16)
+    h0, c0, ahs = rnd(B * k, H), rnd(B * k, H), rnd(B * k, values.shape[-1])
+    token = torch.randint(0, cfg.vocab.vocab_size, (B * k,), device=dev,
+                          generator=g)
+    with torch.no_grad():
+        before, fell = tgemm.launches, tgemm.fallbacks
+        out = tdec.decoder_step_beam(dp, ap, cfg.decoder, cfg.attention, mask,
+                                     keys, values, token, [(h0, c0)], ahs)
+        assert (tgemm.launches - before, tgemm.fallbacks - fell) == (0, 3)
+        cell = dp["cells"][0]
+        x = torch.cat([dp["embedding"][token], ahs], dim=1)
+        gates = x @ cell["w_ih"] + h0 @ cell["w_hh"] + cell["b_ih"] \
+            + cell["b_hh"]
+        h, c = trnn.lstm_from_gates(gates, c0)
+        assert torch.equal(out.cell_state[0][0], h)
+        assert torch.equal(out.cell_state[0][1], c)
+        want = (torch.cat([h, out.attn_hidden_state], dim=-1) @ dp["proj_w"]
+                + dp["proj_b"])
+    assert out.logit.dtype == torch.bfloat16
+    assert torch.equal(out.logit, want)
+
+
 def _small_conformer_cfg():
     return tcfg.Config(
         audio=tcfg.AudioConfig(delta_delta=False, downsample=False),
@@ -2154,7 +2252,7 @@ def _small_conformer_feats():
 def test_conformer_on_the_card_runs_its_products_on_k7(dev):
     """A small Conformer (d 64, 2 blocks) on the card: 8 K7 launches a block
     and one for the subsampling's map, none falling back, its output
-    within 1e-4 of the CPU's (F.linear there)."""
+    within 1e-4 of the CPU's (``x @ w + b`` there)."""
     cfg = _small_conformer_cfg()
     params = tconf.init_conformer(torch.Generator().manual_seed(0), cfg)
     x, lens = _small_conformer_feats()

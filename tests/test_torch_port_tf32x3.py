@@ -18,7 +18,10 @@ each 32-k stage's three products on the tensor cores and adds the
 stages in float32.  Tolerances are chip_smoke.py's: log-mel 2e-3
 absolute, BiLSTM 1e-4 absolute, K2-bwd 1e-4 of each output's scale; K7
 within 4x of a float32 product's distance from the float64 one, measured
-against |x| @ |w|.  Inputs are made with numpy from a seed.
+against |x| @ |w|.  Inputs are made with numpy from a seed.  The decode
+step's output projection and LSTM gate products go through K7's
+dispatch (``gemm.linear``, ``gemm.linear_pair``); off K7 they are the
+decoder's expressions before K7, bit for bit.
 """
 
 import numpy as np
@@ -27,14 +30,19 @@ import torch
 
 from chinese_asr_tpu_torch import config as tcfg
 from chinese_asr_tpu_torch.audio import features as tfeat
+from chinese_asr_tpu_torch.models import attention as tattn
+from chinese_asr_tpu_torch.models import decoder as tdec
+from chinese_asr_tpu_torch.models import las as tlas
+from chinese_asr_tpu_torch.ops import masks as tmasks
+from chinese_asr_tpu_torch.ops import rnn as trnn
 from chinese_asr_tpu_torch.ops.cuda import build
 from chinese_asr_tpu_torch.ops.cuda import gemm as tgemm
 from chinese_asr_tpu_torch.ops.cuda import logmel as tlogmel
 from chinese_asr_tpu_torch.ops.cuda import lstm as tlstm
 
 from torch_port_util import (golden_cfg, matmul_tf32x1, matmul_tf32x3,
-                             round_tf32, speech_like_wavs, split_tf32,
-                             trunc_tf32)
+                             round_tf32, small_cfg, speech_like_wavs,
+                             split_tf32, trunc_tf32)
 
 TOL_LOGMEL = 2e-3
 TOL_LSTM = 1e-4
@@ -371,7 +379,8 @@ def test_gemm_one_tf32_product_is_not_enough(K):
 
 @pytest.mark.parametrize("case", ["cpu", "autograd", "bf16", "no_bias"])
 def test_linear_off_the_card_is_f_linear(case):
-    """``ops/cuda/gemm.py`` ``linear`` keeps F.linear, bit for bit, on CPU
+    """``ops/cuda/gemm.py`` ``linear`` off K7 is the plain ``x @ w + b``
+    (``x @ w`` without a bias), bit for bit, forward and backward, on CPU
     tensors, under autograd and in bf16, and counts each call as a
     fallback; K7 never launches."""
     x, w = _gemm_case(64, M=12, N=40)
@@ -386,8 +395,121 @@ def test_linear_off_the_card_is_f_linear(case):
     before, fell = tgemm.launches, tgemm.fallbacks
     got = tgemm.linear(x.view(3, 4, 64), w, b)
     assert (tgemm.launches - before, tgemm.fallbacks - fell) == (0, 1)
-    want = torch.nn.functional.linear(x.view(3, 4, 64), w.t(), b)
+    xw = x.detach().requires_grad_() if case == "autograd" else x
+    want = xw.view(3, 4, 64) @ w if b is None else xw.view(3, 4, 64) @ w + b
     assert got.dtype == want.dtype and torch.equal(got, want)
     if case == "autograd":
-        got.sum().backward()
-        assert x.grad is not None
+        dy = torch.randn(got.shape, generator=torch.Generator().manual_seed(2))
+        (got * dy).sum().backward()
+        (want * dy).sum().backward()
+        assert torch.equal(x.grad, xw.grad)
+
+
+# ---- the decoder's products through ``gemm.linear`` -----------------------
+def _parent_cells(layers, x, state):
+    """The LSTM cell stack as the decoder ran it before K7."""
+    out = []
+    for p, (h, c) in zip(layers, state):
+        gates = x @ p["w_ih"] + h @ p["w_hh"] + p["b_ih"] + p["b_hh"]
+        x, c = trnn.lstm_from_gates(gates, c)
+        out.append((x, c))
+    return out
+
+
+def _parent_logit(p, h, ahs):
+    return torch.cat([h, ahs], dim=-1) @ p["proj_w"] + p["proj_b"]
+
+
+def _decoder_case(mode, dtype):
+    """(cfg, params, step inputs): a small LAS decoder (one LSTM layer; two
+    for the teacher-forced path, whose layer 0 takes ``gate_partial``) at
+    B = 3 samples, k = 4 beams a sample for ``beam``."""
+    layers = 2 if mode == "teacher" else 1
+    cfg = small_cfg(tcfg).with_("decoder", num_layers=layers)
+    params = tlas.tree_map(lambda t: t.to(dtype), tlas.init_params(cfg, 3))
+    g = torch.Generator().manual_seed(4)
+    B, L, rows = 3, 7, 3 * (4 if mode == "beam" else 1)
+    H, V = cfg.decoder.hidden_size, cfg.vocab.vocab_size
+    enc = torch.randn(B, L, params["decoder"]["proj_w"].shape[0] - H,
+                      generator=g).to(dtype)
+    keys, values = tattn.compute_key_value(params["attention"],
+                                           cfg.attention, enc)
+    mask = tmasks.softmax_mask(torch.tensor([7, 3, 1]), L, dtype)
+    state = [(torch.randn(rows, H, generator=g).to(dtype),
+              torch.randn(rows, H, generator=g).to(dtype))
+             for _ in range(layers)]
+    ahs = torch.randn(rows, values.shape[-1], generator=g).to(dtype)
+    token = torch.randint(0, V, (rows,), generator=g)
+    return cfg, params, (mask, keys, values, token, state, ahs)
+
+
+@pytest.mark.parametrize("mode,dtype", [("beam", torch.float32),
+                                        ("beam", torch.bfloat16),
+                                        ("step", torch.float32),
+                                        ("step", torch.bfloat16),
+                                        ("teacher", torch.float32)])
+def test_decoder_products_go_through_linear(mode, dtype):
+    """The decode step's output projection and LSTM gate products go
+    through ``gemm.linear`` (on the card in float32, K7): 3 a step, each
+    counted as a fallback on the CPU, where the step is bit for bit the
+    decoder's expressions before K7 (``x @ w + b``; ``x @ w_ih + h @
+    w_hh + b_ih + b_hh``) in f32 and bf16.  The trainer's teacher-forced
+    step (``gate_partial``, ``compute_logit=False``, then ``project``)
+    under autograd too, with its gradients."""
+    cfg, p, (mask, keys, values, token, state, ahs) = _decoder_case(mode,
+                                                                    dtype)
+    dcfg, acfg = cfg.decoder, cfg.attention
+    dp, ap = p["decoder"], p["attention"]
+    B = mask.shape[0]
+    before = tgemm.launches, tgemm.fallbacks
+    if mode == "teacher":
+        leaves = [dp["proj_w"], dp["proj_b"], *dp["cells"][1].values(),
+                  dp["cells"][0]["w_hh"], ap["w_hidden"]]
+        for t in leaves:
+            t.requires_grad_()
+        E = dcfg.embed_dim
+        p0 = dp["cells"][0]
+        gp = dp["embedding"][token] @ p0["w_ih"][:E] + p0["b_ih"] + p0["b_hh"]
+        out = tdec.decoder_step(dp, ap, dcfg, acfg, mask, keys, values, None,
+                                state, ahs, compute_logit=False,
+                                gate_partial=gp)
+        assert out.logit is None
+        got = (tdec.project(dp, acfg, out.cell_state[-1][0],
+                            out.attn_hidden_state), out.attn_hidden_state,
+               out.cell_state)
+    elif mode == "beam":
+        got = tuple(tdec.decoder_step_beam(dp, ap, dcfg, acfg, mask, keys,
+                                           values, token, state, ahs))
+        got = got[0], got[1], got[3]
+    else:
+        got = tuple(tdec.decoder_step(dp, ap, dcfg, acfg, mask, keys, values,
+                                      token, state, ahs))
+        got = got[0], got[1], got[3]
+    assert (tgemm.launches - before[0], tgemm.fallbacks - before[1]) == (0, 3)
+
+    if mode == "teacher":
+        h0, c0 = state[0]
+        gates = gp + ahs @ p0["w_ih"][E:] + h0 @ p0["w_hh"]
+        cells = [trnn.lstm_from_gates(gates, c0)]
+        cells += _parent_cells(dp["cells"][1:], cells[0][0], state[1:])
+    else:
+        x = torch.cat([dp["embedding"][token], ahs], dim=1)
+        cells = _parent_cells(dp["cells"], x, state)
+    h = cells[-1][0]
+    if mode == "beam":
+        ctx, _ = tattn.attend_beam(ap, acfg, mask, h.reshape(B, 4, -1), keys,
+                                   values)
+        ctx = ctx.reshape(h.shape[0], -1)
+    else:
+        ctx, _ = tattn.attend(ap, acfg, mask, h, keys, values)
+    want = _parent_logit(dp, h, ctx), ctx, cells
+    assert got[0].dtype == dtype and torch.equal(got[0], want[0])
+    assert torch.equal(got[1], want[1])
+    for (gh, gc), (wh, wc) in zip(got[2], want[2]):
+        assert torch.equal(gh, wh) and torch.equal(gc, wc)
+    if mode == "teacher":
+        dy = torch.randn(got[0].shape, generator=torch.Generator().manual_seed(5))
+        grads = [torch.autograd.grad((y * dy).sum(), leaves)
+                 for y in (got[0], want[0])]
+        for a, b in zip(*grads):
+            assert torch.equal(a, b)
