@@ -90,7 +90,11 @@ class EncoderConfig:
                                    # SELF_ATTENTION, SELF_LOCAL_ATTENTION, CNN1D_RNN,
                                    # CNN1D_SELF_ATTENTION, CRNN, DCNN,
                                    # CONFORMER (d = hidden_size, heads,
-                                   # ffn_size, conv kernel ks)
+                                   # ffn_size, conv kernel ks),
+                                   # E_BRANCHFORMER (d, heads, macaron
+                                   # ffn_size, cgMLP cgmlp_size and its
+                                   # conv kernel ks, merge kernel
+                                   # merge_ks)
     hidden_size: int = 256
     num_layers: int = 4
     residual: bool = True
@@ -106,6 +110,10 @@ class EncoderConfig:
     ws: int = 11                   # local-attention window
     ffn_size: int = 256
     self_attn_heads: int = 4
+    # E_BRANCHFORMER: the cgMLP's width (Linear d -> cgmlp_size, its gate
+    # half cgmlp_size / 2 wide) and the merge's depthwise kernel
+    cgmlp_size: int = 2048
+    merge_ks: int = 3
     # CRNN / DCNN family
     conv_channels: int = 32
     dcnn_middle: int = 4

@@ -74,23 +74,24 @@ def subsample_width(n_feats: int) -> int:
 # --------------------------------------------------------------------------
 # init
 # --------------------------------------------------------------------------
-def _linear(gen, d_in: int, d_out: int) -> tuple:
+def init_linear(gen, d_in: int, d_out: int) -> tuple:
+    """An xavier-normal [d_in, d_out] matrix and a zero bias."""
     return xavier_normal(gen, (d_in, d_out), d_in, d_out), torch.zeros(d_out)
 
 
-def _ffn(gen, d: int, f: int) -> Params:
-    w1, b1 = _linear(gen, d, f)
-    w2, b2 = _linear(gen, f, d)
+def init_ffn(gen, d: int, f: int) -> Params:
+    w1, b1 = init_linear(gen, d, f)
+    w2, b2 = init_linear(gen, f, d)
     return {"ln_scale": torch.ones(d), "ln_bias": torch.zeros(d),
             "w1": w1, "b1": b1, "w2": w2, "b2": b2}
 
 
 def init_block(gen: torch.Generator, d: int, heads: int, ffn: int,
                ks: int) -> Params:
-    w_qkv, b_qkv = _linear(gen, d, 3 * d)
-    w_o, b_o = _linear(gen, d, d)
-    pw1_w, pw1_b = _linear(gen, d, 2 * d)
-    pw2_w, pw2_b = _linear(gen, d, d)
+    w_qkv, b_qkv = init_linear(gen, d, 3 * d)
+    w_o, b_o = init_linear(gen, d, d)
+    pw1_w, pw1_b = init_linear(gen, d, 2 * d)
+    pw2_w, pw2_b = init_linear(gen, d, d)
     conv = {"ln_scale": torch.ones(d), "ln_bias": torch.zeros(d),
             "pw1_w": pw1_w, "pw1_b": pw1_b,
             # a channel's filter: fan in and out of ks taps each
@@ -98,7 +99,7 @@ def init_block(gen: torch.Generator, d: int, heads: int, ffn: int,
             "dw_b": torch.zeros(d), "pw2_w": pw2_w, "pw2_b": pw2_b}
     conv.update(conv_ops.norm_params(d, "BN"))
     return {
-        "ffn1": _ffn(gen, d, ffn),
+        "ffn1": init_ffn(gen, d, ffn),
         "mhsa": {"ln_scale": torch.ones(d), "ln_bias": torch.zeros(d),
                  "w_qkv": w_qkv, "b_qkv": b_qkv,
                  "w_pos": xavier_normal(gen, (d, d), d, d),
@@ -106,39 +107,47 @@ def init_block(gen: torch.Generator, d: int, heads: int, ffn: int,
                  "pos_v": torch.zeros(heads, d // heads),
                  "w_o": w_o, "b_o": b_o},
         "conv": conv,
-        "ffn2": _ffn(gen, d, ffn),
+        "ffn2": init_ffn(gen, d, ffn),
         "ln_scale": torch.ones(d), "ln_bias": torch.zeros(d),
     }
 
 
+def init_subsample(gen: torch.Generator, d: int, n_feats: int) -> Params:
+    """``ops/conv.py`` ``conv2d_subsampling``'s tensors."""
+    out_w, out_b = init_linear(gen, d * subsample_width(n_feats), d)
+    return {"conv1": {"w": xavier_normal(gen, (3, 3, 1, d), 9, 9 * d),
+                      "b": torch.zeros(d)},
+            "conv2": {"w": xavier_normal(gen, (3, 3, d, d), 9 * d, 9 * d),
+                      "b": torch.zeros(d)},
+            "out": {"w": out_w, "b": out_b}}
+
+
 def init_conformer(gen: torch.Generator, cfg: Config) -> Params:
     e = cfg.encoder
-    d, n_feats = e.hidden_size, cfg.audio.feat_dim
-    out_w, out_b = _linear(gen, d * subsample_width(n_feats), d)
-    sub = {"conv1": {"w": xavier_normal(gen, (3, 3, 1, d), 9, 9 * d),
-                     "b": torch.zeros(d)},
-           "conv2": {"w": xavier_normal(gen, (3, 3, d, d), 9 * d, 9 * d),
-                     "b": torch.zeros(d)},
-           "out": {"w": out_w, "b": out_b}}
-    return {"subsample": sub,
-            "blocks": [init_block(gen, d, e.self_attn_heads, e.ffn_size, e.ks)
+    return {"subsample": init_subsample(gen, e.hidden_size,
+                                        cfg.audio.feat_dim),
+            "blocks": [init_block(gen, e.hidden_size, e.self_attn_heads,
+                                  e.ffn_size, e.ks)
                        for _ in range(e.num_layers)]}
 
 
 # --------------------------------------------------------------------------
 # apply
 # --------------------------------------------------------------------------
-def _ln(p: Params, x):
+def layer_norm(p: Params, x):
+    """LayerNorm over the last axis with ``p``'s ``ln_scale``, ``ln_bias``."""
     return F.layer_norm(x, x.shape[-1:], p["ln_scale"], p["ln_bias"], LN_EPS)
 
 
-def _ffn_apply(p: Params, x):
-    h = F.silu(gemm_k.linear(_ln(p, x), p["w1"], p["b1"]))
+def feed_forward(p: Params, x):
+    """LN, Linear d -> f, Swish, Linear f -> d."""
+    h = F.silu(gemm_k.linear(layer_norm(p, x), p["w1"], p["b1"]))
     return gemm_k.linear(h, p["w2"], p["b2"])
 
 
 def _conv_module(p: Params, x, lens, train: bool, updates):
-    h = F.glu(gemm_k.linear(_ln(p, x), p["pw1_w"], p["pw1_b"]), dim=-1)
+    h = F.glu(gemm_k.linear(layer_norm(p, x), p["pw1_w"], p["pw1_b"]),
+              dim=-1)
     h = conv_ops.depthwise_conv1d_same(h, p["dw_w"], p["dw_b"], lens)
     h = conv_ops.batch_norm_channels_first(p, h, train, BN_EPS, updates)
     return gemm_k.linear(F.silu(h).transpose(1, 2), p["pw2_w"],
@@ -152,12 +161,12 @@ def block(p: Params, x, lens, heads: int, table, train: bool = False,
     ``rel_pos_table``)."""
     global blocks
     blocks += 1
-    x = x + 0.5 * _ffn_apply(p["ffn1"], x)
-    x = x + sa_ops.rel_pos_attention(p["mhsa"], _ln(p["mhsa"], x), lens,
-                                     heads, table)
+    x = x + 0.5 * feed_forward(p["ffn1"], x)
+    x = x + sa_ops.rel_pos_attention(p["mhsa"], layer_norm(p["mhsa"], x),
+                                     lens, heads, table)
     x = x + _conv_module(p["conv"], x, lens, train, updates)
-    x = x + 0.5 * _ffn_apply(p["ffn2"], x)
-    return _ln(p, x)
+    x = x + 0.5 * feed_forward(p["ffn2"], x)
+    return layer_norm(p, x)
 
 
 def apply_conformer(p: Params, cfg: Config, x, lens, train: bool = False,

@@ -5,7 +5,8 @@ encoder.py:9-83) is the residual stack of ``ops/rnn.py``: the flagship
 4-layer bidirectional LSTM runs its recurrence through kernel K2, the
 other modes and unidirectional stacks through plain time loops.  The
 conv / self-attention families live in ``encoders_extra.py``, the
-Conformer in ``conformer.py``; all share the ``EncoderOut`` contract.
+Conformer in ``conformer.py``, the E-Branchformer in
+``e_branchformer.py``; all share the ``EncoderOut`` contract.
 """
 
 from __future__ import annotations
@@ -62,6 +63,9 @@ def init_encoder(gen: torch.Generator, cfg: Config) -> Params:
     if cfg.encoder.encoder_type == "CONFORMER":
         from . import conformer
         return conformer.init_conformer(gen, cfg)
+    if cfg.encoder.encoder_type == "E_BRANCHFORMER":
+        from . import e_branchformer
+        return e_branchformer.init_e_branchformer(gen, cfg)
     from . import encoders_extra
     return encoders_extra.init_encoder(gen, cfg)
 
@@ -78,13 +82,18 @@ def apply_encoder(p: Params, cfg: Config, x, lens, train: bool = False,
         y, out_lens = conformer.apply_conformer(p, cfg, x, lens, train=train,
                                                 updates=bn_updates)
         return EncoderOut(y, out_lens, None)
+    if cfg.encoder.encoder_type == "E_BRANCHFORMER":
+        from . import e_branchformer
+        y, out_lens = e_branchformer.apply_e_branchformer(p, cfg, x, lens)
+        return EncoderOut(y, out_lens, None)
     from . import encoders_extra
     return encoders_extra.apply_encoder(p, cfg, x, lens, train=train,
                                         updates=bn_updates)
 
 
 def encoder_output_size(cfg: Config) -> int:
-    if cfg.encoder.encoder_type in _RNN_FAMILY + ("CONFORMER",):
+    if cfg.encoder.encoder_type in _RNN_FAMILY + ("CONFORMER",
+                                                  "E_BRANCHFORMER"):
         return cfg.encoder.enc_size
     from . import encoders_extra
     return encoders_extra.encoder_output_size(cfg)

@@ -332,7 +332,9 @@ def depthwise_conv1d_same(x, w, b, lens):
     """x [B, L, C], w [K, C], b [C] -> [B, C, L] channel-first: each
     channel convolved with its own K taps, frames at or past a row's
     length zeroed at the input, padded as torch's ``padding="same"``
-    ((K - 1) // 2 frames before, K // 2 after: 15 and 16 at K = 32)."""
+    ((K - 1) // 2 frames before, K // 2 after: 15 and 16 at the
+    Conformer's K = 32; for an odd K as many each side, 15 and 15 at the
+    E-Branchformer's K = 31, ESPnet's symmetric padding)."""
     K = w.shape[0]
     x = x * length_mask(lens, x.shape[1], x.dtype)[..., None]
     xc = F.pad(x.transpose(1, 2), ((K - 1) // 2, K // 2))

@@ -1,7 +1,7 @@
-"""K7: the Conformer encoder's dense products and the beam decode step's
-(the output projection, the LSTM cell's gates), ``y = x @ w + b`` in
-float32 on the tensor cores as 3xTF32 (``csrc/gemm.cu``), with its plain
-twin.
+"""K7: the Conformer and E-Branchformer encoders' dense products and the
+beam decode step's (the output projection, the LSTM cell's gates), ``y =
+x @ w + b`` in float32 on the tensor cores as 3xTF32 (``csrc/gemm.cu``),
+with its plain twin.
 
 x [..., K], w [K, N], b [N] or None, all float32 -> y [..., N] float32.
 Each operand is split into TF32 words, hi = rna(v) and lo = rna(v - hi)

@@ -49,10 +49,12 @@ captures: there it runs only at capture.
 
 Counters (``register_counters``) are module-level ints that count what
 the card ran: each kernel module's launches and fallbacks, the
-Conformer's blocks.  A module registers its own where it defines them,
-each under ``<module's last name>.<attribute>`` (``topk.launches``);
-``utils/graphs.py`` takes a capture's changes back out and adds them at
-each replay, so the counters keep meaning work on the card.
+Conformer's and the E-Branchformer's blocks (``conformer.blocks``,
+``e_branchformer.blocks``).  A module registers its own where it
+defines them, each under ``<module's last name>.<attribute>``
+(``topk.launches``); ``utils/graphs.py`` takes a capture's changes back
+out and adds them at each replay, so the counters keep meaning work on
+the card.
 """
 
 from __future__ import annotations

@@ -59,10 +59,15 @@ every phase passed):
    within 4x of cuBLAS's float32 error, and at the beam decode step's three
    ([2048, 1024] x [1024, 5004] with its bias, the LSTM gates' [2048, 768]
    x [768, 2048] with theirs and [2048, 512] x [512, 2048]), no farther
-   than cuBLAS's, one launch a call, and time it (CUDA graphs of 10 calls)
-   beside cuBLAS's float32 product (the decode's: ``x @ w (+ b)``, as the
-   decoder ran it before K7), its twin and its bound (3 TF32 passes at the
-   tensor cores' rate, or its bytes);
+   than cuBLAS's, and at the E-Branchformer's four that the Conformer
+   lacks ([M, 512] x [512, 3072], [M, 1536] x [1536, 512], [M, 1024] x
+   [1024, 512], [M, 512] x [512, 1024], each with its bias) no farther
+   than cuBLAS's at each chunk's M of its cell (128 x 317 and 128 x 73 to
+   128 x 173), one launch a call, and time it (CUDA graphs of 10 calls;
+   not the shorter chunks) beside cuBLAS's float32 product (the decode's
+   and the E-Branchformer's: ``x @ w (+ b)``, as the decoder ran it
+   before K7), its twin and its bound (3 TF32 passes at the tensor cores'
+   rate, or its bytes);
 2e. hold K5, the ADPCM wire decode, against its twin bit for bit on the
    B=32 batch's wire, a B=1 wire, a full-scale square wave and silence,
    and time it beside the C++ host encoder;
@@ -416,26 +421,39 @@ K7_SHAPES = ((128 * 317, 512, 2048), (21 * 317, 9728, 512))
 # epilogue) and their recurrent one; a call of 8 chunks runs each 320 times
 K7_DECODE_SHAPES = ((2048, 1024, 5004, True), (2048, 768, 2048, True),
                     (2048, 512, 2048, False))
+# the E-Branchformer's four products that the Conformer lacks, each with its
+# bias: the cgMLP's two (d -> 3072, the gated half 1536 -> d), the merge's
+# (2d -> d) and its FFN's first (d -> 1024); held to cuBLAS's error at the
+# M of each of the cell's chunks (128 rows of 317 frames, timed, and of
+# 73-173, whole seconds of 3-7 s), where cuBLAS picks other kernels
+K7_EBRANCHFORMER_KN = ((512, 3072), (1536, 512), (1024, 512), (512, 1024))
+K7_EBRANCHFORMER_CHUNK_M = tuple(128 * L for L in (73, 98, 123, 148, 173))
 
 
 def _phase_k7(np, torch, fails, dev, gemm_k, graph_ms, gpu) -> dict:
-    """Phase 2h: K7 against the float64 product at K7_SHAPES and
-    K7_DECODE_SHAPES, each error measured against |x| @ |w| + |b|: one
-    launch a call and within 4x of cuBLAS's float32 product (TF32 off) at
-    the Conformer's shapes, no farther than it at the decode's.  Timed as
-    CUDA graphs of 10 calls beside cuBLAS's product (``library_ms``: the
-    Conformer's ``F.linear``, the decode's ``x @ w (+ b)``), its twin and
+    """Phase 2h: K7 against the float64 product at K7_SHAPES,
+    K7_DECODE_SHAPES and K7_EBRANCHFORMER_KN (at M = 128 x 317, then
+    untimed at K7_EBRANCHFORMER_CHUNK_M), each error measured against
+    |x| @ |w| + |b|: one launch a call and within 4x of cuBLAS's float32
+    product (TF32 off) at the Conformer's shapes, no farther than it at
+    the decode's and the E-Branchformer's.  Timed as CUDA graphs of 10
+    calls beside cuBLAS's product (``library_ms``: the Conformer's ``F.linear``,
+    the decode's and the E-Branchformer's ``x @ w (+ b)``), its twin and
     its bound: 3 TF32 passes of 2 M K N at H100_TF32_FLOPS, or its bytes
     (x, w and b read once, y written once) at the HBM's rate."""
     by_shape = {}
-    for M, K, N, has_bias, decode in (
-            [(M, K, N, True, False) for M, K, N in K7_SHAPES]
-            + [(M, K, N, b, True) for M, K, N, b in K7_DECODE_SHAPES]):
+    eb_m = 128 * 317
+    for M, K, N, has_bias, strict, timed in (
+            [(M, K, N, True, False, True) for M, K, N in K7_SHAPES]
+            + [(M, K, N, b, True, True) for M, K, N, b in K7_DECODE_SHAPES]
+            + [(eb_m, K, N, True, True, True) for K, N in K7_EBRANCHFORMER_KN]
+            + [(M, K, N, True, True, False) for K, N in K7_EBRANCHFORMER_KN
+               for M in K7_EBRANCHFORMER_CHUNK_M]):
         g = torch.Generator(device=dev).manual_seed(K + N)
         x = torch.randn(M, K, device=dev, generator=g)
         w = torch.randn(K, N, device=dev, generator=g) * K ** -0.5
         b = torch.randn(N, device=dev, generator=g) if has_bias else None
-        if decode:
+        if strict:
             lib_fn = (lambda: x @ w) if b is None else (lambda: x @ w + b)
         else:
             lib_fn = lambda: torch.nn.functional.linear(x, w.t(), b)
@@ -451,12 +469,17 @@ def _phase_k7(np, torch, fails, dev, gemm_k, graph_ms, gpu) -> dict:
             err = float(((y.double() - ref).abs() / scale).max())
             lib_err = float(((lib.double() - ref).abs() / scale).max())
             del x64, w64, ref, scale, y, lib
-            within = 1 if decode else 4
+            within = 1 if strict else 4
             fails.check(launched == 1 and err <= within * lib_err,
                         f"K7 [{M}, {K}] x [{K}, {N}]: one launch, within "
                         f"{within}x of cuBLAS's float32 error against "
                         f"float64 ({err:.3g} against {lib_err:.3g}, of |x| @ "
                         f"|w| + |b|)")
+            if not timed:
+                by_shape[f"{M}x{K}x{N}"] = dict(err=err, library_err=lib_err,
+                                                bias=has_bias)
+                del x, w, b
+                continue
             ms = graph_ms(lambda: gemm_k.linear(x, w, b), iters=10)
             lib_ms = graph_ms(lib_fn, iters=10)
             plain_ms = graph_ms(lambda: gemm_k.linear_plain(x, w, b),
@@ -482,9 +505,11 @@ def _phase_k7(np, torch, fails, dev, gemm_k, graph_ms, gpu) -> dict:
                 plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
                 bound_by=main["bound_by"], library_ms=main["library_ms"],
                 by_shape=by_shape,
-                shape=f"x [M, K] @ w [K, N] + b, (M, K, N) in {K7_SHAPES} "
-                      f"and, the bias as marked, in {K7_DECODE_SHAPES}; the "
-                      f"main figures the first")
+                shape=f"x [M, K] @ w [K, N] + b, (M, K, N) in {K7_SHAPES}, "
+                      f"the bias as marked, in {K7_DECODE_SHAPES} and, (K, N) "
+                      f"in {K7_EBRANCHFORMER_KN}, at M = {eb_m} and, untimed, "
+                      f"at M in {K7_EBRANCHFORMER_CHUNK_M}; the main figures "
+                      f"the first")
 
 
 def _k2_ptxas_lines(log_path: str, *markers: str, exclude: str = ""):
@@ -2838,10 +2863,11 @@ MESH_NEAR_TIE = 1 / 128
 def _kernel_counters():
     """The program's registered counters (``utils/observe.py``), name ->
     (module, attribute): every kernel's launches and fallbacks and the
-    Conformer's blocks, once the modules that register them are
-    imported."""
+    Conformer's and the E-Branchformer's blocks, once the modules that
+    register them are imported."""
     import chinese_asr_tpu_torch.api  # noqa: F401
     import chinese_asr_tpu_torch.models.conformer  # noqa: F401
+    import chinese_asr_tpu_torch.models.e_branchformer  # noqa: F401
     from chinese_asr_tpu_torch.utils import observe
     return observe.counters()
 

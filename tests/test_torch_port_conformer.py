@@ -127,7 +127,7 @@ def test_a_padded_batch_equals_each_row_alone():
         assert not out.out[b, m:].any()
 
 
-@pytest.mark.parametrize("K", [2, 4, 5, 32])
+@pytest.mark.parametrize("K", [2, 4, 5, 31, 32])
 def test_depthwise_conv_pads_as_torch_same(K):
     g = torch.Generator().manual_seed(K)
     x, w, b = (torch.randn(2, 9, 6, generator=g), torch.randn(K, 6, generator=g),

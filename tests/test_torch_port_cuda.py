@@ -27,6 +27,7 @@ from chinese_asr_tpu_torch import config as tcfg
 from chinese_asr_tpu_torch.audio import features as tfeat
 from chinese_asr_tpu_torch.models import attention as tattn_ops
 from chinese_asr_tpu_torch.models import conformer as tconf
+from chinese_asr_tpu_torch.ops import conv as tconv
 from chinese_asr_tpu_torch.ops.cuda import adpcm as tadpcm
 from chinese_asr_tpu_torch.ops.cuda import attention as tattn
 from chinese_asr_tpu_torch.ops.cuda import gemm as tgemm
@@ -2027,21 +2028,26 @@ def _gemm_inputs(dev, M, K, N, bias=True, seed=0, transposed=False):
 # (M, K, N, bias, transposed): the Conformer's products at ragged M (8
 # sorted chunks of 128 rows, the longest 317 frames): the FFN's two, QKV,
 # the output map, the pointwise convolutions (the second on its
-# transposed input), the subsampling's map of 512 x 19 features
+# transposed input), the subsampling's map of 512 x 19 features; then the
+# E-Branchformer's four that the Conformer lacks: the cgMLP's two, the
+# merge's (its FFN's second) and its FFN's first
 GEMM_SHAPES = [(128 * 317, 512, 2048, True, False),
                (1000, 2048, 512, True, False),
                (1000, 512, 1536, True, False),
                (1000, 512, 512, False, False),
                (1000, 512, 1024, True, False),
                (4 * 317, 512, 512, True, True),
-               (2000, 9728, 512, True, False)]
+               (2000, 9728, 512, True, False),
+               (1000, 512, 3072, True, False),
+               (1000, 1536, 512, True, False),
+               (1000, 1024, 512, True, False)]
 
 
 @pytest.mark.parametrize("M,K,N,bias,transposed", GEMM_SHAPES)
 def test_gemm_kernel_within_cublas_error(dev, M, K, N, bias, transposed):
-    """K7 against the float64 product at each Conformer shape: one launch
-    a call, and no farther from it than 4x cuBLAS's float32 product (TF32
-    off), both measured against |x| @ |w| + |b|."""
+    """K7 against the float64 product at each Conformer and E-Branchformer
+    shape: one launch a call, and no farther from it than 4x cuBLAS's
+    float32 product (TF32 off), both measured against |x| @ |w| + |b|."""
     x, w, b = _gemm_inputs(dev, M, K, N, bias, seed=K + N, transposed=transposed)
     with torch.no_grad():
         before, fell = tgemm.launches, tgemm.fallbacks
@@ -2268,6 +2274,83 @@ def test_conformer_on_the_card_runs_its_products_on_k7(dev):
             8 * 2 + 1, 0)
     assert torch.equal(gl.cpu(), wl)
     torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=0)
+
+
+# (K, N): the E-Branchformer's products that the Conformer lacks: the
+# cgMLP's two (d -> 3072, the gated half 1536 -> d), the merge's (2d -> d)
+# and the macaron FFN's first (d -> 1024; its second is the merge's shape)
+GEMM_EBRANCHFORMER_SHAPES = [(512, 3072), (1536, 512), (1024, 512),
+                             (512, 1024)]
+
+
+@pytest.mark.parametrize("M", [128 * 317, 128 * 73])
+@pytest.mark.parametrize("K,N", GEMM_EBRANCHFORMER_SHAPES)
+def test_gemm_kernel_at_the_ebranchformer_shapes(dev, K, N, M):
+    """K7 at the E-Branchformer's four new shapes over the cell's longest
+    and shortest chunks (128 rows of 317 and of 73 frames), with the bias
+    in its epilogue: one launch, and no farther from the float64 product
+    than cuBLAS's float32 product (TF32 off) on the same operands, both
+    measured against |x| @ |w| + |b|.  At a ragged M of 1000, below any
+    chunk of the cell, they are held to the Conformer shapes' 4x
+    (``GEMM_SHAPES``): there cuBLAS takes a kernel that comes closer."""
+    x, w, b = _gemm_inputs(dev, M, K, N, seed=K + N + 26)
+    with torch.no_grad():
+        before, fell = tgemm.launches, tgemm.fallbacks
+        y = tgemm.linear(x, w, b)
+        torch.cuda.synchronize()
+        assert (tgemm.launches - before, tgemm.fallbacks - fell) == (1, 0)
+        lib = x @ w + b
+    err, lib_err = _gemm_err(y, x, w, b), _gemm_err(lib, x, w, b)
+    assert err <= lib_err, (err, lib_err)
+
+
+@pytest.mark.parametrize("C", [1536, 1024])
+def test_depthwise_conv_at_31_taps_equals_the_cpu(dev, C):
+    """``ops/conv.py`` ``depthwise_conv1d_same`` at the E-Branchformer's
+    31 taps (15 frames each side) over the cgMLP's 1536 and the merge's
+    1024 channels, ragged rows: the card's result within 1e-5 of the
+    CPU's (sums of 31 products of unit normals, ~6 in magnitude, in
+    another order), padding frames read as zero."""
+    g = torch.Generator().manual_seed(C)
+    x, w, b = (torch.randn(16, 200, C, generator=g),
+               torch.randn(31, C, generator=g), torch.randn(C, generator=g))
+    lens = torch.randint(1, 201, (16,), generator=g)
+    lens[0] = 200
+    want = tconv.depthwise_conv1d_same(x, w, b, lens)
+    with torch.no_grad():
+        got = tconv.depthwise_conv1d_same(x.to(dev), w.to(dev), b.to(dev),
+                                          lens.to(dev))
+    torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=0)
+
+
+def test_ebranchformer_on_the_card_matches_the_reference(dev):
+    """The tiny E-Branchformer (d 32, 2 blocks, cgMLP 96, kernels 7 and
+    5) on the card, on the benchmark's seeded weights: 9 K7 launches a
+    block and one for the subsampling's map, none falling back, 2 blocks
+    counted, its output within 1e-4 of the benchmark's plain reference on
+    the CPU (K7's 3xTF32 against float32, over 2 blocks)."""
+    from chinese_asr_tpu_torch.models import e_branchformer as teb
+    from chinese_asr_tpu_torch.models import encoder as tenc
+    from chinese_asr_tpu_torch.models import las
+    from port_bench import encoders
+    from port_bench.lib import common, offline, weights
+    from port_bench.reference import las as ref
+    from port_bench.tests.conftest import TINY_SEED, tiny_config
+    cfg = tiny_config(common.load("configs", "las_ebranchformer_l_f32"))
+    params = weights.make_params(cfg, TINY_SEED, "cpu")
+    x, lens = _small_conformer_feats()
+    want, wl, _ = encoders.of(cfg).encode(ref.Precision(), params, x, lens,
+                                          cfg)
+    on_card = las.tree_map(lambda t: t.to(dev), params)
+    with torch.no_grad():
+        before = tgemm.launches, tgemm.fallbacks, teb.blocks
+        got = tenc.apply_encoder(on_card["encoder"], offline.port_config(cfg),
+                                 x.to(dev), lens.to(dev))
+        torch.cuda.synchronize()
+        assert (tgemm.launches - before[0], tgemm.fallbacks - before[1],
+                teb.blocks - before[2]) == (9 * 2 + 1, 0, 2)
+    assert torch.equal(got.out_lens.cpu(), wl)
+    torch.testing.assert_close(got.out.cpu(), want, atol=1e-4, rtol=0)
 
 
 def test_gemm_split_follows_weights_updated_between_replays(dev):

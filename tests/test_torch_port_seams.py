@@ -127,8 +127,9 @@ def _forwarded_counters() -> list:
 
 
 def test_the_benchmark_names_counters_the_program_forwards():
-    assert ("port_bench.encoders.conformer", "blocks") in _bench_counters()
-    assert (f"{PKG}.models.conformer", "blocks") in _forwarded_counters()
+    for family in ("conformer", "e_branchformer"):
+        assert (f"port_bench.encoders.{family}", "blocks") in _bench_counters()
+        assert (f"{PKG}.models.{family}", "blocks") in _forwarded_counters()
 
 
 @pytest.mark.parametrize("mod,attr",
