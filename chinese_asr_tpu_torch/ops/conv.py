@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from .masks import length_mask
 from .rnn import xavier_normal as _xavier
 from .cuda import gemm as gemm_k
+from .cuda import subsample as subsample_k
 
 Params = Dict[str, torch.Tensor]
 
@@ -288,10 +289,10 @@ def same_conv2d(p: Params, x):
 # stride-2 convolutions with ReLU, flattened channel-major into a linear
 # map) and the convolution module's depthwise conv1d and BatchNorm
 # --------------------------------------------------------------------------
-# the most elements the subsampling's first convolution holds at once: it
-# runs a slice of rows at a time, so that the widest intermediate of the
-# model ([B, C, (T-1)/2, (F-1)/2], 6.6 GB at B=128 of 13 s, C=512) is not
-# held whole (1 GiB in float32)
+# the most elements the subsampling's first convolution holds at once off
+# K8: it runs a slice of rows at a time, so that the widest intermediate
+# of the model ([B, C, (T-1)/2, (F-1)/2], 6.6 GB at B=128 of 13 s, C=512)
+# is not held whole (1 GiB in float32)
 SUBSAMPLE_SLICE_ELEMS = 1 << 28
 
 
@@ -307,23 +308,31 @@ def conv2d_subsampling(p: Dict[str, Params], x, lens):
     zero past each row's length, T2 = ((T - 1) // 2 - 1) // 2, the lens
     out).  ``p``: ``conv1`` / ``conv2`` ({w [3, 3, in, C], b [C]}, the
     layout of ``init_conv2d``) and ``out`` ({w [C * F2, d], b [d]}, F2 =
-    ((F - 1) // 2 - 1) // 2).  A valid convolution's outputs within a
-    row's length read only that row's frames; rows are independent, so
-    the convolutions run ``SUBSAMPLE_SLICE_ELEMS`` at a time."""
-    B, T, Fq = x.shape
-    w1 = p["conv1"]["w"].permute(3, 2, 0, 1)
-    w2 = p["conv2"]["w"].permute(3, 2, 0, 1)
-    per_row = w1.shape[0] * ((T - 1) // 2) * ((Fq - 1) // 2)
-    rows = max(1, SUBSAMPLE_SLICE_ELEMS // max(1, per_row))
-    outs = []
-    for s in range(0, B, rows):
-        h = F.conv2d(x[s:s + rows, None], w1, p["conv1"]["b"],
-                     stride=2).relu_()
-        h = F.conv2d(h, w2, p["conv2"]["b"], stride=2).relu_()
-        # [b, C, T2, F2] -> [b, T2, C * F2]: feature c * F2 + f
-        outs.append(gemm_k.linear(h.transpose(1, 2).flatten(2),
-                                  p["out"]["w"], p["out"]["b"]))
-    y = outs[0] if len(outs) == 1 else torch.cat(outs)
+    ((F - 1) // 2 - 1) // 2).  On the card both convolutions with their
+    ReLUs are one K8 launch over the whole batch (``ops/cuda/subsample.py``
+    ``convs``), whose output is the map's input; elsewhere (the CPU,
+    autograd) they are two ``F.conv2d``.  A valid convolution's outputs
+    within a row's length read only that row's frames; rows are
+    independent, so off K8 the convolutions run ``SUBSAMPLE_SLICE_ELEMS``
+    at a time."""
+    c1, c2 = p["conv1"], p["conv2"]
+    h = subsample_k.convs(x, c1["w"], c1["b"], c2["w"], c2["b"])
+    if h is not None:
+        y = gemm_k.linear(h, p["out"]["w"], p["out"]["b"])
+    else:
+        B, T, Fq = x.shape
+        w1 = c1["w"].permute(3, 2, 0, 1)
+        w2 = c2["w"].permute(3, 2, 0, 1)
+        per_row = w1.shape[0] * ((T - 1) // 2) * ((Fq - 1) // 2)
+        rows = max(1, SUBSAMPLE_SLICE_ELEMS // max(1, per_row))
+        outs = []
+        for s in range(0, B, rows):
+            h = F.conv2d(x[s:s + rows, None], w1, c1["b"], stride=2).relu_()
+            h = F.conv2d(h, w2, c2["b"], stride=2).relu_()
+            # [b, C, T2, F2] -> [b, T2, C * F2]: feature c * F2 + f
+            outs.append(gemm_k.linear(h.transpose(1, 2).flatten(2),
+                                      p["out"]["w"], p["out"]["b"]))
+        y = outs[0] if len(outs) == 1 else torch.cat(outs)
     lens = subsample_out_len(lens)
     return y * length_mask(lens, y.shape[1], y.dtype)[..., None], lens
 

@@ -1,6 +1,7 @@
 """Hand-written CUDA kernels of the port (sources in ``csrc/``, built and
 loaded by ``build``), one module a kernel: K1 ``logmel``, K2 ``lstm``,
-K3/K4 ``topk``, K5 ``adpcm``, K6 ``attention``, K7 ``gemm``.
+K3/K4 ``topk``, K5 ``adpcm``, K6 ``attention``, K7 ``gemm``, K8
+``subsample``.
 
 A module is the only place that knows its kernel.  It owns:
 
@@ -11,7 +12,7 @@ A module is the only place that knows its kernel.  It owns:
   takes as they come (``plan``; ``grain``, ``takes``);
 * its counters, module-level ints registered with ``utils/observe.py``
   where they are defined: ``launches`` (and the like) count kernel
-  launches, K7's ``fallbacks`` the products it does not compute;
+  launches, K7's and K8's ``fallbacks`` the calls they do not compute;
 * any cache of its operands that must be brought up to date before a
   captured graph replays, registered with ``build.on_replay``.
 
@@ -23,7 +24,9 @@ key row to whole 16-byte units with zero columns and copies keys off a
 read in place.  K7's ``linear`` (and ``linear_pair``) is also the port's
 product where K7 does not compute it: under autograd (K7 has no
 backward) and in other dtypes it takes the plain ``x @ w + b``, as the
-port did before K7, counted in ``fallbacks`` (on the CPU too).
+port did before K7, counted in ``fallbacks`` (on the CPU too); K8's
+``convs`` there returns None, counted the same way, and its caller runs
+the two ``F.conv2d`` of before K8.
 Everything else raises: shapes that disagree, mixed dtypes or a dtype
 the kernel has no version of, an operand layout it cannot read, a needed
 gradient where the kernel has no backward, K6 at a width whose key tiles

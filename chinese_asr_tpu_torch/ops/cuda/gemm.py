@@ -64,7 +64,7 @@ def split_tf32(t):
 
 
 def _split(w):
-    hi, lo = split_tf32(w.detach().t().contiguous())
+    hi, lo = split_tf32(w.detach().reshape(-1, w.shape[-1]).t().contiguous())
     return torch.stack((hi, lo))
 
 
@@ -77,7 +77,9 @@ def _refresh(w, hit) -> None:
 
 
 def weight_split(w):
-    """w [K, N] -> [2, N, K] float32: its hi and lo TF32 words, K-major.
+    """w [K, N] -> [2, N, K] float32: its hi and lo TF32 words, K-major
+    (w [..., N] is taken as [K, N], its leading dims flattened into K in
+    order: K8's [3, 3, C, C] convolution weight as [9 C, C]).
     Cached a weight tensor and its version counter, so an update in place
     is never served stale (a CUDA graph's replay runs no Python: the
     decode programs call ``refresh`` before each, through
@@ -90,7 +92,8 @@ def weight_split(w):
     key = id(w)
     hit = _splits.get(key)
     if (hit is not None and hit[0]() is w
-            and hit[3].shape == (2, w.shape[1], w.shape[0])):
+            and hit[3].shape == (2, w.shape[-1],
+                                 w.numel() // max(1, w.shape[-1]))):
         _refresh(w, hit)
         return hit[3]
     hl = _split(w)

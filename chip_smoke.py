@@ -68,6 +68,13 @@ every phase passed):
    and the E-Branchformer's: ``x @ w (+ b)``, as the decoder ran it
    before K7), its twin and its bound (3 TF32 passes at the tensor cores'
    rate, or its bytes);
+2i. hold K8, the subsampling's two convolutions, at the offline cells'
+   longest and shortest chunk (128 rows, 316 and 72 frames out, 80
+   log-mels, C = 512): one launch, exact under a CUDA graph's replay,
+   within 1e-4 of its twin, against the float64 convolutions of |x|,
+   |w| and |b| no farther than cuDNN's float32 pair (TF32 off); time it
+   (CUDA graphs) beside that pair with its ReLUs and the flatten's copy,
+   its twin and its bound;
 2e. hold K5, the ADPCM wire decode, against its twin bit for bit on the
    B=32 batch's wire, a B=1 wire, a full-scale square wave and silence,
    and time it beside the C++ host encoder;
@@ -83,7 +90,11 @@ every phase passed):
    K3, then the LM-driven first pass (``lm_mode="first"``, topn 20) over
    the order-3 ARPA, then bf16 inference (``compute_dtype="bfloat16"``)
    at B=32 and B=128 and the mu-law and ADPCM wires at B=32 (their wire
-   bytes, host preparation and host-to-device copy times printed); every
+   bytes, host preparation and host-to-device copy times printed), then
+   the offline cells' two attention encoders, Conformer (L) and
+   E-Branchformer (L) at their configuration files' widths
+   (``ENCODER_RUNS``), at B=128 (one chunk: K8 once, K7 137 or 154 times
+   in the encoder and 120 in the decode); every
    LM's tables are hashed, built through the C++
    reader (the parse and build times are printed, and the order-3 one
    through the pure-Python parse beside it); checking that
@@ -248,6 +259,39 @@ TOL_FEATS = 1e-3
 TOL_ENC = 1e-3
 
 TIMED_RUNS = 7                  # warm main-path runs behind each wall time
+
+# phase 3's attention encoders: run name, the benchmark's configuration file
+# (port_bench/configs/), its blocks counter and K7's products a block (the
+# encoder adds one more, the subsampling's map)
+ENCODER_RUNS = (("conformer_l_b128", "las_conformer_l_f32",
+                 "conformer.blocks", 8),
+                ("ebranchformer_l_b128", "las_ebranchformer_l_f32",
+                 "e_branchformer.blocks", 9))
+_CONFIG_SECTIONS = ("audio", "vocab", "encoder", "attention", "decoder",
+                    "decode", "train")
+
+
+def _cell_config(Config, name: str):
+    """The program's ``Config`` of a benchmark configuration file, as the
+    benchmark makes it (its sections, read as JSON)."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "port_bench", "configs", name + ".json")
+    with open(path, encoding="utf-8") as f:
+        cfg = json.load(f)
+    return Config.from_json(json.dumps({k: cfg[k] for k in _CONFIG_SECTIONS
+                                        if k in cfg}))
+
+
+def _encoder_need(cfg, blocks: str, per_block: int) -> dict:
+    """The exact launches of one ``ASR(bw=16)`` chunk of an attention
+    encoder: K1 once, K8 once, K7 ``per_block`` a block and the
+    subsampling's map, then the decode's 40 steps (random weights never
+    stop early): K3 and K6 once each, K7 three times (the output
+    projection, the LSTM's two gate products)."""
+    layers = cfg.encoder.num_layers
+    return {"logmel.launches": 1, "subsample.launches": 1, blocks: layers,
+            "topk.launches": 40, "attention.launches": 40,
+            "gemm.launches": per_block * layers + 1 + 120}
 
 # The phase split of K2-bf16's and K2-bwd-bf16's step before their bf16
 # redesign (each the f32 design's bf16 instance), as recorded in PERF.md
@@ -510,6 +554,121 @@ def _phase_k7(np, torch, fails, dev, gemm_k, graph_ms, gpu) -> dict:
                       f"in {K7_EBRANCHFORMER_KN}, at M = {eb_m} and, untimed, "
                       f"at M in {K7_EBRANCHFORMER_CHUNK_M}; the main figures "
                       f"the first")
+
+
+# K8's shapes: the subsampling of the offline cells' longest chunk (128 rows,
+# 316 frames out of the second convolution) and of their shortest (72), over
+# 80 log-mels, at C = 512; T = 4 T2 + 4 frames in
+K8_T2 = (316, 72)
+K8_B, K8_C, K8_F = 128, 512, 80
+
+
+def _subsample_inputs(torch, dev, T2, seed, positive=False):
+    """x [K8_B, 4 T2 + 4, K8_F] and the two convolutions' weights and
+    biases at the configuration's widths (xavier-normal scale), made on the
+    card from ``seed``; with ``positive`` their magnitudes."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    C = K8_C
+    ops = [3 * torch.randn(K8_B, 4 * T2 + 4, K8_F, device=dev, generator=g),
+           torch.randn(3, 3, 1, C, device=dev, generator=g) * (2 / (9 + 9 * C)) ** 0.5,
+           0.1 * torch.randn(C, device=dev, generator=g),
+           torch.randn(3, 3, C, C, device=dev, generator=g) * (1 / (9 * C)) ** 0.5,
+           0.1 * torch.randn(C, device=dev, generator=g)]
+    return [t.abs() for t in ops] if positive else ops
+
+
+def _subsample_library(torch, x, w1, b1, w2, b2):
+    """The port's subsampling before K8, whole-batch: cuDNN's two float32
+    convolutions (TF32 off), each with its ReLU in place, and the
+    channel-major flatten's copy."""
+    F = torch.nn.functional
+    h = F.conv2d(x[:, None], w1.permute(3, 2, 0, 1), b1, stride=2).relu_()
+    h = F.conv2d(h, w2.permute(3, 2, 0, 1), b2, stride=2).relu_()
+    return h.transpose(1, 2).flatten(2)
+
+
+def _subsample_f64(torch, x, w1, b1, w2, b2, rows: int = 16):
+    """The same two convolutions in float64, ``rows`` rows at a time."""
+    x, w1, b1, w2, b2 = (t.double() for t in (x, w1, b1, w2, b2))
+    return torch.cat([_subsample_library(torch, x[s:s + rows], w1, b1, w2,
+                                         b2)
+                      for s in range(0, x.shape[0], rows)])
+
+
+def _phase_k8(np, torch, fails, dev, sub_k, graph_ms, gpu) -> dict:
+    """Phase 2i: K8, the subsampling's two convolutions, at the offline
+    cells' longest and shortest chunk (K8_T2): one launch a call, exact
+    under a CUDA graph's replay, within 1e-4 of its twin, and against the
+    float64 convolutions on |x|, |w| and |b| no farther than cuDNN's
+    float32 pair (TF32 off); timed as CUDA graphs beside that pair with
+    its ReLUs and the flatten's copy (``library_ms``), its twin and its
+    bound (3 TF32 passes of conv2's 2 M 9 C^2 operations at the tensor
+    cores' rate, or its bytes: x, the weights and biases read once, y
+    written once)."""
+    by_shape = {}
+    for T2 in K8_T2:
+        ops = _subsample_inputs(torch, dev, T2, seed=T2)
+        M = K8_B * T2 * 19
+        with torch.no_grad():
+            before = sub_k.launches
+            y = sub_k.convs(*ops)
+            torch.cuda.synchronize()
+            launched = sub_k.launches - before
+            twin = sub_k.convs_plain(*ops)
+            twin_err = float((y - twin).abs().max() / twin.abs().max())
+            del twin
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                yg = sub_k.convs(*ops)
+            graph.replay()
+            torch.cuda.synchronize()
+            same = torch.equal(yg, y)
+            del graph, yg, y
+            pos = _subsample_inputs(torch, dev, T2, seed=T2, positive=True)
+            ref = _subsample_f64(torch, *pos)
+            err = float(((sub_k.convs(*pos).double() - ref) / ref).abs().max())
+            lib_err = float(((_subsample_library(torch, *pos).double() - ref)
+                             / ref).abs().max())
+            del ref, pos
+            fails.check(launched == 1 and same and twin_err <= 1e-4
+                        and err <= lib_err,
+                        f"K8 [{K8_B}, {4 * T2 + 4}, {K8_F}] -> [{K8_B}, {T2}, "
+                        f"{K8_C} x 19]: one launch ({launched}), a graph's "
+                        f"replay equal ({same}), within 1e-4 of its twin "
+                        f"({twin_err:.3g} of its largest value), no farther "
+                        f"from float64 than cuDNN's float32 pair ({err:.3g} "
+                        f"against {lib_err:.3g}, relative, on |x|, |w|, |b|)")
+            ms = graph_ms(lambda: sub_k.convs(*ops), iters=10)
+            lib_ms = graph_ms(lambda: _subsample_library(torch, *ops),
+                              iters=3)
+            plain_ms = graph_ms(lambda: sub_k.convs_plain(*ops), iters=2)
+        C, T = K8_C, 4 * T2 + 4
+        t_ops = 3 * 2 * M * 9 * C * C / H100_TF32_FLOPS * 1e3
+        t_bytes = 4 * (K8_B * T * K8_F + 9 * C + 9 * C * C + 2 * C
+                       + M * C) / H100_BYTES_PER_S * 1e3
+        bound, by = max((t_ops, "operations"), (t_bytes, "bytes"))
+        by_shape[f"T2={T2}"] = dict(ms=ms, library_ms=lib_ms,
+                                    plain_ms=plain_ms, bound_ms=bound,
+                                    bound_by=by, share=bound / ms, err=err,
+                                    library_err=lib_err, twin_err=twin_err)
+        print(f"K8 [{K8_B}, {T}, {K8_F}] -> [{K8_B}, {T2}, {C * 19}]: "
+              f"{ms:.4f} ms, bound {bound:.4f} ms ({by}) = "
+              f"{100 * bound / ms:.1f} %, cuDNN f32 pair + ReLU + flatten "
+              f"{lib_ms:.4f} ms ({lib_ms / ms:.2f}x), twin {plain_ms:.3f} "
+              f"ms; error {err:.3g}, cuDNN {lib_err:.3g}, twin {twin_err:.3g}"
+              f" on {gpu}", flush=True)
+        del ops
+        torch.cuda.empty_cache()
+    main = by_shape[f"T2={K8_T2[0]}"]
+    return dict(name="K8 subsampling convolutions", route="cuda",
+                source="chinese_asr_tpu_torch/csrc/subsample.cu",
+                replaces=None, max_rel_err=main["err"], ms=main["ms"],
+                plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+                bound_by=main["bound_by"], library_ms=main["library_ms"],
+                by_shape=by_shape,
+                shape=f"x [{K8_B}, 4 T2 + 4, {K8_F}] -> [{K8_B}, T2, "
+                      f"{K8_C} x 19], T2 in {K8_T2}; the main figures the "
+                      f"first")
 
 
 def _k2_ptxas_lines(log_path: str, *markers: str, exclude: str = ""):
@@ -952,7 +1111,9 @@ _TRACE_KERNELS = (("K1", ("logmel_tc_kernel",), ("logmel.launches",)),
                   ("K5", ("adpcm_decode_kernel",), ("adpcm.launches",)),
                   ("K6", ("beam_attention_kernel<",),
                    ("attention.launches",)),
-                  ("K7", ("tf32x3_gemm_kernel",), ("gemm.launches",)))
+                  ("K7", ("tf32x3_gemm_kernel",), ("gemm.launches",)),
+                  ("K8", ("subsample_tf32x3_kernel",),
+                   ("subsample.launches",)))
 
 
 def _ab_line(label: str, r: dict, gpu: str) -> str:
@@ -967,6 +1128,55 @@ def _ab_line(label: str, r: dict, gpu: str) -> str:
                 f"{host}")
     return f"3g {label} on {gpu}: " + "; ".join(
         one(k) for k in ("graph", "eager", "eager_1sync") if k in r)
+
+
+def _graph_mode(np, torch, fails, gpu, mode, asr, batch, fused, need,
+                texts) -> dict:
+    """Phase 3g of one phase-3 run (``need``, its counters; ``texts``, its
+    transcripts): the graph path against the eager functions
+    (``_graph_vs_eager``), both giving ``texts``, and the card's trace of
+    one graph-path call holding each of our kernels as often as its
+    counters count, at least once for each kernel ``need`` names.
+    Returns the A/B report."""
+    from chinese_asr_tpu_torch.utils import graphs
+    t_run = time.time()
+    os.environ["CHINESE_ASR_PALLAS_FUSED"] = "1" if fused else "0"
+    before = graphs.replays
+    r = _graph_vs_eager(np, torch, asr, batch,
+                        one_sync=mode in ("beam_bw16", "greedy"),
+                        host_trace=asr.dlm is None)
+    got = r.pop("texts")
+    fails.check(all(t == texts for t in got.values())
+                and graphs.replays > before,
+                f"3g {mode}: the graph replay's transcripts equal the "
+                f"eager loop's and phase 3's")
+    rows = r.pop("graph_rows")
+    counted = r.pop("graph_counted")
+    traced = {name: (sum(c for _, c, key in rows
+                         if any(k in key for k in keys)),
+                     sum(counted[n] for n in ctrs))
+              for name, keys, ctrs in _TRACE_KERNELS}
+    # K1 and K5 run in the front end's graph, the rest in the decode's
+    # (the encoder's K2, K7 and K8 in its first step)
+    ran = [name for name, _, ctrs in _TRACE_KERNELS
+           if any(n in need for n in ctrs)]
+    fails.check(all(t == c for t, c in traced.values())
+                and all(traced[name][0] > 0 for name in ran),
+                f"3g {mode}: the card's trace of one graph-path call "
+                f"launched what the counters count, K1-K8 (traced, "
+                f"counted) {traced}, each of {ran} at least once")
+    r["traced_vs_counted"] = traced
+    print(_ab_line(mode, r, gpu) + f" ({time.time() - t_run:.1f} s)",
+          flush=True)
+    # where the graph path's device time goes: the twelve largest
+    # kernels, then the port's own further down
+    ours = [x for x in rows[12:] if any(
+        n in x[2] for n in ("topk_kernel", "bilstm", "logmel", "adpcm",
+                            "beam_attention", "tf32x3_gemm",
+                            "subsample_tf32x3"))]
+    for us, count, key in rows[:12] + ours:
+        print(f"  {us / 1e3:9.3f} ms  x{count:<5d} {key[:90]}")
+    return r
 
 
 def _phase_graphs(np, torch, fails, ASR, gpu, runs_spec, texts_of, golden,
@@ -984,42 +1194,9 @@ def _phase_graphs(np, torch, fails, ASR, gpu, runs_spec, texts_of, golden,
         return graphs.replays
 
     report = {}
-    for mode, asr, batch, fused, _ in runs_spec:
-        t_run = time.time()
-        os.environ["CHINESE_ASR_PALLAS_FUSED"] = "1" if fused else "0"
-        before = replays()
-        r = _graph_vs_eager(np, torch, asr, batch,
-                            one_sync=mode in ("beam_bw16", "greedy"),
-                            host_trace=asr.dlm is None)
-        texts = r.pop("texts")
-        fails.check(all(t == texts_of[mode] for t in texts.values())
-                    and replays() > before,
-                    f"3g {mode}: the graph replay's transcripts equal the "
-                    f"eager loop's and phase 3's")
-        rows = r.pop("graph_rows")
-        counted = r.pop("graph_counted")
-        traced = {name: (sum(c for _, c, key in rows
-                             if any(k in key for k in keys)),
-                         sum(counted[n] for n in ctrs))
-                  for name, keys, ctrs in _TRACE_KERNELS}
-        # K1 and K5 run in the front end's graph, K2-K4, K6 and K7 in the
-        # decode's
-        fails.check(all(t == c for t, c in traced.values())
-                    and traced["K2"][0] > 0 and traced["K1"][0] > 0,
-                    f"3g {mode}: the card's trace of one graph-path call "
-                    f"launched what the counters count, K1-K7 (traced, "
-                    f"counted) {traced}")
-        r["traced_vs_counted"] = traced
-        report[mode] = r
-        print(_ab_line(mode, r, gpu) + f" ({time.time() - t_run:.1f} s)",
-              flush=True)
-        # where the graph path's device time goes: the twelve largest
-        # kernels, then the port's own further down
-        ours = [x for x in rows[12:] if any(
-            n in x[2] for n in ("topk_kernel", "bilstm", "logmel", "adpcm",
-                                "beam_attention", "tf32x3_gemm"))]
-        for us, count, key in rows[:12] + ours:
-            print(f"  {us / 1e3:9.3f} ms  x{count:<5d} {key[:90]}")
+    for mode, asr, batch, fused, need in runs_spec:
+        report[mode] = _graph_mode(np, torch, fails, gpu, mode, asr, batch,
+                                   fused, need, texts_of[mode])
     os.environ["CHINESE_ASR_PALLAS_FUSED"] = "0"
 
     gold, gcfg, gvocab, gpaths, expected = golden
@@ -3306,6 +3483,63 @@ class Failures:
             self.items.append(what)
 
 
+def _main_run(np, torch, fails, gpu, counters, mode, asr, batch, fused,
+              need, sample_rate) -> tuple:
+    """One phase-3 run: ``asr.transcribe_wavs(batch)`` once to capture the
+    decode's graphs (an eager warm-up, then the capture; timed apart),
+    twice from zeroed counters, replaying them (every counter of ``need``
+    at its value, None: at least once, every other 0; the two runs'
+    transcripts equal, not all empty), then TIMED_RUNS - 1 more warm
+    walls.  Returns (its report, the first counted run's transcripts)."""
+    os.environ["CHINESE_ASR_PALLAS_FUSED"] = "1" if fused else "0"
+    audio_s = sum(len(w) for w in batch) / sample_rate
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    asr.transcribe_wavs(batch)
+    torch.cuda.synchronize()
+    w_capture = time.perf_counter() - t
+    runs = []
+    for _ in range(2):
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        texts = asr.transcribe_wavs(batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        runs.append((texts, wall, {n: getattr(mod, attr) for n, (mod, attr)
+                                   in counters.items()}))
+    (t1, w1, c1), (t2, w2, _) = runs
+    fails.check(all(c1[n] > 0 if v is None else c1[n] == v
+                    for n, v in need.items())
+                and all(c1[n] == 0 for n in counters if n not in need),
+                f"{mode}: kernels launched in the main path {c1}, "
+                f"wanted {need} (None: at least once)")
+    fails.check(t1 == t2 and len(t1) == len(batch),
+                f"{mode}: two runs give identical transcripts")
+    fails.check(all(isinstance(s, str) for s in t1) and any(t1),
+                f"{mode}: non-empty transcripts")
+    # host-clock times spread: take the median of TIMED_RUNS warm runs
+    walls = [w2]
+    for _ in range(TIMED_RUNS - 1):
+        t = time.perf_counter()
+        asr.transcribe_wavs(batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+    wall = float(np.median(walls))
+    print(f"{mode}: {len(batch)} wavs, {audio_s:.1f} s audio, wall "
+          f"{w_capture:.3f} s (first call: warm-up and capture), "
+          f"{w1:.3f} s (first replay), median {wall:.4f} s of "
+          f"{len(walls)} warm "
+          f"runs [{min(walls):.4f}, {max(walls):.4f}] -> "
+          f"{audio_s / wall:.1f} audio-s/s on {gpu}; launches {c1}; "
+          f"first transcript {t1[0][:60]!r}", flush=True)
+    return dict(batch=len(batch), wall_s_capture=w_capture,
+                wall_s_first=w1, wall_s=wall, wall_s_min=min(walls),
+                wall_s_max=max(walls), runs=len(walls), launches=c1,
+                audio_s=audio_s, audio_s_per_s=audio_s / wall), t1
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3327,6 +3561,7 @@ def main() -> int:
     from chinese_asr_tpu_torch.ops.cuda import gemm as gemm_k
     from chinese_asr_tpu_torch.ops.cuda import logmel as logmel_k
     from chinese_asr_tpu_torch.ops.cuda import lstm as lstm_k
+    from chinese_asr_tpu_torch.ops.cuda import subsample as sub_k
     from chinese_asr_tpu_torch.ops.cuda import topk as topk_k
     from chinese_asr_tpu_torch.tools import lstm_stamp
     from chinese_asr_tpu_torch.tools.timing import cold_cycle, graph_ms
@@ -4004,6 +4239,12 @@ def main() -> int:
     kernels["gemm"] = _phase_k7(np, torch, fails, dev, gemm_k, graph_ms, gpu)
     print(f"phase 2h: {time.time() - t2h:.1f} s", flush=True)
 
+    # ---- phase 2i: K8, the subsampling's two convolutions --------------------
+    t2i = time.time()
+    kernels["subsample"] = _phase_k8(np, torch, fails, dev, sub_k, graph_ms,
+                                     gpu)
+    print(f"phase 2i: {time.time() - t2i:.1f} s", flush=True)
+
     # ---- phase 3: main path --------------------------------------------------
     cfg = Config()
     wavs = _synthetic_wavs(np, rng, 32, 9.0, 10.0)
@@ -4156,12 +4397,18 @@ def main() -> int:
         ("beam_bw16_mulaw", ASR(bw=16, cfg=cfg, seed=0, wire="mulaw"), wavs,
          False, beam),
         ("beam_bw16_adpcm", asr_adpcm, wavs, False,
-         {**beam, "adpcm.launches": 1}))
+         {**beam, "adpcm.launches": 1})) + tuple(
+        (mode, ASR(bw=16, cfg=ecfg, seed=0), wavs128, False,
+         _encoder_need(ecfg, blocks, per_block))
+        for mode, ecfg, blocks, per_block in (
+            (mode, _cell_config(Config, name), blocks, per_block)
+            for mode, name, blocks, per_block in ENCODER_RUNS))
     # the bf16 and lossy-wire runs, reported against the f32 flat wire's
     lossy_suffixes = ("_bf16", "_mulaw", "_adpcm")
     t3_lossy = 0.0
     # each kernel's launch counter and the run its count is read from:
-    # K1-K3 the main path's, K4 the fused LM path's
+    # K1-K3 the main path's, K4 the fused LM path's, K8 the Conformer's
+    # (the flagship's BiLSTM runs no subsampling)
     launches_from = {
         "logmel": ("logmel.launches", "beam_bw16"),
         "lstm": ("lstm.launches", "beam_bw16"),
@@ -4172,61 +4419,16 @@ def main() -> int:
         "attention": ("attention.launches", "beam_bw16"),
         "lstm_bwd": ("lstm.bwd_launches", "training"),
         "lstm_bwd_bf16": ("lstm.bwd_bf16_launches", "training bf16"),
-        "gemm": ("gemm.launches", "beam_bw16")}
+        "gemm": ("gemm.launches", "beam_bw16"),
+        "subsample": ("subsample.launches", ENCODER_RUNS[0][0])}
     paths, texts_of = {}, {}
     for mode, asr, batch, fused, need in runs_spec:
         t_run = time.time()
-        os.environ["CHINESE_ASR_PALLAS_FUSED"] = "1" if fused else "0"
-        audio_s = sum(len(w) for w in batch) / cfg.audio.sample_rate
-        # the first call captures the decode's graphs (an eager warm-up,
-        # then the capture); the counted runs replay them
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        asr.transcribe_wavs(batch)
-        torch.cuda.synchronize()
-        w_capture = time.perf_counter() - t
-        runs = []
-        for rep in range(2):
-            for mod, attr in counters.values():
-                setattr(mod, attr, 0)
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            texts = asr.transcribe_wavs(batch)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t
-            runs.append((texts, wall, {n: getattr(mod, attr) for n, (mod, attr)
-                                       in counters.items()}))
-        (t1, w1, c1), (t2, w2, c2) = runs
+        paths[mode], t1 = _main_run(np, torch, fails, gpu, counters, mode,
+                                    asr, batch, fused, need,
+                                    cfg.audio.sample_rate)
         texts_of[mode] = t1
-        fails.check(all(c1[n] > 0 if v is None else c1[n] == v
-                        for n, v in need.items())
-                    and all(c1[n] == 0 for n in counters if n not in need),
-                    f"{mode}: kernels launched in the main path {c1}, "
-                    f"wanted {need} (None: at least once)")
-        fails.check(t1 == t2 and len(t1) == len(batch),
-                    f"{mode}: two runs give identical transcripts")
-        fails.check(all(isinstance(s, str) for s in t1) and any(t1),
-                    f"{mode}: non-empty transcripts")
-        # host-clock times spread: take the median of TIMED_RUNS warm runs
-        walls = [w2]
-        for _ in range(TIMED_RUNS - 1):
-            t = time.perf_counter()
-            asr.transcribe_wavs(batch)
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t)
-        wall = float(np.median(walls))
-        paths[mode] = dict(batch=len(batch), wall_s_capture=w_capture,
-                           wall_s_first=w1, wall_s=wall,
-                           wall_s_min=min(walls), wall_s_max=max(walls),
-                           runs=len(walls), launches=c1, audio_s=audio_s,
-                           audio_s_per_s=audio_s / wall)
-        print(f"{mode}: {len(batch)} wavs, {audio_s:.1f} s audio, wall "
-              f"{w_capture:.3f} s (first call: warm-up and capture), "
-              f"{w1:.3f} s (first replay), median {wall:.4f} s of "
-              f"{len(walls)} warm "
-              f"runs [{min(walls):.4f}, {max(walls):.4f}] -> "
-              f"{audio_s / wall:.1f} audio-s/s on {gpu}; launches {c1}; "
-              f"first transcript {t1[0][:60]!r}", flush=True)
+        c1 = paths[mode]["launches"]
         for n in kernels:
             ctr, run = launches_from[n]
             if run == mode:
@@ -4242,6 +4444,8 @@ def main() -> int:
                   f"{len(batch)} transcripts differ from the f32 flat "
                   f"wire's (report only: random weights)", flush=True)
             t3_lossy += time.time() - t_run
+    kernels["subsample"]["launches_ebranchformer"] = \
+        paths[ENCODER_RUNS[1][0]]["launches"]["subsample.launches"]
     paths["beam_bw16"]["wire"] = _wire_cost(np, torch, runs_spec[0][1], wavs)
     print(f"beam_bw16: wire {json.dumps(paths['beam_bw16']['wire'])}; the "
           f"bf16 and lossy-wire runs took {t3_lossy:.1f} s", flush=True)
